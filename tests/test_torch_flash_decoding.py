@@ -1,0 +1,127 @@
+"""The port's paged decode (tilelang_mesh_tpu_torch/ops/flash_decoding.py)
+against the JAX package's (ops/flash_decoding.py) on the same
+numpy-seeded inputs.
+
+The JAX side runs as tests/test_decoding.py runs it (Pallas interpret
+mode on the CPU); the port side runs on CPU tensors, i.e. the kernel's
+plain PyTorch version. Tolerance: rtol = atol = 2e-2, the reference's
+own for decode (tests/test_decoding.py:25). The CUDA kernel itself is
+held against the plain version by tests/test_torch_cuda.py on the
+card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tilelang_mesh_tpu.ops import flash_decoding as ref
+from tilelang_mesh_tpu_torch.ops import flash_decoding as port
+
+# the shapes of tests/test_decoding.py:80
+B, H, D, PS, PP, NP = 2, 4, 64, 32, 4, 12
+TOL = 2e-2
+
+
+def _inputs(seed=0, dtype=np.float32):
+    """q (B,H,1,D), H-major pools (H, NP*PS, D), table (B, PP)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    kpages = rng.standard_normal((NP, PS, H, D)).astype(dtype)
+    vpages = rng.standard_normal((NP, PS, H, D)).astype(dtype)
+    table = np.stack([rng.choice(NP, PP, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    kp = np.ascontiguousarray(kpages.transpose(2, 0, 1, 3)).reshape(
+        H, NP * PS, D)
+    vp = np.ascontiguousarray(vpages.transpose(2, 0, 1, 3)).reshape(
+        H, NP * PS, D)
+    return q, kp, vp, table
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+def test_paged_pool_decode_matches_reference(n_split):
+    q, kp, vp, table = _inputs()
+    want = np.asarray(ref.flash_decode_paged_pool(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), table, PS,
+        n_split=n_split))
+    got = port.flash_decode_paged_pool(*_t(q, kp, vp, table), PS,
+                                       n_split=n_split)
+    assert tuple(got.shape) == (B, H, 1, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+def test_partials_and_combine_match_reference(n_split):
+    """The exp2-domain (o, m, l) partials of each split, and the
+    combine epilogue on the SAME partials (to 1e-6)."""
+    q, kp, vp, table = _inputs(seed=1)
+    sm_scale = 1.0 / np.sqrt(D)
+    kern = ref.paged_decode_kernel(B, H, PP, PS, D, n_split, NP * PS,
+                                   float(sm_scale), "float32")
+    op_r, mp_r, lp_r = (np.asarray(a) for a in kern(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table)))
+    op, mp, lp = port.paged_decode_partials(*_t(q, kp, vp, table), PS,
+                                            n_split, sm_scale)
+    assert tuple(op.shape) == (B, n_split, H, D)
+    assert tuple(mp.shape) == tuple(lp.shape) == (B, n_split, H, 1)
+    np.testing.assert_allclose(mp.numpy(), mp_r, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lp.numpy(), lp_r, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(op.numpy(), op_r, rtol=TOL, atol=TOL)
+
+    qj = jnp.asarray(q)
+    want = np.asarray(ref._combine_splits(qj, jnp.asarray(op_r),
+                                          jnp.asarray(mp_r),
+                                          jnp.asarray(lp_r)))
+    got = port._combine_splits(torch.from_numpy(q), *_t(op_r, mp_r, lp_r))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_split_clamp_matches_reference():
+    """n_split is clamped to a divisor of the page count (:232-235):
+    a request for 3 splits of 4 pages runs 2, as the reference does."""
+    q, kp, vp, table = _inputs(seed=2)
+    want = np.asarray(ref.flash_decode_paged_pool(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), table, PS,
+        n_split=3))
+    got = port.flash_decode_paged_pool(*_t(q, kp, vp, table), PS,
+                                       n_split=3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_bf16_pool_plain_matches_f32_on_rounded_values():
+    """A bfloat16 pool decodes like a float32 pool holding the same
+    (bf16-rounded) values: the plain version computes in f32."""
+    q, kp, vp, table = _inputs(seed=3)
+    kb = torch.from_numpy(kp).to(torch.bfloat16)
+    vb = torch.from_numpy(vp).to(torch.bfloat16)
+    qt, tt = _t(q, table)
+    got = port.flash_decode_paged_pool(qt, kb, vb, tt, PS)
+    want = port.flash_decode_paged_pool(qt, kb.float(), vb.float(), tt, PS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    q, kp, vp, table = _inputs(seed=4)
+    before = dict(port.launches)
+    port.flash_decode_paged_pool(*_t(q, kp, vp, table), PS)
+    assert port.launches == before
+
+
+def test_wrapper_rejects_bad_arguments():
+    q, kp, vp, table = _t(*_inputs(seed=5))
+    with pytest.raises(ValueError):
+        port.paged_decode_partials(q, kp, vp, table, PS, 3, 0.125)
+    with pytest.raises(ValueError):
+        port.paged_decode_partials(q, kp[:2], vp[:2], table, PS, 1, 0.125)
+    with pytest.raises(TypeError):
+        port.paged_decode_partials(q, kp.double(), vp.double(), table, PS,
+                                   1, 0.125)
+    with pytest.raises(ValueError):
+        port.paged_decode_partials(q, kp, vp, table, 7, 1, 0.125)
