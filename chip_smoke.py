@@ -7,13 +7,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel of the port from csrc/ (sm_90a)
-              into build/cuda/;
+              into build/cuda/, one nvcc per source, all at once;
 3. kernels  — each kernel against its plain PyTorch version on the card
-              at the serving path's shapes (LLaMA-2-7B attention: H=32,
-              D=128, page 128, 8192-token windows, batch 8, 8 splits), in
-              float32 and bfloat16, with its time, the plain version's,
-              a PyTorch library call's on the same inputs, and the bound;
-4. serving  — the main path: a ServingEngine over a 1024-page float32
+              in float32 and bfloat16, with its time, the plain
+              version's, a PyTorch library call's on the same inputs, and
+              the bound: paged decode at the serving path's shapes
+              (LLaMA-2-7B attention: H=32, D=128, page 128, 8192-token
+              windows, batch 8, 8 splits); the four attention kernels at
+              the model's (H=16, D=128, S=4096, causal; batch 2 for the
+              forward kernel, 4 for the training kernels), and each once
+              more at D=16 on a ragged S=1000;
+4. model    — the first main path, the flagship transformer at the
+              published widths of Ouro-2.6B (see FULL): the entry's
+              forward on 2 x 4096 tokens without autograd (the forward
+              kernel, once per layer; logits against the dense plain
+              path on the same weights), then three AdamW steps on
+              4 x 4097 tokens (the partial forward and both backward
+              kernels, once per layer and step; step 1's loss and one
+              layer's wq / wo gradients against the plain path), then one
+              more forward and step under torch.profiler (the device's
+              busy share, device time by kind);
+5. serving  — the second main path: a ServingEngine over a 1024-page float32
               pool (4 GiB on the card) answers two waves of four
               requests (8192- and 2048-token prompts, 16 greedy tokens
               each; two wave-2 requests reuse a wave-1 prompt). Every
@@ -44,8 +58,31 @@ B, PP, N_SPLIT = 8, 64, 8            # 8192-token windows
 N_PAGES = 1024
 PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12               # H100 SXM, f32 outside tensor cores
+PEAK_BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
 # kernel vs plain: the same f32 arithmetic in another order
 RTOL = ATOL = 1e-4
+
+# The repo's architecture (LLaMA-style dense MHA decoder: pre-RMSNorm with
+# eps 1e-6, half-split RoPE, SwiGLU, tied embeddings) at the published
+# widths of Ouro-2.6B
+# (https://huggingface.co/ByteDance/Ouro-2.6B/blob/main/config.json):
+# hidden 2048, 16 heads x 128, 16 KV heads, SwiGLU 5632, vocab 49152,
+# rope_theta 1e6. Departures, so this is not Ouro: depth cut to 4 of its
+# 48 layers, its 4 loop steps (total_ut_steps) not run (the block runs
+# once), the head tied to the embedding (Ouro's is not); random weights
+# from seed 0. float32, as the repo's model runs.
+FULL = dict(vocab=49152, d_model=2048, n_layers=4, n_heads=16, d_ff=5632,
+            max_seq=4096, dtype="float32", rope_theta=1e6, use_flash=True)
+TRAIN_BATCH = 4
+# attention kernel vs plain version, normwise: max |kernel - plain| <=
+# tol * max |plain| per output. float32: the same arithmetic in another
+# order. bfloat16: both round P (and dS) to bf16 before their products,
+# but at a rounding boundary a 1e-7 difference in p flips one bf16 ulp
+# (2**-8 relative), a few flips per row in 4096 keys.
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the model path against the dense plain path on the same weights
+# (float32 both; softmax in another form and order, 4 layers deep)
+MODEL_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
 
 
 def check(cond, msg):
@@ -69,6 +106,12 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def normwise_err(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
 def max_rel_excess(got, want):
@@ -149,6 +192,294 @@ def kernel_phase(torch, fd, dtype):
            "bytes": bytes_moved, "flops": flops, "bucket_ms": bucket_ms}
     print(json.dumps(res), flush=True)
     del kp, vp, kc, vc
+    torch.cuda.empty_cache()
+    return res
+
+
+def causal_pairs(Sq, Sk):
+    """(i, j) pairs a top-left causal mask keeps: sum_i min(i + 1, Sk)."""
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
+
+
+def attention_phase(torch, fa, gb, dtype):
+    """The four attention kernels against their plain versions on the
+    card: at the model's shapes (timed, with their bounds and a library
+    yardstick), then at D=16 on a ragged S."""
+    import torch.nn.functional as F
+    name = str(dtype).replace("torch.", "")
+    tol = ATTN_TOL[name]
+    esize = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def inputs(B, H, S, D):
+        q, k, v, do = (rnd(B, H, S, D) for _ in range(4))
+        sm = 1.0 / math.sqrt(D)
+        acc, m, l = fa.mha_fwd_partial_plain(q, k, v, True, sm)
+        o = (acc / l[..., None]).to(dtype)
+        lse2 = m + torch.log2(l)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, lse2, delta, sm
+
+    def compare(label, kern, plain):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        errs = [normwise_err(a, b) for a, b in zip(got, want)]
+        for a in got:
+            check(bool(torch.isfinite(a).all()), f"{label}: non-finite "
+                                                 f"kernel output")
+        worst = max(e[1] for e in errs)
+        check(worst <= tol, f"{label} ({name}) disagrees with its plain "
+                            f"version: {worst:.3e} of max |plain| > {tol}")
+        return max(e[0] for e in errs), worst
+
+    res = {}
+    H, S, D = 16, 4096, 128
+    for B in (2, TRAIN_BATCH):
+        q, k, v, do, lse2, delta, sm = inputs(B, H, S, D)
+        bhsd, bhs = B * H * S * D, B * H * S
+        pairs = causal_pairs(S, S) * B * H
+        if B == 2:
+            cases = {"mha_fwd": (
+                lambda: fa.mha_fwd(q, k, v, True, sm),
+                lambda: fa.mha_fwd_plain(q, k, v, True, sm),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                4 * D * pairs, 4 * bhsd * esize)}
+        else:
+            cases = {
+                "mha_fwd_partial": (
+                    lambda: fa.mha_fwd_partial(q, k, v, True, sm),
+                    lambda: fa.mha_fwd_partial_plain(q, k, v, True, sm),
+                    # returns the natural-log LSE, not (m, l) in exp2
+                    lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                        q, k, v, None, True, 0.0, True),
+                    4 * D * pairs, 3 * bhsd * esize + 4 * bhsd + 8 * bhs),
+                "gqa_bwd_dkdv": (
+                    lambda: gb.gqa_bwd_dkdv(q, k, v, do, lse2, delta, True,
+                                            sm),
+                    lambda: gb.gqa_bwd_dkdv_plain(q, k, v, do, lse2, delta,
+                                                  True, sm),
+                    None, 8 * D * pairs,
+                    4 * bhsd * esize + 8 * bhs + 8 * bhsd),
+                "gqa_bwd_dq": (
+                    lambda: gb.gqa_bwd_dq(q, k, v, do, lse2, delta, True,
+                                          sm),
+                    lambda: gb.gqa_bwd_dq_plain(q, k, v, do, lse2, delta,
+                                                True, sm),
+                    None, 6 * D * pairs,
+                    4 * bhsd * esize + 8 * bhs + 4 * bhsd)}
+        for kname, (kern, plain, lib, flops, nbytes) in cases.items():
+            err, rel = compare(kname, kern, plain)
+            t_bytes = nbytes / PEAK_BYTES_S * 1e3
+            t_ops = flops / peak * 1e3
+            res[kname] = {
+                "max_abs_err": err, "normwise_err": rel,
+                "tolerance": f"normwise {tol}",
+                "ms": cuda_ms(torch, kern, 5),
+                "plain_ms": cuda_ms(torch, plain, 2),
+                "library_ms": cuda_ms(torch, lib, 5) if lib else None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "flops": flops, "bytes": nbytes,
+                "shape": [B, H, S, D]}
+        if B == 2:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            _, rel = normwise_err(out, fa.mha_fwd_plain(q, k, v, True, sm))
+            check(rel < 2e-2, f"library yardstick disagrees with the "
+                              f"plain version ({rel:.3e})")
+        else:
+            # SDPA's backward: dq, dk and dv together, for the pair
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 5)
+            for kname in ("gqa_bwd_dkdv", "gqa_bwd_dq"):
+                res[kname]["library_ms"] = bwd_ms
+                res[kname]["library"] = "SDPA backward (dq, dk, dv)"
+            del leaves, out
+        del q, k, v, do, lse2, delta
+        torch.cuda.empty_cache()
+
+    # every kernel once more at D=16 on a ragged S (no multiple of a tile)
+    q, k, v, do, lse2, delta, sm = inputs(2, 2, 1000, 16)
+    for kname, kern, plain in (
+            ("mha_fwd", lambda: fa.mha_fwd(q, k, v, True, sm),
+             lambda: fa.mha_fwd_plain(q, k, v, True, sm)),
+            ("mha_fwd_partial", lambda: fa.mha_fwd_partial(q, k, v, True, sm),
+             lambda: fa.mha_fwd_partial_plain(q, k, v, True, sm)),
+            ("gqa_bwd_dkdv", lambda: gb.gqa_bwd_dkdv(
+                q, k, v, do, lse2, delta, True, sm),
+             lambda: gb.gqa_bwd_dkdv_plain(q, k, v, do, lse2, delta, True,
+                                           sm)),
+            ("gqa_bwd_dq", lambda: gb.gqa_bwd_dq(
+                q, k, v, do, lse2, delta, True, sm),
+             lambda: gb.gqa_bwd_dq_plain(q, k, v, do, lse2, delta, True,
+                                         sm))):
+        res[kname]["ragged_d16_err"] = compare(f"{kname} D=16 S=1000",
+                                               kern, plain)[1]
+    print(json.dumps({"attention": name, **res}), flush=True)
+    return res
+
+
+def device_breakdown(torch, fn):
+    """Run ``fn`` once under torch.profiler: the wall time, the device's
+    busy time (union of its activity intervals) and share, and device ms
+    by kind: the port's attention kernels, GEMMs, everything else."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = {"attention_kernels_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    spans = []
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        kind = ("attention_kernels_ms" if "mha_fwd" in e.name
+                or "gqa_bwd" in e.name else
+                "gemm_ms" if "gemm" in e.name else "other_ms")
+        kinds[kind] += (t1 - t0) / 1e3
+    busy, end = 0.0, -math.inf
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    check(busy > 0, "the profiler saw no device activity")
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us, **kinds}
+
+
+def _launch_counts(fa, gb):
+    return {**fa.launches, **gb.launches}
+
+
+def model_phase(torch, fa, gb):
+    """The flagship transformer at FULL widths: the entry's forward, then
+    three training steps, each against the dense plain path."""
+    import dataclasses
+
+    import numpy as np
+
+    from tilelang_mesh_tpu_torch.entry import entry
+    from tilelang_mesh_tpu_torch.models import (ModelConfig, forward,
+                                                make_train_step)
+    from tilelang_mesh_tpu_torch.models import transformer as tm
+    from torch.utils.checkpoint import checkpoint
+
+    cfg = ModelConfig(**FULL)
+    L = cfg.n_layers
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    fn, (model, tokens) = entry(cfg=cfg)
+    check(tuple(tokens.shape) == (2, cfg.max_seq), "entry tokens")
+
+    # forward: the main path, no autograd, so the forward kernel
+    fa.reset_launches()
+    gb.reset_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fn(model, tokens)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    fwd_launches = _launch_counts(fa, gb)          # read right after
+    check(fwd_launches == {"mha_fwd": L, "mha_fwd_partial": 0,
+                           "gqa_bwd_dkdv": 0, "gqa_bwd_dq": 0},
+          f"forward launches {fwd_launches}, want mha_fwd = {L}")
+    check(tuple(logits.shape) == (2, cfg.max_seq, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "bad forward logits")
+    with torch.no_grad():
+        want = forward(model, tokens, plain_cfg)
+    logits_err = normwise_err(logits, want)
+    check(logits_err[1] <= MODEL_TOL["logits"],
+          f"logits disagree with the plain path: {logits_err}")
+    del logits, want
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(1)
+    train_tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.max_seq + 1))).cuda()
+    lp0 = model.layers[0]
+
+    # the plain path's loss and gradients at the same initial weights. Its
+    # dense attention saves four (B, H, S, S) float32 tensors a layer, too
+    # many for the card at once, so each layer's attention is recomputed
+    # in the backward (activation checkpointing).
+    attention = tm._attention
+    tm._attention = lambda x, lp, c: checkpoint(attention, x, lp, c,
+                                                use_reentrant=False)
+    try:
+        model.zero_grad(set_to_none=True)
+        plain_loss = tm.loss_fn(model, train_tok, plain_cfg)
+        plain_loss.backward()
+    finally:
+        tm._attention = attention
+    plain_loss = float(plain_loss.detach())
+    plain_grads = (lp0.wq.grad.clone(), lp0.wo.grad.clone())
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    init, step = make_train_step(cfg, lr=1e-3)
+    opt = init(model)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()                  # the training path starts here
+    gb.reset_launches()
+    losses, step_ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, train_tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            grads = (lp0.wq.grad.clone(), lp0.wo.grad.clone())
+    train_launches = _launch_counts(fa, gb)        # read right after
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(train_launches == {"mha_fwd": 0, "mha_fwd_partial": 3 * L,
+                             "gqa_bwd_dkdv": 3 * L, "gqa_bwd_dq": 3 * L},
+          f"training launches {train_launches}, want {3 * L} each")
+    loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(loss_err <= MODEL_TOL["loss"],
+          f"step-1 loss {losses[0]} vs plain {plain_loss}")
+    grad_err = [normwise_err(a, b)[1] for a, b in zip(grads, plain_grads)]
+    check(max(grad_err) <= MODEL_TOL["grad"],
+          f"layer-0 wq / wo gradients disagree with the plain path: "
+          f"{grad_err}")
+    # where the time goes: one more forward and step, profiled, after
+    # the counted runs
+    with torch.no_grad():
+        fwd_profile = device_breakdown(torch, lambda: fn(model, tokens))
+    step_profile = device_breakdown(
+        torch, lambda: step(model, opt, train_tok))
+    step_med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    n_tok = TRAIN_BATCH * cfg.max_seq
+    res = {"config": {k: v for k, v in FULL.items()},
+           "forward_ms": fwd_s * 1e3,
+           "forward_tokens_per_s": 2 * cfg.max_seq / fwd_s,
+           "forward_launches": fwd_launches,
+           "logits_err": logits_err[0], "logits_normwise_err": logits_err[1],
+           "losses": losses, "plain_loss": plain_loss,
+           "loss_rel_err": loss_err, "grad_normwise_err": grad_err,
+           "step_ms": step_ms, "step_ms_median_after_first": step_med,
+           "train_tokens_per_s": n_tok / (step_med / 1e3),
+           "train_launches": train_launches,
+           "max_memory_allocated_bytes": peak_bytes,
+           "forward_profile": fwd_profile, "step_profile": step_profile,
+           "tolerance": MODEL_TOL}
+    print(json.dumps(res), flush=True)
+    del model, opt, grads, plain_grads
     torch.cuda.empty_cache()
     return res
 
@@ -267,7 +598,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from tilelang_mesh_tpu_torch.ops import _build
+    from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
+    from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -287,18 +620,32 @@ def main() -> int:
           f"device {kind}", flush=True)
 
     phase("build")
+    sources = ("paged_decode", "flash_attention", "gqa_bwd")
     t0 = time.perf_counter()
-    _build.load("paged_decode")
-    build_s = time.perf_counter() - t0
-    nvcc_s, log = _build.build_log("paged_decode")
-    print(f"paged_decode: built in {nvcc_s:.2f}s (load {build_s:.2f}s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(sources)
+    for src in sources:
+        _build.load(src)
+    print(f"built {len(sources)} sources in "
+          f"{time.perf_counter() - t0:.2f}s")
+    for src in sources:
+        nvcc_s, log = _build.build_log(src)
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        spills = [int(line.split()[4]) for line in log.splitlines()
+                  if "spill stores" in line]
+        print(f"{src}: nvcc {nvcc_s:.2f}s, {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
+              f"stores up to {max(spills, default=0)} bytes")
 
     phase("kernels")
     f32 = kernel_phase(torch, fd, torch.float32)
     bf16 = kernel_phase(torch, fd, torch.bfloat16)
+    attn32 = attention_phase(torch, fa, gb, torch.float32)
+    attn16 = attention_phase(torch, fa, gb, torch.bfloat16)
+
+    phase("model")
+    mdl = model_phase(torch, fa, gb)
 
     phase("serving")
     srv = serving_phase(torch, fd, scratch / "prefix")
@@ -315,6 +662,29 @@ def main() -> int:
         "bf16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "library_ms")},
     }]
+    csrc = "tilelang_mesh_tpu_torch/csrc/"
+    for kname, source, replaces, launches in (
+            ("mha_fwd", "flash_attention.cu",
+             "tilelang_mesh_tpu/ops/flash_attention.py:71",
+             mdl["forward_launches"]["mha_fwd"]),
+            ("mha_fwd_partial", "flash_attention.cu",
+             "tilelang_mesh_tpu/ops/flash_attention.py:124",
+             mdl["train_launches"]["mha_fwd_partial"]),
+            ("gqa_bwd_dkdv", "gqa_bwd.cu",
+             "tilelang_mesh_tpu/ops/gqa_bwd.py:29",
+             mdl["train_launches"]["gqa_bwd_dkdv"]),
+            ("gqa_bwd_dq", "gqa_bwd.cu",
+             "tilelang_mesh_tpu/ops/gqa_bwd.py:103",
+             mdl["train_launches"]["gqa_bwd_dq"])):
+        a, b = attn32[kname], attn16[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": csrc + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+            "bf16": {k: b[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "library_ms")}})
     print(smi_line)                      # the card, as nvidia-smi names it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

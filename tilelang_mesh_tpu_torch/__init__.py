@@ -8,8 +8,11 @@ JAX nor the JAX package.
 
 Ported so far: the paged-KV serving engine (``serving/``) over the
 paged-decode kernel (``ops/flash_decoding.py``), with the resilience
-and observability modules it uses. Entry points run on the card unless
-the caller passes ``device="cpu"``.
+and observability modules it uses; the flagship transformer
+(``models/``, ``entry.py``), its forward and single-device training
+step, over the attention kernels (``ops/flash_attention.py``,
+``ops/gqa_bwd.py``). Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

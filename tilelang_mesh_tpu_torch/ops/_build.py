@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``<checkout>/build/cuda/`` (listed in ``.gitignore``)
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads in milliseconds. Nothing is
-built at import time: the first call to :func:`load` builds.
+under a name keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads in milliseconds. Nothing is built at import time:
+the first call to :func:`load` builds; :func:`build_all` runs one
+``nvcc`` per source, all at once.
 
 A build failure raises ``RuntimeError`` with the compiler's output;
 there is no fallback.
@@ -20,10 +22,12 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, List, Tuple
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build", "build_log"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build", "build_all",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -52,6 +56,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
@@ -77,6 +83,14 @@ def build(name: str) -> Path:
     os.replace(tmp, out)    # a concurrent builder's identical file wins
     _logs[name] = (dt, log)
     return out
+
+
+def build_all(names: Iterable[str]) -> List[Path]:
+    """:func:`build` every name, one ``nvcc`` process per source, all
+    started together; raises the first build failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return list(ex.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:
