@@ -13,8 +13,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               version's, a PyTorch library call's on the same inputs, and
               the bound: paged decode at the serving path's shapes
               (LLaMA-2-7B attention: H=32, D=128, page 128, 8192-token
-              windows, batch 8, 8 splits); the four attention kernels at
-              the model's (H=16, D=128, S=4096, causal; batch 2 for the
+              windows, batch 8, 8 splits); the contiguous decode kernel at
+              the same shape, and the two paged strategies end to end
+              there (the in-kernel walk against gather + contiguous
+              decode, in turns); MLA decode at DeepSeek-V3's attention
+              widths (H=128, dc=512, dr=64; B=4, S=4096, 1/2/4/8 splits,
+              and S=8192, 8 splits); the four attention kernels at the
+              model's (H=16, D=128, S=4096, causal; batch 2 for the
               forward kernel, 4 for the training kernels), and each once
               more at D=16 on a ragged S=1000;
 4. model    — the first main path, the flagship transformer at the
@@ -34,7 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               outcome must be ``result``, no page may leak, the prefix
               cache must hit, the kernel's launches must equal the
               workload's dispatches, and one step's output must agree
-              with the plain version recomputed on a copy of the pool.
+              with the plain version recomputed on a copy of the pool;
+6. mla      — the third main path: the same engine over MLADecodeWorkload
+              at DeepSeek-V3's attention widths (see MLA_SERVE), the same
+              two waves and the same gates, on the MLA kernel.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -61,6 +69,28 @@ PEAK_F32_FLOPS = 67e12               # H100 SXM, f32 outside tensor cores
 PEAK_BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
 # kernel vs plain: the same f32 arithmetic in another order
 RTOL = ATOL = 1e-4
+
+# MLA decode at DeepSeek-V3's attention widths
+# (https://huggingface.co/deepseek-ai/DeepSeek-V3/blob/main/config.json:
+# num_attention_heads 128, kv_lora_rank 512, qk_rope_head_dim 64), at
+# bench.py:1495's shape (cfg_mla_decode: B=4, S=4096)
+MLA_H, MLA_DC, MLA_DR = 128, 512, 64
+MLA_B, MLA_S = 4, 4096
+# MLA kernel vs plain, normwise: float32 the same arithmetic in another
+# order; bfloat16 both round p to bf16 before p @ ckv, and a 1e-7
+# difference at a rounding boundary flips one bf16 ulp
+MLA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# The MLA serving phase: MLADecodeWorkload at those widths over a
+# latent-major float32 pool of 1024 pages of 128 tokens (one [ckv | kpe]
+# row of 576 floats per token). Departures, so this is not DeepSeek-V3:
+# sm_scale is the workload's default 1/sqrt(576) (DeepSeek scales by
+# 1/sqrt(192) with a YaRN factor); queries and latent rows are the
+# workload's seeded draws (the JAX workload has no weights); the pool is
+# float32, the JAX default (DeepSeek serves bf16); one attention op a
+# step, not 61 layers.
+MLA_SERVE = dict(heads=MLA_H, latent_dim=MLA_DC, rope_dim=MLA_DR,
+                 n_pages=1024, page_size=128, batch_buckets=(1, 2, 4),
+                 page_buckets=(16, 32, 64))
 
 # The repo's architecture (LLaMA-style dense MHA decoder: pre-RMSNorm with
 # eps 1e-6, half-split RoPE, SwiGLU, tied embeddings) at the published
@@ -193,6 +223,175 @@ def kernel_phase(torch, fd, dtype):
     print(json.dumps(res), flush=True)
     del kp, vp, kc, vc
     torch.cuda.empty_cache()
+    return res
+
+
+def decode_phase(torch, fd, dtype):
+    """The contiguous decode kernel against its plain version at the
+    serving decode shape, then the two paged strategies end to end there:
+    flash_decode_paged_pool (the in-kernel walk) against
+    flash_decode_paged (gather + the contiguous kernel), in turns."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(2)
+    S = PP * PS
+    q = torch.randn((B, H, 1, D), generator=g, device="cuda")
+    kpages = torch.randn((N_PAGES, PS, H, D), generator=g,
+                         device="cuda").to(dtype)
+    vpages = torch.randn((N_PAGES, PS, H, D), generator=g,
+                         device="cuda").to(dtype)
+    table = torch.stack([torch.randperm(N_PAGES, generator=g,
+                                        device="cuda")[:PP]
+                         for _ in range(B)]).to(torch.int32)
+    idx = table.long()
+    k = kpages[idx].reshape(B, S, H, D).transpose(1, 2).contiguous()
+    v = vpages[idx].reshape(B, S, H, D).transpose(1, 2).contiguous()
+    scale = 1.0 / math.sqrt(D)
+
+    def kern():
+        return fd.decode_partials(q, k, v, N_SPLIT, scale)
+
+    def plain():
+        return fd.decode_partials_plain(q, k, v, N_SPLIT, scale)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    excess = max(max_rel_excess(a, b) for a, b in zip(got, want))
+    for a in got:
+        check(bool(torch.isfinite(a).all()), "non-finite kernel output")
+    check(excess <= 1.0, f"decode ({dtype}) disagrees with its plain "
+                         f"version: max abs err {err:.3e}, "
+                         f"{excess:.2f}x the tolerance")
+    out_p = fd._combine_splits(q, *want)
+    qd = q.to(dtype)
+    lib_out = F.scaled_dot_product_attention(qd, k, v)
+    check(float((lib_out.float() - out_p).abs().max()) < 2e-2,
+          "library yardstick disagrees with the plain version")
+    ms = cuda_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, plain, 3)
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, k, v), 20)
+    esize = torch.empty((), dtype=dtype).element_size()
+    bytes_moved = (2 * B * H * S * D * esize + q.numel() * 4
+                   + sum(t.numel() * 4 for t in got))
+    flops = 4 * B * H * S * D
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    del k, v
+    torch.cuda.empty_cache()
+
+    # the two paged strategies, end to end with their combine
+    kp = fd.pages_to_hmajor(kpages)
+    vp = fd.pages_to_hmajor(vpages)
+
+    def walk():
+        return fd.flash_decode_paged_pool(q, kp, vp, table, PS,
+                                          n_split=N_SPLIT)
+
+    def gather():
+        return fd.flash_decode_paged(q, kpages, vpages, table,
+                                     n_split=N_SPLIT)
+
+    check(max_rel_excess(gather(), walk()) <= 1.0,
+          "gather and walk strategies disagree")
+    fd.reset_launches()                  # the gather strategy's runs
+    turns = {"walk_ms": [], "gather_ms": []}
+    for name, fn in (("walk_ms", walk), ("gather_ms", gather),
+                     ("gather_ms", gather), ("walk_ms", walk)):
+        turns[name].append(cuda_ms(torch, fn, 20))
+    launches = fd.launches["decode"]     # read right after
+    check(launches == 42, f"gather strategy launched decode {launches} "
+                          f"times, want 42")
+    res = {"dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "tolerance": f"rtol={RTOL} atol={ATOL}", "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": bytes_moved, "flops": flops, "launches": launches,
+           "strategies": turns}
+    print(json.dumps(res), flush=True)
+    del kpages, vpages, kp, vp
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_bound(torch, dtype, b, s, ns):
+    """(bound ms, what binds it, flops, bytes) of MLA decode partials:
+    the latent and the queries read once, the partials written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    dk = MLA_DC + MLA_DR
+    flops = 2 * b * MLA_H * s * dk + 2 * b * MLA_H * s * MLA_DC
+    nbytes = (b * s * dk * esize + b * MLA_H * dk * esize
+              + b * ns * MLA_H * (MLA_DC + 2) * 4)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", flops, nbytes)
+
+
+def mla_kernel_phase(torch, mla, dtype):
+    """mla_decode against its plain version at bench.py:1495's shape for
+    1, 2, 4 and 8 splits, then at the serving window (S=8192, 8 splits).
+    The latent comes as the [ckv | kpe] column views of one tensor, as
+    the serving path passes it."""
+    import torch.nn.functional as F
+
+    from tilelang_mesh_tpu_torch.ops.flash_decoding import merge_splits
+    name = str(dtype).replace("torch.", "")
+    tol = MLA_TOL[name]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sm = 1.0 / math.sqrt(MLA_DC + MLA_DR)
+    res = {"dtype": name, "tolerance": f"normwise {tol}", "cases": []}
+    for s, splits in ((MLA_S, (1, 2, 4, 8)), (2 * MLA_S, (8,))):
+        q = torch.randn((MLA_B, MLA_H, MLA_DC + MLA_DR), generator=g,
+                        device="cuda").to(dtype)
+        rows = torch.randn((MLA_B, s, MLA_DC + MLA_DR), generator=g,
+                           device="cuda").to(dtype)
+        qc, qr = q[..., :MLA_DC], q[..., MLA_DC:]
+        ckv, kpe = rows[..., :MLA_DC], rows[..., MLA_DC:]
+        for ns in splits:
+            def kern():
+                return mla.mla_decode_partials(qc, qr, ckv, kpe, ns, sm)
+
+            def plain():
+                return mla.mla_decode_partials_plain(qc, qr, ckv, kpe, ns,
+                                                     sm)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            for a in got:
+                check(bool(torch.isfinite(a).all()),
+                      "mla_decode: non-finite kernel output")
+            errs = [normwise_err(a, b) for a, b in zip(got, want)]
+            rel = max(e[1] for e in errs)
+            check(rel <= tol, f"mla_decode ({name}, S={s}, {ns} splits) "
+                              f"disagrees with its plain version: "
+                              f"{rel:.3e} of max |plain| > {tol}")
+            bound, by, flops, nbytes = mla_bound(torch, dtype, MLA_B, s, ns)
+            res["cases"].append({
+                "S": s, "n_split": ns,
+                "max_abs_err": max(e[0] for e in errs),
+                "normwise_err": rel, "ms": cuda_ms(torch, kern, 20),
+                "plain_ms": cuda_ms(torch, plain, 3), "bound_ms": bound,
+                "bound_by": by, "flops": flops, "bytes": nbytes})
+        # library yardstick, timed only: one SDPA call with the heads as
+        # the query rows of a single head over the shared latent (the
+        # same function; q/k 576 wide, v 512)
+        out_p = merge_splits(*mla.mla_decode_partials_plain(
+            qc, qr, ckv, kpe, 8, sm))
+        qh, kh, vh = q[:, None], rows[:, None], rows[:, None, :, :MLA_DC]
+
+        def lib():
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=sm)
+
+        lib_err = normwise_err(lib()[:, 0], out_p)[1]
+        check(lib_err < 2e-2, f"library yardstick disagrees with the plain "
+                              f"version ({lib_err:.3e})")
+        res[f"library_ms_S{s}"] = cuda_ms(torch, lib, 20)
+        del q, rows
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
     return res
 
 
@@ -331,7 +530,8 @@ def attention_phase(torch, fa, gb, dtype):
 def device_breakdown(torch, fn):
     """Run ``fn`` once under torch.profiler: the wall time, the device's
     busy time (union of its activity intervals) and share, and device ms
-    by kind: the port's attention kernels, GEMMs, everything else."""
+    by kind: the port's attention and decode kernels, GEMMs, everything
+    else."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -347,8 +547,8 @@ def device_breakdown(torch, fn):
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
-        kind = ("attention_kernels_ms" if "mha_fwd" in e.name
-                or "gqa_bwd" in e.name else
+        kind = ("attention_kernels_ms" if any(
+            k in e.name for k in ("mha_fwd", "gqa_bwd", "decode")) else
                 "gemm_ms" if "gemm" in e.name else "other_ms")
         kinds[kind] += (t1 - t0) / 1e3
     busy, end = 0.0, -math.inf
@@ -484,40 +684,44 @@ def model_phase(torch, fa, gb):
     return res
 
 
-def serving_phase(torch, fd, cache_root):
-    import numpy as np
-
-    from tilelang_mesh_tpu_torch.observability import histogram
-    from tilelang_mesh_tpu_torch.serving import (FlashDecodeWorkload,
-                                                 PagedKVAllocator,
-                                                 PrefixKVCache,
-                                                 ServingEngine)
-    alloc = PagedKVAllocator(n_pages=N_PAGES, page_size=PS, heads=H,
-                             head_dim=D)
-    check(alloc.kp.is_cuda and alloc.vp.is_cuda, "pools not on the card")
-    wl = FlashDecodeWorkload(alloc, batch_buckets=(1, 2, 4, 8),
-                             page_buckets=(16, 32, 64),
-                             prefix_cache=PrefixKVCache(root=cache_root))
-    # keep one full-window dispatch (inputs, output, a copy of the pages
-    # it read, renumbered 0..) to recompute with the plain version later
+def keep_full_window(wl, grab):
+    """Wrap the workload's dispatch so that the first full-window step
+    with a non-zero query keeps ``grab(q, table, bb, pp, out)``: its
+    inputs, output and a copy of the rows it read, to recompute with
+    the plain version after the run."""
     kept = {}
     dispatch = wl._dispatch
 
     def keeping(q, table, bb, pp):
         out = dispatch(q, table, bb, pp)
         if not kept and pp == wl.page_buckets[-1] and q.any():
-            rows = (torch.from_numpy(table).long().cuda()[:, :, None] * PS
-                    + torch.arange(PS, device="cuda")).reshape(-1)
-            kept.update(q=q.copy(), out=out.clone(),
-                        table=np.arange(bb * pp, dtype=np.int32).reshape(
-                            bb, pp),
-                        kp=alloc.kp[:, rows], vp=alloc.vp[:, rows])
+            kept.update(grab(q.copy(), table, bb, pp, out.clone()))
         return out
 
     wl._dispatch = keeping
-    eng = ServingEngine(wl)
+    return kept
 
-    fd.reset_launches()                  # the main path starts here
+
+def table_rows(torch, table, ps):
+    """Pool row ids of a page table, in token order: (bb * pp * ps,)."""
+    return (torch.from_numpy(table).long().cuda()[:, :, None] * ps
+            + torch.arange(ps, device="cuda")).reshape(-1)
+
+
+def serve_waves(torch, wl, counter, name, out_shape):
+    """The main serving path: an engine over ``wl`` warms up and answers
+    two waves of four requests (8192- and 2048-token prompts, 16 greedy
+    tokens each; two wave-2 requests repeat a wave-1 prompt). ``counter``
+    is the kernels' launch-count dict: zeroed just before, ``name``'s
+    count read just after. Checks the outcomes, the books, the prefix
+    cache, launches against dispatches and the outputs' shape; returns
+    the metrics."""
+    from tilelang_mesh_tpu_torch.observability import histogram
+    from tilelang_mesh_tpu_torch.serving import ServingEngine
+    alloc = wl.allocator
+    eng = ServingEngine(wl)
+    for k in counter:                    # the main path starts here
+        counter[k] = 0
     histogram.reset()
     t0 = time.perf_counter()
     n_warm = eng.warmup()
@@ -533,8 +737,9 @@ def serving_phase(torch, fd, cache_root):
         eng.run()
         wave_s.append(time.perf_counter() - t0)
         reqs += batch
-    launches = fd.launches["paged_decode"]      # read right after
+    launches = counter[name]             # read right after
     stats = eng.stats()
+    dispatches = wl.dispatches
 
     check([r.outcome for r in reqs] == ["result"] * len(reqs),
           f"outcomes {[(r.outcome, r.shed_reason, r.error) for r in reqs]}")
@@ -542,22 +747,27 @@ def serving_phase(torch, fd, cache_root):
           f"leaked pages: {alloc.leak_check()}")
     pc = wl.prefix_cache.stats()
     check(pc["hits"] >= 1, f"no prefix-cache hit: {pc}")
-    check(launches == wl.dispatches and launches > 0,
-          f"kernel launches {launches} != decode dispatches "
-          f"{wl.dispatches}")
+    check(launches == dispatches and launches > 0,
+          f"{name} launches {launches} != decode dispatches {dispatches}")
     for r in reqs:
         out = r.result
-        check(out.shape == (H, 1, D) and bool(abs(out).max() < 1e30)
+        check(out.shape == out_shape and bool(abs(out).max() < 1e30)
               and not (out != out).any(), f"bad output of {r}")
         check(len(r.generated) == 16, f"{r} sampled {len(r.generated)}")
-    check(bool(kept), "no full-window step was kept for the recheck")
-    qt = torch.from_numpy(kept["q"]).cuda()
-    tt = torch.from_numpy(kept["table"]).cuda()
-    want = fd._combine_splits(qt, *fd.paged_decode_partials_plain(
-        qt, kept["kp"], kept["vp"], tt, PS, N_SPLIT, wl.sm_scale))
-    step_err = float((kept["out"] - want).abs().max())
-    check(max_rel_excess(kept["out"], want) <= 1.0,
-          f"served step disagrees with the plain version ({step_err:.3e})")
+    # one more step at the top bucket, profiled: how much of a step's
+    # wall time the card is busy, and with what
+    import numpy as np
+    bb, pp = wl.batch_buckets[-1], wl.page_buckets[-1]
+    q = np.random.default_rng(0).standard_normal(
+        wl._query_shape(bb)).astype(np.float32)
+    table = np.arange(bb * pp, dtype=np.int32).reshape(bb, pp)
+    step_profile = device_breakdown(
+        torch, lambda: wl._dispatch(q, table, bb, pp).cpu())
+    # the host's share of a step outside the dispatch: drawing the
+    # batch's queries (numpy, as the JAX package draws them)
+    t0 = time.perf_counter()
+    np.stack([wl._query(reqs[i % len(reqs)]) for i in range(bb)])
+    step_profile["query_draw_ms"] = (time.perf_counter() - t0) * 1e3
 
     steps_ms = sorted((s.t1 - s.t0) * 1e3 for s in eng.trace.spans
                       if s.name == "serve.batch" and s.t1 is not None)
@@ -575,22 +785,98 @@ def serving_phase(torch, fd, cache_root):
     def pct(xs, p):
         return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
 
-    res = {"requests": len(reqs), "warmup_buckets": n_warm,
-           "warmup_s": warm_s, "wave_s": wave_s,
-           "req_per_s": len(reqs) / sum(wave_s),
-           "tokens_per_s": 16 * len(reqs) / sum(wave_s),
-           "decode_steps": stats["steps"], "dispatches": wl.dispatches,
-           "launches": launches,
-           "step_ms_p50": pct(steps_ms, 50), "step_ms_p99": pct(steps_ms, 99),
-           "ttft_ms_p50": pct(ttft_ms, 50), "ttft_ms_max": ttft_ms[-1],
-           "prefix_cache": {k: pc[k] for k in ("hits", "misses",
-                                                "bytes_saved")},
-           "step_recheck_max_abs_err": step_err, "wall_split": split}
+    return {"requests": len(reqs), "warmup_buckets": n_warm,
+            "warmup_s": warm_s, "wave_s": wave_s,
+            "req_per_s": len(reqs) / sum(wave_s),
+            "tokens_per_s": 16 * len(reqs) / sum(wave_s),
+            "decode_steps": stats["steps"], "dispatches": dispatches,
+            "launches": launches,
+            "step_ms_p50": pct(steps_ms, 50), "step_ms_p99": pct(steps_ms, 99),
+            "ttft_ms_p50": pct(ttft_ms, 50), "ttft_ms_max": ttft_ms[-1],
+            "prefix_cache": {k: pc[k] for k in ("hits", "misses",
+                                                 "bytes_saved")},
+            "wall_split": split, "top_bucket_step_profile": step_profile}
+
+
+def serving_phase(torch, fd, cache_root):
+    import numpy as np
+
+    from tilelang_mesh_tpu_torch.serving import (FlashDecodeWorkload,
+                                                 PagedKVAllocator,
+                                                 PrefixKVCache)
+    alloc = PagedKVAllocator(n_pages=N_PAGES, page_size=PS, heads=H,
+                             head_dim=D)
+    check(alloc.kp.is_cuda and alloc.vp.is_cuda, "pools not on the card")
+    wl = FlashDecodeWorkload(alloc, batch_buckets=(1, 2, 4, 8),
+                             page_buckets=(16, 32, 64),
+                             prefix_cache=PrefixKVCache(root=cache_root))
+
+    def grab(q, table, bb, pp, out):     # the pages it read, renumbered
+        rows = table_rows(torch, table, PS)
+        return dict(q=q, out=out, kp=alloc.kp[:, rows],
+                    vp=alloc.vp[:, rows],
+                    table=np.arange(bb * pp, dtype=np.int32).reshape(bb, pp))
+
+    kept = keep_full_window(wl, grab)
+    res = serve_waves(torch, wl, fd.launches, "paged_decode", (H, 1, D))
+    check(bool(kept), "no full-window step was kept for the recheck")
+    qt = torch.from_numpy(kept["q"]).cuda()
+    tt = torch.from_numpy(kept["table"]).cuda()
+    want = fd._combine_splits(qt, *fd.paged_decode_partials_plain(
+        qt, kept["kp"], kept["vp"], tt, PS, N_SPLIT, wl.sm_scale))
+    step_err = float((kept["out"] - want).abs().max())
+    check(max_rel_excess(kept["out"], want) <= 1.0,
+          f"served step disagrees with the plain version ({step_err:.3e})")
+    res["step_recheck_max_abs_err"] = step_err
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def mla_serving_phase(torch, mla, cache_root):
+    """MLADecodeWorkload at DeepSeek-V3's attention widths (MLA_SERVE)
+    through the same engine, waves and gates as the serving phase."""
+    from tilelang_mesh_tpu_torch.ops.flash_decoding import (clamp_splits,
+                                                            merge_splits)
+    from tilelang_mesh_tpu_torch.serving import (MLADecodeWorkload,
+                                                 PagedKVAllocator,
+                                                 PrefixKVCache)
+    cfg = MLA_SERVE
+    dc, ps = cfg["latent_dim"], cfg["page_size"]
+    alloc = PagedKVAllocator(n_pages=cfg["n_pages"], page_size=ps, heads=1,
+                             head_dim=dc + cfg["rope_dim"])
+    check(alloc.kp.is_cuda, "pools not on the card")
+    wl = MLADecodeWorkload(alloc, heads=cfg["heads"], latent_dim=dc,
+                           rope_dim=cfg["rope_dim"],
+                           batch_buckets=cfg["batch_buckets"],
+                           page_buckets=cfg["page_buckets"],
+                           prefix_cache=PrefixKVCache(root=cache_root))
+
+    def grab(q, table, bb, pp, out):     # the latent rows it read
+        rows = table_rows(torch, table, ps)
+        return dict(q=q, out=out, seq=alloc.kp[0][rows].reshape(
+            bb, pp * ps, -1))
+
+    kept = keep_full_window(wl, grab)
+    res = serve_waves(torch, wl, mla.launches, "mla_decode",
+                      (cfg["heads"], dc))
+    check(bool(kept), "no full-window step was kept for the recheck")
+    q, seq = torch.from_numpy(kept["q"]).cuda(), kept["seq"]
+    ns, _ = clamp_splits(seq.shape[1], None, 128)
+    want = merge_splits(*mla.mla_decode_partials_plain(
+        q[..., :dc], q[..., dc:], seq[..., :dc], seq[..., dc:], ns,
+        wl.sm_scale))
+    step_err, rel = normwise_err(kept["out"], want)
+    check(rel <= MLA_TOL["float32"],
+          f"served MLA step disagrees with the plain version ({rel:.3e})")
+    res.update(config=cfg, step_recheck_max_abs_err=step_err,
+               step_recheck_normwise_err=rel,
+               pool_bytes=alloc.kp.numel() * alloc.kp.element_size() * 2)
     print(json.dumps(res), flush=True)
     return res
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -601,6 +887,7 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
+    from tilelang_mesh_tpu_torch.ops import mla
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -620,7 +907,8 @@ def main() -> int:
           f"device {kind}", flush=True)
 
     phase("build")
-    sources = ("paged_decode", "flash_attention", "gqa_bwd")
+    sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
+               "gqa_bwd")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -641,6 +929,10 @@ def main() -> int:
     phase("kernels")
     f32 = kernel_phase(torch, fd, torch.float32)
     bf16 = kernel_phase(torch, fd, torch.bfloat16)
+    dec32 = decode_phase(torch, fd, torch.float32)
+    dec16 = decode_phase(torch, fd, torch.bfloat16)
+    mla32 = mla_kernel_phase(torch, mla, torch.float32)
+    mla16 = mla_kernel_phase(torch, mla, torch.bfloat16)
     attn32 = attention_phase(torch, fa, gb, torch.float32)
     attn16 = attention_phase(torch, fa, gb, torch.bfloat16)
 
@@ -649,6 +941,9 @@ def main() -> int:
 
     phase("serving")
     srv = serving_phase(torch, fd, scratch / "prefix")
+
+    phase("mla")
+    msrv = mla_serving_phase(torch, mla, scratch / "mla_prefix")
     shutil.rmtree(scratch, ignore_errors=True)
 
     kernels = [{
@@ -663,6 +958,29 @@ def main() -> int:
                                       "bound_ms", "library_ms")},
     }]
     csrc = "tilelang_mesh_tpu_torch/csrc/"
+    kernels.append({
+        "name": "decode", "route": "cuda", "source": csrc + "decode.cu",
+        "replaces": "tilelang_mesh_tpu/ops/flash_decoding.py:25",
+        "launches": dec32["launches"], "max_abs_err": dec32["max_abs_err"],
+        "ms": dec32["ms"], "plain_ms": dec32["plain_ms"],
+        "bound_ms": dec32["bound_ms"], "bound_by": dec32["bound_by"],
+        "library_ms": dec32["library_ms"],
+        "bf16": {k: dec16[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "library_ms")}})
+    # MLA at bench.py:1495's shape and 8 splits, mla_decode's default
+    m32, m16 = ({c["n_split"]: c for c in r["cases"] if c["S"] == MLA_S}[8]
+                for r in (mla32, mla16))
+    kernels.append({
+        "name": "mla_decode", "route": "cuda",
+        "source": csrc + "mla_decode.cu",
+        "replaces": "tilelang_mesh_tpu/ops/mla.py:22",
+        "launches": msrv["launches"], "max_abs_err": m32["max_abs_err"],
+        "ms": m32["ms"], "plain_ms": m32["plain_ms"],
+        "bound_ms": m32["bound_ms"], "bound_by": m32["bound_by"],
+        "library_ms": mla32[f"library_ms_S{MLA_S}"],
+        "bf16": {**{k: m16[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms")},
+                 "library_ms": mla16[f"library_ms_S{MLA_S}"]}})
     for kname, source, replaces, launches in (
             ("mha_fwd", "flash_attention.cu",
              "tilelang_mesh_tpu/ops/flash_attention.py:71",
@@ -685,6 +1003,8 @@ def main() -> int:
             "bound_by": a["bound_by"], "library_ms": a["library_ms"],
             "bf16": {k: b[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "library_ms")}})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
+          f"device memory {torch.cuda.max_memory_allocated()} bytes")
     print(smi_line)                      # the card, as nvidia-smi names it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

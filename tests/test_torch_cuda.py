@@ -8,9 +8,12 @@ the JAX package, so they run where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: paged decode rtol = atol = 1e-4 — the kernel and the plain
-version do the same float32 arithmetic (bfloat16 pools are widened to
-float32 in both) in another order. Attention kernels, normwise
+Tolerances: paged and contiguous decode rtol = atol = 1e-4 — the kernel
+and the plain version do the same float32 arithmetic (bfloat16 K/V are
+widened to float32 in both) in another order. MLA decode, normwise:
+1e-5 in float32 (same arithmetic, another order); 2e-2 in bfloat16,
+where both round p to bf16 before p @ ckv and a 1e-7 difference at a
+rounding boundary flips one bf16 ulp. Attention kernels, normwise
 (max |kernel - plain| over max |plain|): 1e-5 in float32 (same
 arithmetic, another order); 2e-2 in bfloat16, where both round P and dS
 to bf16 before their products but a 1e-7 difference at a rounding
@@ -28,6 +31,7 @@ import torch
 
 from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
 from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
+from tilelang_mesh_tpu_torch.ops import mla
 from tilelang_mesh_tpu_torch.resilience.errors import KernelLaunchError
 from tilelang_mesh_tpu_torch.resilience import faults
 from tilelang_mesh_tpu_torch.resilience.retry import global_breaker
@@ -94,6 +98,90 @@ def test_wrapper_raises_on_mixed_devices(cuda):
                                  vp[..., :48], table, 16, 1, 0.125)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,n_split", [(512, 4), (1000, 8), (77, 1)])
+def test_contiguous_kernel_matches_plain(cuda, dtype, d, s, n_split):
+    """decode.cu on contiguous K/V and on the gather strategy's
+    transposed view, ragged chunks included (1000 / 8 = 125 rows)."""
+    q, k, v = (torch.randn(shape, generator=torch.Generator(
+        device=cuda).manual_seed(i), device=cuda)
+        for i, shape in enumerate(((3, 4, 1, d), (3, 4, s, d),
+                                   (3, 4, s, d))))
+    k, v = k.to(dtype), v.to(dtype)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)   # (B, H, S, D)
+    vt = v.transpose(1, 2).contiguous().transpose(1, 2)   # row-strided
+    for kk, vv in ((k, v), (kt, vt)):
+        before = fd.launches["decode"]
+        got = fd.decode_partials(q, kk, vv, n_split, d ** -0.5)
+        want = fd.decode_partials_plain(q, kk, vv, n_split, d ** -0.5)
+        torch.cuda.synchronize()
+        assert fd.launches["decode"] == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and bool(torch.isfinite(g).all())
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_gather_strategy_matches_walk(cuda):
+    """flash_decode_paged (gather + decode.cu) against
+    flash_decode_paged_pool (paged_decode.cu) on the same pages."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((2, 4, 1, 128), generator=g, device=cuda)
+    pages = [torch.randn((12, 16, 4, 128), generator=g, device=cuda)
+             for _ in range(2)]
+    table = torch.stack([torch.randperm(12, generator=g, device=cuda)[:8]
+                         for _ in range(2)]).to(torch.int32)
+    fd.reset_launches()
+    gather = fd.flash_decode_paged(q, *pages, table)
+    walk = fd.flash_decode_paged_pool(
+        q, *(fd.pages_to_hmajor(p) for p in pages), table, 16)
+    torch.cuda.synchronize()
+    assert fd.launches == {"decode": 1, "paged_decode": 1}
+    torch.testing.assert_close(gather, walk, rtol=TOL, atol=TOL)
+
+
+MLA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [2, 8, 128])
+@pytest.mark.parametrize("dc,dr", mla.KERNEL_WIDTHS)
+@pytest.mark.parametrize("s,n_split", [(512, 4), (1000, 8), (77, 1)])
+def test_mla_kernel_matches_plain(cuda, dtype, h, dc, dr, s, n_split):
+    """mla_decode.cu against its plain version; ragged chunks (125 and
+    77 keys, no multiple of the 32-key tile) and head groups cut by H."""
+    g = torch.Generator(device=cuda).manual_seed(h + s)
+    qc, qr = (torch.randn((2, h, w), generator=g, device=cuda).to(dtype)
+              for w in (dc, dr))
+    rows = torch.randn((2, s, dc + dr), generator=g, device=cuda).to(dtype)
+    ckv, kpe = rows[..., :dc], rows[..., dc:]      # row-strided views
+    before = mla.launches["mla_decode"]
+    got = mla.mla_decode_partials(qc, qr, ckv, kpe, n_split, 0.1)
+    want = mla.mla_decode_partials_plain(qc, qr, ckv, kpe, n_split, 0.1)
+    torch.cuda.synchronize()
+    assert mla.launches["mla_decode"] == before + 1
+    assert _normwise(got, want) <= MLA_TOL[dtype]
+    out = mla.mla_decode(qc, qr, ckv, kpe, n_split=n_split)
+    assert out.dtype == dtype and tuple(out.shape) == (2, h, dc)
+    assert _normwise(out.float(), mla.mla_decode_reference(
+        qc, qr, ckv, kpe).float()) <= MLA_TOL[dtype]
+
+
+def test_decode_kernels_refuse_loudly(cuda):
+    """A grid the card refuses (65536 batches > gridDim.z) raises
+    KernelLaunchError; a width without an instance raises ValueError."""
+    z = torch.zeros((65536, 1, 1, 64), device=cuda)
+    with pytest.raises(KernelLaunchError):
+        fd.decode_partials(z, z, z, 1, 0.125)
+    qc = torch.zeros((65536, 1, 32), device=cuda)
+    qr = torch.zeros((65536, 1, 16), device=cuda)
+    with pytest.raises(KernelLaunchError):
+        mla.mla_decode_partials(qc, qr, qc, qr, 1, 0.1)
+    with pytest.raises(ValueError):
+        mla.mla_decode_partials(qc[:1, :, :24], qr[:1], qc[:1, :, :24],
+                                qr[:1], 1, 0.1)
+
+
 # tie-free seeds of tests/test_torch_serving.py (H=2, D=64, PS=8)
 STREAM = [(32, 4, 13), (24, 3, 20), (16, 4, 12), (40, 3, 14), (32, 3, 13),
           (20, 4, 12)]
@@ -124,6 +212,36 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, step_timeout_ms):
     assert wl.allocator.kp.is_cuda
     on_cpu, _ = _serve("cpu")
     assert [r.outcome for r in on_card] == ["result"] * len(STREAM)
+    assert [r.generated for r in on_card] == [r.generated for r in on_cpu]
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a.result, b.result, rtol=TOL, atol=TOL)
+    assert wl.allocator.in_use == 0 and wl.allocator.leak_check() == {}
+
+
+def _serve_mla(device):
+    from tilelang_mesh_tpu_torch import serving
+    alloc = serving.PagedKVAllocator(n_pages=96, page_size=8, heads=1,
+                                     head_dim=48, device=device)
+    wl = serving.MLADecodeWorkload(alloc, heads=2, latent_dim=32,
+                                   rope_dim=16, prefix_cache=False)
+    eng = serving.ServingEngine(wl, name="mla")
+    eng.warmup()
+    # tie-free seeds of tests/test_torch_serving_mla.py
+    reqs = [eng.submit(context_tokens=c, new_tokens=n, seed=s)
+            for c, n, s in ((32, 4, 1), (24, 3, 4), (16, 4, 14), (40, 3, 3),
+                            (32, 3, 1), (20, 4, 14))]
+    eng.run()
+    return reqs, wl
+
+
+def test_mla_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch):
+    monkeypatch.setenv("TL_TPU_SERVE_VOCAB", "64")
+    mla.reset_launches()
+    on_card, wl = _serve_mla(None)
+    assert mla.launches["mla_decode"] == wl.dispatches > 0
+    assert wl.allocator.kp.is_cuda
+    on_cpu, _ = _serve_mla("cpu")
+    assert [r.outcome for r in on_card] == ["result"] * 6
     assert [r.generated for r in on_card] == [r.generated for r in on_cpu]
     for a, b in zip(on_card, on_cpu):
         np.testing.assert_allclose(a.result, b.result, rtol=TOL, atol=TOL)

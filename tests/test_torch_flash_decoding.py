@@ -1,4 +1,5 @@
-"""The port's paged decode (tilelang_mesh_tpu_torch/ops/flash_decoding.py)
+"""The port's flash decoding (tilelang_mesh_tpu_torch/ops/flash_decoding.py):
+the in-kernel page walk, the contiguous decode and the gather strategy,
 against the JAX package's (ops/flash_decoding.py) on the same
 numpy-seeded inputs.
 
@@ -125,3 +126,120 @@ def test_wrapper_rejects_bad_arguments():
                                    1, 0.125)
     with pytest.raises(ValueError):
         port.paged_decode_partials(q, kp, vp, table, 7, 1, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# contiguous decode (decode_kernel's counterpart) and the gather strategy
+# ---------------------------------------------------------------------------
+
+
+def _contiguous(seed, b, h, s, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, h, 1, d), (b, h, s, d), (b, h, s, d)))
+
+
+@pytest.mark.parametrize("b,h,s,d,n_split", [(2, 4, 512, 64, 4),
+                                             (1, 2, 128, 128, 1)])
+def test_flash_decode_matches_reference(b, h, s, d, n_split):
+    """tests/test_decoding.py:16-36's two cases."""
+    q, k, v = _contiguous(n_split, b, h, s, d)
+    want = np.asarray(ref.flash_decode(*map(jnp.asarray, (q, k, v)),
+                                       n_split=n_split))
+    got = port.flash_decode(*_t(q, k, v), n_split=n_split)
+    assert tuple(got.shape) == (b, h, 1, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+def test_contiguous_partials_match_reference(n_split):
+    """decode_kernel's (o, m, l) partials, split by split."""
+    q, k, v = _contiguous(11, 2, 4, 512, 64)
+    sm_scale = 1.0 / np.sqrt(64)
+    kern = ref.decode_kernel(2, 4, 512, 64, n_split, 128, float(sm_scale),
+                             "float32")
+    want = [np.asarray(a) for a in kern(*map(jnp.asarray, (q, k, v)))]
+    got = port.decode_partials(*_t(q, k, v), n_split, sm_scale)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL)
+
+
+def test_flash_decode_split_clamp_matches_reference(monkeypatch):
+    """The (n_split, block_N) of flash_decoding.py:100-104, for requested
+    and default splits over S that 8 does or does not divide evenly."""
+    seen = []
+    kernel = ref.decode_kernel
+
+    def spy(B_, H_, S_, D_, n_split, block_N, *rest):
+        seen.append((n_split, block_N))
+        return kernel(B_, H_, S_, D_, n_split, block_N, *rest)
+
+    monkeypatch.setattr(ref, "decode_kernel", spy)
+    for s, requested in ((384, 8), (1000, 8), (384, None), (640, 3)):
+        q, k, v = _contiguous(s, 1, 2, s, 64)
+        want = np.asarray(ref.flash_decode(*map(jnp.asarray, (q, k, v)),
+                                           n_split=requested))
+        assert port.clamp_splits(s, requested, 128) == seen[-1]
+        got = port.flash_decode(*_t(q, k, v), n_split=requested)
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def _pages(seed, b, h, d, ps, pp, n_pages):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, ps, h, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, h, d)).astype(np.float32)
+    table = np.stack([rng.choice(n_pages, pp, replace=False)
+                      for _ in range(b)]).astype(np.int32)
+    return q, kp, vp, table
+
+
+def test_flash_decode_paged_matches_reference():
+    """tests/test_decoding.py:39-56's case, the gather strategy."""
+    q, kp, vp, table = _pages(2, 2, 2, 64, 128, 4, 16)
+    want = np.asarray(ref.flash_decode_paged(
+        *map(jnp.asarray, (q, kp, vp, table))))
+    got = port.flash_decode_paged(*_t(q, kp, vp, table))
+    assert tuple(got.shape) == (2, 2, 1, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_pages_to_hmajor_is_exact():
+    _, kp, _, _ = _pages(12, 1, 3, 16, 8, 2, 5)
+    want = np.asarray(ref.pages_to_hmajor(jnp.asarray(kp)))
+    got = port.pages_to_hmajor(torch.from_numpy(kp))
+    assert tuple(got.shape) == (3, 5 * 8, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_inkernel_walk_matches_gather():
+    """tests/test_decoding.py:72-98: the page walk over the H-major pool,
+    the gather strategy and the contiguous decode of the gathered KV
+    agree, in the port and against the JAX package's contiguous decode."""
+    q, kpages, vpages, table = _pages(0, B, H, D, PS, PP, NP)
+    qt, kt, vt, tt = _t(q, kpages, vpages, table)
+    o_gather = port.flash_decode_paged(qt, kt, vt, tt)
+    o_pool = port.flash_decode_paged_pool(
+        qt, port.pages_to_hmajor(kt), port.pages_to_hmajor(vt), tt, PS)
+    k = kpages[table].reshape(B, PP * PS, H, D).transpose(0, 2, 1, 3)
+    v = vpages[table].reshape(B, PP * PS, H, D).transpose(0, 2, 1, 3)
+    want = np.asarray(ref.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v)))
+    got = port.flash_decode(*_t(q, k, v))
+    for o in (o_gather, o_pool, got):
+        np.testing.assert_allclose(o.numpy(), want, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(o_gather, got, rtol=0, atol=0)
+
+
+def test_contiguous_cpu_path_counts_nothing_and_rejects_bad_arguments():
+    q, k, v = _t(*_contiguous(13, 1, 2, 256, 64))
+    before = dict(port.launches)
+    port.flash_decode(q, k, v)
+    assert port.launches == before
+    with pytest.raises(ValueError):             # 3 does not divide 256
+        port.decode_partials(q, k, v, 3, 0.125)
+    with pytest.raises(ValueError):
+        port.decode_partials(q, k[:, :1], v[:, :1], 1, 0.125)
+    with pytest.raises(TypeError):
+        port.decode_partials(q, k.double(), v.double(), 1, 0.125)

@@ -1,9 +1,17 @@
 """Ported ops. Each kernel's wrapper launches its CUDA kernel on a CUDA
 tensor and runs its plain PyTorch version on a CPU tensor."""
 
-from .flash_decoding import (flash_decode_paged_pool,  # noqa: F401
-                             paged_decode_partials,
+from .flash_decoding import (decode_partials,  # noqa: F401
+                             decode_partials_plain, flash_decode,
+                             flash_decode_paged, flash_decode_paged_pool,
+                             pages_to_hmajor, paged_decode_partials,
                              paged_decode_partials_plain)
+from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
+                  mla_decode_partials_plain, mla_decode_reference)
 
-__all__ = ["flash_decode_paged_pool", "paged_decode_partials",
-           "paged_decode_partials_plain"]
+__all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
+           "flash_decode_paged", "flash_decode_paged_pool",
+           "pages_to_hmajor", "paged_decode_partials",
+           "paged_decode_partials_plain", "mla_decode",
+           "mla_decode_partials", "mla_decode_partials_plain",
+           "mla_decode_reference"]

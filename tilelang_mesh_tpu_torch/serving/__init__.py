@@ -1,5 +1,5 @@
 """Serving subsystem on the card: continuous batching over the CUDA
-paged-decode kernel.
+decode kernels (paged flash decode, or DeepSeek-MLA decode).
 
     from tilelang_mesh_tpu_torch.serving import (
         ServingEngine, FlashDecodeWorkload, PagedKVAllocator)
@@ -11,11 +11,18 @@ paged-decode kernel.
     eng.warmup()                 # builds the kernel, launches each bucket
     r = eng.submit(context_tokens=16, new_tokens=2, deadline_ms=500)
     eng.run()                    # every request reaches a terminal outcome
+
+    # MLA: a latent-major pool, one [ckv | kpe] row per token
+    mla = PagedKVAllocator(n_pages=64, page_size=8, heads=1,
+                           head_dim=32 + 16)
+    eng = ServingEngine(MLADecodeWorkload(mla, heads=2, latent_dim=32,
+                                          rope_dim=16))
 """
 
 from .admission import (AdmissionController, SERVE_BREAKER_SIG,  # noqa: F401
                         STEP_HIST_KERNEL)
-from .batcher import DecodeWorkload, FlashDecodeWorkload  # noqa: F401
+from .batcher import (DecodeWorkload, FlashDecodeWorkload,  # noqa: F401
+                      MLADecodeWorkload)
 from .engine import ServingEngine, TokenStream  # noqa: F401
 from .kv_cache import (KVCacheExhausted, KVSnapshot,  # noqa: F401
                        PagedKVAllocator, allocator_from_reference)
@@ -28,6 +35,7 @@ from .sampling import sample_token  # noqa: F401
 
 __all__ = [
     "ServingEngine", "TokenStream", "DecodeWorkload", "FlashDecodeWorkload",
+    "MLADecodeWorkload",
     "PagedKVAllocator", "KVCacheExhausted", "KVSnapshot",
     "allocator_from_reference", "AdmissionController", "Request", "STATES",
     "OUTCOMES", "SHED_REASONS", "SERVE_BREAKER_SIG", "STEP_HIST_KERNEL",

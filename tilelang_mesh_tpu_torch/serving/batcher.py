@@ -1,4 +1,4 @@
-"""Shape-bucketed continuous batching over the paged-decode kernel.
+"""Shape-bucketed continuous batching over the decode kernels.
 
 Every dispatch is quantized onto a small grid of (batch, pages) buckets,
 as in the JAX package:
@@ -17,9 +17,11 @@ kernel library (``nvcc``, at first use) and launches it once per bucket,
 before any request can pay that time.
 
 :class:`FlashDecodeWorkload` walks the allocator's H-major pools in the
-kernel (``ops/flash_decoding.flash_decode_paged_pool``); the pools stay
-on the device, and a step moves only the queries and the page table to
-the card and the decode output back (that copy is the step's
+kernel (``ops/flash_decoding.flash_decode_paged_pool``);
+:class:`MLADecodeWorkload` gathers its latent rows on the pools' device
+and runs the MLA kernel (``ops/mla.mla_decode``). The pools stay on the
+device, and a step moves only the queries and the page table to the
+card and the decode output back (that copy is the step's
 synchronisation point, so a step's measured latency includes the
 kernel).
 
@@ -53,7 +55,7 @@ from ..observability import tracer as _trace
 from .kv_cache import PagedKVAllocator
 from .request import Request
 
-__all__ = ["DecodeWorkload", "FlashDecodeWorkload",
+__all__ = ["DecodeWorkload", "FlashDecodeWorkload", "MLADecodeWorkload",
            "PREFILL_CONTENT_VERSION"]
 
 # bump when the (token, position) -> KV content derivation changes:
@@ -402,3 +404,60 @@ class FlashDecodeWorkload(DecodeWorkload):
         self.dispatches += 1
         return flash_decode_paged_pool(qt, al.kp, al.vp, tt, al.page_size,
                                        sm_scale=self.sm_scale)
+
+
+class MLADecodeWorkload(DecodeWorkload):
+    """DeepSeek-MLA decode over paged latent rows: each pool row holds
+    ``[ckv (dc) | kpe (dr)]`` for one token (one shared latent cache
+    for all heads; ``heads`` is the query-head count). A step gathers
+    the window's rows to contiguous ``(B, S, dc + dr)`` on the pools'
+    device (the gather strategy of the paged-decode pair), then
+    ``mla_decode`` runs the split-KV latent kernel on the ``ckv`` and
+    ``kpe`` column views of those rows, with no further copy."""
+
+    def __init__(self, allocator: PagedKVAllocator, *, heads: int,
+                 latent_dim: int, rope_dim: int,
+                 batch_buckets: Sequence[int] = (1, 2, 4),
+                 page_buckets: Sequence[int] = (2, 4),
+                 sm_scale: float = None, prefix_cache=None):
+        if allocator.heads != 1 or \
+                allocator.head_dim != latent_dim + rope_dim:
+            raise ValueError(
+                "MLA pools are latent-major: construct the allocator "
+                "with heads=1, head_dim=latent_dim+rope_dim")
+        super().__init__(allocator, batch_buckets, page_buckets,
+                         prefix_cache=prefix_cache)
+        self.heads = int(heads)
+        self.dc = int(latent_dim)
+        self.dr = int(rope_dim)
+        self.sm_scale = (sm_scale if sm_scale is not None
+                         else 1.0 / math.sqrt(self.dc + self.dr))
+
+    def _query_shape(self, bb: int) -> tuple:
+        return (bb, self.heads, self.dc + self.dr)
+
+    def _query(self, req: Request) -> np.ndarray:
+        rng = np.random.default_rng((req.seed, 1, req.steps_done))
+        return rng.standard_normal(
+            (self.heads, self.dc + self.dr)).astype(np.float32)
+
+    def _content_kv(self, token: int, pos: int):
+        rng = np.random.default_rng((int(token) % (1 << 31), int(pos)))
+        shape = (1, self.dc + self.dr)
+        return (rng.standard_normal(shape).astype(np.float32),
+                np.zeros(shape, np.float32))    # vp unused for MLA
+
+    def _dispatch(self, q, table, bb: int, pp: int) -> torch.Tensor:
+        from ..ops.mla import mla_decode
+        al = self.allocator
+        ps = al.page_size
+        qt = torch.from_numpy(np.ascontiguousarray(q)).to(al.device)
+        tt = torch.from_numpy(np.ascontiguousarray(table)).to(al.device)
+        # pool rows of the window, in token order: (bb, pp * ps)
+        idx = (tt.long()[:, :, None] * ps
+               + torch.arange(ps, device=al.device)).reshape(bb, pp * ps)
+        seq = al.kp[0][idx]                             # (B, S, dc+dr)
+        self.dispatches += 1
+        return mla_decode(qt[..., :self.dc], qt[..., self.dc:],
+                          seq[..., :self.dc], seq[..., self.dc:],
+                          sm_scale=self.sm_scale)
