@@ -21,7 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               and S=8192, 8 splits); the four attention kernels at the
               model's (H=16, D=128, S=4096, causal; batch 2 for the
               forward kernel, 4 for the training kernels), and each once
-              more at D=16 on a ragged S=1000;
+              more at D=16 on a ragged S=1000; the dense grouped GEMM at
+              the MoE layer's two expert products (Mixtral-8x7B widths,
+              see MOE_FULL) and the token-sorted one on that batch's
+              routed per-expert counts, both layouts of B;
 4. model    — the first main path, the flagship transformer at the
               published widths of Ouro-2.6B (see FULL): the entry's
               forward on 2 x 4096 tokens without autograd (the forward
@@ -42,9 +45,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               with the plain version recomputed on a copy of the pool;
 6. mla      — the third main path: the same engine over MLADecodeWorkload
               at DeepSeek-V3's attention widths (see MLA_SERVE), the same
-              two waves and the same gates, on the MLA kernel.
+              two waves and the same gates, on the MLA kernel;
+7. moe      — the fourth main path: the expert-parallel MoE layer
+              (make_moe_layer, one rank) at Mixtral-8x7B's expert widths
+              (see MOE_FULL) on 4096 tokens: two grouped-GEMM launches a
+              call, the output and the kept-token count against the same
+              layer with the plain grouped GEMM, the forward's median
+              time, peak memory, and one call under torch.profiler;
+8. ring     — the fifth main path: ring attention (make_ring_attention,
+              one rank) at the model's attention shapes (B=2, H=16,
+              S=4096, D=128), causal and not: one partial-kernel launch a
+              call, the output against the plain attention on the card.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+The peak device memory printed at the end is the script's: each phase
+that reads its own peak adds it to the script's before zeroing the
+counter. Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
 """
@@ -113,6 +128,37 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the model path against the dense plain path on the same weights
 # (float32 both; softmax in another form and order, 4 layers deep)
 MODEL_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
+
+# The repo's expert-parallel MoE layer (parallel/moe.py make_moe_layer,
+# one rank: ep = 1 on one card) at the widths of Mixtral-8x7B's MoE layer
+# (https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/main/config.json:
+# hidden_size 4096, intermediate_size 14336, num_local_experts 8,
+# num_experts_per_tok 2) on one 4096-token prefill chunk, capacity factor
+# 1.25 (make_moe_layer's default: C = ceil(4096 * 2 * 1.25 / 8) = 1280),
+# float32 as dryrun_multichip runs the layer. Departures, so this is not
+# Mixtral: the repo's expert is silu(x W1) W2, not SwiGLU with W3; the
+# router is a softmax over all 8 experts, then top-2 without
+# renormalising; capacity drops tokens; one layer of 32, no attention.
+# Weights from seeded torch.Generators on the card: x ~ N(0, 1), the
+# router N(0, 1/d), W1 N(0, 1/d), W2 N(0, 1/f) (unit-scale activations).
+MOE_FULL = dict(tokens=4096, d=4096, f=14336, experts=8, top_k=2,
+                capacity_factor=1.25)
+# grouped GEMM vs plain, normwise: float32 the same sums in another
+# order; bfloat16 an output rounded to bf16 may flip one ulp (2**-8)
+GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MOE_TOL = 1e-5          # the layer on the kernel vs on the plain GEMM
+
+
+# the script's peak device memory over the phases whose counters were
+# zeroed (see reset_peak)
+SCRIPT_PEAK = [0]
+
+
+def reset_peak(torch):
+    """Zero the device's peak-memory counter for a phase of its own,
+    keeping the peak so far in the script's."""
+    SCRIPT_PEAK[0] = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
 
 
 def check(cond, msg):
@@ -530,8 +576,8 @@ def attention_phase(torch, fa, gb, dtype):
 def device_breakdown(torch, fn):
     """Run ``fn`` once under torch.profiler: the wall time, the device's
     busy time (union of its activity intervals) and share, and device ms
-    by kind: the port's attention and decode kernels, GEMMs, everything
-    else."""
+    by kind: the port's attention and decode kernels, its grouped GEMM
+    kernels, other GEMMs (cuBLAS), everything else."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -540,7 +586,8 @@ def device_breakdown(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = {"attention_kernels_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    kinds = {"attention_kernels_ms": 0.0, "grouped_gemm_ms": 0.0,
+             "gemm_ms": 0.0, "other_ms": 0.0}
     spans = []
     for e in prof.events():
         if e.device_type.name != "CUDA":
@@ -549,6 +596,7 @@ def device_breakdown(torch, fn):
         spans.append((t0, t1))
         kind = ("attention_kernels_ms" if any(
             k in e.name for k in ("mha_fwd", "gqa_bwd", "decode")) else
+                "grouped_gemm_ms" if "grouped_gemm" in e.name else
                 "gemm_ms" if "gemm" in e.name else "other_ms")
         kinds[kind] += (t1 - t0) / 1e3
     busy, end = 0.0, -math.inf
@@ -631,7 +679,7 @@ def model_phase(torch, fa, gb):
 
     init, step = make_train_step(cfg, lr=1e-3)
     opt = init(model)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launches()                  # the training path starts here
     gb.reset_launches()
     losses, step_ms = [], []
@@ -875,6 +923,253 @@ def mla_serving_phase(torch, mla, cache_root):
     return res
 
 
+def moe_inputs(torch, weights=True):
+    """MOE_FULL's tokens, router and (with ``weights``) expert weights,
+    each from its own seeded generator on the card."""
+    c = MOE_FULL
+    T, d, f, E = c["tokens"], c["d"], c["f"], c["experts"]
+
+    def draw(seed, shape, scale):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = draw(10, (T, d), 1.0)
+    wr = draw(11, (d, E), d ** -0.5)
+    if not weights:
+        return x, wr
+    return (x, wr, draw(12, (E, d, f), d ** -0.5),
+            draw(13, (E, f, d), f ** -0.5))
+
+
+def moe_capacity():
+    c = MOE_FULL
+    return max(4, math.ceil(c["tokens"] * c["top_k"] * c["capacity_factor"]
+                            / c["experts"]))
+
+
+def gemm_bound(torch, dtype, flops, nbytes):
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gemm_phase(torch, gg, dtype):
+    """The dense grouped GEMM at the MoE layer's two expert products, and
+    the token-sorted one on the MOE_FULL batch's routed per-expert
+    counts (K = d, N = f, B in both layouts), against their plain
+    versions; times, bounds and a torch.bmm yardstick."""
+    from tilelang_mesh_tpu_torch.parallel import moe
+    name = str(dtype).replace("torch.", "")
+    tol = GEMM_TOL[name]
+    esize = torch.empty((), dtype=dtype).element_size()
+    c = MOE_FULL
+    E, d, f, C = c["experts"], c["d"], c["f"], moe_capacity()
+    x, wr = moe_inputs(torch, weights=False)
+    _, dispatch = moe.route(x, wr, c["top_k"], C)
+    sizes = [int(s) for s in dispatch.sum((0, 2)).long().tolist()]
+    # the routed tokens, sorted by expert (the capacity layout's filled
+    # rows): the token-sorted GEMM's A
+    xe = torch.einsum("td,tec->ecd", x, dispatch)
+    del dispatch
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    def compare(label, kern, plain):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} ({name}) disagrees with its plain "
+                          f"version: {rel:.3e} of max |plain| > {tol}")
+        return err, rel
+
+    res = {"dtype": name, "tolerance": f"normwise {tol}", "sizes": sizes}
+    for label, (M, K, N) in (("w1", (C, d, f)), ("w2", (C, f, d))):
+        a, b = rnd(E, M, K), rnd(E, K, N, scale=K ** -0.5)
+        err, rel = compare(f"grouped_gemm {label}",
+                           lambda: gg.grouped_matmul(a, b),
+                           lambda: gg.grouped_matmul_plain(a, b))
+        flops = 2 * E * M * N * K
+        nbytes = (E * M * K + E * K * N + E * M * N) * esize
+        bound, by = gemm_bound(torch, dtype, flops, nbytes)
+        res[label] = {
+            "shape": [E, M, K, N], "max_abs_err": err, "normwise_err": rel,
+            "ms": cuda_ms(torch, lambda: gg.grouped_matmul(a, b), 5),
+            "plain_ms": cuda_ms(torch, lambda: gg.grouped_matmul_plain(a, b),
+                                3),
+            "library_ms": cuda_ms(torch, lambda: torch.bmm(a, b), 5),
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+        del a, b
+        torch.cuda.empty_cache()
+
+    a = torch.cat([xe[e, :s] for e, s in enumerate(sizes)]).to(dtype)
+    xpad = xe.to(dtype)                  # the capacity-padded layout
+    del xe
+    b = rnd(E, d, f, scale=d ** -0.5)
+    rows = sum(sizes)
+    live = sum(1 for s in sizes if s)
+    flops = 2 * rows * d * f
+    nbytes = (rows * d + live * d * f) * esize + rows * f * 4 \
+        + 4 * (2 * len(gg._varlen_meta(sizes, gg.KERNEL_BLOCK_M)[0]) + E)
+    bound, by = gemm_bound(torch, dtype, flops, nbytes)
+    # cuBLAS on the padded layout does C·E rows against the routed rows
+    padded_ms = cuda_ms(torch, lambda: torch.bmm(xpad, b), 5)
+    starts = [sum(sizes[:e]) for e in range(E)]
+    for trans_b in (False, True):
+        bb = b.transpose(1, 2).contiguous() if trans_b else b
+
+        def kern():
+            return gg.varlen_grouped_matmul(a, bb, sizes, trans_b=trans_b)
+
+        def plain():
+            return gg.varlen_grouped_matmul_plain(a, bb, sizes, trans_b)
+
+        def library():                   # the same work: the routed rows
+            return [a[s0:s0 + n] @ (bb[e].t() if trans_b else bb[e])
+                    for e, (s0, n) in enumerate(zip(starts, sizes)) if n]
+
+        err, rel = compare(f"varlen_grouped_gemm trans_b={trans_b}", kern,
+                           plain)
+        res["varlen_trans" if trans_b else "varlen"] = {
+            "rows": rows, "max_abs_err": err, "normwise_err": rel,
+            "ms": cuda_ms(torch, kern, 5), "plain_ms": cuda_ms(torch, plain,
+                                                               3),
+            "library_ms": cuda_ms(torch, library, 5),
+            "library": "torch.matmul per group on the routed rows",
+            "bmm_padded_ms": padded_ms,
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+        del bb
+    del a, b, xpad
+    torch.cuda.empty_cache()
+    print(json.dumps({"grouped_gemm": name, **res}), flush=True)
+    return res
+
+
+def moe_phase(torch, gg):
+    """The MoE layer at MOE_FULL on one card: the main path's call with
+    its launch count, then the same layer on the plain grouped GEMM, the
+    forward's median time, and one call under torch.profiler."""
+    from tilelang_mesh_tpu_torch.parallel import moe
+    c = MOE_FULL
+    x, wr, w1, w2 = moe_inputs(torch)
+    layer = moe.make_moe_layer(None, top_k=c["top_k"],
+                               capacity_factor=c["capacity_factor"])
+    torch.cuda.synchronize()
+    reset_peak(torch)
+    gg.reset_launches()                  # the main path starts here
+    t0 = time.perf_counter()
+    out = layer(x, wr, w1, w2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(gg.launches)                   # read right after
+    call_peak = torch.cuda.max_memory_allocated()
+    check(launches["grouped_gemm"] == 2,
+          f"grouped_gemm launched {launches['grouped_gemm']} times in one "
+          f"layer call, want 2")
+    check(tuple(out.shape) == (c["tokens"], c["d"])
+          and bool(torch.isfinite(out).all()), "bad MoE output")
+
+    kernel_gemm = moe.grouped_matmul     # the same layer, plain GEMMs
+    moe.grouped_matmul = lambda a, b, **_: gg.grouped_matmul_plain(a, b)
+    try:
+        want = layer(x, wr, w1, w2)
+    finally:
+        moe.grouped_matmul = kernel_gemm
+    # the (token, slot) pairs the dispatch keeps, against what the
+    # capacity allows: expert e's takers fill places 0, 1, ... in slot
+    # order, so it keeps min(takers, C) of them
+    C = moe_capacity()
+    kept = int(moe.route(x, wr, c["top_k"], C)[1].count_nonzero())
+    takers = torch.bincount(torch.topk(x.float() @ wr.float(), c["top_k"],
+                                       dim=-1)[1].flatten(),
+                            minlength=c["experts"])
+    allowed = int(takers.clamp(max=C).sum())
+    check(kept == allowed, f"the dispatch keeps {kept} pairs, the "
+                           f"capacity allows {allowed}")
+    err, rel = normwise_err(out, want)
+    check(rel <= MOE_TOL, f"MoE layer disagrees with the plain path: "
+                          f"{rel:.3e} of max |plain| > {MOE_TOL}")
+    del out, want
+
+    layer(x, wr, w1, w2)                 # warm-up
+    gg.reset_launches()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layer(x, wr, w1, w2)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(gg.launches["grouped_gemm"] == 10,
+          f"{gg.launches['grouped_gemm']} grouped launches in 5 calls")
+    profile = device_breakdown(torch, lambda: layer(x, wr, w1, w2))
+    med = sorted(times)[len(times) // 2]
+    res = {"config": {**c, "capacity": moe_capacity()},
+           "first_call_ms": first_s * 1e3, "forward_ms": times,
+           "forward_ms_median": med,
+           "tokens_per_s": c["tokens"] / (med / 1e3),
+           "launches": launches, "kept_pairs": kept,
+           "kept_pairs_allowed": allowed,
+           "dropped_pairs": c["tokens"] * c["top_k"] - kept,
+           "max_abs_err": err, "normwise_err": rel,
+           "tolerance": f"normwise {MOE_TOL}",
+           # the main-path call alone, then the whole phase (the plain
+           # path's call, the timed calls and the profiled one too)
+           "max_memory_allocated_bytes": call_peak,
+           "phase_max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated(),
+           "profile": profile}
+    print(json.dumps(res), flush=True)
+    del x, wr, w1, w2
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_phase(torch, fa):
+    """Ring attention on one rank at the model's attention shapes, causal
+    and not: each call the main path (one partial-kernel launch, read
+    right after), against the plain attention on the card, then timed."""
+    from tilelang_mesh_tpu_torch.parallel import make_ring_attention
+    B, H, S, D = 2, 16, 4096, 128
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
+               for _ in range(3))
+    sm = 1.0 / math.sqrt(D)
+    tol = ATTN_TOL["float32"]
+    res = {"shape": [B, H, S, D], "dtype": "float32",
+           "tolerance": f"normwise {tol}"}
+    for causal in (True, False):
+        layer = make_ring_attention(None, causal=causal)
+        torch.cuda.synchronize()
+        fa.reset_launches()              # the main path starts here
+        out = layer(q, k, v)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)               # read right after
+        check(launches == {"mha_fwd": 0, "mha_fwd_partial": 1},
+              f"ring attention (causal={causal}) launches {launches}, "
+              f"want one partial launch")
+        want = fa.mha_fwd_plain(q, k, v, causal, sm)
+        err, rel = normwise_err(out, want)
+        check(bool(torch.isfinite(out).all()) and rel <= tol,
+              f"ring attention (causal={causal}) disagrees with the plain "
+              f"attention: {rel:.3e} of max |plain| > {tol}")
+        del out, want
+        res["causal" if causal else "full"] = {
+            "launches": launches["mha_fwd_partial"], "max_abs_err": err,
+            "normwise_err": rel, "ms": cuda_ms(torch, lambda: layer(q, k, v),
+                                               5)}
+    print(json.dumps({"ring": res}), flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -887,6 +1182,7 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
+    from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
     from tilelang_mesh_tpu_torch.ops import mla
 
     scratch = ROOT / "build" / "chip_smoke"
@@ -908,7 +1204,7 @@ def main() -> int:
 
     phase("build")
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
-               "gqa_bwd")
+               "gqa_bwd", "grouped_gemm")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -935,6 +1231,8 @@ def main() -> int:
     mla16 = mla_kernel_phase(torch, mla, torch.bfloat16)
     attn32 = attention_phase(torch, fa, gb, torch.float32)
     attn16 = attention_phase(torch, fa, gb, torch.bfloat16)
+    gemm32 = gemm_phase(torch, gg, torch.float32)
+    gemm16 = gemm_phase(torch, gg, torch.bfloat16)
 
     phase("model")
     mdl = model_phase(torch, fa, gb)
@@ -945,6 +1243,12 @@ def main() -> int:
     phase("mla")
     msrv = mla_serving_phase(torch, mla, scratch / "mla_prefix")
     shutil.rmtree(scratch, ignore_errors=True)
+
+    phase("moe")
+    moe_res = moe_phase(torch, gg)
+
+    phase("ring")
+    ring = ring_phase(torch, fa)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1003,8 +1307,35 @@ def main() -> int:
             "bound_by": a["bound_by"], "library_ms": a["library_ms"],
             "bf16": {k: b[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "library_ms")}})
+    # the partial kernel is also ring attention's step (the ring phase)
+    next(k for k in kernels if k["name"] == "mha_fwd_partial")[
+        "ring_launches"] = ring["causal"]["launches"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
+    # the layer's first expert product; the second in "w2"
+    kernels.append({
+        "name": "grouped_gemm", "route": "cuda",
+        "source": csrc + "grouped_gemm.cu",
+        "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:17",
+        "launches": moe_res["launches"]["grouped_gemm"],
+        **{k: gemm32["w1"][k] for k in keys + ("bound_by",)},
+        "bf16": {k: gemm16["w1"][k] for k in keys},
+        "w2": {"float32": {k: gemm32["w2"][k] for k in keys},
+               "bfloat16": {k: gemm16["w2"][k] for k in keys}}})
+    # not on the MoE path; held on its routed counts
+    kernels.append({
+        "name": "varlen_grouped_gemm", "route": "cuda",
+        "source": csrc + "grouped_gemm.cu",
+        "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:58",
+        "launches": moe_res["launches"]["varlen_grouped_gemm"],
+        **{k: gemm32["varlen"][k] for k in keys + ("bound_by",)},
+        "bmm_padded_ms": gemm32["varlen"]["bmm_padded_ms"],
+        "bf16": {k: gemm16["varlen"][k] for k in keys},
+        "trans_b": {"float32": {k: gemm32["varlen_trans"][k] for k in keys},
+                    "bfloat16": {k: gemm16["varlen_trans"][k]
+                                 for k in keys}}})
+    peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
-          f"device memory {torch.cuda.max_memory_allocated()} bytes")
+          f"device memory {peak} bytes")
     print(smi_line)                      # the card, as nvidia-smi names it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

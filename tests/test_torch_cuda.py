@@ -19,6 +19,11 @@ arithmetic, another order); 2e-2 in bfloat16, where both round P and dS
 to bf16 before their products but a 1e-7 difference at a rounding
 boundary flips one bf16 ulp. The model on the card against the model on
 the CPU: 1e-4 normwise (float32, different kernels and libraries).
+Grouped GEMMs, normwise: 1e-5 in float32 (the same float32 sums in
+another order); 1e-2 in bfloat16, where an output rounded to bf16 may
+flip one ulp (2**-8). The MoE layer on the card against the same layer
+on the CPU: 1e-4 normwise (float32; the routing must keep the same
+pairs).
 """
 
 import dataclasses
@@ -31,6 +36,7 @@ import torch
 
 from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
 from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
+from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
 from tilelang_mesh_tpu_torch.ops import mla
 from tilelang_mesh_tpu_torch.resilience.errors import KernelLaunchError
 from tilelang_mesh_tpu_torch.resilience import faults
@@ -399,3 +405,99 @@ def test_model_on_card_matches_model_on_cpu(cuda):
     with torch.no_grad():
         dense = forward(card, tok[:2, :-1].cuda(), cfg)
     assert _normwise(dense, forward(card, tok[:2, :-1].cuda())) <= 1e-4
+
+
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _randn(dev, shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 77, 1000, 150), (2, 128, 256, 128),
+                                   (1, 300, 19, 7), (4, 1, 1, 1),
+                                   (2, 129, 64, 257)])
+def test_grouped_gemm_matches_plain(cuda, dtype, shape):
+    """Ragged M, N and K (K = 1000 is no multiple of 16 or 32; 19 and 7
+    take the predicated, unaligned path)."""
+    E, M, K, N = shape
+    x = _randn(cuda, (E, M, K), dtype, 0)
+    w = _randn(cuda, (E, K, N), dtype, 1)
+    before = gg.launches["grouped_gemm"]
+    got = gg.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gg.launches["grouped_gemm"] == before + 1
+    assert _normwise(got, gg.grouped_matmul_plain(x, w)) <= GEMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("sizes,K,N", [((77, 0, 300, 1), 1000, 150),
+                                       ((130, 0, 64, 257), 128, 128),
+                                       ((5, 0, 9), 19, 7)])
+def test_varlen_grouped_gemm_matches_plain(cuda, dtype, trans_b, sizes, K,
+                                           N):
+    """Groups of every size, one empty; rows past a group's end belong
+    to the next group and must not be written by this one's blocks."""
+    a = _randn(cuda, (sum(sizes), K), dtype, 2)
+    b = _randn(cuda, (len(sizes), N, K) if trans_b else (len(sizes), K, N),
+               dtype, 3)
+    before = gg.launches["varlen_grouped_gemm"]
+    got = gg.varlen_grouped_matmul(a, b, sizes, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert gg.launches["varlen_grouped_gemm"] == before + 1
+    want = gg.varlen_grouped_matmul_plain(a, b, sizes, trans_b)
+    assert _normwise(got, want) <= GEMM_TOL[dtype]
+
+
+def test_grouped_gemm_refuses_mixed_devices(cuda):
+    x = torch.zeros((2, 4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        gg.grouped_matmul(x, torch.zeros((2, 8, 3)))
+    with pytest.raises(ValueError):
+        gg.varlen_grouped_matmul(torch.zeros((4, 8)),
+                                 torch.zeros((2, 8, 3), device=cuda), (2, 2))
+
+
+def test_moe_layer_on_card_matches_cpu(cuda):
+    """The layer at small widths (T 256, d 64, f 128, E 8, top-2,
+    capacity factor 0.75, so C = 48 against ~64 pairs an expert: drops)
+    on the card, two grouped launches, against the same layer on CPU
+    tensors, keeping the same number of pairs."""
+    from tilelang_mesh_tpu_torch.parallel import moe
+    rng = np.random.default_rng(2)
+    arrays = [(rng.standard_normal(s) * sc).astype(np.float32)
+              for s, sc in (((256, 64), 0.5), ((64, 8), 0.5),
+                            ((8, 64, 128), 0.2), ((8, 128, 64), 0.2))]
+    layer = moe.make_moe_layer(None, top_k=2, capacity_factor=0.75)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    card = [t.to(cuda) for t in cpu]
+    want = layer(*cpu)
+    before = gg.launches["grouped_gemm"]
+    got = layer(*card)
+    torch.cuda.synchronize()
+    assert gg.launches["grouped_gemm"] == before + 2
+    kept = [int(moe.route(x, wr, 2, 48)[1].count_nonzero())
+            for x, wr, _, _ in (cpu, card)]
+    assert kept[0] == kept[1] < 512
+    assert _normwise(got, want.to(cuda)) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_card_matches_cpu(cuda, causal):
+    """make_ring_attention on one rank (group None): the partial kernel
+    once, then the layer's normalisation, against the same layer on CPU
+    tensors (the plain partial)."""
+    from tilelang_mesh_tpu_torch.parallel import make_ring_attention
+    q, k, v, _, _, _, _ = _attn_inputs("cpu", 1, 2, 2, 300, 300, 64,
+                                       torch.float32, causal, seed=5)
+    layer = make_ring_attention(None, causal=causal)
+    want = layer(q, k, v)
+    before = fa.launches["mha_fwd_partial"]
+    got = layer(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.launches["mha_fwd_partial"] == before + 1
+    assert _normwise(got, want.to(cuda)) <= ATTN_TOL[torch.float32]

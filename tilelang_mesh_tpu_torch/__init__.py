@@ -11,7 +11,10 @@ paged-decode kernel (``ops/flash_decoding.py``), with the resilience
 and observability modules it uses; the flagship transformer
 (``models/``, ``entry.py``), its forward and single-device training
 step, over the attention kernels (``ops/flash_attention.py``,
-``ops/gqa_bwd.py``). Entry points run on the card unless the caller
+``ops/gqa_bwd.py``); DeepSeek-MLA decode serving (``ops/mla.py``);
+the expert-parallel MoE layer and ring attention on
+``torch.distributed`` (``parallel/``) over the grouped GEMM kernels
+(``ops/grouped_gemm.py``). Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
