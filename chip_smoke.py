@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel of the port from csrc/ (sm_90a)
-              into build/cuda/, one nvcc per source, all at once;
+              into build/cuda/, one nvcc per source, all at once, and
+              prints each source's registers and spills;
 3. kernels  — each kernel against its plain PyTorch version on the card
               in float32 and bfloat16, with its time, the plain
               version's, a PyTorch library call's on the same inputs, and
@@ -55,7 +56,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. ring     — the fifth main path: ring attention (make_ring_attention,
               one rank) at the model's attention shapes (B=2, H=16,
               S=4096, D=128), causal and not: one partial-kernel launch a
-              call, the output against the plain attention on the card.
+              call, the output against the plain attention on the card;
+9. gemm     — the sixth main path: the library's GEMM entry points at
+              bench.py's shapes (see GEMM_OPS_TOL): matmul in bf16 at
+              1024^3 and 8192 x 8192 x 4096, in f32 and bf16 at 4096^3
+              in every transpose, once with ReLU, fp8 e4m3 -> f32 at
+              4096^3; dequant_matmul and dequant_matmul_twopass (w4a16,
+              bf16, group size 512) at 4096^3 and dequant_matmul at a
+              LLaMA-2-7B MLP decode step (M 16, K 4096, N 11008, group
+              128); w4a8_matmul at 4096^3. Each call one launch of its
+              kernel (two-pass: one unpack, one matmul), read right
+              after; its output against the plain version on the card;
+              kernel, plain and library times and the bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -82,6 +94,7 @@ N_PAGES = 1024
 PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12               # H100 SXM, f32 outside tensor cores
 PEAK_BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
+PEAK_8BIT_OPS = 1979e12              # H100 SXM, fp8 / int8 tensor cores
 # kernel vs plain: the same f32 arithmetic in another order
 RTOL = ATOL = 1e-4
 
@@ -148,6 +161,23 @@ MOE_FULL = dict(tokens=4096, d=4096, f=14336, experts=8, top_k=2,
 GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MOE_TOL = 1e-5          # the layer on the kernel vs on the plain GEMM
 
+# The library's GEMM entry points at bench.py's shapes (_config_builders,
+# bench.py:2102-2134): gemm_quickstart 1024^3 and gemm_large 8192 x 8192
+# x 4096 in bf16 (cfg_gemm, seed 0), fp8 e4m3 -> f32 at 4096^3
+# (cfg_fp8_gemm, seed 2), w4a16 at 4096^3 with group size 512 (cfg_w4a16,
+# seed 3), w4a8 at 4096^3 (cfg_w4a8, seed 9); inputs are the same seeded
+# numpy draws (standard_normal * 0.1; w4a8's activations unscaled). The
+# GEMM also in f32 at 4096^3 and in every transpose; and w4a16 at one
+# decode step of LLaMA-2-7B's MLP (hidden 4096, intermediate 11008:
+# huggingface.co/meta-llama/Llama-2-7b-hf/blob/main/config.json), 16
+# tokens, group size 128, the skinny-M case the fused kernel is for.
+# Kernel vs plain, normwise: a float32 output the same float32 sums in
+# another order; bf16 one output ulp; the int4 unpack the same multiply
+# and rounding (0); w4a8 exact int32 sums and the same epilogue.
+GEMM_OPS_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "dequant_int4": 0.0,
+                "w4a8": 1e-6}
+LLAMA2_MLP = dict(M=16, K=4096, N=11008, gs=128)
+
 
 # the script's peak device memory over the phases whose counters were
 # zeroed (see reset_peak)
@@ -176,6 +206,26 @@ def cuda_ms(torch, fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters):
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls after
+    a warm-up, free of the host's time between launches: the card first
+    spins (``torch.cuda._sleep``, ~25 ms) while the host enqueues every
+    call, then CUDA events time the calls run end to end. (Events around
+    calls the host issues one by one count its time between launches,
+    which a kernel of tens of microseconds cannot hide.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -1170,6 +1220,307 @@ def ring_phase(torch, fa):
     return res
 
 
+def draw_np(seed, *shapes):
+    """cfg_gemm's inputs: ``standard_normal(shape) * 0.1`` from one
+    ``default_rng(seed)``, in order, as float32 numpy arrays."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in shapes]
+
+
+def mm_bound(flops, nbytes, peak):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gemm_ops_phase(torch, gm, dqg):
+    """The GEMM entry points at bench.py's shapes: each call the main
+    path (counters zeroed before it, read right after: exactly one launch
+    of its kernel, the two-pass path one unpack and one matmul), its
+    output against the plain version on the card, then the device times
+    of the kernel, the plain version and a library yardstick, and the
+    bound."""
+    import numpy as np
+    from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
+    counted = {"matmul": 0, "dequant_gemm": 0, "dequant_int4": 0,
+               "w4a8_gemm": 0}
+    res = {}
+
+    def drive(label, call, want_launches):
+        """One main-path call; its launches, read right after."""
+        torch.cuda.synchronize()
+        gm.reset_launches()
+        dqg.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {**gm.launches, **dqg.launches}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k, n in got.items():
+            counted[k] += n
+        return out
+
+    def hold(label, got, want, tol):
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return {"max_abs_err": err, "normwise_err": rel,
+                "tolerance": f"normwise {tol}"}
+
+    def timed(kern, plain, library, iters=5):
+        """Device times (kernel, plain, library; ``device_ms``) and the
+        kernel's wrapper calls timed as issued (``call_ms``: the host's
+        time between launches included)."""
+        return {"ms": device_ms(torch, kern, iters),
+                "call_ms": cuda_ms(torch, kern, iters),
+                "plain_ms": device_ms(torch, plain, 3),
+                "library_ms": (None if library is None
+                               else device_ms(torch, library, iters))}
+
+    def fp8(x):
+        return torch.from_numpy(x).cuda().to(torch.float8_e4m3fn)
+
+    # -- #15 matmul ------------------------------------------------------
+    cases = [("bf16_1024", 0, (1024, 1024, 1024), torch.bfloat16, None,
+              (False, False), False),
+             ("bf16_8192x8192x4096", 0, (8192, 8192, 4096), torch.bfloat16,
+              None, (False, False), False)]
+    cases += [(f"f32_4096_{int(ta)}{int(tb)}", 1, (4096,) * 3,
+               torch.float32, None, (ta, tb), False)
+              for ta in (False, True) for tb in (False, True)]
+    cases += [(f"bf16_4096_{int(ta)}{int(tb)}", 1, (4096,) * 3,
+               torch.bfloat16, None, (ta, tb), False)
+              for ta in (False, True) for tb in (False, True)]
+    cases += [("f32_4096_relu", 1, (4096,) * 3, torch.float32, None,
+               (False, True), True),
+              ("fp8_f32_4096", 2, (4096,) * 3, torch.float8_e4m3fn,
+               torch.float32, (False, False), False)]
+    for label, seed, (M, N, K), dt, out, (ta, tb), relu in cases:
+        a_np, b_np = draw_np(seed, (K, M) if ta else (M, K),
+                             (N, K) if tb else (K, N))
+        if dt == torch.float8_e4m3fn:
+            a, b = fp8(a_np), fp8(b_np)
+        else:
+            a = torch.from_numpy(a_np).cuda().to(dt)
+            b = torch.from_numpy(b_np).cuda().to(dt)
+        del a_np, b_np
+        out_dt = out or dt
+        got = drive(f"matmul {label}", lambda: gm.matmul(
+            a, b, ta, tb, out_dtype=out_dt, relu=relu), {"matmul": 1})
+        want = gm.matmul_plain(a, b, ta, tb, out_dt, relu)
+        name = str(out_dt).replace("torch.", "")
+        r = hold(f"matmul {label}", got, want, GEMM_OPS_TOL[name])
+        del got, want
+        lhs = a.T if ta else a
+        rhs = b.T if tb else b
+        if dt == torch.float8_e4m3fn:     # cuBLASLt fp8, unit scales
+            one = torch.ones((), device="cuda")
+            bcol = rhs.T.contiguous().T               # column-major
+
+            def library():
+                return torch._scaled_mm(lhs, bcol, scale_a=one, scale_b=one,
+                                        out_dtype=torch.float32)
+            lib_name = "torch._scaled_mm (unit scales)"
+        else:
+            def library():
+                return torch.matmul(lhs, rhs)
+            lib_name = f"torch.matmul in {dt}"
+        esize = a.element_size()
+        peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16:
+                PEAK_BF16_FLOPS}.get(dt, PEAK_8BIT_OPS)
+        flops = 2 * M * N * K
+        nbytes = (M * K + K * N) * esize + M * N * torch.empty(
+            (), dtype=out_dt).element_size()
+        bound, by = mm_bound(flops, nbytes, peak)
+        res[f"matmul_{label}"] = {
+            "shape": [M, N, K], "dtype": str(dt), "out": name,
+            "trans": [ta, tb], "relu": relu, **r,
+            **timed(lambda: gm.matmul(a, b, ta, tb, out_dtype=out_dt,
+                                      relu=relu),
+                    lambda: gm.matmul_plain(a, b, ta, tb, out_dt, relu),
+                    library),
+            "library": lib_name, "bound_ms": bound, "bound_by": by,
+            "flops": flops, "bytes": nbytes}
+        del a, b, lhs, rhs
+        torch.cuda.empty_cache()
+
+    # -- #22, #23, two-pass: w4a16 ---------------------------------------
+    for label, (M, K, N, gs), seed in (
+            ("4096_gs512", (4096, 4096, 4096, 512), 3),
+            ("decode_m16_k4096_n11008_gs128",
+             tuple(LLAMA2_MLP[k] for k in ("M", "K", "N", "gs")), 14)):
+        rng = np.random.default_rng(seed)      # as cfg_w4a16 draws them
+        a_np = (rng.standard_normal((M, K)) * 0.1).astype(np.float32)
+        w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+        packed_np, scales_np = quantize_int4_planar(w_np, group_size=gs)
+        del w_np
+        a = torch.from_numpy(a_np).cuda().to(torch.bfloat16)
+        packed = torch.from_numpy(packed_np).cuda()
+        scales = torch.from_numpy(scales_np).cuda()
+        K2 = K // 2
+        got = drive(f"dequant_matmul {label}", lambda: dqg.dequant_matmul(
+            a, packed, scales, group_size=gs, block_K2=gs),
+            {"dequant_gemm": 1})
+        want = dqg.dequant_matmul_plain(a, packed, scales, gs)
+        r = hold(f"dequant_matmul {label}", got, want,
+                 GEMM_OPS_TOL["bfloat16"])
+        del got, want
+        bd = dqg.dequant_int4_plain(packed, scales, gs, torch.bfloat16)
+        flops = 2 * M * N * K
+        nbytes = (M * K * 2 + K2 * N + scales.numel() * 4 + M * N * 2)
+        bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS)
+        res[f"dequant_gemm_{label}"] = {
+            "shape": [M, N, K], "group_size": gs, **r,
+            **timed(lambda: dqg.dequant_matmul(a, packed, scales,
+                                               group_size=gs, block_K2=gs),
+                    lambda: dqg.dequant_matmul_plain(a, packed, scales, gs),
+                    lambda: torch.matmul(a, bd)),
+            "library": "torch.matmul on the dequantised bf16 weight "
+                       "(excludes the dequant)",
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+        if label.startswith("4096"):     # bench's w4a16: the two-pass path
+            two = drive(f"dequant_matmul_twopass {label}",
+                        lambda: dqg.dequant_matmul_twopass(a, packed,
+                                                           scales),
+                        {"dequant_int4": 1, "matmul": 1})
+            r2 = hold(f"dequant_matmul_twopass {label}", two,
+                      gm.matmul_plain(a, bd), GEMM_OPS_TOL["bfloat16"])
+            del two
+            got = dqg.dequant_int4(packed, scales, gs, torch.bfloat16)
+            r3 = hold(f"dequant_int4 {label}", got, bd,
+                      GEMM_OPS_TOL["dequant_int4"])
+            check(torch.equal(got.view(torch.int16), bd.view(torch.int16)),
+                  "dequant_int4 is not bit-equal to its plain version")
+            del got
+            nb3 = K2 * N + scales.numel() * 4 + K * N * 2
+            b3, by3 = mm_bound(0, nb3, PEAK_BF16_FLOPS)
+            res[f"dequant_int4_{label}"] = {
+                "shape": [K2, N], "group_size": gs, **r3,
+                **timed(lambda: dqg.dequant_int4(packed, scales, gs,
+                                                 torch.bfloat16),
+                        lambda: dqg.dequant_int4_plain(packed, scales, gs,
+                                                       torch.bfloat16),
+                        None),
+                "bound_ms": b3, "bound_by": by3, "bytes": nb3}
+            res[f"twopass_{label}"] = {
+                **r2, **timed(lambda: dqg.dequant_matmul_twopass(
+                    a, packed, scales), lambda: gm.matmul_plain(
+                        a, dqg.dequant_int4_plain(packed, scales, gs,
+                                                  torch.bfloat16)), None)}
+        del a, packed, scales, bd
+        torch.cuda.empty_cache()
+
+    # -- #24 w4a8 ----------------------------------------------------------
+    M = N = K = 4096
+    rng = np.random.default_rng(9)              # as cfg_w4a8 draws them
+    x_np = rng.standard_normal((M, K)).astype(np.float32)
+    w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+    packed_np, sw_np = dqg.quantize_w4_per_channel(w_np)
+    del w_np
+    x = torch.from_numpy(x_np).cuda()
+    packed = torch.from_numpy(packed_np).cuda()
+    sw = torch.from_numpy(sw_np).cuda()
+    got = drive("w4a8_matmul 4096", lambda: dqg.w4a8_matmul(x, packed, sw),
+                {"w4a8_gemm": 1})
+    q, s = dqg.quantize_activations(x)
+    sa = (1.0 / s).float()
+    want = dqg.w4a8_gemm_plain(q, packed, sw, sa)
+    r = hold("w4a8_matmul 4096", got, want, GEMM_OPS_TOL["w4a8"])
+    del got, want
+    p32 = packed.to(torch.int32)
+    # the unpacked weight, column-major as cuBLASLt's int8 path takes it
+    wd8 = torch.cat([(p32 & 0xF) - 8, (p32 >> 4) - 8]).to(
+        torch.int8).T.contiguous().T
+    del p32
+    flops = 2 * M * N * K
+    nbytes = M * K + K * N // 2 + 4 * (N + M) + 4 * M * N
+    bound, by = mm_bound(flops, nbytes, PEAK_8BIT_OPS)
+    res["w4a8_gemm_4096"] = {
+        "shape": [M, N, K], **r,
+        **timed(lambda: dqg.w4a8_gemm(q, packed, sw, sa),
+                lambda: dqg.w4a8_gemm_plain(q, packed, sw, sa),
+                lambda: torch._int_mm(q, wd8)),
+        "library": "torch._int_mm on the unpacked int8 weight (excludes "
+                   "the epilogue)",
+        "entry_ms": device_ms(torch, lambda: dqg.w4a8_matmul(x, packed, sw),
+                              5),
+        "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes}
+    del x, packed, sw, q, s, sa, wd8
+    torch.cuda.empty_cache()
+    res["launches"] = counted
+    print(json.dumps({"gemm": res}), flush=True)
+    return res
+
+
+# the gemm phase's kernels: (name, source, replaced TPU kernel, headline
+# case); the kernel's other cases are nested under "variants"
+GEMM_OPS_KERNELS = (
+    ("matmul", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
+     "bf16_8192x8192x4096"),
+    ("dequant_gemm", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:62", "4096_gs512"),
+    ("dequant_int4", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:127", "4096_gs512"),
+    ("w4a8_gemm", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:204", "4096"))
+
+
+def gemm_kernel_entries(gops):
+    """The ``kernels`` line's entries of the gemm phase's kernels."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    out = []
+    for name, source, replaces, head in GEMM_OPS_KERNELS:
+        prefix = f"{name}_"
+        top = gops[prefix + head]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "tilelang_mesh_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": gops["launches"][name],
+            **{k: top[k] for k in keys}, "case": head,
+            "variants": {c[len(prefix):]: {k: v[k] for k in keys}
+                         for c, v in gops.items()
+                         if c.startswith(prefix) and c != prefix + head}})
+    return out
+
+
+def kernel_registers(log):
+    """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
+    output; a kernel is named by its function and its template
+    arguments (``matmul_bf16<1,0>``)."""
+    import re
+    args = {"f": "f32", "13__nv_bfloat16": "bf16", "h": "u8", "a": "s8"}
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'",
+                      line)
+        if m:
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            if rest.startswith("I"):
+                targs = re.findall(r"L[bi](\d+)E|(13__nv_bfloat16|f)(?=L|E)",
+                                   rest[1:rest.index("EE") + 1])
+                name += "<" + ",".join(a or args[b] for a, b in targs) + ">"
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1179,8 +1530,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from tilelang_mesh_tpu_torch.ops import _build
+    from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
     from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
+    from tilelang_mesh_tpu_torch.ops import gemm as gm
     from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
     from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
     from tilelang_mesh_tpu_torch.ops import mla
@@ -1204,7 +1557,7 @@ def main() -> int:
 
     phase("build")
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
-               "gqa_bwd", "grouped_gemm")
+               "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -1221,6 +1574,8 @@ def main() -> int:
         print(f"{src}: nvcc {nvcc_s:.2f}s, {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes")
+    print(json.dumps({"registers": {src: kernel_registers(
+        _build.build_log(src)[1]) for src in sources}}), flush=True)
 
     phase("kernels")
     f32 = kernel_phase(torch, fd, torch.float32)
@@ -1249,6 +1604,9 @@ def main() -> int:
 
     phase("ring")
     ring = ring_phase(torch, fa)
+
+    phase("gemm")
+    gops = gemm_ops_phase(torch, gm, dqg)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1333,6 +1691,7 @@ def main() -> int:
         "trans_b": {"float32": {k: gemm32["varlen_trans"][k] for k in keys},
                     "bfloat16": {k: gemm16["varlen_trans"][k]
                                  for k in keys}}})
+    kernels += gemm_kernel_entries(gops)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

@@ -23,7 +23,13 @@ Grouped GEMMs, normwise: 1e-5 in float32 (the same float32 sums in
 another order); 1e-2 in bfloat16, where an output rounded to bf16 may
 flip one ulp (2**-8). The MoE layer on the card against the same layer
 on the CPU: 1e-4 normwise (float32; the routing must keep the same
-pairs).
+pairs). The GEMM and the low-bit GEMMs, normwise: 1e-5 for a float32
+output (float32 sums in another order; fp8 and int4 x bf16 products are
+exact in float32); 1e-2 for a bfloat16 output (one bf16 ulp, 2**-8, at
+a rounding boundary); an fp8 e4m3 output within one e4m3 ulp (1/8 of
+the value, or 2**-9 below the normal range) elementwise; the int4
+unpack bit for bit (the same float32 multiply and rounding); w4a8 1e-6
+(exact int32 sums, the same float32 epilogue in the same order).
 """
 
 import dataclasses
@@ -34,7 +40,10 @@ import numpy as np
 import pytest
 import torch
 
+from tilelang_mesh_tpu_torch.ops import _build
+from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
 from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
+from tilelang_mesh_tpu_torch.ops import gemm as gm
 from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
 from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
 from tilelang_mesh_tpu_torch.ops import mla
@@ -501,3 +510,156 @@ def test_ring_attention_on_card_matches_cpu(cuda, causal):
     torch.cuda.synchronize()
     assert fa.launches["mha_fwd_partial"] == before + 1
     assert _normwise(got, want.to(cuda)) <= ATTN_TOL[torch.float32]
+
+
+# matmul's dtype pairs: every input type with each output it takes
+MM_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+            (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+            (torch.float8_e4m3fn, torch.float32),
+            (torch.float8_e4m3fn, torch.bfloat16),
+            (torch.float8_e4m3fn, torch.float8_e4m3fn)]
+
+
+def _close(got, want):
+    """The tolerance of the output's type (module docstring)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float8_e4m3fn:
+        g, w = got.float(), want.float()
+        assert bool(((g - w).abs() <= 0.125 * w.abs() + 2 ** -9).all())
+    else:
+        tol = 1e-5 if got.dtype == torch.float32 else 1e-2
+        assert _normwise(got, want) <= tol
+
+
+def _operand(dev, shape, dtype, seed):
+    scale = 0.3 if dtype == torch.float8_e4m3fn else 1.0
+    return (_randn(dev, shape, torch.float32, seed) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("pair", MM_PAIRS, ids=lambda p: "-".join(
+    str(d).split(".")[1] for d in p))
+@pytest.mark.parametrize("trans_A,trans_B", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("shape", [(77, 150, 1000), (300, 7, 19), (1, 1, 1),
+                                   (256, 128, 384)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_matches_plain(cuda, pair, trans_A, trans_B, shape, relu):
+    """Every dtype pair and transpose, ReLU or not; M, N, K off the tile
+    (K = 1000 and 19 take no 16-byte path for some types, 7 and 1 none)."""
+    (dt, out), (M, N, K) = pair, shape
+    a = _operand(cuda, (K, M) if trans_A else (M, K), dt, 7)
+    b = _operand(cuda, (N, K) if trans_B else (K, N), dt, 8)
+    before = gm.launches["matmul"]
+    got = gm.matmul(a, b, trans_A, trans_B, out_dtype=out, relu=relu)
+    torch.cuda.synchronize()
+    assert gm.launches["matmul"] == before + 1
+    _close(got, gm.matmul_plain(a, b, trans_A, trans_B, out, relu))
+
+
+def _w4_card(dev, K2, N, gs, seed):
+    from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
+    w = np.random.default_rng(seed).standard_normal((2 * K2, N)).astype(
+        np.float32)
+    packed, scales = quantize_int4_planar(w, gs)
+    return torch.from_numpy(packed).to(dev), torch.from_numpy(scales).to(dev)
+
+
+# (M, K/2, N, group size): several groups a half, N and M off the tile;
+# K/2 = 10 takes no 16-byte path
+W4_CASES = [(77, 96, 150, 32), (1, 8, 3, 8), (130, 256, 128, 128),
+            (16, 512, 300, 128), (3, 10, 5, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K2,N,gs", W4_CASES)
+def test_dequant_kernels_match_plain(cuda, dtype, M, K2, N, gs):
+    """The fused w4a16 kernel, the unpack (bit for bit) and the two-pass
+    path (one unpack and one matmul launch)."""
+    packed, scales = _w4_card(cuda, K2, N, gs, 9)
+    a = _randn(cuda, (M, 2 * K2), dtype, 10)
+    before = dict(dqg.launches)
+    got = dqg.dequant_matmul(a, packed, scales, group_size=gs, block_K2=gs)
+    torch.cuda.synchronize()
+    assert dqg.launches["dequant_gemm"] == before["dequant_gemm"] + 1
+    _close(got, dqg.dequant_matmul_plain(a, packed, scales, gs))
+
+    bd = dqg.dequant_int4(packed, scales, gs, dtype)
+    torch.cuda.synchronize()
+    assert dqg.launches["dequant_int4"] == before["dequant_int4"] + 1
+    want = dqg.dequant_int4_plain(packed, scales, gs, dtype)
+    assert torch.equal(bd.view(torch.uint8), want.view(torch.uint8))
+
+    mm = gm.launches["matmul"]
+    two = dqg.dequant_matmul_twopass(a, packed, scales, dq_block=gs)
+    torch.cuda.synchronize()
+    assert dqg.launches["dequant_int4"] == before["dequant_int4"] + 2
+    assert gm.launches["matmul"] == mm + 1
+    _close(two, gm.matmul_plain(a, want))
+
+
+@pytest.mark.parametrize("M,K,N", [(77, 192, 150), (1, 16, 3),
+                                   (130, 512, 256), (5, 20, 7)])
+def test_w4a8_kernel_matches_plain(cuda, M, K, N):
+    """Exact int32 sums and the same epilogue: equal to the plain
+    version up to 1e-6 normwise; K/2 = 10 takes no 16-byte path."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    packed, sw = dqg.quantize_w4_per_channel(w)
+    x = _randn(cuda, (M, K), torch.float32, 12)
+    before = dqg.launches["w4a8_gemm"]
+    got = dqg.w4a8_matmul(x, packed, sw)
+    torch.cuda.synchronize()
+    assert dqg.launches["w4a8_gemm"] == before + 1
+    q, s = dqg.quantize_activations(x)
+    want = dqg.w4a8_gemm_plain(q, torch.from_numpy(packed).to(cuda),
+                               torch.from_numpy(sw).to(cuda),
+                               (1.0 / s).float())
+    assert _normwise(got, want) <= 1e-6
+
+
+class _RefusingLib:
+    """A kernel library whose every launch reports
+    cudaErrorInvalidConfiguration (9)."""
+
+    def __getattr__(self, name):
+        def refuse(*args):
+            return 9
+        return refuse
+
+
+def _gemm_calls(dev):
+    x = torch.zeros((4, 8), device=dev)
+    p = torch.zeros((4, 3), dtype=torch.uint8, device=dev)
+    s = torch.ones((2, 3), device=dev)
+    return [lambda: gm.matmul(x, x.T.contiguous()),
+            lambda: dqg.dequant_matmul(x, p, s),
+            lambda: dqg.dequant_int4(p, s, 4, torch.float32),
+            lambda: dqg.dequant_matmul_twopass(x, p, s),
+            lambda: dqg.w4a8_matmul(x, p, torch.ones(3, device=dev))]
+
+
+def test_gemm_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError, and neither counts a launch."""
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    before = (dict(gm.launches), dict(dqg.launches))
+    monkeypatch.setattr(_build, "load", no_build)
+    for call in _gemm_calls(cuda):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for call in _gemm_calls(cuda):
+        with pytest.raises(KernelLaunchError):
+            call()
+    assert (dict(gm.launches), dict(dqg.launches)) == before
+
+
+def test_gemm_wrappers_refuse_mixed_devices(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        gm.matmul(x, torch.zeros((8, 3)))
+    with pytest.raises(ValueError):
+        dqg.dequant_matmul(x, torch.zeros((4, 3), dtype=torch.uint8),
+                           torch.ones((2, 3), device=cuda))

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build", "build_all",
-           "build_log"]
+           "build_log", "stream_call"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -100,6 +100,14 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def stream_call(fn, dev, *args):
+    """``fn(*args, stream)`` with ``dev``'s current CUDA stream (a C
+    launcher taking the stream last)."""
+    import torch
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def build_log(name: str) -> Tuple[float, str]:

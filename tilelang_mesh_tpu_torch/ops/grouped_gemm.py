@@ -66,11 +66,6 @@ def _check_operands(a, b, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {a.device}")
 
 
-def _stream_call(fn, dev, *args):
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # dense
 # ---------------------------------------------------------------------------
@@ -82,7 +77,7 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped_launch(x, w):
-    from ._build import load
+    from ._build import load, stream_call
     x, w = x.contiguous(), w.contiguous()
     E, M, K = x.shape
     N = w.shape[2]
@@ -98,7 +93,7 @@ def _grouped_launch(x, w):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = _stream_call(fn, x.device, x.data_ptr(), w.data_ptr(),
+    code = stream_call(fn, x.device, x.data_ptr(), w.data_ptr(),
                         out.data_ptr(), E, M, N, K,
                         int(x.dtype == torch.bfloat16))
     if code != 0:
@@ -165,7 +160,7 @@ varlen_grouped_matmul_reference = varlen_grouped_matmul_plain
 
 
 def _varlen_launch(a, b, sizes, trans_b):
-    from ._build import load
+    from ._build import load, stream_call
     a, b = a.contiguous(), b.contiguous()
     K = a.shape[1]
     N = b.shape[1] if trans_b else b.shape[2]
@@ -187,7 +182,7 @@ def _varlen_launch(a, b, sizes, trans_b):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     base = tables.data_ptr()
-    code = _stream_call(fn, a.device, a.data_ptr(), b.data_ptr(), base,
+    code = stream_call(fn, a.device, a.data_ptr(), b.data_ptr(), base,
                         base + 4 * TB, base + 8 * TB, out.data_ptr(), TB, N,
                         K, int(bool(trans_b)), int(a.dtype == torch.bfloat16))
     if code != 0:
