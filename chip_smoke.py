@@ -67,7 +67,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               128); w4a8_matmul at 4096^3. Each call one launch of its
               kernel (two-pass: one unpack, one matmul), read right
               after; its output against the plain version on the card;
-              kernel, plain and library times and the bound.
+              kernel, plain and library times and the bound;
+10. seqmix  — the seventh main path: the sequence-mixing entry points at
+              bench.py's widths (see MAMBA2, GDN, LINATTN):
+              mamba2_chunk_scan (Mamba2-2.7B's SSD widths, chunks 128 and
+              256 in bf16, 128 in f32) and gdn_chunk_fwd_tl (chunk 64 in
+              bf16 and f32; chunk 128 refused, it does not fit a block's
+              shared memory), each also against the sequential recurrence
+              by bench's own check; linear_attention and retention in f32
+              and bf16; linear attention's kernel backward (one forward
+              and three backward launches, its gradients against autograd
+              through the dense reference at a reduced S). Each call one
+              launch of its kernel, read right after; its output against
+              the plain version on the card; kernel, plain and the eager
+              chunk-parallel port's times and the bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -76,6 +89,7 @@ counter. Prints a ``{"kernels": [...]}`` line, then as its last line
 prints no result.
 """
 
+import importlib
 import json
 import math
 import os
@@ -177,6 +191,29 @@ MOE_TOL = 1e-5          # the layer on the kernel vs on the plain GEMM
 GEMM_OPS_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "dequant_int4": 0.0,
                 "w4a8": 1e-6}
 LLAMA2_MLP = dict(M=16, K=4096, N=11008, gs=128)
+
+# Sequence mixing at bench.py's widths (_config_builders, :2125-2127):
+# mamba2_chunk (cfg_mamba2_chunk, :1616) at Mamba2-2.7B's SSD widths
+# (huggingface.co/state-spaces/mamba2-2.7b/blob/main/config.json: d_model
+# 2560, expand 2, head dim 64 -> 80 heads, d_state 128, one group), B 8,
+# S 4096, chunks 128 and 256 in bf16 and 128 in f32; gdn_fwd (cfg_gdn_fwd,
+# :1667) at B 8, H 16, T 4096, K = V = 128, chunk 64 in bf16 and f32
+# (chunk 128 does not fit a block's shared memory: refused); bench's
+# seeded numpy draws, nothing cut. Linear attention and retention have no
+# bench config: the GDN cell's widths, the JAX defaults' chunks (128, 64),
+# draws standard_normal * 0.2 from default_rng(10), retention's decay
+# 1 - 2^(-5 - 4 h / H) a head.
+MAMBA2 = dict(B=8, S=4096, H=80, P=64, N=128)
+GDN = dict(B=8, H=16, T=4096, K=128, V=128)
+LINATTN = dict(B=8, H=16, S=4096, DK=128, DV=128, grad_S=1024)
+# kernel vs plain, normwise: float32 the same arithmetic in another order;
+# bf16 one flipped ulp (2**-8) at a rounding boundary
+SEQ_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# against the sequential recurrence: bench.py's own rel_tol (:1651, :1680)
+SEQ_REF_TOL = {"mamba2": 5e-2, "gdn": 6e-2}
+# the kernel backward's gradients against autograd through the dense
+# reference, float32 (the same sums in another order and grouping)
+LA_GRAD_TOL = 1e-4
 
 
 # the script's peak device memory over the phases whose counters were
@@ -1492,6 +1529,335 @@ def gemm_kernel_entries(gops):
     return out
 
 
+def rel_frobenius(got, want):
+    """bench.py's check (_check_close): ||got - want||_F / ||want||_F."""
+    d = (got.float() - want.float()).double()
+    return float(d.norm() / want.float().double().norm())
+
+
+def mamba2_flops(B, S, H, P, N, c):
+    """Operations the SSD chunk scan needs at chunk c: the lower triangle
+    of C B^T once a batch row (no head changes it); for each head the
+    masked scores' lower triangle times X, C times the carried (N, P)
+    state, and B^T X into it."""
+    return 2.0 * B * S * ((c + 1) / 2 * N
+                          + H * ((c + 1) / 2 * P + 2 * N * P))
+
+
+def gdn_flops(B, H, T, K, V, c):
+    """Operations the gated delta rule needs at chunk c, a token and a
+    head: k k^T's strict lower triangle, the unit-lower triangular solve
+    for w and u by substitution (the kernel's doubling inverse is more),
+    the lower triangles of q k^T and of its product with the new values,
+    and the three (K, V) state products."""
+    return 2.0 * B * H * T * ((c - 1) / 2 * (2 * K + V)
+                              + (c + 1) / 2 * (K + V) + 3 * K * V)
+
+
+def chunk_scan_flops(B, H, S, DK, DV, c):
+    """Operations linear attention or retention needs at chunk c, a
+    token and a head: q times the (DK, DV) state and k^T v into it, and
+    the lower triangles of q k^T and of its product with v (the decays
+    are elementwise). No bfloat16 term for the kernel's hi + lo split of
+    the state: that is the kernel's choice, not the function's work."""
+    return 2.0 * B * H * S * (2 * DK * DV + (c + 1) / 2 * (DK + DV))
+
+
+def seqmix_phase(torch, m2, gd, la):
+    """The sequence-mixing entry points at bench.py's widths: each
+    main-path call with the counters zeroed before it and read right
+    after (one launch a call; linear attention's kernel backward one
+    forward and three backward launches), its output against the plain
+    version on the card and, for Mamba2 and GDN, against the sequential
+    recurrence by bench's own check; then the device times of the
+    kernel, the plain version and the chunk-parallel eager port of
+    bench's baseline, and the bound."""
+    import numpy as np
+    counted = {"mamba2_chunk_scan": 0, "gdn_chunk_fwd": 0,
+               "linear_attention": 0, "retention": 0}
+    res = {}
+    reset_peak(torch)
+
+    def drive(label, call, want_launches, main=True):
+        """``call`` with the counters zeroed before it and read after;
+        a call off the main path (``main=False``) is checked but not
+        counted."""
+        torch.cuda.synchronize()
+        for mod in (m2, gd, la):
+            mod.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {**m2.launches, **gd.launches, **la.launches}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k, n in got.items():
+            counted[k] += n if main else 0
+        return out
+
+    def hold(label, got, want, dtype):
+        tol = SEQ_TOL[str(dtype).replace("torch.", "")]
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return {"max_abs_err": err, "normwise_err": rel,
+                "tolerance": f"normwise {tol}"}
+
+    def against_reference(label, got, ref, tol):
+        rel = rel_frobenius(got, ref)
+        check(math.isfinite(rel) and rel <= tol,
+              f"{label}: {rel:.3e} from the sequential recurrence > {tol}")
+        return {"reference_rel_err": rel, "reference_tolerance":
+                f"relative Frobenius {tol} (bench.py's rel_tol)"}
+
+    def timed(kern, plain, eager=None, iters=5):
+        out = {"ms": device_ms(torch, kern, iters),
+               "plain_ms": device_ms(torch, plain, 2),
+               "library_ms": None}
+        if eager is not None:
+            out["eager_chunked_ms"] = device_ms(torch, eager, 2)
+        return out
+
+    def bf16(a):
+        return torch.from_numpy(a).cuda().to(torch.bfloat16)
+
+    # -- #29 Mamba2 SSD (cfg_mamba2_chunk's draws, default_rng(7)) --------
+    B, S, H, P, N = (MAMBA2[k] for k in "BSHPN")
+    rng = np.random.default_rng(7)
+    x = bf16((rng.standard_normal((B, S, H, P)) * 0.3).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.1, (B, S, H)).astype(
+        np.float32)).cuda()
+    A = torch.from_numpy((-rng.uniform(0.5, 1.5, (H,))).astype(
+        np.float32)).cuda()
+    Bm = bf16((rng.standard_normal((B, S, N)) * 0.3).astype(np.float32))
+    Cm = bf16((rng.standard_normal((B, S, N)) * 0.3).astype(np.float32))
+    t0 = time.perf_counter()
+    ref = m2.mamba2_reference(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    for label, chunk, dtype in (("bf16_chunk128", 128, torch.bfloat16),
+                                ("bf16_chunk256", 256, torch.bfloat16),
+                                ("f32_chunk128", 128, torch.float32)):
+        xs, bs, cs = (t.to(dtype) for t in (x, Bm, Cm))
+        got = drive(f"mamba2_chunk_scan {label}", lambda: m2.mamba2_chunk_scan(
+            xs, dt, A, bs, cs, chunk=chunk), {"mamba2_chunk_scan": 1})
+        r = hold(f"mamba2_chunk_scan {label}", got,
+                 m2.mamba2_chunk_scan_plain(xs, dt, A, bs, cs, chunk), dtype)
+        r.update(against_reference(f"mamba2_chunk_scan {label}", got, ref,
+                                   SEQ_REF_TOL["mamba2"]))
+        del got
+        esize = xs.element_size()
+        nbytes = 2 * x.numel() * esize + 2 * Bm.numel() * esize \
+            + dt.numel() * 4 + A.numel() * 4
+        flops = mamba2_flops(B, S, H, P, N, chunk)
+        bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS
+                             if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        res[f"mamba2_chunk_scan_{label}"] = {
+            "shape": [B, S, H, P, N], "chunk": chunk, **r,
+            **timed(lambda: m2.mamba2_chunk_scan(xs, dt, A, bs, cs,
+                                                 chunk=chunk),
+                    lambda: m2.mamba2_chunk_scan_plain(xs, dt, A, bs, cs,
+                                                       chunk),
+                    lambda: m2.mamba2_chunk_scan_torch(xs, dt, A, bs, cs,
+                                                       chunk=chunk)),
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "reference_s": ref_s}
+        del xs, bs, cs
+        torch.cuda.empty_cache()
+    del x, dt, A, Bm, Cm, ref
+    torch.cuda.empty_cache()
+
+    # -- #30 Gated DeltaNet (cfg_gdn_fwd's draws, default_rng(8)) ----------
+    B, H, T, K, V = (GDN[k] for k in "BHTKV")
+    rng = np.random.default_rng(8)
+    q = bf16((rng.standard_normal((B, H, T, K)) * 0.3).astype(np.float32))
+    k = rng.standard_normal((B, H, T, K)).astype(np.float32)
+    k = bf16(k / np.linalg.norm(k, axis=-1, keepdims=True))
+    v = bf16((rng.standard_normal((B, H, T, V)) * 0.3).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(-0.2, 0.0, (B, H, T)).astype(
+        np.float32)).cuda()
+    beta = torch.from_numpy(rng.uniform(0.1, 0.9, (B, H, T)).astype(
+        np.float32)).cuda()
+    t0 = time.perf_counter()
+    ref = gd.gdn_reference(q, k, v, g, beta)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    scale = 1.0 / math.sqrt(K)
+    # chunk 128 does not fit a block's shared memory at these widths: the
+    # wrapper must refuse it, naming the chunks it takes, with no launch
+    try:
+        drive("gdn_chunk_fwd_tl chunk 128", lambda: gd.gdn_chunk_fwd_tl(
+            q, k, v, g, beta, chunk_size=128), {})
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "takes chunks" in refused,
+          "gdn_chunk_fwd_tl did not refuse chunk 128 on the card")
+    res["gdn_chunk128"] = {"refused": refused}
+    for label, chunk, dtype in (("bf16_chunk64", 64, torch.bfloat16),
+                                ("f32_chunk64", 64, torch.float32)):
+        qs, ks, vs = (t.to(dtype) for t in (q, k, v))
+        got = drive(f"gdn_chunk_fwd_tl {label}", lambda: gd.gdn_chunk_fwd_tl(
+            qs, ks, vs, g, beta, chunk_size=chunk), {"gdn_chunk_fwd": 1})
+        r = hold(f"gdn_chunk_fwd_tl {label}", got, gd.gdn_chunk_fwd_tl_plain(
+            qs, ks, vs, g, beta, chunk, scale), dtype)
+        r.update(against_reference(f"gdn_chunk_fwd_tl {label}", got, ref,
+                                   SEQ_REF_TOL["gdn"]))
+        del got
+        esize = qs.element_size()
+        nbytes = 4 * q.numel() * esize + 2 * g.numel() * 4
+        flops = gdn_flops(B, H, T, K, V, chunk)
+        bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS
+                             if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        res[f"gdn_chunk_fwd_{label}"] = {
+            "shape": [B, H, T, K, V], "chunk": chunk, **r,
+            **timed(lambda: gd.gdn_chunk_fwd_tl(qs, ks, vs, g, beta,
+                                                chunk_size=chunk),
+                    lambda: gd.gdn_chunk_fwd_tl_plain(qs, ks, vs, g, beta,
+                                                      chunk, scale),
+                    lambda: gd.gdn_chunk_fwd(qs, ks, vs, g, beta,
+                                             chunk_size=chunk)),
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "reference_s": ref_s}
+        del qs, ks, vs
+        torch.cuda.empty_cache()
+    del q, k, v, g, beta, ref
+    torch.cuda.empty_cache()
+
+    # -- #27, #28 linear attention and retention (the GDN cell's widths) --
+    B, H, S, DK, DV = (LINATTN[k] for k in ("B", "H", "S", "DK", "DV"))
+    rng = np.random.default_rng(10)
+    q32, k32, v32 = (torch.from_numpy((rng.standard_normal((B, H, S, d))
+                                       * 0.2).astype(np.float32)).cuda()
+                     for d in (DK, DK, DV))
+    go = torch.from_numpy(rng.standard_normal((B, H, S, DV)).astype(
+        np.float32)).cuda()
+    # gamma stays on the host: the wrapper checks its range there, with
+    # no wait on the card inside the timed calls
+    gamma = torch.tensor([1.0 - 2.0 ** (-5.0 - 4.0 * h / H)
+                          for h in range(H)])
+    for kname, chunk in (("linear_attention", 128), ("retention", 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            qs, ks, vs = (t.to(dtype) for t in (q32, k32, v32))
+            if kname == "linear_attention":
+                def kern():
+                    return la.linear_attention(qs, ks, vs, chunk=chunk)
+
+                def plain():
+                    return la.linear_attention_plain(qs, ks, vs, chunk)
+            else:
+                def kern():
+                    return la.retention(qs, ks, vs, gamma, chunk=chunk)
+
+                def plain():
+                    return la.retention_plain(qs, ks, vs, gamma, chunk)
+            got = drive(f"{kname} {name}", kern, {kname: 1})
+            r = hold(f"{kname} {name}", got, plain(), dtype)
+            del got
+            esize = qs.element_size()
+            nbytes = (2 * q32.numel() + 2 * v32.numel()) * esize
+            flops = chunk_scan_flops(B, H, S, DK, DV, chunk)
+            bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS
+                                 if dtype == torch.bfloat16
+                                 else PEAK_F32_FLOPS)
+            res[f"{kname}_{name}_chunk{chunk}"] = {
+                "shape": [B, H, S, DK, DV], "chunk": chunk, **r,
+                **timed(kern, plain), "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes}
+            del qs, ks, vs
+            torch.cuda.empty_cache()
+
+    # linear attention's kernel backward: one forward launch, three
+    # backward ones, at full width, its gradients against the same three
+    # calls on the plain version; then, off the main path, against
+    # autograd through the dense reference at S = LINATTN["grad_S"] (it
+    # is S^2)
+    def fwd_bwd(qq, kk, vv, gg):
+        t = [a.detach().requires_grad_() for a in (qq, kk, vv)]
+        out = la.linear_attention(*t, chunk=128, backward="kernel")
+        (out * gg).sum().backward()
+        return [a.grad for a in t]
+
+    got = drive("linear_attention backward", lambda: fwd_bwd(
+        q32, k32, v32, go), {"linear_attention": 4})
+    bwd = {"launches": 4, "grad_plain": {}}
+    for gname, a, w in zip(("dq", "dk", "dv"), got,
+                           la.linear_attention_grads_plain(
+                               q32, k32, v32, go, 128)):
+        bwd["grad_plain"][gname] = hold(
+            f"linear_attention {gname}", a, w, torch.float32)
+    del got
+    bwd["fwd_bwd_ms"] = device_ms(torch, lambda: fwd_bwd(q32, k32, v32, go),
+                                  3)
+    Sg = LINATTN["grad_S"]
+    qg, kg, vg, gg = (t[:, :, :Sg].contiguous() for t in (q32, k32, v32, go))
+    got = drive("linear_attention backward (reduced S)",
+                lambda: fwd_bwd(qg, kg, vg, gg), {"linear_attention": 4},
+                main=False)
+    t = [a.detach().requires_grad_() for a in (qg, kg, vg)]
+    (la.linear_attention_reference(*t) * gg).sum().backward()
+    errs = {}
+    for gname, a, w in zip(("dq", "dk", "dv"), got, (x.grad for x in t)):
+        err, rel = normwise_err(a, w)
+        check(bool(torch.isfinite(a).all()) and rel <= LA_GRAD_TOL,
+              f"linear_attention {gname}: {rel:.3e} of max |autograd| > "
+              f"{LA_GRAD_TOL}")
+        errs[gname] = rel
+    bwd.update({"grad_S": Sg, "grad_normwise_err": errs,
+                "grad_tolerance": f"normwise {LA_GRAD_TOL} against "
+                                  f"autograd through the dense reference"})
+    res["linear_attention_backward"] = bwd
+    del q32, k32, v32, go, qg, kg, vg, gg, got, t
+    torch.cuda.empty_cache()
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"seqmix": res}), flush=True)
+    return res
+
+
+# the seqmix phase's kernels: (name, source, replaced TPU kernel, headline
+# case); the kernel's other cases are nested under "variants"
+SEQMIX_KERNELS = (
+    ("mamba2_chunk_scan", "mamba2.cu",
+     "tilelang_mesh_tpu/ops/mamba2.py:25", "bf16_chunk128"),
+    ("gdn_chunk_fwd", "gdn.cu", "tilelang_mesh_tpu/ops/gdn.py:31",
+     "bf16_chunk64"),
+    ("linear_attention", "linear_attention.cu",
+     "tilelang_mesh_tpu/ops/linear_attention.py:20", "float32_chunk128"),
+    ("retention", "linear_attention.cu",
+     "tilelang_mesh_tpu/ops/linear_attention.py:122", "float32_chunk64"))
+SEQMIX_LIBRARY = ("none: no single PyTorch call computes the SSD scan, "
+                  "the gated delta rule or chunked linear attention")
+
+
+def seqmix_kernel_entries(seq):
+    """The ``kernels`` line's entries of the seqmix phase's kernels."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    out = []
+    for name, source, replaces, head in SEQMIX_KERNELS:
+        prefix = f"{name}_"
+        top = seq[prefix + head]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "tilelang_mesh_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": seq["launches"][name],
+            **{k: top[k] for k in keys}, "library": SEQMIX_LIBRARY,
+            "case": head,
+            "variants": {c[len(prefix):]: {k: v[k] for k in keys}
+                         for c, v in seq.items() if c.startswith(prefix)
+                         and c != prefix + head and "ms" in v}}
+        if name == "linear_attention":
+            entry["backward"] = seq["linear_attention_backward"]
+        out.append(entry)
+    return out
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -1506,9 +1872,15 @@ def kernel_registers(log):
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
             if rest.startswith("I"):
-                targs = re.findall(r"L[bi](\d+)E|(13__nv_bfloat16|f)(?=L|E)",
-                                   rest[1:rest.index("EE") + 1])
-                name += "<" + ",".join(a or args[b] for a, b in targs) + ">"
+                targs, pos = [], 1
+                while pos < len(rest) and rest[pos] != "E":
+                    t = re.match(r"L[bi](\d+)E|13__nv_bfloat16|[fha]",
+                                 rest[pos:])
+                    if not t:
+                        break
+                    targs.append(t.group(1) or args[t.group(0)])
+                    pos += t.end()
+                name += "<" + ",".join(targs) + ">"
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -1535,8 +1907,12 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops import gemm as gm
     from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
+    from tilelang_mesh_tpu_torch.ops import gdn as gd
     from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
+    from tilelang_mesh_tpu_torch.ops import mamba2 as m2
     from tilelang_mesh_tpu_torch.ops import mla
+    la = importlib.import_module(
+        "tilelang_mesh_tpu_torch.ops.linear_attention")
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -1557,7 +1933,8 @@ def main() -> int:
 
     phase("build")
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
-               "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm")
+               "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm", "mamba2",
+               "gdn", "linear_attention")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -1607,6 +1984,9 @@ def main() -> int:
 
     phase("gemm")
     gops = gemm_ops_phase(torch, gm, dqg)
+
+    phase("seqmix")
+    seq = seqmix_phase(torch, m2, gd, la)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1692,6 +2072,7 @@ def main() -> int:
                     "bfloat16": {k: gemm16["varlen_trans"][k]
                                  for k in keys}}})
     kernels += gemm_kernel_entries(gops)
+    kernels += seqmix_kernel_entries(seq)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

@@ -29,12 +29,21 @@ exact in float32); 1e-2 for a bfloat16 output (one bf16 ulp, 2**-8, at
 a rounding boundary); an fp8 e4m3 output within one e4m3 ulp (1/8 of
 the value, or 2**-9 below the normal range) elementwise; the int4
 unpack bit for bit (the same float32 multiply and rounding); w4a8 1e-6
-(exact int32 sums, the same float32 epilogue in the same order).
+(exact int32 sums, the same float32 epilogue in the same order). An
+fp8 e4m3 output past the format's range is NaN at the plain version's
+positions. The sequence-mixing kernels (Mamba2 SSD, Gated DeltaNet,
+linear attention, retention), normwise: 1e-4 in float32 (the same
+float32 arithmetic in another order; linear attention's backward the
+same kernel on flipped operands); 1e-2 in bfloat16, where both round to
+bf16 at the same points but a 1e-7 difference at a rounding boundary
+flips one bf16 ulp (2**-8), and bf16 linear attention's q @ state runs
+as q @ hi + q @ lo on the tensor cores (about 2**-17 of the state).
 """
 
 import dataclasses
 import importlib
 import math
+import re
 
 import numpy as np
 import pytest
@@ -46,12 +55,15 @@ from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
 from tilelang_mesh_tpu_torch.ops import gemm as gm
 from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
 from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
+from tilelang_mesh_tpu_torch.ops import gdn
+from tilelang_mesh_tpu_torch.ops import mamba2
 from tilelang_mesh_tpu_torch.ops import mla
 from tilelang_mesh_tpu_torch.resilience.errors import KernelLaunchError
 from tilelang_mesh_tpu_torch.resilience import faults
 from tilelang_mesh_tpu_torch.resilience.retry import global_breaker
 
 fa = importlib.import_module("tilelang_mesh_tpu_torch.ops.flash_attention")
+la = importlib.import_module("tilelang_mesh_tpu_torch.ops.linear_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -663,3 +675,216 @@ def test_gemm_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         dqg.dequant_matmul(x, torch.zeros((4, 3), dtype=torch.uint8),
                            torch.ones((2, 3), device=cuda))
+
+
+def test_matmul_fp8_overflow_nan_matches_plain(cuda):
+    """4-scaled e4m3 operands: sums past the format's range give NaN in
+    the kernel's fp8 output exactly where the plain version's cast gives
+    it (|c| > 464); the rest within one e4m3 ulp."""
+    for (M, N, K), seed in (((128, 128, 128), 0), ((77, 150, 200), 1)):
+        rng = np.random.default_rng(seed)
+        a, b = ((torch.from_numpy((4 * rng.standard_normal(s)).astype(
+            np.float32)).to(cuda).to(torch.float8_e4m3fn))
+            for s in ((M, K), (K, N)))
+        got = gm.matmul(a, b)
+        want = gm.matmul_plain(a, b)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        nan = torch.isnan(w)
+        assert int(nan.sum()) > 0
+        assert torch.equal(torch.isnan(g), nan)
+        assert bool(((g - w).abs()[~nan] <= 0.125 * w.abs()[~nan]
+                     + 2 ** -9).all())
+
+
+SEQ_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _seq_close(got, want, dtype):
+    assert _normwise(got, want) <= SEQ_TOL[dtype]
+
+
+def _mamba2_inputs(dev, B, S, H, P, N, dtype, seed, dt_range=(0.01, 0.1),
+                   a=None):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((B, S, H, P)) * 0.5).astype(
+        np.float32)).to(dev).to(dtype)
+    dt = torch.from_numpy(rng.uniform(*dt_range, (B, S, H)).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(np.asarray(a if a is not None else -rng.uniform(
+        0.5, 1.5, (H,)), np.float32)).to(dev)
+    bm, cm = (torch.from_numpy((rng.standard_normal((B, S, N)) * 0.3).astype(
+        np.float32)).to(dev).to(dtype) for _ in range(2))
+    return x, dt, A, bm, cm
+
+
+# every chunk the kernels take at these widths: float32 up to 256,
+# bfloat16 up to 512 (the sequence)
+SEQ_CHUNKS = [(dt, c) for dt in (torch.float32, torch.bfloat16)
+              for c in (16, 32, 64, 128, 256)] + [(torch.bfloat16, 512)]
+
+
+@pytest.mark.parametrize("dtype,chunk", SEQ_CHUNKS)
+def test_mamba2_kernel_matches_plain(cuda, dtype, chunk):
+    """bench's state and head widths (N 128, P 64) at every chunk the
+    card takes; the largest run on column blocks of P."""
+    args = _mamba2_inputs(cuda, 2, 512, 3, 64, 128, dtype, chunk)
+    before = mamba2.launches["mamba2_chunk_scan"]
+    got = mamba2.mamba2_chunk_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba2.launches["mamba2_chunk_scan"] == before + 1
+    _seq_close(got, mamba2.mamba2_chunk_scan_plain(*args, chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_kernel_long_chunk_no_overflow(cuda, dtype):
+    """tests/test_mamba2.py's strong-decay case (|A| sum dt ~ 128 over a
+    chunk of 256): finite, and the plain version's values."""
+    args = _mamba2_inputs(cuda, 1, 256, 1, 32, 32, dtype, 2, (0.4, 0.6),
+                          [-1.0])
+    got = mamba2.mamba2_chunk_scan(*args, chunk=256)
+    _seq_close(got, mamba2.mamba2_chunk_scan_plain(*args, 256), dtype)
+    if dtype == torch.float32:      # the JAX test's own check, in float32
+        assert _normwise(got, mamba2.mamba2_reference(*args)) <= 2e-2
+
+
+def _gdn_inputs(dev, B, H, T, K, V, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    q = t(rng.standard_normal((B, H, T, K)) * 0.3).to(dtype)
+    k = rng.standard_normal((B, H, T, K))
+    k = t(k / np.linalg.norm(k, axis=-1, keepdims=True)).to(dtype)
+    v = t(rng.standard_normal((B, H, T, V)) * 0.3).to(dtype)
+    g = t(rng.uniform(-0.2, 0.0, (B, H, T)))
+    beta = t(rng.uniform(0.1, 0.9, (B, H, T)))
+    return q, k, v, g, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K,V", [(16, 128, 128), (32, 128, 128),
+                                   (64, 128, 128), (64, 64, 32),
+                                   (32, 32, 96)])
+def test_gdn_kernel_matches_plain(cuda, dtype, C, K, V):
+    """bench's widths (K = V = 128) at every chunk the card takes, and
+    rectangular key / value widths."""
+    args = _gdn_inputs(cuda, 2, 2, 256, K, V, dtype, C + K)
+    before = gdn.launches["gdn_chunk_fwd"]
+    got = gdn.gdn_chunk_fwd_tl(*args, chunk_size=C)
+    torch.cuda.synchronize()
+    assert gdn.launches["gdn_chunk_fwd"] == before + 1
+    _seq_close(got, gdn.gdn_chunk_fwd_tl_plain(*args, C, K ** -0.5), dtype)
+
+
+def _la_inputs(dev, B, H, S, DK, DV, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy((rng.standard_normal(s) * 0.2).astype(
+        np.float32)).to(dev).to(dtype)
+        for s in ((B, H, S, DK), (B, H, S, DK), (B, H, S, DV)))
+
+
+@pytest.mark.parametrize("dtype,chunk,DK,DV",
+                         [(dt, c, 128, 128) for dt, c in SEQ_CHUNKS]
+                         + [(dt, c, dk, dv) for dt in (torch.float32,
+                                                       torch.bfloat16)
+                            for c, dk, dv in ((64, 64, 128),
+                                              (128, 128, 64))])
+def test_linear_attention_kernel_matches_plain(cuda, dtype, chunk, DK, DV):
+    q, k, v = _la_inputs(cuda, 2, 2, 512, DK, DV, dtype, chunk + DV)
+    before = la.launches["linear_attention"]
+    got = la.linear_attention(q, k, v, chunk=chunk)
+    torch.cuda.synchronize()
+    assert la.launches["linear_attention"] == before + 1
+    _seq_close(got, la.linear_attention_plain(q, k, v, chunk), dtype)
+
+
+@pytest.mark.parametrize("DK,DV", [(64, 64), (64, 128)])
+def test_linear_attention_backward_three_launches(cuda, DK, DV):
+    """backward="kernel" on the card: one launch forward, three backward
+    (dq at the (DV, DK) widths), the gradients those of the same
+    autograd Function on CPU tensors (the plain version)."""
+    ins = _la_inputs("cpu", 1, 2, 256, DK, DV, torch.float32, 7)
+    go = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 2, 256, DV)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        t = [a.detach().to(dev).requires_grad_() for a in ins]
+        before = la.launches["linear_attention"]
+        out = la.linear_attention(*t, chunk=64, backward="kernel")
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert la.launches["linear_attention"] == before + 1
+        (out * go.to(dev)).sum().backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert la.launches["linear_attention"] == before + 4
+        grads[str(dev)] = [a.grad for a in t]
+    for g, w in zip(grads[str(cuda)], grads["cpu"]):
+        assert _normwise(g, w.to(cuda)) <= SEQ_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype,chunk", SEQ_CHUNKS)
+def test_retention_kernel_matches_plain(cuda, dtype, chunk):
+    q, k, v = _la_inputs(cuda, 2, 4, 512, 128, 128, dtype, chunk)
+    gamma = torch.tensor([1.0 - 2.0 ** (-5.0 - h) for h in range(4)],
+                         device=cuda)        # one decay a head, in (0, 1)
+    before = la.launches["retention"]
+    got = la.retention(q, k, v, gamma, chunk=chunk)
+    torch.cuda.synchronize()
+    assert la.launches["retention"] == before + 1
+    _seq_close(got, la.retention_plain(q, k, v, gamma, chunk), dtype)
+
+
+def test_retention_decay_powers(cuda):
+    """Strong and no decay (gamma 0.05 ... 1): the powers gamma^(i+1),
+    gamma^(i-j), gamma^(c-1-j) and gamma^c by exp2(log2 gamma n), as the
+    plain version takes them, and the dense reference."""
+    q, k, v = _la_inputs(cuda, 1, 4, 256, 64, 64, torch.float32, 9)
+    gamma = [0.05, 0.5, 0.99, 1.0]
+    got = la.retention(q, k, v, gamma, chunk=64)
+    g = torch.tensor(gamma, device=cuda)
+    _seq_close(got, la.retention_plain(q, k, v, g, 64), torch.float32)
+    assert _normwise(got, la.retention_reference(q, k, v, gamma)) <= 1e-4
+
+
+def test_retention_host_gamma_does_not_wait_on_the_card(cuda):
+    """A gamma given on the host is range-checked there: the call
+    enqueues its copy and its launch and never waits on the card."""
+    q, k, v = _la_inputs(cuda, 1, 4, 256, 64, 64, torch.float32, 10)
+    gamma = torch.tensor([0.5, 0.9, 0.99, 1.0])
+    want = la.retention(q, k, v, gamma, chunk=64)       # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = la.retention(q, k, v, gamma, chunk=64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["mamba2", "gdn", "linear_attention",
+                                "retention"])
+def test_seqmix_kernels_name_the_chunks_they_take(cuda, op):
+    """A chunk whose block does not fit in shared memory (float32 at 512;
+    GDN at 128, its four float32 C x C matrices alone) raises ValueError
+    naming the chunks the card takes, and launches nothing."""
+    f32 = torch.float32
+    if op == "mamba2":
+        args = _mamba2_inputs(cuda, 1, 512, 1, 64, 128, f32, 1)
+        call = lambda: mamba2.mamba2_chunk_scan(*args, chunk=512)
+        takes, counter = "[16, 32, 64, 128, 256]", mamba2.launches
+    elif op == "gdn":
+        args = _gdn_inputs(cuda, 1, 1, 256, 128, 128, torch.bfloat16, 3)
+        call = lambda: gdn.gdn_chunk_fwd_tl(*args, chunk_size=128)
+        takes, counter = "[16, 32, 64]", gdn.launches
+    else:
+        q, k, v = _la_inputs(cuda, 1, 1, 512, 128, 128, f32, 2)
+        call = (lambda: la.linear_attention(q, k, v, chunk=512)) \
+            if op == "linear_attention" \
+            else (lambda: la.retention(q, k, v, [0.9], chunk=512))
+        takes, counter = "[16, 32, 64, 128, 256]", la.launches
+    before = dict(counter)
+    with pytest.raises(ValueError, match=re.escape(f"takes chunks {takes}")):
+        call()
+    assert counter == before

@@ -96,6 +96,27 @@ def test_matmul_fp8_to_f32_matches_jax():
                        got.to(torch.float8_e4m3fn).view(torch.uint8))
 
 
+def test_matmul_fp8_overflow_gives_jax_nan_bytes():
+    """An fp8 e4m3 output past the format's range is NaN, as the JAX
+    package's cast gives it (torch's own cast saturates to +-448): on
+    4-scaled operands, 186 of 16,384 sums round past 448 (|c| > 464);
+    the port's bytes equal JAX's bit for bit, NaN signs included."""
+    rng = np.random.default_rng(0)
+    a = (4 * rng.standard_normal((128, 128))).astype(np.float32)
+    b = (4 * rng.standard_normal((128, 128))).astype(np.float32)
+    ja, jb = jnp.asarray(a).astype(jnp.float8_e4m3fn), \
+        jnp.asarray(b).astype(jnp.float8_e4m3fn)
+    want = np.asarray(ref.matmul(ja, jb)).view(np.uint8)
+    to8 = lambda x: torch.from_numpy(np.asarray(x).view(np.uint8).copy()) \
+        .view(torch.float8_e4m3fn)
+    got = port.matmul(to8(ja), to8(jb))
+    assert got.dtype == torch.float8_e4m3fn
+    got_bytes = got.view(torch.uint8).numpy()
+    nan = (want & 0x7F) == 0x7F
+    assert int(nan.sum()) == 186
+    np.testing.assert_array_equal(got_bytes, want)
+
+
 @pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
 def test_matmul_relu_matches_jax(out_dtype):
     rng = np.random.default_rng(4)

@@ -6,7 +6,8 @@
 //     trans_b; C (M, N). Inputs float32, bfloat16 or float8 e4m3 (both
 //     the same), accumulated in float32 (no TF32), ReLU on the
 //     accumulator, then rounded once to C's type: float32, bfloat16 or
-//     float8 e4m3 (round to nearest even, saturating).
+//     float8 e4m3 (round to nearest even; NaN past the range, as the
+//     JAX package casts).
 //
 // One block a 128 x 128 tile of C on the block tile loop of
 // gemm_tile.cuh: FFMA for float32, mma.sync m16n8k16 for bfloat16, and

@@ -112,10 +112,11 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
-// round to nearest even, saturating to +-448 (NaN stays NaN), as
-// PyTorch's float -> float8_e4m3fn cast does
+// round to nearest even; a value that rounds past +-448 (|x| > 464, or
+// infinite) is NaN, as the JAX package's cast gives (e4m3 has no
+// infinity)
 __device__ __forceinline__ void store(__nv_fp8_e4m3* p, float x) {
-  p->__x = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+  p->__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
 }
 
 // Copies the (R x W) window at (r0, c0) of a row-major (nr x nc) matrix

@@ -9,11 +9,20 @@ from .flash_decoding import (decode_partials,  # noqa: F401
                              flash_decode_paged, flash_decode_paged_pool,
                              pages_to_hmajor, paged_decode_partials,
                              paged_decode_partials_plain)
+from .gdn import (gdn_chunk_fwd, gdn_chunk_fwd_tl,  # noqa: F401
+                  gdn_chunk_fwd_tl_plain, gdn_reference)
 from .gemm import matmul, matmul_kernel  # noqa: F401
 from .grouped_gemm import (grouped_matmul,  # noqa: F401
                            grouped_matmul_plain, varlen_grouped_matmul,
                            varlen_grouped_matmul_plain,
                            varlen_grouped_matmul_reference)
+from .linear_attention import (linear_attention,  # noqa: F401
+                               linear_attention_plain,
+                               linear_attention_reference, retention,
+                               retention_plain, retention_reference)
+from .mamba2 import (mamba2_chunk_scan,  # noqa: F401
+                     mamba2_chunk_scan_plain, mamba2_chunk_scan_torch,
+                     mamba2_reference)
 from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
                   mla_decode_partials_plain, mla_decode_reference)
 
@@ -26,4 +35,9 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "varlen_grouped_matmul", "varlen_grouped_matmul_plain",
            "varlen_grouped_matmul_reference", "matmul", "matmul_kernel",
            "dequant_matmul", "dequant_gemm_kernel", "dequant_matmul_twopass",
-           "w4a8_matmul", "quantize_w4_per_channel"]
+           "w4a8_matmul", "quantize_w4_per_channel", "mamba2_chunk_scan",
+           "mamba2_chunk_scan_plain", "mamba2_chunk_scan_torch",
+           "mamba2_reference", "gdn_chunk_fwd_tl", "gdn_chunk_fwd_tl_plain",
+           "gdn_chunk_fwd", "gdn_reference", "linear_attention",
+           "linear_attention_plain", "linear_attention_reference",
+           "retention", "retention_plain", "retention_reference"]

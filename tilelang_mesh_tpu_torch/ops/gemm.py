@@ -9,7 +9,9 @@ replaces the TPU's ``matmul_kernel``:
   ``trans_B``), both float32, bfloat16 or float8 e4m3, accumulated in
   float32 (no TF32), ReLU on the accumulator, returned in ``out_dtype``
   (default: the inputs' type), which is float32, bfloat16 or the
-  inputs' type. Any other pair raises ``TypeError``.
+  inputs' type. Any other pair raises ``TypeError``. A float8 e4m3
+  output is NaN where the sum rounds past the format's range (|c| >
+  464), as in the JAX package.
 * ``matmul_kernel(M, N, K, ...)`` — the JAX package's factory: the same
   product for fixed shapes and types, as a callable ``k(a, b)``.
 
@@ -18,7 +20,8 @@ they are accepted and ignored, since they do not change the result.
 
 The wrapper launches the kernel on CUDA tensors (a build or launch
 failure raises; there is no fallback) and runs its plain PyTorch version
-(``matmul_plain``: upcast to float32, ``torch.matmul``, ReLU, cast) on
+(``matmul_plain``: upcast to float32, ``torch.matmul``, ReLU, cast by
+``to_out``) on
 CPU tensors. The tests and ``chip_smoke.py`` hold the kernel against the
 plain version.
 """
@@ -33,7 +36,7 @@ import torch
 from ..resilience.errors import KernelLaunchError
 
 __all__ = ["matmul", "matmul_plain", "matmul_kernel", "launches",
-           "reset_launches", "IN_DTYPES"]
+           "reset_launches", "to_out", "IN_DTYPES"]
 
 # the kernel's input types, with their codes in tl_matmul
 IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -109,6 +112,22 @@ def matmul_plain(a, b, trans_A: bool = False, trans_B: bool = False,
                      b.float().T if trans_B else b.float())
     if relu:
         c = torch.relu(c)
+    return to_out(c, out)
+
+
+# |x| above which float8 e4m3 rounds past its largest value (448, whose
+# neighbour 480 has no code): halfway, 464 itself rounds to even (448)
+_E4M3_OVERFLOW = 464.0
+
+
+def to_out(c: torch.Tensor, out: torch.dtype) -> torch.Tensor:
+    """``c`` (float32) in ``out``. A float8 e4m3 output takes NaN, of
+    c's sign, where c rounds past the format's range (|c| > 464, or
+    infinite), as the JAX package's cast does: torch's own cast would
+    saturate to +-448."""
+    if out == torch.float8_e4m3fn:
+        nan = torch.copysign(torch.full_like(c, float("nan")), c)
+        c = torch.where(c.abs() > _E4M3_OVERFLOW, nan, c)
     return c.to(out)
 
 
