@@ -60,8 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. gemm     — the sixth main path: the library's GEMM entry points at
               bench.py's shapes (see GEMM_OPS_TOL): matmul in bf16 at
               1024^3 and 8192 x 8192 x 4096, in f32 and bf16 at 4096^3
-              in every transpose, once with ReLU, fp8 e4m3 -> f32 at
-              4096^3; dequant_matmul and dequant_matmul_twopass (w4a16,
+              in every transpose, once with ReLU, fp8 e4m3 -> f32, f16
+              and int8 -> int32 (accum_dtype int32) at 4096^3;
+              dequant_matmul and dequant_matmul_twopass (w4a16,
               bf16, group size 512) at 4096^3 and dequant_matmul at a
               LLaMA-2-7B MLP decode step (M 16, K 4096, N 11008, group
               128); w4a8_matmul at 4096^3. Each call one launch of its
@@ -80,7 +81,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               through the dense reference at a reduced S). Each call one
               launch of its kernel, read right after; its output against
               the plain version on the card; kernel, plain and the eager
-              chunk-parallel port's times and the bound.
+              chunk-parallel port's times and the bound;
+11. gemm_variants — the eighth main path: the GEMM scheduling variants at
+              LLaMA-2-7B's MLP and head widths (see LLAMA2): split-K at a
+              16-token decode step's gate/up (bf16 and f32) and down
+              products, stream-K at a 512-token prefill chunk's gate/up
+              with one program a block the card holds at once, GEMV at a
+              single token's gate/up (bf16, f32) and LM head, block-sparse
+              at a 4096-token prefill's gate/up under a random half-dense
+              128 x 128 cell mask. Each call's launches (the split-K and
+              stream-K sums named) read right after; its output against
+              the plain version on the card; block-sparse dead cells
+              exactly 0 and an all-ones mask against matmul; kernel,
+              plain, library and matmul times and the bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -100,6 +113,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # the serving path's geometry (bench.py cfg_paged_decode's decode shape)
 H, D, PS = 32, 128, 128
@@ -188,9 +202,21 @@ MOE_TOL = 1e-5          # the layer on the kernel vs on the plain GEMM
 # Kernel vs plain, normwise: a float32 output the same float32 sums in
 # another order; bf16 one output ulp; the int4 unpack the same multiply
 # and rounding (0); w4a8 exact int32 sums and the same epilogue.
-GEMM_OPS_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "dequant_int4": 0.0,
-                "w4a8": 1e-6}
+GEMM_OPS_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2,
+                "int32": 0.0, "dequant_int4": 0.0, "w4a8": 1e-6}
 LLAMA2_MLP = dict(M=16, K=4096, N=11008, gs=128)
+
+# The GEMM variants at LLaMA-2-7B's widths (the config above: hidden 4096,
+# intermediate 11008, vocab 32000): split-K at a 16-token decode step
+# (gate/up K 4096 -> N 11008; down K 11008 -> N 4096, where the JAX
+# split rule takes 2 of 8 asked splits), stream-K at a 512-token prefill
+# chunk's gate/up (4 x 86 = 344 tiles), GEMV at one token's gate/up and
+# LM head, block-sparse at a 4096-token prefill's gate/up with a
+# 128 x 128 cell mask drawn as examples/blocksparse_gemm draws it (rng
+# 0: a, b, then random() > 0.5). Draws standard_normal * 0.1, bf16 unless
+# named; nothing cut. Kernel vs plain at GEMM_TOL's bounds.
+LLAMA2 = dict(hidden=4096, inter=11008, vocab=32000, decode=16,
+              prefill_chunk=512, prefill=4096, n_split=8)
 
 # Sequence mixing at bench.py's widths (_config_builders, :2125-2127):
 # mamba2_chunk (cfg_mamba2_chunk, :1616) at Mamba2-2.7B's SSD widths
@@ -234,7 +260,8 @@ def check(cond, msg):
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f}s)",
+          flush=True)
 
 
 def cuda_ms(torch, fn, iters):
@@ -1338,26 +1365,48 @@ def gemm_ops_phase(torch, gm, dqg):
     cases += [("f32_4096_relu", 1, (4096,) * 3, torch.float32, None,
                (False, True), True),
               ("fp8_f32_4096", 2, (4096,) * 3, torch.float8_e4m3fn,
-               torch.float32, (False, False), False)]
+               torch.float32, (False, False), False),
+              ("f16_4096", 1, (4096,) * 3, torch.float16, None,
+               (False, False), False),
+              ("int8_i32_4096", 1, (4096,) * 3, torch.int8, torch.int32,
+               (False, False), False)]
     for label, seed, (M, N, K), dt, out, (ta, tb), relu in cases:
-        a_np, b_np = draw_np(seed, (K, M) if ta else (M, K),
-                             (N, K) if tb else (K, N))
-        if dt == torch.float8_e4m3fn:
-            a, b = fp8(a_np), fp8(b_np)
+        a_shape, b_shape = (K, M) if ta else (M, K), (N, K) if tb else (K, N)
+        if dt == torch.int8:
+            rng = np.random.default_rng(seed)
+            a, b = (torch.from_numpy(rng.integers(-128, 128, s).astype(
+                np.int8)).cuda() for s in (a_shape, b_shape))
         else:
-            a = torch.from_numpy(a_np).cuda().to(dt)
-            b = torch.from_numpy(b_np).cuda().to(dt)
-        del a_np, b_np
+            a_np, b_np = draw_np(seed, a_shape, b_shape)
+            if dt == torch.float8_e4m3fn:
+                a, b = fp8(a_np), fp8(b_np)
+            else:
+                a = torch.from_numpy(a_np).cuda().to(dt)
+                b = torch.from_numpy(b_np).cuda().to(dt)
+            del a_np, b_np
         out_dt = out or dt
-        got = drive(f"matmul {label}", lambda: gm.matmul(
-            a, b, ta, tb, out_dtype=out_dt, relu=relu), {"matmul": 1})
+        # the int8 product is matmul_kernel's, with its int32 accumulator
+        kern = gm.matmul_kernel(
+            M, N, K, in_dtype=dt, out_dtype=out_dt,
+            accum_dtype=torch.int32 if dt == torch.int8 else torch.float32,
+            trans_A=ta, trans_B=tb, relu=relu)
+        got = drive(f"matmul {label}", lambda: kern(a, b), {"matmul": 1})
         want = gm.matmul_plain(a, b, ta, tb, out_dt, relu)
         name = str(out_dt).replace("torch.", "")
         r = hold(f"matmul {label}", got, want, GEMM_OPS_TOL[name])
+        if dt == torch.int8:
+            check(torch.equal(got, want), f"matmul {label}: int32 sums "
+                                          f"differ from the plain version")
         del got, want
         lhs = a.T if ta else a
         rhs = b.T if tb else b
-        if dt == torch.float8_e4m3fn:     # cuBLASLt fp8, unit scales
+        if dt == torch.int8:              # cuBLASLt int8, column-major B
+            bcol = rhs.T.contiguous().T
+
+            def library():
+                return torch._int_mm(lhs, bcol)
+            lib_name = "torch._int_mm"
+        elif dt == torch.float8_e4m3fn:   # cuBLASLt fp8, unit scales
             one = torch.ones((), device="cuda")
             bcol = rhs.T.contiguous().T               # column-major
 
@@ -1371,7 +1420,8 @@ def gemm_ops_phase(torch, gm, dqg):
             lib_name = f"torch.matmul in {dt}"
         esize = a.element_size()
         peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16:
-                PEAK_BF16_FLOPS}.get(dt, PEAK_8BIT_OPS)
+                PEAK_BF16_FLOPS, torch.float16: PEAK_BF16_FLOPS}.get(
+                    dt, PEAK_8BIT_OPS)
         flops = 2 * M * N * K
         nbytes = (M * K + K * N) * esize + M * N * torch.empty(
             (), dtype=out_dt).element_size()
@@ -1379,8 +1429,7 @@ def gemm_ops_phase(torch, gm, dqg):
         res[f"matmul_{label}"] = {
             "shape": [M, N, K], "dtype": str(dt), "out": name,
             "trans": [ta, tb], "relu": relu, **r,
-            **timed(lambda: gm.matmul(a, b, ta, tb, out_dtype=out_dt,
-                                      relu=relu),
+            **timed(lambda: kern(a, b),
                     lambda: gm.matmul_plain(a, b, ta, tb, out_dt, relu),
                     library),
             "library": lib_name, "bound_ms": bound, "bound_by": by,
@@ -1510,23 +1559,217 @@ GEMM_OPS_KERNELS = (
      "tilelang_mesh_tpu/ops/dequant_gemm.py:204", "4096"))
 
 
-def gemm_kernel_entries(gops):
-    """The ``kernels`` line's entries of the gemm phase's kernels."""
+def kernel_entries(res, kernels):
+    """The ``kernels`` line's entries of a phase's kernels: ``kernels``
+    holds (name, source, replaced TPU kernel, headline case); the
+    phase's other timed cases of a kernel are nested under "variants",
+    and a case's library call and the port's ``matmul`` on the same
+    operands come along where the phase took them."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     out = []
-    for name, source, replaces, head in GEMM_OPS_KERNELS:
+    for name, source, replaces, head in kernels:
         prefix = f"{name}_"
-        top = gops[prefix + head]
-        out.append({
+        top = res[prefix + head]
+        entry = {
             "name": name, "route": "cuda",
             "source": "tilelang_mesh_tpu_torch/csrc/" + source,
-            "replaces": replaces, "launches": gops["launches"][name],
+            "replaces": replaces, "launches": res["launches"][name],
             **{k: top[k] for k in keys}, "case": head,
-            "variants": {c[len(prefix):]: {k: v[k] for k in keys}
-                         for c, v in gops.items()
-                         if c.startswith(prefix) and c != prefix + head}})
+            "variants": {c[len(prefix):]: {k: v[k] for k in keys
+                                           + ("matmul_ms",) if k in v}
+                         for c, v in res.items() if c.startswith(prefix)
+                         and c != prefix + head and "ms" in v}}
+        entry.update({k: top[k] for k in ("library", "matmul_ms")
+                      if k in top})
+        out.append(entry)
     return out
+
+
+def gemm_variants_phase(torch, gv, gm):
+    """The GEMM scheduling variants at LLaMA-2-7B's widths (LLAMA2): each
+    main-path call with the counters zeroed before it and read right
+    after (split-K and stream-K two launches a call: the partials and
+    their sum; GEMV and block-sparse one), its output against the plain
+    version on the card, block-sparse's dead cells exactly 0 and its
+    all-ones mask against matmul; then the device times of the kernel,
+    the plain version, a library call and the port's matmul on the same
+    operands, and the bound."""
+    import numpy as np
+    counted = dict.fromkeys(gv.launches, 0)
+    res = {}
+    reset_peak(torch)
+    hid, inter = LLAMA2["hidden"], LLAMA2["inter"]
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        gv.reset_launches()
+        gm.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {**gv.launches, "matmul": gm.launches["matmul"]}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def hold(label, got, want):
+        tol = GEMM_TOL[str(want.dtype).replace("torch.", "")]
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return {"max_abs_err": err, "normwise_err": rel,
+                "tolerance": f"normwise {tol}"}
+
+    def timed(kern, plain, library, matmul=None, iters=5):
+        out = {"ms": device_ms(torch, kern, iters),
+               "plain_ms": device_ms(torch, plain, 2),
+               "library_ms": device_ms(torch, library, iters)}
+        if matmul is not None:
+            out["matmul_ms"] = device_ms(torch, matmul, iters)
+        return out
+
+    def operands(seed, *shapes, dtype=torch.bfloat16):
+        return [torch.from_numpy(x).cuda().to(dtype)
+                for x in draw_np(seed, *shapes)]
+
+    def bound(dtype, flops, nbytes):
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "flops": flops,
+                "bytes": nbytes}
+
+    # -- #16 split-K: a 16-token decode step's MLP products ---------------
+    M = LLAMA2["decode"]
+    for label, (K, N), dt, seed in (
+            ("decode_gate_up_bf16", (hid, inter), torch.bfloat16, 30),
+            ("decode_down_bf16", (inter, hid), torch.bfloat16, 31),
+            ("decode_gate_up_f32", (hid, inter), torch.float32, 30)):
+        a, b = operands(seed, (M, K), (K, N), dtype=dt)
+        n_ask = LLAMA2["n_split"]
+        n_split, split_len, _ = gv.splitk_plan(K, n_ask)
+        print(f"split-K {label}: {n_ask} splits asked, {n_split} taken "
+              f"(chunks of {split_len})", flush=True)
+        got = drive(f"matmul_splitk {label}", lambda: gv.matmul_splitk(
+            a, b, n_split=n_ask), {"splitk_gemm": 1, "splitk_reduce": 1})
+        r = hold(f"matmul_splitk {label}", got,
+                 gv.matmul_splitk_plain(a, b, n_split=n_ask))
+        del got
+        res[f"splitk_gemm_{label}"] = {
+            "shape": [M, N, K], "dtype": str(dt), "n_split_asked": n_ask,
+            "n_split": n_split, "launches_a_call": 2, **r,
+            **timed(lambda: gv.matmul_splitk(a, b, n_split=n_ask),
+                    lambda: gv.matmul_splitk_plain(a, b, n_split=n_ask),
+                    lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
+            "library": "torch.matmul in " + str(dt).replace("torch.", ""),
+            "workspace_bytes": n_split * M * N * 4,
+            **bound(dt, 2 * M * N * K,
+                    (M * K + K * N + M * N) * a.element_size())}
+        del a, b
+
+    # -- #17 stream-K: a 512-token prefill chunk's gate/up ----------------
+    M, K, N = LLAMA2["prefill_chunk"], hid, inter
+    a, b = operands(32, (M, K), (K, N))
+    n_prog = gv.streamk_programs()
+    n_seg = len(gv._streamk_segments((M // 128) * (N // 128), K // 128,
+                                     n_prog))
+    print(f"stream-K: {n_prog} programs (SMs x blocks an SM), {n_seg} "
+          f"segments over {(M // 128) * (N // 128)} tiles", flush=True)
+    got = drive("matmul_streamk prefill", lambda: gv.matmul_streamk(
+        a, b, n_programs=n_prog), {"streamk_gemm": 1, "streamk_fixup": 1})
+    r = hold("matmul_streamk prefill", got,
+             gv.matmul_streamk_plain(a, b, n_programs=n_prog))
+    del got
+    res["streamk_gemm_prefill_gate_up_bf16"] = {
+        "shape": [M, N, K], "n_programs": n_prog, "n_segments": n_seg,
+        "launches_a_call": 2, **r,
+        **timed(lambda: gv.matmul_streamk(a, b, n_programs=n_prog),
+                lambda: gv.matmul_streamk_plain(a, b, n_programs=n_prog),
+                lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
+        "library": "torch.matmul in bf16",
+        **bound(torch.bfloat16, 2 * M * N * K, (M * K + K * N + M * N) * 2)}
+    del a, b
+
+    # -- #18 GEMV: one token's gate/up and LM head ------------------------
+    for label, N, dt, seed in (
+            ("decode_gate_up_bf16", inter, torch.bfloat16, 33),
+            ("decode_gate_up_f32", inter, torch.float32, 33),
+            ("lm_head_bf16", LLAMA2["vocab"], torch.bfloat16, 34)):
+        x, w = operands(seed, (hid,), (N, hid), dtype=dt)
+        got = drive(f"gemv {label}", lambda: gv.gemv(x, w), {"gemv": 1})
+        r = hold(f"gemv {label}", got, gv.gemv_plain(x, w))
+        del got
+        res[f"gemv_{label}"] = {
+            "shape": [N, hid], "dtype": str(dt), **r,
+            **timed(lambda: gv.gemv(x, w), lambda: gv.gemv_plain(x, w),
+                    lambda: torch.mv(w, x)),
+            "library": "torch.mv in " + str(dt).replace("torch.", ""),
+            **bound(dt, 2 * N * hid, (hid + N * hid + N) * x.element_size())}
+        del x, w
+
+    # -- #19 block-sparse: a 4096-token prefill's gate/up ------------------
+    M, K, N = LLAMA2["prefill"], hid, inter
+    rng = np.random.default_rng(0)    # as examples/blocksparse_gemm draws
+    a = torch.from_numpy((rng.standard_normal((M, K)) * 0.1).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    b = torch.from_numpy((rng.standard_normal((K, N)) * 0.1).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    mask = torch.from_numpy((rng.random((M // 128, N // 128)) > 0.5).astype(
+        np.int32)).cuda()
+    density = float(mask.float().mean())
+    got = drive("blocksparse_matmul prefill", lambda: gv.blocksparse_matmul(
+        a, b, mask), {"blocksparse_gemm": 1})
+    r = hold("blocksparse_matmul prefill", got,
+             gv.blocksparse_matmul_plain(a, b, mask))
+    live = (mask != 0).repeat_interleave(128, 0).repeat_interleave(128, 1)
+    check(not bool(got[~live].float().any()),
+          "blocksparse_matmul: a dead cell holds a nonzero")
+    del got, live
+    ones = torch.ones_like(mask)
+    dense = drive("blocksparse_matmul all-ones", lambda: gv.blocksparse_matmul(
+        a, b, ones), {"blocksparse_gemm": 1}, main=False)
+    err, rel = normwise_err(dense, gm.matmul(a, b))
+    check(rel <= GEMM_TOL["bfloat16"], f"blocksparse_matmul all-ones: "
+          f"{rel:.3e} of max |matmul| > {GEMM_TOL['bfloat16']}")
+    del dense
+    res["blocksparse_gemm_prefill_gate_up_bf16"] = {
+        "shape": [M, N, K], "density": density, **r,
+        "all_ones_vs_matmul_normwise": rel,
+        **timed(lambda: gv.blocksparse_matmul(a, b, mask),
+                lambda: gv.blocksparse_matmul_plain(a, b, mask),
+                lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
+        "library": f"dense torch.matmul in bf16: 1/{density:.4f} of the "
+                   f"masked product's work",
+        **bound(torch.bfloat16, round(2 * M * N * K * density),
+                (M * K + K * N + M * N) * 2)}
+    del a, b, mask, ones
+    torch.cuda.empty_cache()
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"gemm_variants": res}), flush=True)
+    return res
+
+
+# the gemm_variants phase's kernels: (name, source, replaced TPU kernel,
+# headline case), and the kernels that sum split-K's and stream-K's
+# partials, named under "fixup"
+VARIANT_KERNELS = (
+    ("splitk_gemm", "gemm_variants.cu",
+     "tilelang_mesh_tpu/ops/gemm_variants.py:36", "decode_gate_up_bf16"),
+    ("streamk_gemm", "gemm_variants.cu",
+     "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_bf16"),
+    ("gemv", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
+     "decode_gate_up_bf16"),
+    ("blocksparse_gemm", "gemm_variants.cu",
+     "tilelang_mesh_tpu/ops/gemm_variants.py:206", "prefill_gate_up_bf16"))
+VARIANT_FIXUPS = {"splitk_gemm": "splitk_reduce",
+                  "streamk_gemm": "streamk_fixup"}
 
 
 def rel_frobenius(got, want):
@@ -1835,35 +2078,13 @@ SEQMIX_LIBRARY = ("none: no single PyTorch call computes the SSD scan, "
                   "the gated delta rule or chunked linear attention")
 
 
-def seqmix_kernel_entries(seq):
-    """The ``kernels`` line's entries of the seqmix phase's kernels."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    out = []
-    for name, source, replaces, head in SEQMIX_KERNELS:
-        prefix = f"{name}_"
-        top = seq[prefix + head]
-        entry = {
-            "name": name, "route": "cuda",
-            "source": "tilelang_mesh_tpu_torch/csrc/" + source,
-            "replaces": replaces, "launches": seq["launches"][name],
-            **{k: top[k] for k in keys}, "library": SEQMIX_LIBRARY,
-            "case": head,
-            "variants": {c[len(prefix):]: {k: v[k] for k in keys}
-                         for c, v in seq.items() if c.startswith(prefix)
-                         and c != prefix + head and "ms" in v}}
-        if name == "linear_attention":
-            entry["backward"] = seq["linear_attention_backward"]
-        out.append(entry)
-    return out
-
-
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
     arguments (``matmul_bf16<1,0>``)."""
     import re
-    args = {"f": "f32", "13__nv_bfloat16": "bf16", "h": "u8", "a": "s8"}
+    args = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+            "h": "u8", "a": "s8"}
     out, name, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"entry function '_Z\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'",
@@ -1874,8 +2095,8 @@ def kernel_registers(log):
             if rest.startswith("I"):
                 targs, pos = [], 1
                 while pos < len(rest) and rest[pos] != "E":
-                    t = re.match(r"L[bi](\d+)E|13__nv_bfloat16|[fha]",
-                                 rest[pos:])
+                    t = re.match(r"L[bi](\d+)E|13__nv_bfloat16|6__half"
+                                 r"|[fha]", rest[pos:])
                     if not t:
                         break
                     targs.append(t.group(1) or args[t.group(0)])
@@ -1906,6 +2127,7 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops import gemm as gm
+    from tilelang_mesh_tpu_torch.ops import gemm_variants as gv
     from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
     from tilelang_mesh_tpu_torch.ops import gdn as gd
     from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
@@ -1934,7 +2156,8 @@ def main() -> int:
     phase("build")
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
                "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm", "mamba2",
-               "gdn", "linear_attention")
+               "gdn", "linear_attention", "gemm_s8", "gemm_variants",
+               "gemv")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -1987,6 +2210,9 @@ def main() -> int:
 
     phase("seqmix")
     seq = seqmix_phase(torch, m2, gd, la)
+
+    phase("gemm_variants")
+    var = gemm_variants_phase(torch, gv, gm)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -2071,8 +2297,18 @@ def main() -> int:
         "trans_b": {"float32": {k: gemm32["varlen_trans"][k] for k in keys},
                     "bfloat16": {k: gemm16["varlen_trans"][k]
                                  for k in keys}}})
-    kernels += gemm_kernel_entries(gops)
-    kernels += seqmix_kernel_entries(seq)
+    kernels += kernel_entries(gops, GEMM_OPS_KERNELS)
+    for entry in kernel_entries(seq, SEQMIX_KERNELS):
+        entry["library"] = SEQMIX_LIBRARY
+        if entry["name"] == "linear_attention":
+            entry["backward"] = seq["linear_attention_backward"]
+        kernels.append(entry)
+    for entry in kernel_entries(var, VARIANT_KERNELS):
+        fixup = VARIANT_FIXUPS.get(entry["name"])
+        if fixup:
+            entry["fixup"] = {"name": fixup,
+                              "launches": var["launches"][fixup]}
+        kernels.append(entry)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

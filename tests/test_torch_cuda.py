@@ -29,9 +29,14 @@ exact in float32); 1e-2 for a bfloat16 output (one bf16 ulp, 2**-8, at
 a rounding boundary); an fp8 e4m3 output within one e4m3 ulp (1/8 of
 the value, or 2**-9 below the normal range) elementwise; the int4
 unpack bit for bit (the same float32 multiply and rounding); w4a8 1e-6
-(exact int32 sums, the same float32 epilogue in the same order). An
-fp8 e4m3 output past the format's range is NaN at the plain version's
-positions. The sequence-mixing kernels (Mamba2 SSD, Gated DeltaNet,
+(exact int32 sums, the same float32 epilogue in the same order); an
+int8 x int8 -> int32 product equal to its plain version (exact sums);
+a float16 output 1e-2 as bfloat16's. An fp8 e4m3 output past the
+format's range is NaN at the plain version's positions. The GEMM
+variants (split-K, stream-K, GEMV, block-sparse) at the same normwise
+bounds as the GEMM: their float32 partials and sums are those of the
+plain version in another order within a partial; block-sparse dead
+tiles exactly 0. The sequence-mixing kernels (Mamba2 SSD, Gated DeltaNet,
 linear attention, retention), normwise: 1e-4 in float32 (the same
 float32 arithmetic in another order; linear attention's backward the
 same kernel on flipped operands); 1e-2 in bfloat16, where both round to
@@ -53,6 +58,7 @@ from tilelang_mesh_tpu_torch.ops import _build
 from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
 from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
 from tilelang_mesh_tpu_torch.ops import gemm as gm
+from tilelang_mesh_tpu_torch.ops import gemm_variants as gv
 from tilelang_mesh_tpu_torch.ops import gqa_bwd as gb
 from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
 from tilelang_mesh_tpu_torch.ops import gdn
@@ -529,7 +535,13 @@ MM_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
             (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
             (torch.float8_e4m3fn, torch.float32),
             (torch.float8_e4m3fn, torch.bfloat16),
-            (torch.float8_e4m3fn, torch.float8_e4m3fn)]
+            (torch.float8_e4m3fn, torch.float8_e4m3fn),
+            (torch.float16, torch.float16), (torch.float16, torch.float32),
+            (torch.bfloat16, torch.float16), (torch.float32, torch.float16),
+            (torch.float16, torch.float8_e4m3fn),
+            (torch.float32, torch.float8_e4m3fn),
+            (torch.bfloat16, torch.float8_e4m3fn),
+            (torch.float8_e4m3fn, torch.float16)]
 
 
 def _close(got, want):
@@ -539,7 +551,7 @@ def _close(got, want):
         g, w = got.float(), want.float()
         assert bool(((g - w).abs() <= 0.125 * w.abs() + 2 ** -9).all())
     else:
-        tol = 1e-5 if got.dtype == torch.float32 else 1e-2
+        tol = 1e-5 if got.dtype == torch.float32 else 1e-2   # bf16, f16
         assert _normwise(got, want) <= tol
 
 
@@ -566,6 +578,146 @@ def test_matmul_matches_plain(cuda, pair, trans_A, trans_B, shape, relu):
     torch.cuda.synchronize()
     assert gm.launches["matmul"] == before + 1
     _close(got, gm.matmul_plain(a, b, trans_A, trans_B, out, relu))
+
+
+@pytest.mark.parametrize("trans_A,trans_B", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("shape", [(77, 150, 1000), (300, 7, 19), (1, 1, 1),
+                                   (256, 128, 384), (130, 272, 4096)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_int8_matches_plain(cuda, trans_A, trans_B, shape, relu):
+    """int8 x int8 -> int32 (accum_dtype int32), every transpose: equal
+    to the plain version's exact sums; 19, 7 and 1 take no 16-byte path,
+    K 4096 sums up to 2**26."""
+    M, N, K = shape
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randint(-128, 128, (K, M) if trans_A else (M, K), generator=g,
+                      device=cuda, dtype=torch.int8)
+    b = torch.randint(-128, 128, (N, K) if trans_B else (K, N), generator=g,
+                      device=cuda, dtype=torch.int8)
+    kern = gm.matmul_kernel(M, N, K, in_dtype="int8", out_dtype="int32",
+                            accum_dtype="int32", trans_A=trans_A,
+                            trans_B=trans_B, relu=relu)
+    before = gm.launches["matmul"]
+    got = kern(a, b)
+    torch.cuda.synchronize()
+    assert gm.launches["matmul"] == before + 1
+    want = gm.matmul_plain(a, b, trans_A, trans_B, torch.int32, relu)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# GEMM variants
+# ---------------------------------------------------------------------------
+
+VARIANT_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+VARIANT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+               torch.float16: 1e-2}
+
+
+def _variant_close(got, want, dtype):
+    assert got.dtype == want.dtype == dtype
+    assert _normwise(got, want) <= VARIANT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("M,N,K,n_split,taken", [
+    (100, 77, 200, 4, 1),           # no 128-multiple chunk: one split
+    (16, 300, 1024, 8, 8), (130, 257, 768, 4, 3), (3, 5, 384, 5, 3),
+    (64, 136, 4104, 2, 1)])
+def test_splitk_matches_plain(cuda, dtype, M, N, K, n_split, taken):
+    """Two launches a call (the partials, their sum); the split the
+    plan takes; ragged M, N and a single-split fallback."""
+    assert gv.splitk_plan(K, n_split)[0] == taken
+    a = _randn(cuda, (M, K), dtype, 20)
+    b = _randn(cuda, (K, N), dtype, 21)
+    before = dict(gv.launches)
+    got = gv.matmul_splitk(a, b, n_split=n_split)
+    torch.cuda.synchronize()
+    assert gv.launches["splitk_gemm"] == before["splitk_gemm"] + 1
+    assert gv.launches["splitk_reduce"] == before["splitk_reduce"] + 1
+    _variant_close(got, gv.matmul_splitk_plain(a, b, n_split=n_split), dtype)
+    parts = gv.splitk_kernel(M, N, K, taken, 128, 128, K // taken, dtype)(
+        a, b)
+    torch.cuda.synchronize()
+    assert tuple(parts.shape) == (taken, M, N)
+    assert _normwise(parts.sum(0), got.float()) <= VARIANT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("M,N,K,n_programs,block", [
+    (256, 384, 512, 6, 128),        # the JAX test's shape
+    (256, 384, 640, 4, 128),        # 7.5 k-blocks a program: mid-tile cuts
+    (192, 320, 448, 5, 64),         # 64-cells: a 128-tile holds 4 of them
+    (128, 128, 128, 300, 128),      # more programs than work
+    (96, 32, 96, 7, 32)])
+def test_streamk_matches_plain(cuda, dtype, M, N, K, n_programs, block):
+    a = _randn(cuda, (M, K), dtype, 22)
+    b = _randn(cuda, (K, N), dtype, 23)
+    before = dict(gv.launches)
+    got = gv.matmul_streamk(a, b, n_programs=n_programs, block_M=block,
+                            block_N=block, block_K=block)
+    torch.cuda.synchronize()
+    assert gv.launches["streamk_gemm"] == before["streamk_gemm"] + 1
+    assert gv.launches["streamk_fixup"] == before["streamk_fixup"] + 1
+    want = gv.matmul_streamk_plain(a, b, n_programs, block, block, block)
+    _variant_close(got, want, dtype)
+
+
+def test_streamk_refuses_tiles_past_the_card(cuda):
+    a = _randn(cuda, (256, 256), torch.bfloat16, 24)
+    before = dict(gv.launches)
+    with pytest.raises(ValueError, match="128 x 128"):
+        gv.matmul_streamk(a, a, block_M=256)
+    assert gv.launches == before
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("N,K", [(77, 200), (300, 4097), (1, 1), (33, 8),
+                                 (1000, 4096), (16, 20000)])
+def test_gemv_matches_plain(cuda, dtype, N, K):
+    """K 4097 and 1 take the element-wise path, the others 16 bytes a
+    lane; K 20000 spans several staged chunks of a."""
+    a = _randn(cuda, (K,), dtype, 25)
+    b = _randn(cuda, (N, K), dtype, 26)
+    before = gv.launches["gemv"]
+    got = gv.gemv(a, b)
+    torch.cuda.synchronize()
+    assert gv.launches["gemv"] == before + 1
+    _variant_close(got, gv.gemv_plain(a, b), dtype)
+    f32 = gv.gemv(a, b, out_dtype=torch.float32)
+    assert _normwise(f32, gv.gemv_plain(a, b, torch.float32)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("mask_kind", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("M,N,K,block", [(256, 384, 200, 128),
+                                         (192, 320, 96, 64),
+                                         (96, 160, 1000, 32)])
+def test_blocksparse_matches_plain(cuda, dtype, mask_kind, M, N, K, block):
+    """Dead cells exactly 0 (a 128-tile may hold live and dead cells);
+    an all-ones mask is the dense product."""
+    a = _randn(cuda, (M, K), dtype, 27)
+    b = _randn(cuda, (K, N), dtype, 28)
+    shape = (M // block, N // block)
+    g = torch.Generator(device=cuda).manual_seed(29)
+    mask = {"random": (torch.rand(shape, generator=g, device=cuda)
+                       > 0.5).to(torch.int32),
+            "zeros": torch.zeros(shape, dtype=torch.int32, device=cuda),
+            "ones": torch.ones(shape, dtype=torch.int32, device=cuda)}[
+                mask_kind]
+    before = gv.launches["blocksparse_gemm"]
+    got = gv.blocksparse_matmul(a, b, mask, block_M=block, block_N=block)
+    torch.cuda.synchronize()
+    assert gv.launches["blocksparse_gemm"] == before + 1
+    live = (mask != 0).repeat_interleave(block, 0).repeat_interleave(block, 1)
+    assert not got[~live].float().any()
+    if mask_kind == "zeros":
+        return
+    want = gv.blocksparse_matmul_plain(a, b, mask, block, block)
+    assert _normwise(got[live], want[live]) <= VARIANT_TOL[dtype]
+    if mask_kind == "ones":
+        assert _normwise(got, gm.matmul(a, b)) <= VARIANT_TOL[dtype]
 
 
 def _w4_card(dev, K2, N, gs, seed):

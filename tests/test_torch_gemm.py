@@ -134,10 +134,12 @@ def test_matmul_relu_matches_jax(out_dtype):
 
 
 @pytest.mark.parametrize("in_dtype,out_dtype", [
-    (torch.float16, None), (torch.float64, None), (torch.int8, None),
-    (torch.float32, torch.float8_e4m3fn), (torch.bfloat16, "float16"),
-    (torch.float8_e4m3fn, torch.float16)])
+    (torch.float64, None), (torch.int8, None), (torch.int8, torch.int32),
+    (torch.float32, torch.int32), (torch.float16, torch.int8),
+    (torch.bfloat16, torch.float64)])
 def test_matmul_unported_types_raise(in_dtype, out_dtype):
+    """float64; int8 with its default float32 accumulator; an integer or
+    float64 output from float inputs."""
     a = torch.zeros((4, 8)).to(in_dtype)
     b = torch.zeros((8, 3)).to(in_dtype)
     with pytest.raises(TypeError):
@@ -145,6 +147,104 @@ def test_matmul_unported_types_raise(in_dtype, out_dtype):
     with pytest.raises(TypeError):
         port.matmul_kernel(4, 3, 8, in_dtype=str(in_dtype).split(".")[1],
                            out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype,accum_dtype", [
+    ("float32", None, "float16"), ("bfloat16", None, "bfloat16"),
+    ("float16", "float16", "float16"), ("float32", None, "int32"),
+    ("int8", "int8", "int32"), ("int8", "float32", "int32"),
+    ("int8", "int32", "float32")])
+def test_matmul_kernel_unported_accumulators_raise(in_dtype, out_dtype,
+                                                   accum_dtype):
+    """A float accumulator other than float32 (the JAX package rounds it
+    after each of its carver's K tiles); int8 with anything but an int32
+    accumulator into an int32 output."""
+    with pytest.raises(TypeError):
+        port.matmul_kernel(4, 3, 8, in_dtype=in_dtype, out_dtype=out_dtype,
+                           accum_dtype=accum_dtype)
+
+
+@pytest.mark.parametrize("trans_A,trans_B", TRANS)
+def test_matmul_float16_matches_jax(trans_A, trans_B):
+    """float16 in and out, as bf16 is held (rtol = atol = 2e-2)."""
+    rng = np.random.default_rng(7)
+    a, b = _operands(rng, 128, 256, 256, trans_A, trans_B)
+    ja, jb = jnp.asarray(a, jnp.float16), jnp.asarray(b, jnp.float16)
+    want = ref.matmul(ja, jb, trans_A=trans_A, trans_B=trans_B)
+    assert str(want.dtype) == "float16"
+    got = port.matmul(torch.from_numpy(a).half(), torch.from_numpy(b).half(),
+                      trans_A=trans_A, trans_B=trans_B)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16",
+                                      "float8_e4m3fn"])
+def test_matmul_float16_output_matches_jax(in_dtype):
+    """Any float input type may ask for a float16 output."""
+    rng = np.random.default_rng(8)
+    a8, ta = _fp8(rng.standard_normal((128, 256)) * 0.3)
+    b8, tb = _fp8(rng.standard_normal((256, 128)) * 0.3)
+    ja, jb = jnp.asarray(a8).astype(in_dtype), jnp.asarray(b8).astype(
+        in_dtype)
+    want = ref.matmul_kernel(128, 128, 256, 128, 128, 128, in_dtype=in_dtype,
+                             out_dtype="float16")(ja, jb)
+    dt = getattr(torch, in_dtype)
+    got = port.matmul_kernel(128, 128, 256, in_dtype=in_dtype,
+                             out_dtype="float16")(ta.to(dt), tb.to(dt))
+    assert got.dtype == torch.float16 and str(want.dtype) == "float16"
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16", "float16"])
+def test_matmul_fp8_output_gives_jax_bytes(in_dtype):
+    """A float8 e4m3 output from float32, bfloat16 or float16 inputs,
+    byte-equal to JAX's, NaNs included: integer operands in [-8, 8] make
+    every product and sum exact in float32 in any order, so both round the
+    same sums (many past +-464: NaN)."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(-8, 9, (128, 128)).astype(np.float32)
+    b = rng.integers(-8, 9, (128, 128)).astype(np.float32)
+    want = np.asarray(ref.matmul(jnp.asarray(a, in_dtype),
+                                 jnp.asarray(b, in_dtype),
+                                 out_dtype="float8_e4m3fn")).view(np.uint8)
+    dt = getattr(torch, in_dtype)
+    got = port.matmul(torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt),
+                      out_dtype=torch.float8_e4m3fn)
+    assert got.dtype == torch.float8_e4m3fn
+    nan = (want & 0x7F) == 0x7F
+    assert 0 < int(nan.sum()) < nan.size
+    np.testing.assert_array_equal(got.view(torch.uint8).numpy(), want)
+
+
+@pytest.mark.parametrize("trans_A,trans_B", TRANS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_int8_int32_equals_jax(trans_A, trans_B, relu):
+    """int8 x int8 with accum_dtype and out_dtype int32: the exact
+    product, equal to JAX's and to int64 numpy."""
+    rng = np.random.default_rng(10)
+    M, N, K = 128, 256, 256
+    a = rng.integers(-128, 128, (K, M) if trans_A else (M, K)).astype(
+        np.int8)
+    b = rng.integers(-128, 128, (N, K) if trans_B else (K, N)).astype(
+        np.int8)
+    kw = dict(in_dtype="int8", out_dtype="int32", accum_dtype="int32",
+              trans_A=trans_A, trans_B=trans_B, relu=relu)
+    want = np.asarray(ref.matmul_kernel(M, N, K, 128, 128, 128, **kw)(
+        jnp.asarray(a), jnp.asarray(b)))
+    got = port.matmul_kernel(M, N, K, **kw)(torch.from_numpy(a),
+                                            torch.from_numpy(b))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    a64 = (a.T if trans_A else a).astype(np.int64)
+    b64 = (b.T if trans_B else b).astype(np.int64)
+    exact = a64 @ b64
+    np.testing.assert_array_equal(want, np.maximum(exact, 0) if relu
+                                  else exact)
 
 
 def test_matmul_operand_checks():

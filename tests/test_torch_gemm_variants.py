@@ -1,0 +1,296 @@
+"""The port's GEMM scheduling variants
+(tilelang_mesh_tpu_torch/ops/gemm_variants.py) against the JAX package's
+(ops/gemm_variants.py) on the same numpy-seeded inputs.
+
+The JAX kernels run in Pallas interpret mode on the CPU, as
+tests/test_gemm_variants.py runs them; the port's run on CPU tensors,
+i.e. the kernels' plain versions. Tolerances: float32 rtol = atol = 1e-4,
+the JAX package's own (tests/test_gemm_variants.py:24); bfloat16 and
+float16 rtol = atol = 2e-2 (both round the same float32 sums once to the
+output type; a sum that differs in its last float32 bits can land one
+16-bit ulp apart). Block-sparse dead tiles are exactly 0. The stream-K
+segments and the split-K plan must equal the JAX package's. The CUDA
+kernels are held against the plain versions on the card by
+tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tilelang_mesh_tpu.layout import python_impl as ref_layout
+from tilelang_mesh_tpu.ops import gemm_variants as ref
+from tilelang_mesh_tpu_torch.ops import gemm_variants as port
+
+_DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2),
+           "float16": (jnp.float16, torch.float16, 2e-2)}
+
+
+def _pair(shape, seed, dtype):
+    """standard_normal * 0.1 as the JAX tests draw it, rounded to ``dtype``
+    once: (jax array, torch tensor) with the same values."""
+    jdt, tdt, _ = _DTYPES[dtype]
+    x = jnp.asarray(np.random.default_rng(seed).standard_normal(shape) * 0.1,
+                    jdt)
+    return x, torch.from_numpy(np.array(x, np.float32)).to(tdt)
+
+
+def _close(got, want, dtype):
+    tol = _DTYPES[dtype][2]
+    assert got.dtype == _DTYPES[dtype][1]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """CPU tensors run the plain versions: no kernel is launched."""
+    before = dict(port.launches)
+    yield
+    assert port.launches == before
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("M,N,K,n_split", [(256, 256, 1024, 4),
+                                           (128, 128, 384, 5)])
+def test_splitk_matches_jax(dtype, M, N, K, n_split):
+    """The JAX tests' shapes; K 384 with 5 asked splits takes 3."""
+    ja, ta = _pair((M, K), 0, dtype)
+    jb, tb = _pair((K, N), 1, dtype)
+    want = ref.matmul_splitk(ja, jb, n_split=n_split)
+    got = port.matmul_splitk(ta, tb, n_split=n_split)
+    _close(got, want, dtype)
+    f32 = port.matmul_splitk(ta, tb, n_split=n_split, out_dtype="float32")
+    np.testing.assert_allclose(
+        f32.numpy(), np.asarray(ref.matmul_splitk(ja, jb, n_split=n_split,
+                                                  out_dtype="float32")),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+def test_streamk_matches_jax(dtype):
+    M, N, K = 256, 384, 512
+    ja, ta = _pair((M, K), 4, dtype)
+    jb, tb = _pair((K, N), 5, dtype)
+    want = ref.matmul_streamk(ja, jb, n_programs=6)
+    _close(port.matmul_streamk(ta, tb, n_programs=6), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+def test_gemv_matches_jax(dtype):
+    N, K = 384, 512
+    ja, ta = _pair((K,), 6, dtype)
+    jb, tb = _pair((N, K), 7, dtype)
+    got = port.gemv(ta, tb)
+    assert tuple(got.shape) == (N,)
+    _close(got, ref.gemv(ja, jb), dtype)
+
+
+def _dense_mask(mask, bm, bn):
+    return np.kron(mask, np.ones((bm, bn))) != 0
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("block", [128, 64])
+def test_blocksparse_matches_jax(dtype, block):
+    M = N = K = 256
+    ja, ta = _pair((M, K), 8, dtype)
+    jb, tb = _pair((K, N), 9, dtype)
+    mask = np.random.default_rng(10).integers(
+        0, 2, (M // block, N // block)).astype(np.int32)
+    want = np.asarray(ref.blocksparse_matmul(
+        ja, jb, jnp.asarray(mask), block_M=block, block_N=block), np.float32)
+    got = port.blocksparse_matmul(ta, tb, torch.from_numpy(mask),
+                                  block_M=block, block_N=block)
+    _close(got, want, dtype)
+    live = _dense_mask(mask, block, block)
+    assert live.any() and (~live).any()
+    assert not got.float().numpy()[~live].any()        # exactly 0
+    assert np.abs(got.float().numpy()[live]).min() > 0
+
+
+@pytest.mark.parametrize("n_tiles", [1, 7, 12, 344])
+@pytest.mark.parametrize("k_iters", [1, 5, 32])
+@pytest.mark.parametrize("n_programs", [1, 4, 6, 8, 264])
+def test_streamk_segments_equal_jax(n_tiles, k_iters, n_programs):
+    want = ref._streamk_segments(n_tiles, k_iters, n_programs)
+    assert [tuple(s) for s in want] == \
+        ref_layout.streamk_partition(n_tiles, k_iters, n_programs)
+    assert port._streamk_segments(n_tiles, k_iters, n_programs) == \
+        [tuple(s) for s in want]
+
+
+@pytest.mark.parametrize("n_tiles,k_iters,n_programs", [
+    (344, 32, 264), (7, 5, 4), (1, 1, 300), (12, 3, 5), (86, 43, 132)])
+def test_streamk_programs_own_their_segments(n_tiles, k_iters, n_programs):
+    """The card's kernel runs one block a program: the program table
+    gives each program exactly the segments the planner made for it, in
+    order, and each tile's run of segments."""
+    nN = 2 if n_tiles % 2 == 0 else 1
+    tables, first, prog = port._streamk_tables(
+        n_tiles // nN * 128, nN * 128, k_iters * 128, n_programs, 128, 128,
+        128, torch.device("cpu"))
+    rows = [tuple(r) for r in tables.T.tolist()]
+    total = n_tiles * k_iters
+    per = -(-total // n_programs)
+    for p in range(n_programs):
+        want = port._streamk_segments(n_tiles, k_iters, n_programs)
+        want = [s for s in want if p * per <= s[0] * k_iters + s[1]
+                < (p + 1) * per]
+        got = rows[prog[p]:prog[p + 1]] if p + 1 < len(prog) else []
+        assert [(tm * nN + tn, k0, kl) for tm, tn, k0, kl in got] == want
+    tile_of = [tm * nN + tn for tm, tn, _, _ in rows]
+    for t in range(n_tiles):
+        assert set(tile_of[first[t]:first[t + 1]]) == {t}
+
+
+@pytest.mark.parametrize("K", [384, 1024, 4096, 11008])
+@pytest.mark.parametrize("n_split", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("block_K", [128, 256])
+def test_split_plan_equals_jax(monkeypatch, K, n_split, block_K):
+    """The split count and block_K the JAX wrapper hands its kernel."""
+    seen = []
+
+    def record(M, N, K_, n, bm, bn, bk, in_dtype, num_stages=2):
+        seen.append((n, bk))
+        return lambda a, b: jnp.zeros((n, M, N), jnp.float32)
+
+    monkeypatch.setattr(ref, "splitk_kernel", record)
+    a = jnp.zeros((8, K), jnp.float32)
+    ref.matmul_splitk(a, jnp.zeros((K, 8), jnp.float32), n_split=n_split,
+                      block_K=block_K)
+    n, split_len, bk = port.splitk_plan(K, n_split, block_K)
+    assert seen == [(n, bk)] and n * split_len == K
+
+
+def test_splitk_kernel_partials_match_jax():
+    M, N, K, n = 128, 128, 512, 4
+    ja, ta = _pair((M, K), 11, "float32")
+    jb, tb = _pair((K, N), 12, "float32")
+    want = ref.splitk_kernel(M, N, K, n, 128, 128, 128, "float32")(ja, jb)
+    got = port.splitk_kernel(M, N, K, n, 128, 128, 128, "float32")(ta, tb)
+    assert tuple(got.shape) == (n, M, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_streamk_kernel_partials_match_jax():
+    M, N, K, bk = 256, 128, 384, 128
+    segs = ref._streamk_segments(2, K // bk, 4)      # two tiles down M
+    cols = [np.asarray(c, np.int32) for c in zip(*segs)]
+    tm, tn = cols[0], np.zeros_like(cols[0])
+    ja, ta = _pair((M, K), 13, "float32")
+    jb, tb = _pair((K, N), 14, "float32")
+    want = ref.streamk_kernel(M, N, K, len(segs), 128, 128, bk, "float32")(
+        ja, jb, jnp.asarray(tm), jnp.asarray(tn), jnp.asarray(cols[1]),
+        jnp.asarray(cols[2]))
+    got = port.streamk_kernel(M, N, K, len(segs), 128, 128, bk, "float32")(
+        ta, tb, torch.from_numpy(tm), torch.from_numpy(tn),
+        torch.from_numpy(cols[1]), torch.from_numpy(cols[2]))
+    assert tuple(got.shape) == (len(segs), 128, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_gemv_and_blocksparse_factories_match_jax():
+    N, K = 256, 384
+    ja, ta = _pair((1, K), 15, "bfloat16")
+    jb, tb = _pair((N, K), 16, "bfloat16")
+    want = ref.gemv_kernel(N, K, 128, 128, "bfloat16", "float32")(ja, jb)
+    got = port.gemv_kernel(N, K, 128, 128, "bfloat16", "float32")(ta, tb)
+    assert tuple(got.shape) == (1, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    M = 128
+    jc, tc = _pair((M, K), 17, "float32")
+    jd, td = _pair((K, N), 18, "float32")
+    mask = np.array([[0, 1]], np.int32)
+    want = ref.blocksparse_gemm_kernel(M, N, K, 128, 128, 128, "float32",
+                                       "float32")(jc, jd, jnp.asarray(mask))
+    got = port.blocksparse_gemm_kernel(M, N, K, 128, 128, 128, "float32",
+                                       "float32")(tc, td,
+                                                  torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    assert not got[:, :128].any()
+
+
+def test_plain_versions_match_float64():
+    """Ragged shapes the JAX kernels do not take: the plain versions
+    against float64 numpy, 1e-5 normwise (float32 sums of 200 terms)."""
+    rng = np.random.default_rng(19)
+    a = rng.standard_normal((100, 200)).astype(np.float32)
+    b = rng.standard_normal((200, 77)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for got in (port.matmul_splitk(ta, tb, n_split=3),
+                port.matmul_streamk(ta, tb, n_programs=5,
+                                    block_M=25, block_N=7, block_K=8)):
+        assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= 1e-5
+    v = rng.standard_normal(4097).astype(np.float32)
+    m = rng.standard_normal((33, 4097)).astype(np.float32)
+    got = port.gemv(torch.from_numpy(v), torch.from_numpy(m)).numpy()
+    want = m.astype(np.float64) @ v.astype(np.float64)
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5
+
+
+def test_streamk_refuses_ragged_shapes():
+    a, b = torch.zeros((256, 384)), torch.zeros((384, 256))
+    with pytest.raises(ValueError):
+        port.matmul_streamk(a[:200], b)                 # M % block_M
+    with pytest.raises(ValueError):
+        port.matmul_streamk(a[:, :300], b[:300])        # K % block_K
+    with pytest.raises(ValueError):
+        port.matmul_streamk(a, b[:, :100])              # N % block_N
+    with pytest.raises(ValueError):
+        port.matmul_streamk(a, b, n_programs=0)
+
+
+def test_blocksparse_refuses_bad_masks():
+    a, b = torch.zeros((256, 256)), torch.zeros((256, 256))
+    with pytest.raises(ValueError):
+        port.blocksparse_matmul(a, b, torch.ones((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        port.blocksparse_matmul(a, b, torch.ones((2, 2), dtype=torch.int32),
+                                block_M=100)
+    with pytest.raises(TypeError):
+        port.blocksparse_matmul(a, b, torch.ones((2, 2)))
+    # a bool mask is taken as its int32 values
+    got = port.blocksparse_matmul(a + 1, b + 1,
+                                  torch.tensor([[True, False],
+                                                [False, False]]))
+    assert float(got[0, 0]) == 256.0 and not got[:, 128:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
+                                   torch.float8_e4m3fn])
+def test_variants_refuse_unported_types(dtype):
+    a = torch.zeros((128, 128)).to(dtype)
+    with pytest.raises(TypeError):
+        port.matmul_splitk(a, a)
+    with pytest.raises(TypeError):
+        port.matmul_streamk(a, a)
+    with pytest.raises(TypeError):
+        port.gemv(a[0], a)
+    with pytest.raises(TypeError):
+        port.blocksparse_matmul(a, a, torch.ones((1, 1), dtype=torch.int32))
+
+
+def test_variants_take_matmul_output_types():
+    """float16 and float8 e4m3 outputs, rounded once from the f32 sums
+    (512 is a float16 value and past e4m3's range: NaN)."""
+    a = torch.full((128, 256), 0.5, dtype=torch.bfloat16)
+    b = torch.full((256, 128), 4.0, dtype=torch.bfloat16)
+    c16 = port.matmul_splitk(a, b, n_split=2, out_dtype=torch.float16)
+    assert c16.dtype == torch.float16 and bool((c16 == 512).all())
+    c8 = port.matmul_splitk(a, b, n_split=2, out_dtype=torch.float8_e4m3fn)
+    assert c8.dtype == torch.float8_e4m3fn
+    assert bool(torch.isnan(c8.float()).all())
+    c16 = port.matmul_streamk(a, b, out_dtype=torch.float16)
+    assert bool((c16 == 512).all())
+    with pytest.raises(TypeError):
+        port.matmul_splitk(a, b, out_dtype=torch.int32)

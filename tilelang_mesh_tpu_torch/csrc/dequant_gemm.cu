@@ -37,17 +37,6 @@ namespace {
 
 using namespace tl_gemm;
 
-// grouped raster: tile (mt, nt) of linear block id `pid` (as gemm.cu)
-__device__ __forceinline__ void tile_of(int pid, int tm, int tn, int& mt,
-                                        int& nt) {
-  constexpr int G = 8;
-  const int per_group = G * tn;
-  const int first = (pid / per_group) * G;
-  const int gm = min(tm - first, G);
-  mt = first + (pid % per_group) % gm;
-  nt = (pid % per_group) / gm;
-}
-
 // two adjacent elements, each rounded to the element type
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -61,6 +50,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 template <typename T, int BK, int PAD>
 struct W4 {
   using L = Layout<BK, PAD, false, false>;
+  using Elem = T;
   static constexpr int BKH = BK / 2;           // packed rows a k-tile
   static constexpr int kA = L::a_elems * sizeof(T);
   static constexpr int kStageBytes = kA + BKH * BN;
@@ -298,10 +288,6 @@ dequant_int4(const uint8_t* __restrict__ packed,
   }
 }
 
-unsigned tiles(int M, int N) {
-  return (unsigned)((M + BM - 1) / BM) * (unsigned)((N + BN - 1) / BN);
-}
-
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -323,11 +309,11 @@ extern "C" int tl_dequant_gemm(const void* a, const void* packed,
   const int vec_p = aligned(packed) && N % 16 == 0;
   const auto* p = static_cast<const uint8_t*>(packed);
   if (bf16)
-    dequant_gemm_bf16<<<tiles(M, N), kThreads, 0, s>>>(
+    dequant_gemm_bf16<<<tile_count(M, N), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a), p, scales,
         static_cast<__nv_bfloat16*>(c), M, N, K2, gs, vec_a, vec_p);
   else
-    dequant_gemm_f32<<<tiles(M, N), kThreads, 0, s>>>(
+    dequant_gemm_f32<<<tile_count(M, N), kThreads, 0, s>>>(
         static_cast<const float*>(a), p, scales, static_cast<float*>(c), M,
         N, K2, gs, vec_a, vec_p);
   return (int)cudaGetLastError();
@@ -372,7 +358,7 @@ extern "C" int tl_w4a8_gemm(const void* a, const void* packed,
   const auto s = static_cast<cudaStream_t>(stream);
   const int vec_a = aligned(a) && K2 % 16 == 0;
   const int vec_p = aligned(packed) && N % 16 == 0;
-  w4a8_gemm<<<tiles(M, N), kThreads, 0, s>>>(
+  w4a8_gemm<<<tile_count(M, N), kThreads, 0, s>>>(
       static_cast<const int8_t*>(a), static_cast<const uint8_t*>(packed), sw,
       sa, c, M, N, K2, vec_a, vec_p);
   return (int)cudaGetLastError();

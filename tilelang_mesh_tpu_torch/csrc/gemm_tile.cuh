@@ -39,8 +39,9 @@
 // contiguous operand sits [row][BK + 4], so a thread reads four k-steps
 // of a row in one 16-byte load.
 //
-// bfloat16: tensor cores through `mma.sync.aligned.m16n8k16` (bf16 in,
-// float32 accumulate), fragments loaded with `ldmatrix` (`.trans` for an
+// bfloat16 and float16: tensor cores through `mma.sync.aligned.m16n8k16`
+// (bf16 or f16 in, float32 accumulate; the source's `Elem` picks the
+// instruction), fragments loaded with `ldmatrix` (`.trans` for an
 // m-contiguous A and a row-major B), BK = 32. Eight warps as 2 (m) x 4
 // (n), each a 64 x 32 warp tile of 4 x 4 mma tiles; shared rows padded
 // by 8 elements so the eight 16-byte rows of an ldmatrix hit eight
@@ -53,15 +54,21 @@
 // same warp layout and ldmatrix addressing as bf16 with a byte for an
 // element: A k-contiguous, B n-major (k-contiguous) in shared memory,
 // since ldmatrix `.trans` moves 16-bit elements only. Exact int32 sums.
+// `S8` brings int8 A and B in any transpose: an operand that arrives
+// the other way (an m-contiguous A, a row-major B) lands raw and is
+// transposed four bytes a thread into the compute tile.
 //
 // wgmma, TMA and warp specialisation are later work.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tl_gemm {
 
@@ -85,6 +92,20 @@ struct Tile {
   int rows;       // real rows, 1..BM
   int n0;         // first column
 };
+
+// Grouped raster: the tile (mt, nt) of linear block id `pid` in a grid of
+// tm x tn tiles, walked in groups of 8 tile rows, column by column inside
+// a group, so the blocks in flight share 8 row panels of A and a few
+// column panels of B through L2.
+__device__ __forceinline__ void tile_of(int pid, int tm, int tn, int& mt,
+                                        int& nt) {
+  constexpr int G = 8;
+  const int per_group = G * tn;
+  const int first = (pid / per_group) * G;
+  const int gm = min(tm - first, G);
+  mt = first + (pid % per_group) % gm;
+  nt = (pid % per_group) / gm;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -112,11 +133,51 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+__device__ __forceinline__ void store(int* p, int x) { *p = x; }
 // round to nearest even; a value that rounds past +-448 (|x| > 464, or
 // infinite) is NaN, as the JAX package's cast gives (e4m3 has no
 // infinity)
 __device__ __forceinline__ void store(__nv_fp8_e4m3* p, float x) {
   p->__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+}
+
+// Element types by the codes the launchers take (the Python wrappers'
+// DTYPE_CODES)
+enum DType { kF32 = 0, kBF16 = 1, kFP8 = 2, kF16 = 3, kS8 = 4, kS32 = 5 };
+
+// float16 and float8 e4m3 out of line: inlined beside float32 and bf16
+// at each of a thread's 64-128 stores of a tile, the four conversions
+// made gemm.cu's build several times as long
+__device__ __noinline__ void store_narrow(void* c, long long at, int type,
+                                          float x) {
+  if (type == kF16) store(static_cast<__half*>(c) + at, x);
+  else store(static_cast<__nv_fp8_e4m3*>(c) + at, x);
+}
+
+// c[at] = x rounded to the float type `type` (kF32, kBF16, kFP8, kF16)
+__device__ __forceinline__ void store_as(void* c, long long at, int type,
+                                         float x) {
+  if (type == kF32) store(static_cast<float*>(c) + at, x);
+  else if (type == kBF16) store(static_cast<__nv_bfloat16*>(c) + at, x);
+  else store_narrow(c, at, type, x);
+}
+
+// A block's shared buffer of `Bytes`: static up to the 48 KB a kernel
+// has without opting in, dynamic past it (the launch then passes Bytes
+// and sets cudaFuncAttributeMaxDynamicSharedMemorySize)
+constexpr int kStaticSmemBytes = 48 * 1024;
+template <int Bytes>
+__device__ __forceinline__ char* shared_buffer() {
+  if constexpr (Bytes <= kStaticSmemBytes) {
+    __shared__ __align__(16) char buf[Bytes];
+    return buf;
+  } else {
+    extern __shared__ __align__(16) char dyn[];
+    return dyn;
+  }
 }
 
 // Copies the (R x W) window at (r0, c0) of a row-major (nr x nc) matrix
@@ -184,6 +245,7 @@ struct Layout {
 template <typename T, int BK, int PAD, bool TRANS_A, bool TRANS_B>
 struct Direct {
   using L = Layout<BK, PAD, TRANS_A, TRANS_B>;
+  using Elem = T;
   static constexpr int kStageBytes = (L::a_elems + L::b_elems) * sizeof(T);
   static constexpr int kCvtBytes = 0;
   static constexpr bool kConverts = false;
@@ -354,7 +416,7 @@ __device__ __forceinline__ void for_each(const Acc& acc, Fn fn) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16, ldmatrix
+// bfloat16 and float16: mma.sync m16n8k16, ldmatrix
 // ---------------------------------------------------------------------------
 
 namespace bf16 {
@@ -382,13 +444,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       : "r"(smem_addr(p)));
 }
 
+// the m16n8k16 product of 16-bit E (bf16 or f16) fragments, f32 sums
+template <typename E>
 __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
                                     unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<E, __half>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <typename AccT>
@@ -432,10 +503,12 @@ __device__ __forceinline__ void fragments(const E* As, const E* Bs, int ks,
   }
 }
 
+// Src::Elem is bf16 or f16, the type of the tiles Src::view gives
 template <bool TRANS_A, bool TRANS_B, class Src>
 __device__ __forceinline__ void loop(const Src& src, int nk,
                                      Acc<float>& acc) {
   using L = Layout<TRANS_A, TRANS_B>;
+  using E = typename Src::Elem;
   __shared__ __align__(16) char smem[2 * Src::kStageBytes + Src::kCvtBytes];
   char* cvt = smem + 2 * Src::kStageBytes;
   const int warp = threadIdx.x / 32;
@@ -456,7 +529,7 @@ __device__ __forceinline__ void loop(const Src& src, int nk,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T *As, *Bs;
+    const E *As, *Bs;
     src.view(smem + (kt & 1) * Src::kStageBytes, cvt, kt, As, Bs);
     if (Src::kConverts) __syncthreads();
 #pragma unroll
@@ -468,7 +541,7 @@ __device__ __forceinline__ void loop(const Src& src, int nk,
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni)
-          mma(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+          mma<E>(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
     __syncthreads();
   }
@@ -523,6 +596,7 @@ __device__ __forceinline__ void widen(const uint8_t* src, T* dst) {
 template <bool TRANS_A, bool TRANS_B>
 struct Fp8 {
   using L = Layout<TRANS_A, TRANS_B>;
+  using Elem = T;
   static constexpr int kA = BM * BK, kB = BK * BN;   // bytes
   static constexpr int kStageBytes = kA + kB;
   static constexpr int kCvtBytes = (L::a_elems + L::b_elems) * sizeof(T);
@@ -577,10 +651,75 @@ __device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
 
 using Acc = bf16::Acc<int>;
 
+// shared bytes of the loop over source Src (dynamic past 48 KB: see
+// shared_buffer)
+template <class Src>
+constexpr int kSmemBytes = 2 * Src::kStageBytes + Src::kCvtBytes;
+
+// dst[c][r] = src[r][c] for the dense (R x C) bytes at src, into rows of
+// LD bytes: a thread gathers four rows of a column into one word
+template <int R, int C>
+__device__ __forceinline__ void transpose(const uint8_t* src, int8_t* dst) {
+  for (int i = threadIdx.x; i < R / 4 * C; i += kThreads) {
+    const int r4 = (i / C) * 4, c = i % C;
+    uint32_t w = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w |= (uint32_t)src[(r4 + q) * C + c] << (8 * q);
+    *reinterpret_cast<uint32_t*>(dst + c * LD + r4) = w;
+  }
+}
+
+// int8 A and B as they are in device memory: A (rows, K) row-major, or
+// its (K, M) when TRANS_A (`a` column m0, row stride lda = M); B (K, N),
+// or (N, K) when TRANS_B. A k-contiguous A and an n-major B land in
+// their compute tiles; the others land raw, [BK][BM] and [BK][BN], and
+// are transposed into a buffer of their own.
+template <bool TRANS_A, bool TRANS_B>
+struct S8 {
+  static constexpr int kA = TRANS_A ? BK * BM : kTileBytes;
+  static constexpr int kB = TRANS_B ? kTileBytes : BK * BN;
+  static constexpr int kStageBytes = kA + kB;
+  static constexpr int kCvtBytes =
+      (TRANS_A ? kTileBytes : 0) + (TRANS_B ? 0 : kTileBytes);
+  static constexpr bool kConverts = TRANS_A || !TRANS_B;
+  const int8_t* a;
+  const int8_t* b;
+  long long lda;
+  int rows, n0, K, N;
+  bool vec;
+
+  __device__ __forceinline__ void issue(char* stage, int kt) const {
+    int8_t* s = reinterpret_cast<int8_t*>(stage);
+    load_a<int8_t, BK, TRANS_A ? BM : LD, TRANS_A>(s, a, kt * BK, rows, K,
+                                                   lda, vec);
+    load_b<int8_t, BK, TRANS_B ? LD : BN, TRANS_B>(s + kA, b, kt * BK, n0,
+                                                   K, N, vec);
+  }
+  __device__ __forceinline__ void view(char* stage, char* cvt, int,
+                                       const int8_t*& As,
+                                       const int8_t*& Bs) const {
+    const uint8_t* s = reinterpret_cast<const uint8_t*>(stage);
+    int8_t* out = reinterpret_cast<int8_t*>(cvt);
+    if (TRANS_A) {
+      transpose<BK, BM>(s, out);
+      As = out;
+      out += kTileBytes;
+    } else {
+      As = reinterpret_cast<const int8_t*>(s);
+    }
+    if (TRANS_B) {
+      Bs = reinterpret_cast<const int8_t*>(s + kA);
+    } else {
+      transpose<BK, BN>(s + kA, out);
+      Bs = out;
+    }
+  }
+};
+
 // Src::view gives A [BM][LD] and B [BN][LD] int8 tiles (k-contiguous)
 template <class Src>
 __device__ __forceinline__ void loop(const Src& src, int nk, Acc& acc) {
-  __shared__ __align__(16) char smem[2 * Src::kStageBytes + Src::kCvtBytes];
+  char* smem = shared_buffer<kSmemBytes<Src>>();
   char* cvt = smem + 2 * Src::kStageBytes;
   const int warp = threadIdx.x / 32;
   const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
@@ -652,6 +791,11 @@ __device__ __forceinline__ void gemm_tile(const Tile<__nv_bfloat16, OutT>& t,
     if (r < t.rows && t.n0 + c < N) store(t.c + (long long)r * N + t.n0 + c,
                                           v);
   });
+}
+
+// blocks of a grid of 128 x 128 tiles over an M x N output
+inline unsigned tile_count(int M, int N) {
+  return (unsigned)((M + BM - 1) / BM) * (unsigned)((N + BN - 1) / BN);
 }
 
 // the 16-byte path applies: every row of A and B starts on 16 bytes

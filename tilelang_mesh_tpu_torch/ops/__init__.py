@@ -12,6 +12,10 @@ from .flash_decoding import (decode_partials,  # noqa: F401
 from .gdn import (gdn_chunk_fwd, gdn_chunk_fwd_tl,  # noqa: F401
                   gdn_chunk_fwd_tl_plain, gdn_reference)
 from .gemm import matmul, matmul_kernel  # noqa: F401
+from .gemm_variants import (blocksparse_gemm_kernel,  # noqa: F401
+                            blocksparse_matmul, gemv, gemv_kernel,
+                            matmul_splitk, matmul_streamk, splitk_kernel,
+                            streamk_kernel)
 from .grouped_gemm import (grouped_matmul,  # noqa: F401
                            grouped_matmul_plain, varlen_grouped_matmul,
                            varlen_grouped_matmul_plain,
@@ -34,6 +38,9 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "mla_decode_reference", "grouped_matmul", "grouped_matmul_plain",
            "varlen_grouped_matmul", "varlen_grouped_matmul_plain",
            "varlen_grouped_matmul_reference", "matmul", "matmul_kernel",
+           "matmul_splitk", "splitk_kernel", "matmul_streamk",
+           "streamk_kernel", "gemv", "gemv_kernel", "blocksparse_matmul",
+           "blocksparse_gemm_kernel",
            "dequant_matmul", "dequant_gemm_kernel", "dequant_matmul_twopass",
            "w4a8_matmul", "quantize_w4_per_channel", "mamba2_chunk_scan",
            "mamba2_chunk_scan_plain", "mamba2_chunk_scan_torch",

@@ -1,0 +1,578 @@
+"""GEMM scheduling variants on the card: split-K, stream-K, GEMV,
+block-sparse GEMM.
+
+Counterpart of ``tilelang_mesh_tpu/ops/gemm_variants.py``, with its names
+and signatures. Two CUDA sources replace its four TPU kernels:
+``csrc/gemm_variants.cu`` (split-K, stream-K and block-sparse, on the
+block tile loop of ``csrc/gemm_tile.cuh``) and ``csrc/gemv.cu``.
+
+* ``matmul_splitk(a, b, n_split, ...)`` — C = A @ B with K cut into
+  ``n_split`` chunks, one float32 partial (M, N) a chunk, summed in
+  split order and rounded once to ``out_dtype`` (default: a's type). The
+  split is the JAX wrapper's (``splitk_plan``): only where the chunk is a
+  multiple of 128, else fewer splits, down to one full-K chunk. That rule
+  is the TPU's (Mosaic's lane rule), kept so that both packages sum the
+  same partials in the same order. Two launches: the partials
+  (``splitk_gemm``) and their sum (``splitk_reduce``).
+* ``matmul_streamk(a, b, n_programs, ...)`` — the same product over
+  host-planned segments ``(tile, k0, k_len)`` (``_streamk_segments``, the
+  JAX planner's copy) that split the (tile, K-block) work evenly over
+  ``n_programs``: one float32 partial tile a segment, each tile's
+  segments summed in order. M, N and K must be multiples of their blocks
+  (``ValueError``). Two launches: ``streamk_gemm`` (one block a program,
+  running its segments in order) and ``streamk_fixup``.
+* ``gemv(a, b, out_dtype, ...)`` — c = B @ a for a (K,) and B (N, K),
+  float32 products and sums. One launch (``gemv``).
+* ``blocksparse_matmul(a, b, block_mask, ...)`` — A @ B on the output
+  tiles whose (M / block_M, N / block_N) int32 mask cell is nonzero,
+  exactly 0 elsewhere. One launch (``blocksparse_gemm``).
+* The factories ``splitk_kernel`` (its callable gives the partials),
+  ``streamk_kernel`` (the segment partials), ``gemv_kernel`` and
+  ``blocksparse_gemm_kernel``: the same computations for fixed shapes and
+  types.
+
+Inputs are float32, bfloat16 or float16 (any other type raises
+``TypeError``); outputs float32, bfloat16, float16 or float8 e4m3
+(``ops/gemm.py::to_out``'s rounding). The ``block_*`` and ``num_stages``
+arguments are the TPU's tiling hints, accepted and ignored except where
+the JAX package derives the result's structure from them: split-K's
+split, stream-K's segments and block-sparse's mask cells. On the card a
+stream-K tile is at most 128 x 128 (``ValueError`` past it); the plain
+versions take any.
+
+Each wrapper launches its kernel on CUDA tensors (a build or launch
+failure raises; there is no fallback) and runs its plain PyTorch version
+(``*_plain``, the kernel's arithmetic in torch eager) on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..resilience.errors import KernelLaunchError
+from .gemm import DTYPE_CODES, _as_dtype, _check, _out_dtype, check_grid, \
+    to_out
+
+__all__ = ["matmul_splitk", "matmul_splitk_plain", "splitk_plan",
+           "splitk_kernel", "matmul_streamk", "matmul_streamk_plain",
+           "streamk_kernel", "streamk_programs", "gemv", "gemv_plain",
+           "gemv_kernel", "blocksparse_matmul", "blocksparse_matmul_plain",
+           "blocksparse_gemm_kernel", "launches", "reset_launches",
+           "IN_TYPES"]
+
+# the input types the variants' kernels take
+IN_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KERNEL_TILE = 128              # csrc/gemm_tile.cuh BM = BN
+_GRID_Y_MAX = 65535
+
+# kernel name -> launches through its wrapper (chip_smoke.py zeroes and
+# reads these around each call to prove the path used the kernels)
+launches = {"splitk_gemm": 0, "splitk_reduce": 0, "streamk_gemm": 0,
+            "streamk_fixup": 0, "gemv": 0, "blocksparse_gemm": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _types(a, b, out_dtype, what: str) -> torch.dtype:
+    """The output type for float32, bfloat16 or float16 operands."""
+    _check(a, b, what)
+    if a.dtype not in IN_TYPES:
+        raise TypeError(f"{what}: {a.dtype} inputs are not ported (float32,"
+                        f" bfloat16 or float16)")
+    return _out_dtype(a.dtype, out_dtype)
+
+
+def _mk(a, b, what: str) -> Tuple[int, int, int]:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{what}: want a (M, K) and b (K, N), got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    return int(a.shape[0]), int(b.shape[1]), int(a.shape[1])
+
+
+def _call(lib: str, fn_name: str, kernel: str, dev, argtypes, *args):
+    """Launch the C entry ``fn_name`` of ``csrc/<lib>.cu`` on ``dev``'s
+    current stream; raise if it refused; count it."""
+    from ._build import load, stream_call
+    fn = getattr(load(lib), fn_name)
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = stream_call(fn, dev, *args)
+    if code != 0:
+        raise KernelLaunchError(kernel, code)
+    launches[kernel] += 1
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+# ---------------------------------------------------------------------------
+# split-K
+# ---------------------------------------------------------------------------
+
+def splitk_plan(K: int, n_split: int = 4,
+                block_K: int = 128) -> Tuple[int, int, int]:
+    """``(n_split, split_len, block_K)`` as the JAX wrapper chooses them
+    (``ops/gemm_variants.py:71-79``): the largest split count up to
+    ``n_split`` whose chunk is a multiple of 128 (Mosaic's lane rule on
+    the TPU), else one full-K chunk; block_K the largest multiple of 128
+    up to the asked one that divides the chunk, or the chunk itself."""
+    if n_split < 1:
+        raise ValueError(f"matmul_splitk: n_split must be >= 1, got "
+                         f"{n_split}")
+    while n_split > 1 and (K % n_split or (K // n_split) % 128):
+        n_split -= 1
+    split_len = K // n_split
+    if split_len % 128 == 0:
+        block_K = max(128, min(block_K, split_len) // 128 * 128)
+        while split_len % block_K:
+            block_K -= 128
+    else:
+        block_K = split_len
+    return n_split, split_len, block_K
+
+
+def _splitk_partials_plain(a, b, n_split: int) -> torch.Tensor:
+    M, K = a.shape
+    L = K // n_split
+    a3 = a.float()[:, :n_split * L].reshape(M, n_split, L).transpose(0, 1)
+    return torch.bmm(a3, b.float()[:n_split * L].reshape(n_split, L, -1))
+
+
+def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    c = parts[0].clone()
+    for p in parts[1:]:
+        c += p
+    return c
+
+
+def matmul_splitk_plain(a, b, n_split: int = 4, block_M=128, block_N=128,
+                        block_K=128, out_dtype=None) -> torch.Tensor:
+    """Plain version: the plan's float32 partials (``torch.bmm``) summed in
+    split order, rounded once."""
+    out = _types(a, b, out_dtype, "matmul_splitk")
+    M, N, K = _mk(a, b, "matmul_splitk")
+    n, _, _ = splitk_plan(K, n_split, block_K)
+    if K == 0:
+        return to_out(torch.zeros((M, N), device=a.device), out)
+    return to_out(_sum_in_order(_splitk_partials_plain(a, b, n)), out)
+
+
+def _splitk_partials_launch(a, b, n_split: int) -> torch.Tensor:
+    M, N, K = _mk(a, b, "matmul_splitk")
+    check_grid(M, N, "matmul_splitk")
+    if n_split > _GRID_Y_MAX:
+        raise ValueError(f"matmul_splitk: n_split {n_split} is past the "
+                         f"kernel grid's range")
+    a, b = a.contiguous(), b.contiguous()
+    ws = torch.empty((n_split, M, N), dtype=torch.float32, device=a.device)
+    if ws.numel() == 0 or K == 0:
+        return ws.zero_()
+    _call("gemm_variants", "tl_splitk_gemm", "splitk_gemm", a.device,
+          [_P, _P, _P] + [_I] * 6, a.data_ptr(), b.data_ptr(),
+          ws.data_ptr(), M, N, K, n_split, K // n_split,
+          DTYPE_CODES[a.dtype])
+    return ws
+
+
+def _splitk_reduce_launch(ws, out: torch.dtype) -> torch.Tensor:
+    n_split, M, N = ws.shape
+    c = torch.empty((M, N), dtype=out, device=ws.device)
+    if c.numel() == 0:
+        return c
+    _call("gemm_variants", "tl_splitk_reduce", "splitk_reduce", ws.device,
+          [_P, _P, _L, _I, _I], ws.data_ptr(), c.data_ptr(), M * N, n_split,
+          DTYPE_CODES[out])
+    return c
+
+
+def matmul_splitk(a, b, n_split: int = 4, block_M=128, block_N=128,
+                  block_K=128, out_dtype=None) -> torch.Tensor:
+    """C = A @ B over ``splitk_plan``'s K chunks, the float32 partials
+    summed in split order, in ``out_dtype`` (default: a's type). CUDA
+    tensors launch the kernels; CPU tensors run the plain version."""
+    out = _types(a, b, out_dtype, "matmul_splitk")
+    M, N, K = _mk(a, b, "matmul_splitk")
+    if not a.is_cuda:
+        return matmul_splitk_plain(a, b, n_split, block_K=block_K,
+                                   out_dtype=out)
+    n, _, _ = splitk_plan(K, n_split, block_K)
+    return _splitk_reduce_launch(_splitk_partials_launch(a, b, n), out)
+
+
+def splitk_kernel(M, N, K, n_split, block_M, block_N, block_K, in_dtype,
+                  num_stages=2):
+    """The JAX package's factory: a callable ``k(a, b)`` giving the
+    partials ``Cp (n_split, M, N)`` float32, ``Cp[s] = A[:, s L:(s+1) L]
+    @ B[s L:(s+1) L]`` with ``L = K // n_split``. K must split into
+    chunks that are multiples of ``block_K``, as the JAX wrapper's plan
+    always gives (``ValueError`` otherwise)."""
+    in_dt = _as_dtype(in_dtype)
+    if in_dt not in IN_TYPES:
+        raise TypeError(f"splitk_kernel: {in_dt} inputs are not ported "
+                        f"(float32, bfloat16 or float16)")
+    if n_split < 1 or K % n_split or (K // n_split) % block_K:
+        raise ValueError(f"splitk_kernel: K={K} does not split into "
+                         f"{n_split} chunks of whole {block_K}-blocks")
+
+    def kernel(a, b):
+        if tuple(a.shape) != (M, K) or tuple(b.shape) != (K, N) \
+                or a.dtype != in_dt:
+            raise ValueError(f"splitk_kernel: want a ({M}, {K}), b ({K}, "
+                             f"{N}) of {in_dt}, got {tuple(a.shape)}, "
+                             f"{tuple(b.shape)} of {a.dtype}")
+        _types(a, b, None, "splitk_kernel")
+        if a.is_cuda:
+            return _splitk_partials_launch(a, b, n_split)
+        return _splitk_partials_plain(a, b, n_split)
+
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# stream-K
+# ---------------------------------------------------------------------------
+
+def _streamk_segments(n_tiles: int, k_iters: int,
+                      n_programs: int) -> List[Tuple[int, int, int]]:
+    """Balance the flat (tile, k-block) iteration space over
+    ``n_programs`` programs and cut each program's contiguous range at
+    tile boundaries: ``[(tile, k0, k_len)]`` in flat order (a copy of the
+    JAX package's ``layout/python_impl.py::streamk_partition``)."""
+    total = n_tiles * k_iters
+    per = -(-total // n_programs)
+    segs = []
+    for p in range(n_programs):
+        s, e = p * per, min(total, (p + 1) * per)
+        while s < e:
+            tile, k0 = divmod(s, k_iters)
+            klen = min(k_iters - k0, e - s)
+            segs.append((tile, k0, klen))
+            s += klen
+    return segs
+
+
+def _streamk_shapes(a, b, n_programs, block_M, block_N, block_K):
+    M, N, K = _mk(a, b, "matmul_streamk")
+    if n_programs < 1:
+        raise ValueError(f"matmul_streamk: n_programs must be >= 1, got "
+                         f"{n_programs}")
+    if M % block_M or N % block_N or K % block_K:
+        raise ValueError(f"matmul_streamk: M={M}, N={N}, K={K} must be "
+                         f"multiples of block_M={block_M}, block_N="
+                         f"{block_N}, block_K={block_K}")
+    return M, N, K
+
+
+@functools.lru_cache(maxsize=64)
+def _streamk_tables(M, N, K, n_programs, block_M, block_N, block_K,
+                    device: torch.device):
+    """On ``device``, built on the host once a shape: tables (4, n_seg)
+    int32 (tile_m, tile_n, k_start, k_len); first (n_tiles + 1) int32,
+    tile t's segments first[t] .. first[t + 1]; prog (n_prog + 1) int32,
+    program p's segments prog[p] .. prog[p + 1] (the programs with
+    work)."""
+    nN = N // block_N
+    k_iters = K // block_K
+    n_tiles = (M // block_M) * nN
+    segs = _streamk_segments(n_tiles, k_iters, n_programs)
+    tiles = torch.tensor([s[0] for s in segs], dtype=torch.int64)
+    k0 = torch.tensor([s[1] for s in segs], dtype=torch.int64)
+    tables = torch.stack([tiles // nN, tiles % nN, k0,
+                          torch.tensor([s[2] for s in segs])]).to(
+                              torch.int32)
+    first = torch.searchsorted(tiles, torch.arange(n_tiles + 1))
+    # a segment's program: where its flat start falls among the programs'
+    # equal ranges (the planner's `per`)
+    per = -(-n_tiles * k_iters // n_programs)
+    program = (tiles * k_iters + k0) // per
+    prog = torch.searchsorted(program, torch.arange(int(program[-1]) + 2))
+    return (tables.to(device), first.to(torch.int32).to(device),
+            prog.to(torch.int32).to(device))
+
+
+def _streamk_partials_plain(a, b, tables, block_M, block_N, block_K):
+    a32, b32 = a.float(), b.float()
+    parts = []
+    for tm, tn, k0, kl in tables.T.tolist():
+        ks = slice(k0 * block_K, (k0 + kl) * block_K)
+        parts.append(a32[tm * block_M:(tm + 1) * block_M, ks]
+                     @ b32[ks, tn * block_N:(tn + 1) * block_N])
+    return torch.stack(parts)
+
+
+def matmul_streamk_plain(a, b, n_programs: int = 8, block_M=128,
+                         block_N=128, block_K=128,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain version: each segment's float32 partial tile, each tile's
+    segments summed in segment order, rounded once."""
+    out = _types(a, b, out_dtype, "matmul_streamk")
+    M, N, K = _streamk_shapes(a, b, n_programs, block_M, block_N, block_K)
+    if M * N == 0:
+        return torch.empty((M, N), dtype=out, device=a.device)
+    if K == 0:
+        return to_out(torch.zeros((M, N), device=a.device), out)
+    tables, first, _ = _streamk_tables(M, N, K, n_programs, block_M,
+                                       block_N, block_K, a.device)
+    part = _streamk_partials_plain(a, b, tables, block_M, block_N, block_K)
+    # tile t's r-th segment is first[t] + r; each round adds one segment
+    # to every tile that has one, so every tile sums in segment order
+    first = first.long()
+    count = first[1:] - first[:-1]
+    fixed = part[first[:-1]]
+    for r in range(1, int(count.max())):
+        t = torch.nonzero(count > r).flatten()
+        fixed[t] += part[first[t] + r]
+    nM, nN = M // block_M, N // block_N
+    c = fixed.reshape(nM, nN, block_M, block_N).transpose(1, 2)
+    return to_out(c.reshape(M, N), out)
+
+
+def _streamk_partials_launch(a, b, tables, prog, block_M, block_N,
+                             block_K):
+    """Part (n_seg, block_M, block_N): one block a program, running
+    segments prog[p] .. prog[p + 1]."""
+    M, N, K = _mk(a, b, "matmul_streamk")
+    if block_M > _KERNEL_TILE or block_N > _KERNEL_TILE:
+        raise ValueError(f"matmul_streamk: the card's tile is "
+                         f"{_KERNEL_TILE} x {_KERNEL_TILE}; block_M="
+                         f"{block_M}, block_N={block_N} is past it")
+    n_seg, n_prog = int(tables.shape[1]), int(prog.numel()) - 1
+    a, b, tables = a.contiguous(), b.contiguous(), tables.contiguous()
+    part = torch.empty((n_seg, block_M, block_N), dtype=torch.float32,
+                       device=a.device)
+    if n_seg == 0:
+        return part
+    rows = [tables[i].data_ptr() for i in range(4)]
+    _call("gemm_variants", "tl_streamk_gemm", "streamk_gemm", a.device,
+          [_P] * 8 + [_I] * 7, a.data_ptr(), b.data_ptr(), *rows,
+          prog.data_ptr(), part.data_ptr(), n_prog, N, K, block_M, block_N,
+          block_K, DTYPE_CODES[a.dtype])
+    return part
+
+
+def matmul_streamk(a, b, n_programs: int = 8, block_M=128, block_N=128,
+                   block_K=128, out_dtype=None) -> torch.Tensor:
+    """C = A @ B over ``n_programs`` balanced stream-K programs' segments,
+    each tile's float32 partials summed in segment order, in
+    ``out_dtype`` (default: a's type). CUDA tensors launch the kernels;
+    CPU tensors run the plain version."""
+    out = _types(a, b, out_dtype, "matmul_streamk")
+    M, N, K = _streamk_shapes(a, b, n_programs, block_M, block_N, block_K)
+    if not a.is_cuda:
+        return matmul_streamk_plain(a, b, n_programs, block_M, block_N,
+                                    block_K, out)
+    c = torch.empty((M, N), dtype=out, device=a.device)
+    if c.numel() == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    tables, first, prog = _streamk_tables(M, N, K, n_programs, block_M,
+                                          block_N, block_K, a.device)
+    part = _streamk_partials_launch(a, b, tables, prog, block_M, block_N,
+                                    block_K)
+    _call("gemm_variants", "tl_streamk_fixup", "streamk_fixup", a.device,
+          [_P] * 3 + [_I] * 5, part.data_ptr(), first.data_ptr(),
+          c.data_ptr(), M, N, block_M, block_N, DTYPE_CODES[out])
+    return c
+
+
+def streamk_kernel(M, N, K, n_seg, block_M, block_N, block_K, in_dtype):
+    """The JAX package's factory: a callable ``k(a, b, tile_m, tile_n,
+    k_start, k_len)`` (int32 tables of ``n_seg``, k in block_K units)
+    giving the segment partials ``Part (n_seg, block_M, block_N)``
+    float32."""
+    in_dt = _as_dtype(in_dtype)
+    if in_dt not in IN_TYPES:
+        raise TypeError(f"streamk_kernel: {in_dt} inputs are not ported "
+                        f"(float32, bfloat16 or float16)")
+
+    def kernel(a, b, tile_m, tile_n, k_start, k_len):
+        if tuple(a.shape) != (M, K) or tuple(b.shape) != (K, N) \
+                or a.dtype != in_dt:
+            raise ValueError(f"streamk_kernel: want a ({M}, {K}), b ({K}, "
+                             f"{N}) of {in_dt}, got {tuple(a.shape)}, "
+                             f"{tuple(b.shape)} of {a.dtype}")
+        _types(a, b, None, "streamk_kernel")
+        _streamk_shapes(a, b, 1, block_M, block_N, block_K)
+        tables = torch.stack([torch.as_tensor(t, device=a.device).to(
+            torch.int32).reshape(-1) for t in (tile_m, tile_n, k_start,
+                                               k_len)])
+        if tables.shape[1] != n_seg:
+            raise ValueError(f"streamk_kernel: want {n_seg} segments, got "
+                             f"{tables.shape[1]}")
+        if a.is_cuda:                   # one block a segment
+            prog = torch.arange(n_seg + 1, dtype=torch.int32,
+                                device=a.device)
+            return _streamk_partials_launch(a, b, tables, prog, block_M,
+                                            block_N, block_K)
+        return _streamk_partials_plain(a, b, tables, block_M, block_N,
+                                       block_K)
+
+    return kernel
+
+
+def streamk_programs(device=None, dtype=torch.bfloat16) -> int:
+    """The stream-K blocks the card holds at once: its SMs times the
+    kernel's blocks an SM (CUDA's occupancy calculator)."""
+    from ._build import load
+    dev = torch.device("cuda" if device is None else device)
+    fn = load("gemm_variants").tl_streamk_blocks_per_sm
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        code = fn(DTYPE_CODES[dtype], ctypes.byref(blocks))
+    if code != 0:
+        raise KernelLaunchError("streamk_gemm", code)
+    return torch.cuda.get_device_properties(dev).multi_processor_count \
+        * blocks.value
+
+
+# ---------------------------------------------------------------------------
+# GEMV
+# ---------------------------------------------------------------------------
+
+def _gemv_checks(a, b, out_dtype) -> torch.dtype:
+    out = _types(a, b, out_dtype, "gemv")
+    if a.dim() != 1 or b.dim() != 2 or b.shape[1] != a.shape[0]:
+        raise ValueError(f"gemv: want a (K,) and b (N, K), got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    return out
+
+
+def gemv_plain(a, b, out_dtype=None, block_N=128,
+               block_K=512) -> torch.Tensor:
+    """Plain version: the float32 dot of each row of B with a."""
+    out = _gemv_checks(a, b, out_dtype)
+    return to_out(torch.mv(b.float(), a.float()), out)
+
+
+def gemv(a, b, out_dtype=None, block_N=128, block_K=512) -> torch.Tensor:
+    """c = B @ a with a (K,), B (N, K) -> (N,) in ``out_dtype`` (default:
+    a's type), float32 products and sums. CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
+    out = _gemv_checks(a, b, out_dtype)
+    if not a.is_cuda:
+        return gemv_plain(a, b, out)
+    N, K = int(b.shape[0]), int(b.shape[1])
+    c = torch.empty((N,), dtype=out, device=a.device)
+    if N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    a, b = a.contiguous(), b.contiguous()
+    _call("gemv", "tl_gemv", "gemv", a.device, [_P] * 3 + [_I] * 4,
+          a.data_ptr(), b.data_ptr(), c.data_ptr(), N, K,
+          DTYPE_CODES[a.dtype], DTYPE_CODES[out])
+    return c
+
+
+def gemv_kernel(N, K, block_N, block_K, in_dtype, out_dtype, num_stages=2):
+    """The JAX package's factory: a callable ``k(a, b)`` with a (1, K), B
+    (N, K) giving (1, N) in ``out_dtype``."""
+    in_dt = _as_dtype(in_dtype)
+    out = _out_dtype(in_dt, out_dtype)
+    if in_dt not in IN_TYPES:
+        raise TypeError(f"gemv_kernel: {in_dt} inputs are not ported "
+                        f"(float32, bfloat16 or float16)")
+
+    def kernel(a, b):
+        if tuple(a.shape) != (1, K) or tuple(b.shape) != (N, K) \
+                or a.dtype != in_dt:
+            raise ValueError(f"gemv_kernel: want a (1, {K}), b ({N}, {K}) "
+                             f"of {in_dt}, got {tuple(a.shape)}, "
+                             f"{tuple(b.shape)} of {a.dtype}")
+        return gemv(a.reshape(K), b, out).reshape(1, N)
+
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# block-sparse GEMM
+# ---------------------------------------------------------------------------
+
+def _blocksparse_checks(a, b, block_mask, block_M, block_N, out_dtype):
+    out = _types(a, b, out_dtype, "blocksparse_matmul")
+    M, N, K = _mk(a, b, "blocksparse_matmul")
+    if block_M < 1 or block_N < 1 or M % block_M or N % block_N:
+        raise ValueError(f"blocksparse_matmul: M={M}, N={N} must be "
+                         f"multiples of block_M={block_M}, block_N="
+                         f"{block_N}")
+    want = (M // block_M, N // block_N)
+    if tuple(block_mask.shape) != want:
+        raise ValueError(f"blocksparse_matmul: block_mask must be {want} "
+                         f"(M / block_M, N / block_N), got "
+                         f"{tuple(block_mask.shape)}")
+    if block_mask.device != a.device:
+        raise ValueError(f"blocksparse_matmul: block_mask on "
+                         f"{block_mask.device}, operands on {a.device}")
+    if block_mask.dtype.is_floating_point or block_mask.is_complex():
+        raise TypeError(f"blocksparse_matmul: block_mask must be int32, "
+                        f"got {block_mask.dtype}")
+    return out, M, N, K
+
+
+def blocksparse_matmul_plain(a, b, block_mask, block_M=128, block_N=128,
+                             block_K=128, out_dtype=None) -> torch.Tensor:
+    """Plain version: the float32 product, 0 outside the live cells."""
+    out, M, N, K = _blocksparse_checks(a, b, block_mask, block_M, block_N,
+                                       out_dtype)
+    live = (block_mask != 0).repeat_interleave(block_M, 0) \
+        .repeat_interleave(block_N, 1)
+    c = torch.matmul(a.float(), b.float())
+    return to_out(torch.where(live, c, torch.zeros((), device=c.device)),
+                  out)
+
+
+def blocksparse_matmul(a, b, block_mask, block_M=128, block_N=128,
+                       block_K=128, out_dtype=None) -> torch.Tensor:
+    """C tiles where ``block_mask`` (M / block_M, N / block_N) is nonzero
+    hold A @ B (float32 sums), every other element is exactly 0; in
+    ``out_dtype`` (default: a's type). CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
+    out, M, N, K = _blocksparse_checks(a, b, block_mask, block_M, block_N,
+                                       out_dtype)
+    if not a.is_cuda:
+        return blocksparse_matmul_plain(a, b, block_mask, block_M, block_N,
+                                        block_K, out)
+    c = torch.empty((M, N), dtype=out, device=a.device)
+    if c.numel() == 0:
+        return c
+    check_grid(M, N, "blocksparse_matmul")
+    a, b = a.contiguous(), b.contiguous()
+    mask = block_mask.to(torch.int32).contiguous()
+    _call("gemm_variants", "tl_blocksparse_gemm", "blocksparse_gemm",
+          a.device, [_P] * 4 + [_I] * 7, a.data_ptr(), b.data_ptr(),
+          mask.data_ptr(), c.data_ptr(), M, N, K, block_M, block_N,
+          DTYPE_CODES[a.dtype], DTYPE_CODES[out])
+    return c
+
+
+def blocksparse_gemm_kernel(M, N, K, block_M, block_N, block_K, in_dtype,
+                            out_dtype, num_stages=2):
+    """The JAX package's factory: a callable ``k(a, b, block_mask)``
+    computing ``blocksparse_matmul`` for these shapes and types."""
+    in_dt = _as_dtype(in_dtype)
+    out = _out_dtype(in_dt, out_dtype)
+    if in_dt not in IN_TYPES:
+        raise TypeError(f"blocksparse_gemm_kernel: {in_dt} inputs are not "
+                        f"ported (float32, bfloat16 or float16)")
+
+    def kernel(a, b, block_mask):
+        if tuple(a.shape) != (M, K) or tuple(b.shape) != (K, N) \
+                or a.dtype != in_dt:
+            raise ValueError(f"blocksparse_gemm_kernel: want a ({M}, {K}), "
+                             f"b ({K}, {N}) of {in_dt}, got "
+                             f"{tuple(a.shape)}, {tuple(b.shape)} of "
+                             f"{a.dtype}")
+        return blocksparse_matmul(a, b, block_mask, block_M, block_N,
+                                  block_K, out)
+
+    return kernel
