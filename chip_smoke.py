@@ -94,6 +94,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               the plain version on the card; block-sparse dead cells
               exactly 0 and an all-ones mask against matmul; kernel,
               plain, library and matmul times and the bound.
+12. bitnet_gqa — the ninth main path: BitNet b1.58-2B-4T's FFN block and
+              grouped-query attention (see BITNET): the BitFFN on a
+              4096-token prefill and a decode step (three bitnet_gemm
+              launches a call, equal to the module's reference mode on
+              the card, the forward's median time), quantize_act_int8 on
+              the FFN's input and hidden activation (one launch each,
+              the plain version's bytes, a zero row), gqa_attention at 20
+              query over 5 KV heads, S 4096, causal, f32 and bf16 (one
+              gqa_fwd launch without autograd; one partial, one dK/dV,
+              one dQ with it; output and gradients against the plain
+              versions); then bitnet_gemm at the FFN's three products,
+              each kernel's time, its plain version's, a library call's
+              and the bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -241,6 +254,22 @@ SEQ_REF_TOL = {"mamba2": 5e-2, "gdn": 6e-2}
 # reference, float32 (the same sums in another order and grouping)
 LA_GRAD_TOL = 1e-4
 
+
+# BitNet b1.58 at the widths of BitNet b1.58-2B-4T
+# (huggingface.co/microsoft/bitnet-b1.58-2B-4T/blob/main/config.json:
+# hidden_size 2560, intermediate_size 6912, 20 attention heads over 5 KV
+# heads of 128, hidden_act relu2, max_position_embeddings 4096). The JAX
+# package has no BitNet transformer: its paths are the BitFFN block of
+# examples/bitnet-1.58b (gate/up/down BitLinears, squared ReLU) and
+# ops/gqa.py's gqa_attention, both taken here at those widths. Cut to one
+# FFN block and one attention call of the model's 30 layers; the FFN's
+# weights drawn as the example draws them (standard_normal / sqrt(fan_in)
+# from default_rng(0), absmean-ternarised), its input standard_normal
+# from default_rng(1): a 4096-token prefill and a one-token decode step.
+# Attention at B 2, S 4096, causal, in f32 and bf16, q, k, v and the
+# incoming gradient standard_normal from default_rng(2).
+BITNET = dict(hidden=2560, inter=6912, heads=20, kv_heads=5, head_dim=128,
+              seq=4096, attn_batch=2)
 
 # the script's peak device memory over the phases whose counters were
 # zeroed (see reset_peak)
@@ -1570,6 +1599,9 @@ def kernel_entries(res, kernels):
     out = []
     for name, source, replaces, head in kernels:
         prefix = f"{name}_"
+        # cases of another kernel whose name extends this one's
+        theirs = tuple(f"{n}_" for n, *_ in kernels
+                       if n != name and n.startswith(prefix))
         top = res[prefix + head]
         entry = {
             "name": name, "route": "cuda",
@@ -1579,6 +1611,7 @@ def kernel_entries(res, kernels):
             "variants": {c[len(prefix):]: {k: v[k] for k in keys
                                            + ("matmul_ms",) if k in v}
                          for c, v in res.items() if c.startswith(prefix)
+                         and not c.startswith(theirs)
                          and c != prefix + head and "ms" in v}}
         entry.update({k: top[k] for k in ("library", "matmul_ms")
                       if k in top})
@@ -2078,6 +2111,269 @@ SEQMIX_LIBRARY = ("none: no single PyTorch call computes the SSD scan, "
                   "the gated delta rule or chunked linear attention")
 
 
+def bitnet_gqa_phase(torch, bn, qa, gq, gb):
+    """BitNet b1.58-2B-4T's FFN block and grouped-query attention
+    (BITNET): each main-path call with the counters zeroed before it and
+    read right after (the FFN three bitnet_gemm launches a call, prefill
+    and decode; quantize_act_int8 one; gqa_attention one gqa_fwd without
+    autograd, one gqa_fwd_partial, one dK/dV and one dQ with it); the FFN
+    equal to the same module's reference mode on the card (the plain
+    path: the exact product in float64, the same epilogue), its forward's
+    median time; each kernel against its plain version on the card at
+    the path's shapes, with kernel, plain and library times and the
+    bound."""
+    import numpy as np
+    import torch.nn.functional as F
+    from tilelang_mesh_tpu_torch.models.bitnet import BitFFN
+    counters = (bn.launches, qa.launches, gq.launches, gb.launches)
+    counted = {k: 0 for c in counters for k in c}
+    res = {}
+    reset_peak(torch)
+    c = BITNET
+    hid, inter = c["hidden"], c["inter"]
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        for m in (bn, qa, gq, gb):
+            m.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {k: n for cnt in counters for k, n in cnt.items()}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def median_ms(fn, n=5):
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[n // 2], times
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    # -- the FFN block: a 4096-token prefill and a decode step -----------
+    ffn = BitFFN(hid, inter, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, c["seq"], hid), dtype=np.float32)).cuda()
+    x1 = torch.from_numpy(rng.standard_normal(
+        (1, 1, hid), dtype=np.float32)).cuda()
+    for label, xx in (("prefill", x), ("decode", x1)):
+        y = drive(f"BitFFN {label}", lambda: ffn(xx), {"bitnet_gemm": 3})
+        want = drive(f"BitFFN {label} reference", lambda: ffn(
+            xx, reference=True), {}, main=False)
+        check(tuple(y.shape) == tuple(xx.shape) and y.dtype == torch.float32
+              and bool(torch.isfinite(y).all()), f"BitFFN {label}: bad "
+              f"output {y.dtype} {tuple(y.shape)}")
+        check(torch.equal(y, want), f"BitFFN {label} differs from its "
+              f"plain path by {float((y - want).abs().max()):.3e}")
+        med, times = median_ms(lambda: ffn(xx))
+        plain_med, _ = median_ms(lambda: ffn(xx, reference=True), 3)
+        res[f"bitffn_{label}"] = {
+            "shape": list(xx.shape), "forward_ms_median": med,
+            "forward_ms": times, "plain_forward_ms_median": plain_med,
+            "tokens_per_s": xx.shape[1] / (med / 1e3),
+            "equal_to_plain": True}
+        del y, want
+
+    # -- bitnet_gemm alone on the FFN's own activations ------------------
+    x2, x12 = x.reshape(-1, hid), x1.reshape(-1, hid)
+    q_in, s_in = bn.quantize_activations(x2)
+    g = torch.clamp_min(bn.bitnet_linear(x2, ffn.packed_gate,
+                                         ffn.scales["gate"]), 0.0)
+    h = torch.square(g) * bn.bitnet_linear(x2, ffn.packed_up,
+                                           ffn.scales["up"])
+    del g
+    q_h, _ = bn.quantize_activations(h)
+    q_dec, _ = bn.quantize_activations(x12)
+    for label, a, name in (("prefill_gate_up", q_in, "gate"),
+                           ("prefill_down", q_h, "down"),
+                           ("decode_gate_up", q_dec, "gate")):
+        packed = getattr(ffn, f"packed_{name}")
+        w8 = getattr(ffn, f"ternary_{name}")
+        M, K = a.shape
+        N = packed.shape[1]
+        got = drive(f"bitnet_gemm {label}", lambda: bn.bitnet_gemm(
+            a, packed), {"bitnet_gemm": 1}, main=False)
+        want = bn.bitnet_gemm_plain(a, packed)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"bitnet_gemm {label} differs from its plain version")
+        del got, want
+        # torch._int_mm asks M > 16: the decode row padded to 32 rows;
+        # cuBLASLt's int8 path takes a column-major B
+        a_lib = a if M > 16 else torch.cat(
+            [a, a.new_zeros((32 - M, K))])
+        w_lib = w8.T.contiguous().T
+        check(torch.equal(torch._int_mm(a_lib, w_lib)[:M],
+                          bn.bitnet_gemm_plain(a, packed)),
+              f"the library yardstick disagrees at {label}")
+        res[f"bitnet_gemm_{label}"] = {
+            "shape": [M, N, K], "max_abs_err": 0, "tolerance": "equal",
+            "ms": device_ms(torch, lambda: bn.bitnet_gemm(a, packed), 5),
+            "plain_ms": device_ms(torch, lambda: bn.bitnet_gemm_plain(
+                a, packed), 2),
+            "library_ms": device_ms(torch, lambda: torch._int_mm(
+                a_lib, w_lib), 5),
+            "library": "torch._int_mm on the unpacked int8 weight"
+                       + ("" if M > 16 else f" ({M} row padded to 32: "
+                                             f"_int_mm asks M > 16)"),
+            **bound(2 * M * N * K, M * K + K // 4 * N + 4 * M * N,
+                    PEAK_8BIT_OPS)}
+    del q_in, q_h, q_dec
+
+    # -- quantize_act_int8 on the FFN's input and hidden activation ------
+    for label, t in (("ffn_input", x2), ("ffn_hidden", h)):
+        t = t.clone()
+        t[123] = 0.0                       # one all-zero row
+        q, s = drive(f"quantize_act_int8 {label}",
+                     lambda: qa.quantize_act_int8(t),
+                     {"quantize_act_int8": 1})
+        pq, ps = qa.quantize_act_int8_plain(t)
+        check(torch.equal(q, pq) and torch.equal(
+            s.view(torch.int32), ps.view(torch.int32)),
+            f"quantize_act_int8 {label}: Q or S differ from the plain "
+            f"version's bytes")
+        check(bool(torch.isfinite(s).all()) and not bool(q[123].any()),
+              f"quantize_act_int8 {label}: the zero row's S or Q")
+        M, K = t.shape
+        res[f"quantize_act_int8_{label}"] = {
+            "shape": [M, K], "max_abs_err": 0, "tolerance": "equal bytes",
+            "ms": device_ms(torch, lambda: qa.quantize_act_int8(t), 5),
+            "plain_ms": device_ms(torch, lambda: qa.quantize_act_int8_plain(
+                t), 3),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes per-row "
+                       "absmax int8 codes and their scales",
+            **bound(3 * M * K, 4 * M * K + M * K + 4 * M, PEAK_F32_FLOPS)}
+        del t, q, s, pq, ps
+    del x, x1, x2, x12, h, ffn
+    torch.cuda.empty_cache()
+
+    # -- gqa_attention: no grad (gqa_fwd), grad (partial + backward) -----
+    B, Hq, Hkv, S, D = (c["attn_batch"], c["heads"], c["kv_heads"],
+                        c["seq"], c["head_dim"])
+    group = Hq // Hkv
+    sm = 1.0 / math.sqrt(D)
+    pairs = causal_pairs(S, S) * B * Hq
+    rng = np.random.default_rng(2)
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                          (B, Hq, S, D))]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v, do = (t.cuda().to(dtype) for t in base)
+
+        def within(label, got, want):
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{label} ({name}): non-finite output")
+            err, rel = normwise_err(got, want)
+            check(rel <= tol, f"{label} ({name}) disagrees with its plain "
+                              f"version: {rel:.3e} of max |plain| > {tol}")
+            return err, rel
+
+        with torch.no_grad():
+            o = drive(f"gqa_attention {name}", lambda: gq.gqa_attention(
+                q, k, v, causal=True), {"gqa_fwd": 1})
+        err_o, rel_o = within("gqa_fwd", o, gq.gqa_fwd_plain(q, k, v, True,
+                                                              sm))
+        del o
+        part = gq.gqa_fwd_partial(q, k, v, True, sm)
+        want = gq.gqa_fwd_partial_plain(q, k, v, True, sm)
+        errs = [within("gqa_fwd_partial", a, b) for a, b in zip(part, want)]
+        del part
+
+        # the autograd call against the plain versions of every kernel
+        acc, m, l = want
+        o_plain = torch.where(l[..., None] > 0, acc / l[..., None],
+                              0.0).to(dtype)
+        lse2 = m + torch.log2(l)
+        delta = (do.float() * o_plain.float()).sum(-1)
+        dk, dv = gb.gqa_bwd_dkdv_plain(q, k, v, do, lse2, delta, True, sm)
+        dq = gb.gqa_bwd_dq_plain(q, k, v, do, lse2, delta, True, sm)
+        del want, acc, m, l, lse2, delta
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd():
+            out = gq.gqa_attention(*leaves, causal=True)
+            out.backward(do)
+            return out
+
+        out = drive(f"gqa_attention grad {name}", fwd_bwd, {
+            "gqa_fwd_partial": 1, "gqa_bwd_dkdv": 1, "gqa_bwd_dq": 1})
+        within("gqa_attention grad output", out.detach(), o_plain)
+        grad_errs = {lbl: within(f"gqa_attention {lbl}", t.grad,
+                                 w.to(dtype))[1]
+                     for lbl, t, w in zip(("dq", "dk", "dv"), leaves,
+                                          (dq, dk, dv))}
+        del out, leaves, o_plain, dq, dk, dv
+        torch.cuda.empty_cache()
+
+        bhsd, kvsd = B * Hq * S * D, B * Hkv * S * D
+        kx, vx = (t.repeat_interleave(group, 1) for t in (k, v))
+        res[f"gqa_fwd_{name}"] = {
+            "shape": [B, Hq, Hkv, S, D], "max_abs_err": err_o,
+            "normwise_err": rel_o, "tolerance": f"normwise {tol}",
+            "grad_normwise_err": grad_errs,
+            "ms": cuda_ms(torch, lambda: gq.gqa_fwd(q, k, v, True, sm), 5),
+            "plain_ms": cuda_ms(torch, lambda: gq.gqa_fwd_plain(
+                q, k, v, True, sm), 2),
+            "library_ms": cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 5),
+            "library": "SDPA, is_causal, enable_gqa",
+            **bound(4 * D * pairs, (2 * bhsd + 2 * kvsd) * esize, peak)}
+        res[f"gqa_fwd_partial_{name}"] = {
+            "shape": [B, Hq, Hkv, S, D],
+            "max_abs_err": max(e[0] for e in errs),
+            "normwise_err": max(e[1] for e in errs),
+            "tolerance": f"normwise {tol}",
+            "ms": cuda_ms(torch, lambda: gq.gqa_fwd_partial(
+                q, k, v, True, sm), 5),
+            "plain_ms": cuda_ms(torch, lambda: gq.gqa_fwd_partial_plain(
+                q, k, v, True, sm), 2),
+            # the natural-log LSE, not (m, l) in exp2; KV expanded
+            "library_ms": cuda_ms(
+                torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q, kx, vx, None, True, 0.0, True), 5),
+            "library": "SDPA efficient attention with LSE on the expanded "
+                       "KV",
+            **bound(4 * D * pairs, (bhsd + 2 * kvsd) * esize + 4 * bhsd
+                    + 8 * B * Hq * S, peak)}
+        del q, k, v, do, kx, vx
+        torch.cuda.empty_cache()
+
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"bitnet_gqa": res}), flush=True)
+    return res
+
+
+# the bitnet_gqa phase's kernels: (name, source, replaced TPU kernel,
+# headline case)
+BITNET_GQA_KERNELS = (
+    ("gqa_fwd", "flash_attention.cu", "tilelang_mesh_tpu/ops/gqa.py:21",
+     "float32"),
+    ("gqa_fwd_partial", "flash_attention.cu",
+     "tilelang_mesh_tpu/ops/gqa.py:63", "float32"),
+    ("quantize_act_int8", "quantize_act.cu",
+     "tilelang_mesh_tpu/quantize/quantization.py:72", "ffn_hidden"),
+    ("bitnet_gemm", "bitnet_gemm.cu", "tilelang_mesh_tpu/ops/bitnet.py:51",
+     "prefill_gate_up"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -2123,6 +2419,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from tilelang_mesh_tpu_torch.ops import _build
+    from tilelang_mesh_tpu_torch.ops import bitnet as bn
     from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
     from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
@@ -2133,6 +2430,8 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
     from tilelang_mesh_tpu_torch.ops import mamba2 as m2
     from tilelang_mesh_tpu_torch.ops import mla
+    from tilelang_mesh_tpu_torch.ops import quantize_act as qa
+    gq = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
     la = importlib.import_module(
         "tilelang_mesh_tpu_torch.ops.linear_attention")
 
@@ -2157,7 +2456,7 @@ def main() -> int:
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
                "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm", "mamba2",
                "gdn", "linear_attention", "gemm_s8", "gemm_variants",
-               "gemv")
+               "gemv", "quantize_act", "bitnet_gemm")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -2213,6 +2512,9 @@ def main() -> int:
 
     phase("gemm_variants")
     var = gemm_variants_phase(torch, gv, gm)
+
+    phase("bitnet_gqa")
+    bg = bitnet_gqa_phase(torch, bn, qa, gq, gb)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -2309,6 +2611,7 @@ def main() -> int:
             entry["fixup"] = {"name": fixup,
                               "launches": var["launches"][fixup]}
         kernels.append(entry)
+    kernels += kernel_entries(bg, BITNET_GQA_KERNELS)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

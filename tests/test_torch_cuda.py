@@ -43,6 +43,13 @@ same kernel on flipped operands); 1e-2 in bfloat16, where both round to
 bf16 at the same points but a 1e-7 difference at a rounding boundary
 flips one bf16 ulp (2**-8), and bf16 linear attention's q @ state runs
 as q @ hi + q @ lo on the tensor cores (about 2**-17 of the state).
+BitNet: the int8 x ternary GEMM equal to its plain version (exact int32
+sums); the int8 activation quantiser the same bytes (Q and S: the same
+IEEE divide and rounding); BitLinear and the BitFFN block on the card
+equal to the same module's reference mode on the card (the same int32
+sums, the same torch epilogue). Grouped-query attention at the
+attention kernels' bounds above, and its autograd on the card against
+the same Function on the CPU at 1e-4 normwise.
 """
 
 import dataclasses
@@ -54,7 +61,9 @@ import numpy as np
 import pytest
 import torch
 
+from tilelang_mesh_tpu_torch.models import bitnet as bitnet_model
 from tilelang_mesh_tpu_torch.ops import _build
+from tilelang_mesh_tpu_torch.ops import bitnet
 from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
 from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
 from tilelang_mesh_tpu_torch.ops import gemm as gm
@@ -64,12 +73,14 @@ from tilelang_mesh_tpu_torch.ops import grouped_gemm as gg
 from tilelang_mesh_tpu_torch.ops import gdn
 from tilelang_mesh_tpu_torch.ops import mamba2
 from tilelang_mesh_tpu_torch.ops import mla
+from tilelang_mesh_tpu_torch.ops import quantize_act as qa
 from tilelang_mesh_tpu_torch.resilience.errors import KernelLaunchError
 from tilelang_mesh_tpu_torch.resilience import faults
 from tilelang_mesh_tpu_torch.resilience.retry import global_breaker
 
 fa = importlib.import_module("tilelang_mesh_tpu_torch.ops.flash_attention")
 la = importlib.import_module("tilelang_mesh_tpu_torch.ops.linear_attention")
+gqa = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
 
 pytestmark = pytest.mark.cuda
 
@@ -1040,3 +1051,161 @@ def test_seqmix_kernels_name_the_chunks_they_take(cuda, op):
     with pytest.raises(ValueError, match=re.escape(f"takes chunks {takes}")):
         call()
     assert counter == before
+
+
+# ---------------------------------------------------------------------------
+# BitNet b1.58: the int8 activation quantiser and the int8 x ternary GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,N,K", [(77, 150, 1000), (1, 130, 256),
+                                   (1, 3, 4), (200, 257, 644),
+                                   (128, 128, 64), (5, 7, 20),
+                                   (130, 6912, 2560)])
+def test_bitnet_gemm_matches_plain(cuda, M, N, K):
+    """Exact int32 sums at ragged M, N and K (K a multiple of 4; 20 and
+    644 take no 16-byte path for A, N 150 / 257 none for the weights)."""
+    rng = np.random.default_rng(20)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(
+        np.int8)).to(cuda)
+    w = rng.integers(-1, 2, (K, N)).astype(np.int8)
+    packed = torch.from_numpy(bitnet.pack_ternary(w)).to(cuda)
+    before = bitnet.launches["bitnet_gemm"]
+    got = bitnet.bitnet_gemm(a, packed)
+    torch.cuda.synchronize()
+    assert bitnet.launches["bitnet_gemm"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, bitnet.bitnet_gemm_plain(a, packed))
+    assert torch.equal(got.cpu(), bitnet.bitnet_gemm_plain(
+        a.cpu(), packed.cpu()))
+
+
+@pytest.mark.parametrize("M,K", [(77, 1000), (5, 7), (3, 2561),
+                                 (128, 6912), (1, 1)])
+def test_quantize_act_int8_matches_plain_bytes(cuda, M, K):
+    """Q and S byte for byte; an all-zero row gives a finite S and Q = 0;
+    K 7, 2561 and 1 take the one-element path."""
+    x = _randn(cuda, (M, K), torch.float32, 21) * 3
+    x[M // 2] = 0.0
+    before = qa.launches["quantize_act_int8"]
+    q, s = qa.quantize_act_int8(x)
+    torch.cuda.synchronize()
+    assert qa.launches["quantize_act_int8"] == before + 1
+    pq, ps = qa.quantize_act_int8_plain(x)
+    assert q.dtype == torch.int8 and s.shape == (M, 1)
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    assert bool(torch.isfinite(s).all()) and not q[M // 2].any()
+    cq, cs = qa.quantize_act_int8_plain(x.cpu())
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+
+
+def test_bitffn_on_card_matches_reference_on_card(cuda):
+    """Three bitnet_gemm launches a forward, equal to the module's
+    reference mode (the exact product in float64 on the card), and to
+    the same module on the CPU."""
+    ffn = bitnet_model.BitFFN(256, 512, seed=3, device=cuda)
+    x = _randn(cuda, (2, 33, 256), torch.float32, 22)
+    before = bitnet.launches["bitnet_gemm"]
+    y = ffn(x)
+    torch.cuda.synchronize()
+    assert bitnet.launches["bitnet_gemm"] == before + 3
+    assert torch.equal(y, ffn(x, reference=True))
+    cpu = bitnet_model.BitFFN(256, 512, seed=3, device="cpu")
+    assert _normwise(y, cpu(x.cpu()).to(cuda)) <= 1e-6
+
+
+def _bitnet_calls(dev):
+    a = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    p = torch.zeros((2, 3), dtype=torch.int8, device=dev)
+    x = torch.zeros((4, 8), device=dev)
+    q = torch.zeros((1, 4, 8, 16), device=dev)
+    kv = torch.zeros((1, 2, 8, 16), device=dev)
+    return [(bitnet.launches, lambda: bitnet.bitnet_gemm(a, p)),
+            (qa.launches, lambda: qa.quantize_act_int8(x)),
+            (gqa.launches, lambda: gqa.gqa_fwd(q, kv, kv, True, 0.25)),
+            (gqa.launches, lambda: gqa.gqa_fwd_partial(q, kv, kv, True,
+                                                       0.25))]
+
+
+def test_new_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError, and neither counts a launch."""
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    before = [dict(c) for c, _ in _bitnet_calls(cuda)]
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, call in _bitnet_calls(cuda):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for _, call in _bitnet_calls(cuda):
+        with pytest.raises(KernelLaunchError):
+            call()
+    assert [dict(c) for c, _ in _bitnet_calls(cuda)] == before
+
+
+# ---------------------------------------------------------------------------
+# grouped-query attention forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 5])
+@pytest.mark.parametrize("Sq,Sk", [(77, 77), (100, 260), (192, 130)])
+def test_gqa_forward_kernels_match_plain(cuda, dtype, causal, d, group, Sq,
+                                         Sk):
+    Hkv = 2
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, 1, Hkv * group, Hkv, Sq, Sk,
+                                        d, dtype, causal)
+    before = dict(gqa.launches)
+    o = gqa.gqa_fwd(q, k, v, causal, sm)
+    part = gqa.gqa_fwd_partial(q, k, v, causal, sm)
+    torch.cuda.synchronize()
+    assert gqa.launches == {"gqa_fwd": before["gqa_fwd"] + 1,
+                            "gqa_fwd_partial": before["gqa_fwd_partial"] + 1}
+    assert o.dtype == dtype and all(t.dtype == torch.float32 for t in part)
+    assert _normwise(o, gqa.gqa_fwd_plain(q, k, v, causal, sm)) \
+        <= ATTN_TOL[dtype]
+    assert _normwise(part, gqa.gqa_fwd_partial_plain(q, k, v, causal, sm)) \
+        <= ATTN_TOL[dtype]
+
+
+def test_gqa_group_one_kernel_equals_mha_kernel(cuda):
+    """With as many KV heads as query heads the GQA wrapper launches the
+    MHA kernel's instance: the same bytes."""
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, 2, 3, 3, 150, 150, 64,
+                                        torch.bfloat16, True)
+    assert torch.equal(gqa.gqa_fwd(q, k, v, True, sm),
+                       fa.mha_fwd(q, k, v, True, sm))
+    for a, b in zip(gqa.gqa_fwd_partial(q, k, v, True, sm),
+                    fa.mha_fwd_partial(q, k, v, True, sm)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gqa_autograd_on_card_matches_cpu(cuda, causal):
+    """gqa_attention's kernel backward on the card (the partial forward,
+    then dK/dV and dQ at group 4) against the same Function on CPU
+    tensors."""
+    q, k, v, do, _, _, _ = _attn_inputs("cpu", 2, 8, 2, 130, 130, 64,
+                                        torch.float32, causal)
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = (dict(gqa.launches), dict(gb.launches))
+        o = gqa.gqa_attention(*leaves, causal=causal)
+        o.backward(do.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert gqa.launches["gqa_fwd_partial"] == \
+                before[0]["gqa_fwd_partial"] + 1
+            assert gb.launches == {k_: n + 1 for k_, n in before[1].items()}
+        outs.append(o.detach().cpu())
+        grads.append([t.grad.cpu() for t in leaves])
+    assert _normwise(outs[1].cuda(), outs[0].cuda()) <= 1e-4
+    for a, b in zip(*grads):
+        assert _normwise(b.cuda(), a.cuda()) <= 1e-4

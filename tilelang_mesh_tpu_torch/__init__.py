@@ -14,7 +14,11 @@ step, over the attention kernels (``ops/flash_attention.py``,
 ``ops/gqa_bwd.py``); DeepSeek-MLA decode serving (``ops/mla.py``);
 the expert-parallel MoE layer and ring attention on
 ``torch.distributed`` (``parallel/``) over the grouped GEMM kernels
-(``ops/grouped_gemm.py``). Entry points run on the card unless the caller
+(``ops/grouped_gemm.py``); the GEMM entry points, sequence mixing and
+the GEMM variants; BitNet b1.58's BitLinear and FFN block
+(``ops/bitnet.py``, ``models/bitnet.py``) over the int8 activation
+quantiser and the int8 x ternary GEMM, and grouped-query attention
+(``ops/gqa.py``). Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 

@@ -1,10 +1,16 @@
-// Causal / full multi-head attention forward, for Hopper (sm_90a).
+// Causal / full multi-head and grouped-query attention forward, for
+// Hopper (sm_90a).
 //
-// Replaces two TPU kernels of tilelang_mesh_tpu/ops/flash_attention.py:
-//   _mha_fwd_kernel (:71)          -> tl_mha_fwd(partial = 0)
-//   _mha_fwd_partial_kernel (:124) -> tl_mha_fwd(partial = 1)
+// Replaces four TPU kernels, two of tilelang_mesh_tpu/ops/flash_attention.py
+// and two of tilelang_mesh_tpu/ops/gqa.py, which share one loop:
+//   _mha_fwd_kernel (:71)          -> tl_mha_fwd(Hkv = H, partial = 0)
+//   _mha_fwd_partial_kernel (:124) -> tl_mha_fwd(Hkv = H, partial = 1)
+//   gqa_fwd_kernel (:21)           -> tl_mha_fwd(Hkv | H, partial = 0)
+//   gqa_fwd_partial_kernel (:63)   -> tl_mha_fwd(Hkv | H, partial = 1)
 // Same contract:
-//   Q, K, V (B, H, S, D) float32 or bfloat16, contiguous
+//   Q (B, H, Sq, D), K, V (B, Hkv, Sk, D) float32 or bfloat16,
+//   contiguous; query head h reads KV head h / (H / Hkv), so MHA is
+//   Hkv = H (the same addresses as before KV heads were added)
 //   Q is prescaled once: Qs = dtype(float(Q) * scale), scale =
 //   sm_scale * log2(e), so every score is already in the exp2 domain.
 //   Causal masking is top-left (query i sees keys j <= i); KV tiles
@@ -32,7 +38,10 @@
 // probabilities (rounded to the input type, as the TPU kernel's P) to a
 // shared tile that only its own warp reads, and accumulates its 4 rows x
 // D/8 columns of P @ V in registers. Any Sq, Sk >= 1 works: query rows
-// past Sq are computed on zeros and never stored. No tensor cores yet
+// past Sq are computed on zeros and never stored. Under GQA the blocks
+// of a group's H / Hkv query heads each load the same K and V tiles (the
+// repeats come from L2; the TPU kernel's BlockSpec fetches them per
+// head alike). No tensor cores yet
 // (wgmma/TMA are later work): this is the simple, exact version.
 
 #include "attention_common.cuh"
@@ -54,8 +63,8 @@ __global__ void __launch_bounds__(kThreads)
 mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
         const typename Elem<BF16>::T* __restrict__ k,
         const typename Elem<BF16>::T* __restrict__ v, void* __restrict__ o,
-        float* __restrict__ m_out, float* __restrict__ l_out, int H, int Sq,
-        int Sk, int causal, float scale) {
+        float* __restrict__ m_out, float* __restrict__ l_out, int H,
+        int group, int Sq, int Sk, int causal, float scale) {
   constexpr int RM = BM / kTy;  // query rows per thread
   constexpr int CN = BN / kTx;  // keys per thread per tile
   constexpr int CD = D / kTx;   // output columns per thread
@@ -69,8 +78,10 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
   const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
   const int q0 = blockIdx.x * BM;
   const long long bh = (long long)blockIdx.z * H + blockIdx.y;
-  const auto* kg = k + bh * Sk * D;
-  const auto* vg = v + bh * Sk * D;
+  // KV head of query head (b, h): b * Hkv + h / group == bh / group
+  const long long bkv = bh / group;
+  const auto* kg = k + bkv * Sk * D;
+  const auto* vg = v + bkv * Sk * D;
 
   load_tile<BM, D, BF16, true>(Qs, q + bh * Sq * D, q0, Sq, scale);
 
@@ -178,54 +189,57 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
 
 template <int D, bool BF16, bool PARTIAL>
 int run(const void* q, const void* k, const void* v, void* o, void* m,
-        void* l, int B, int H, int Sq, int Sk, int causal, float scale,
-        cudaStream_t stream) {
+        void* l, int B, int H, int group, int Sq, int Sk, int causal,
+        float scale, cudaStream_t stream) {
   using T = typename Elem<BF16>::T;
   const dim3 grid((Sq + BM - 1) / BM, H, B);
   return launch(mha_fwd<D, BF16, PARTIAL>, grid, fwd_smem_bytes<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), o, static_cast<float*>(m),
-                static_cast<float*>(l), H, Sq, Sk, causal, scale);
+                static_cast<float*>(l), H, group, Sq, Sk, causal, scale);
 }
 
 template <int D>
 int dispatch(int bf16, int partial, const void* q, const void* k,
-             const void* v, void* o, void* m, void* l, int B, int H, int Sq,
-             int Sk, int causal, float scale, cudaStream_t st) {
+             const void* v, void* o, void* m, void* l, int B, int H,
+             int group, int Sq, int Sk, int causal, float scale,
+             cudaStream_t st) {
   if (bf16)
-    return partial ? run<D, true, true>(q, k, v, o, m, l, B, H, Sq, Sk,
-                                        causal, scale, st)
-                   : run<D, true, false>(q, k, v, o, m, l, B, H, Sq, Sk,
-                                         causal, scale, st);
-  return partial ? run<D, false, true>(q, k, v, o, m, l, B, H, Sq, Sk,
-                                       causal, scale, st)
-                 : run<D, false, false>(q, k, v, o, m, l, B, H, Sq, Sk,
-                                        causal, scale, st);
+    return partial ? run<D, true, true>(q, k, v, o, m, l, B, H, group, Sq,
+                                        Sk, causal, scale, st)
+                   : run<D, true, false>(q, k, v, o, m, l, B, H, group, Sq,
+                                         Sk, causal, scale, st);
+  return partial ? run<D, false, true>(q, k, v, o, m, l, B, H, group, Sq,
+                                       Sk, causal, scale, st)
+                 : run<D, false, false>(q, k, v, o, m, l, B, H, group, Sq,
+                                        Sk, causal, scale, st);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the first CUDA error (0 = launched), or
-// cudaErrorInvalidValue for a head_dim without an instance. `m` and `l`
-// are used only when `partial` is set. The Python wrapper checks shapes,
-// types and contiguity before calling.
+// cudaErrorInvalidValue for a head_dim without an instance or Hkv that
+// does not divide H. `m` and `l` are used only when `partial` is set. The
+// Python wrapper checks shapes, types and contiguity before calling.
 extern "C" int tl_mha_fwd(const void* q, const void* k, const void* v,
-                          void* o, void* m, void* l, int B, int H, int Sq,
-                          int Sk, int D, int bf16, int causal, int partial,
-                          float scale, void* stream) {
+                          void* o, void* m, void* l, int B, int H, int Hkv,
+                          int Sq, int Sk, int D, int bf16, int causal,
+                          int partial, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Hkv < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  const int g = H / Hkv;
   switch (D) {
     case 16:
-      return dispatch<16>(bf16, partial, q, k, v, o, m, l, B, H, Sq, Sk,
+      return dispatch<16>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 32:
-      return dispatch<32>(bf16, partial, q, k, v, o, m, l, B, H, Sq, Sk,
+      return dispatch<32>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 64:
-      return dispatch<64>(bf16, partial, q, k, v, o, m, l, B, H, Sq, Sk,
+      return dispatch<64>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 128:
-      return dispatch<128>(bf16, partial, q, k, v, o, m, l, B, H, Sq, Sk,
+      return dispatch<128>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                            causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

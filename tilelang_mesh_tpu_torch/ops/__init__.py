@@ -1,6 +1,9 @@
 """Ported ops. Each kernel's wrapper launches its CUDA kernel on a CUDA
 tensor and runs its plain PyTorch version on a CPU tensor."""
 
+from .bitnet import (bitnet_gemm, bitnet_gemm_kernel,  # noqa: F401
+                     bitnet_gemm_plain, bitnet_linear,
+                     bitnet_linear_reference)
 from .dequant_gemm import (dequant_gemm_kernel,  # noqa: F401
                            dequant_matmul, dequant_matmul_twopass,
                            quantize_w4_per_channel, w4a8_matmul)
@@ -12,6 +15,9 @@ from .flash_decoding import (decode_partials,  # noqa: F401
 from .gdn import (gdn_chunk_fwd, gdn_chunk_fwd_tl,  # noqa: F401
                   gdn_chunk_fwd_tl_plain, gdn_reference)
 from .gemm import matmul, matmul_kernel  # noqa: F401
+from .gqa import (gqa_attention, gqa_fwd, gqa_fwd_kernel,  # noqa: F401
+                  gqa_fwd_partial, gqa_fwd_partial_kernel,
+                  gqa_fwd_partial_plain, gqa_fwd_plain)
 from .gemm_variants import (blocksparse_gemm_kernel,  # noqa: F401
                             blocksparse_matmul, gemv, gemv_kernel,
                             matmul_splitk, matmul_streamk, splitk_kernel,
@@ -29,6 +35,8 @@ from .mamba2 import (mamba2_chunk_scan,  # noqa: F401
                      mamba2_reference)
 from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
                   mla_decode_partials_plain, mla_decode_reference)
+from .quantize_act import (quantize_act_int8,  # noqa: F401
+                           quantize_act_int8_plain)
 
 __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "flash_decode_paged", "flash_decode_paged_pool",
@@ -47,4 +55,9 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "mamba2_reference", "gdn_chunk_fwd_tl", "gdn_chunk_fwd_tl_plain",
            "gdn_chunk_fwd", "gdn_reference", "linear_attention",
            "linear_attention_plain", "linear_attention_reference",
-           "retention", "retention_plain", "retention_reference"]
+           "retention", "retention_plain", "retention_reference",
+           "bitnet_gemm", "bitnet_gemm_kernel", "bitnet_gemm_plain",
+           "bitnet_linear", "bitnet_linear_reference", "gqa_attention",
+           "gqa_fwd", "gqa_fwd_kernel", "gqa_fwd_partial",
+           "gqa_fwd_partial_kernel", "gqa_fwd_partial_plain",
+           "gqa_fwd_plain", "quantize_act_int8", "quantize_act_int8_plain"]

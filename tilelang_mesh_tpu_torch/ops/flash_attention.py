@@ -19,7 +19,8 @@ and mask top-left causal (query i sees keys j <= i).
 ``lse2 = m + log2(l)``; the backward kernels of ``ops/gqa_bwd.py``),
 otherwise the forward kernel — as the JAX package's ``custom_vjp`` does.
 ``backward="reference"`` differentiates the dense ``_reference_attention``
-instead.
+instead. ``differentiable`` and ``launch_fwd`` are shared with
+``ops/gqa.py``, whose kernels are the same source with fewer KV heads.
 
 Each kernel's wrapper launches it on a CUDA tensor (a build or launch
 failure raises) and runs its plain PyTorch version (``*_plain``: dense
@@ -132,12 +133,15 @@ def mha_fwd_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _launch(q, k, v, causal, sm_scale, partial):
+def launch_fwd(name, q, k, v, causal, sm_scale, partial):
+    """One launch of ``csrc/flash_attention.cu`` on checked CUDA tensors:
+    the forward (``partial=False``) or the partial kernel; query head h
+    reads KV head ``h // (H // Hkv)``. The caller counts the launch under
+    its own wrapper's name, ``name``, which a refused launch carries."""
     from ._build import load
-    name = "mha_fwd_partial" if partial else "mha_fwd"
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, H, Sq, D = q.shape
-    Sk = k.shape[2]
+    Hkv, Sk = k.shape[1], k.shape[2]
     dev = q.device
     if partial:
         o = torch.empty((B, H, Sq, D), dtype=torch.float32, device=dev)
@@ -147,19 +151,18 @@ def _launch(q, k, v, causal, sm_scale, partial):
         o = torch.empty_like(q)
         m = l = None
     fn = load("flash_attention").tl_mha_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   m.data_ptr() if partial else None,
-                  l.data_ptr() if partial else None, B, H, Sq, Sk, D,
+                  l.data_ptr() if partial else None, B, H, Hkv, Sq, Sk, D,
                   int(q.dtype == torch.bfloat16), int(bool(causal)),
                   int(partial), float(sm_scale) * _LOG2E, stream)
     if code != 0:
         raise KernelLaunchError(name, code)
-    launches[name] += 1
     return (o, m, l) if partial else o
 
 
@@ -168,7 +171,9 @@ def mha_fwd(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
     launch the forward kernel; CPU tensors run the plain version."""
     check_attention_args(q, k, v)
     if q.is_cuda:
-        return _launch(q, k, v, causal, sm_scale, partial=False)
+        o = launch_fwd("mha_fwd", q, k, v, causal, sm_scale, partial=False)
+        launches["mha_fwd"] += 1
+        return o
     return mha_fwd_plain(q, k, v, causal, sm_scale)
 
 
@@ -178,7 +183,10 @@ def mha_fwd_partial(q, k, v, causal: bool, sm_scale: float):
     version."""
     check_attention_args(q, k, v)
     if q.is_cuda:
-        return _launch(q, k, v, causal, sm_scale, partial=True)
+        out = launch_fwd("mha_fwd_partial", q, k, v, causal, sm_scale,
+                         partial=True)
+        launches["mha_fwd_partial"] += 1
+        return out
     return mha_fwd_partial_plain(q, k, v, causal, sm_scale)
 
 
@@ -213,13 +221,13 @@ def mha_fwd_kernel(B, H, Sq, Sk, D, causal=False, sm_scale=None,
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel mode of ``_make_attention_vjp``: the forward normalises the
-    partial kernel's ``(acc, m, l)``, zeroing rows with ``l == 0``, and
-    saves ``lse2 = m + log2(l)``; the backward runs the dK/dV and dQ
-    kernels."""
+    ``partial`` op's ``(acc, m, l)`` (the MHA or the GQA partial kernel),
+    zeroing rows with ``l == 0``, and saves ``lse2 = m + log2(l)``; the
+    backward runs the dK/dV and dQ kernels, which sum a KV head's group."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        acc, m, l = mha_fwd_partial(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, partial):
+        acc, m, l = partial(q, k, v, causal, sm_scale)
         lv = l[..., None]
         o = torch.where(lv > 0, acc / lv, 0.0).to(q.dtype)
         ctx.save_for_backward(q, k, v, o, m + torch.log2(l))
@@ -228,29 +236,51 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from .flash_attention_bwd import flash_attention_bwd
+        from .gqa_bwd import gqa_attention_bwd
         q, k, v, o, lse2 = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse2, g, ctx.causal,
-                                         ctx.sm_scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = gqa_attention_bwd(q, k, v, o, lse2, g, ctx.causal,
+                                       ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 class _ReferenceAttention(torch.autograd.Function):
-    """Reference mode: the forward kernel, and autograd through the dense
-    ``_reference_attention`` for the backward (a debugging path)."""
+    """Reference mode: the ``fwd`` kernel op, and autograd through the
+    dense ``reference`` for the backward (a debugging path)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, fwd, reference):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return mha_fwd(q, k, v, causal, sm_scale)
+        ctx.causal, ctx.sm_scale, ctx.reference = causal, sm_scale, reference
+        return fwd(q, k, v, causal, sm_scale)
 
     @staticmethod
     def backward(ctx, g):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            o = _reference_attention(*leaves, ctx.causal, ctx.sm_scale)
-        return (*torch.autograd.grad(o, leaves, g), None, None)
+            o = ctx.reference(*leaves, ctx.causal, ctx.sm_scale)
+        return (*torch.autograd.grad(o, leaves, g), None, None, None, None)
+
+
+def differentiable(q, k, v, causal, sm_scale, backward, fwd, partial,
+                   reference) -> torch.Tensor:
+    """The JAX package's ``_make_attention_vjp`` for the attention ops:
+    ``fwd`` alone when autograd needs no gradient of q, k or v; else
+    ``backward="kernel"`` runs ``partial`` forward and the backward
+    kernels, ``backward="reference"`` runs ``fwd`` forward and
+    differentiates ``reference``."""
+    if backward not in ("kernel", "reference"):
+        raise ValueError(
+            f"backward must be 'kernel' or 'reference', got {backward!r}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    causal, sm_scale = bool(causal), float(sm_scale)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return fwd(q, k, v, causal, sm_scale)
+    if backward == "kernel":
+        return _FlashAttention.apply(q, k, v, causal, sm_scale, partial)
+    return _ReferenceAttention.apply(q, k, v, causal, sm_scale, fwd,
+                                     reference)
 
 
 def _reference_attention(q, k, v, causal: bool, sm_scale: float):
@@ -275,14 +305,5 @@ def flash_attention(q, k, v, causal: bool = False,
     kernels backward; ``backward="reference"`` differentiates the dense
     reference. Otherwise the forward kernel runs alone.
     """
-    if backward not in ("kernel", "reference"):
-        raise ValueError(
-            f"backward must be 'kernel' or 'reference', got {backward!r}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    causal, sm_scale = bool(causal), float(sm_scale)
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        return mha_fwd(q, k, v, causal, sm_scale)
-    fa = _FlashAttention if backward == "kernel" else _ReferenceAttention
-    return fa.apply(q, k, v, causal, sm_scale)
+    return differentiable(q, k, v, causal, sm_scale, backward, mha_fwd,
+                          mha_fwd_partial, _reference_attention)

@@ -4,9 +4,12 @@ Counterpart of ``tilelang_mesh_tpu/quantize/quantization.py``: the same
 functions, byte for byte in behaviour, so the port builds its int4 and
 MXFP4 weights without the JAX package. The in-kernel unpack lives in
 ``ops/dequant_gemm.py`` and ``csrc/dequant_gemm.cu``. The device-side
-per-token int8 quantizer of the JAX package (``quantize_act_int8_kernel``)
-is on no path yet and is not ported; its host reference
-``quantize_act_int8_ref`` is.
+per-token int8 quantizer (``quantize_act_int8_kernel``) binds
+``ops/quantize_act.py``'s ``quantize_act_int8`` (``csrc/quantize_act.cu``)
+to one shape; that module, imported when the factory is called, holds
+the torch wrapper and its plain version, so this one stays numpy-only
+at import time. ``quantize_act_int8_ref`` stays the host reference it
+is: its ``absmax / 127`` can differ from the kernel's S by one ulp.
 """
 
 from __future__ import annotations
@@ -64,6 +67,23 @@ def dequantize_int4_planar_ref(packed: np.ndarray, scales: np.ndarray,
     lo = (lo.reshape(g, group_size, N) * s[0][:, None, :]).reshape(K2, N)
     hi = (hi.reshape(g, group_size, N) * s[1][:, None, :]).reshape(K2, N)
     return np.concatenate([lo, hi], axis=0)
+
+
+def quantize_act_int8_kernel(M, K, block_M=128):
+    """Per-token (row) symmetric int8 activation quantization on the
+    device, bound to one shape: ``fn(X (M, K) float32) -> (Q (M, K) int8,
+    S (M, 1) float32)`` with S the dequant scale ``max(absmax, 1e-8) *
+    float32(1/127)`` and ``Q = clamp(rint(X / S), -127, 127)``. A CUDA X
+    launches the kernel, a CPU X runs its plain version. ``block_M`` is
+    the TPU's tiling hint."""
+    def fn(x):
+        if tuple(x.shape) != (M, K):
+            raise ValueError(f"kernel bound to ({M}, {K}), called with "
+                             f"{tuple(x.shape)}")
+        from ..ops.quantize_act import quantize_act_int8
+        return quantize_act_int8(x)
+
+    return fn
 
 
 def quantize_act_int8_ref(x: np.ndarray):
