@@ -107,6 +107,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               versions); then bitnet_gemm at the FFN's three products,
               each kernel's time, its plain version's, a library call's
               and the bound.
+13. varlen  — the tenth main path: packed varlen attention at BitNet
+              b1.58-2B-4T's attention widths (see VARLEN): a 16384-token
+              pack of whole documents, causal, f32 and bf16 (one
+              varlen_fwd without autograd; one varlen_fwd_partial, one
+              dK/dV and one dQ with it; output and gradients against the
+              plain versions; one document's gradient exactly 0 outside
+              it), and a chunked-prefill step of 8 x 512 queries over
+              ragged keys, bottom-right, bf16 (one varlen_fwd). Each
+              kernel against its plain version at the path's shapes, the
+              pad tail exactly 0 in O and l; kernel, plain and SDPA (bool
+              document mask; bf16 enable_gqa, f32 the memory-efficient
+              kernel on KV expanded by the group) times and the bound by
+              the documents' visible pairs.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -115,6 +128,7 @@ counter. Prints a ``{"kernels": [...]}`` line, then as its last line
 prints no result.
 """
 
+import contextlib
 import importlib
 import json
 import math
@@ -270,6 +284,37 @@ LA_GRAD_TOL = 1e-4
 # incoming gradient standard_normal from default_rng(2).
 BITNET = dict(hidden=2560, inter=6912, heads=20, kv_heads=5, head_dim=128,
               seq=4096, attn_batch=2)
+
+# Packed varlen attention (ops/flash_attention_varlen.py) at BitNet
+# b1.58-2B-4T's attention widths (BITNET's source: 20 query heads over 5
+# KV heads of 128, 4096 positions), one attention call of the model's 30
+# layers, in the two ways users run it. A packed training batch: four
+# 4096-token contexts make a 16384-token pack of whole documents, lengths
+# default_rng(0).integers(64, 4097) drawn until the next would overflow
+# the pack (the rows past the last document are pad); causal, top-left,
+# f32 and bf16: the forward without autograd, and a backward through it.
+# A chunked-prefill step: 8 sequences, each a 512-token query chunk at
+# the end of its keys, key lengths default_rng(1).integers(512, 4097);
+# causal, bottom-right, bf16, forward only. q, k, v and the incoming
+# gradient standard_normal from default_rng(3) (the pack) and
+# default_rng(4) (the prefill step); the op has no weights.
+VARLEN = dict(heads=20, kv_heads=5, head_dim=128, pack=16384, context=4096,
+              min_doc=64, chunks=8, chunk=512)
+
+
+def varlen_pack_lengths(cfg):
+    """The packed training batch's document lengths: drawn from
+    default_rng(0) in [min_doc, context] until the next would overflow
+    the pack."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = []
+    while True:
+        n = int(rng.integers(cfg["min_doc"], cfg["context"] + 1))
+        if sum(lens) + n > cfg["pack"]:
+            return lens
+        lens.append(n)
+
 
 # the script's peak device memory over the phases whose counters were
 # zeroed (see reset_peak)
@@ -2374,6 +2419,315 @@ BITNET_GQA_KERNELS = (
      "prefill_gate_up"))
 
 
+def varlen_phase(torch, vl, fa, gq, gb):
+    """Packed varlen attention at BitNet b1.58-2B-4T's attention widths
+    (VARLEN): each main-path call with every attention counter zeroed
+    before it and read right after (the pack: one varlen_fwd without
+    autograd; one varlen_fwd_partial, one dK/dV and one dQ through
+    autograd; the prefill step: one varlen_fwd); each output against the
+    plain versions on the card; each kernel against its plain version at
+    the path's shapes, with the pad tail exactly zero in O and l; one
+    document's gradient reaching no other document; kernel, plain and
+    SDPA times and the bound by the documents' visible pairs."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mods = (vl, fa, gq, gb)
+    counted = {k: 0 for k in vl.launches}
+    res = {}
+    reset_peak(torch)
+    c = VARLEN
+    Hq, Hkv, D = c["heads"], c["kv_heads"], c["head_dim"]
+    sm = 1.0 / math.sqrt(D)
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {k: n for m in mods for k, n in m.launches.items()}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def cu_of(lens):
+        return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+    def visible_pairs(lens_q, lens_k, bottom_right):
+        """(i, j) pairs the causal mask keeps, summed over sequences."""
+        n = 0
+        for lq, lk in zip(lens_q, lens_k):
+            shift = lk - lq if bottom_right else 0
+            n += int(np.clip(np.arange(lq) + shift + 1, 0, lk).sum())
+        return n
+
+    def draw(seed, total_q, total_k):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                for s in ((total_q, Hq, D), (total_k, Hkv, D),
+                          (total_k, Hkv, D), (total_q, Hq, D))]
+
+    def library(q4, k4, v4, mask, g4, dtype, grad, want):
+        """SDPA with the bool document mask (T_q, T_k): forward ms and,
+        with ``grad``, its backward's (dq, dk, dv). bfloat16 on the
+        grouped heads (``enable_gqa``, the backend PyTorch picks);
+        float32 on K and V expanded by the group outside the timed
+        calls, on the memory-efficient kernel (with ``enable_gqa`` a
+        float32 mask takes only the math path, which materialises the
+        (Hq, T, T) float32 scores). Its output is held against the plain
+        version's ``want`` (1, Hq, T_q, D)."""
+        if dtype == torch.float32:
+            group = q4.shape[1] // k4.shape[1]
+            k4, v4 = (t.repeat_interleave(group, 1) for t in (k4, v4))
+            ctx, kw = sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]), {}
+            name = ("SDPA memory-efficient kernel, bool document mask "
+                    "(T_q, T_k), K and V expanded by the group")
+        else:
+            ctx, kw = contextlib.nullcontext(), {"enable_gqa": True}
+            name = "SDPA, bool document mask (T_q, T_k), enable_gqa"
+
+        def call(*a):
+            return F.scaled_dot_product_attention(*a, attn_mask=mask, **kw)
+
+        with ctx:
+            rel = normwise_err(call(q4, k4, v4), want)[1]
+            check(rel < 2e-2, f"the library yardstick ({name}) disagrees "
+                              f"with the plain version: {rel:.3e}")
+            out = {"library_ms": device_ms(torch, lambda: call(q4, k4, v4),
+                                           3),
+                   "library": name, "library_normwise_err": rel}
+            if grad:
+                leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+                o = call(*leaves)
+                out["library_bwd_ms"] = device_ms(
+                    torch, lambda: torch.autograd.grad(
+                        o, leaves, g4, retain_graph=True), 3)
+                del o, leaves
+        return out
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    def median_ms(fn, n=3):
+        """Median host-clock ms of ``fn`` ending in a synchronize (the
+        entry point end to end: packing, kernels, slicing)."""
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[n // 2]
+
+    def run(cfg, lens_q, lens_k, seed, dtype, align, grad):
+        name = str(dtype).replace("torch.", "")
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        cu_q, cu_k = cu_of(lens_q), cu_of(lens_k)
+        tq, tk = int(cu_q[-1]), int(cu_k[-1])
+        q, k, v, g = (t.cuda().to(dtype) for t in draw(seed, tq, tk))
+        kw = dict(causal=True, causal_align=align)
+        tag = f"varlen {cfg} {name}"
+
+        def within(label, got, want):
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{tag} {label}: non-finite output")
+            err, rel = normwise_err(got, want)
+            check(rel <= tol, f"{tag} {label} disagrees with its plain "
+                              f"version: {rel:.3e} of max |plain| > {tol}")
+            return err, rel
+
+        with torch.no_grad():
+            o = drive(f"{tag} forward", lambda: vl.flash_attention_varlen(
+                q, k, v, cu_q, cu_k, **kw), {"varlen_fwd": 1})
+            entry = {"forward_ms_median": median_ms(
+                lambda: vl.flash_attention_varlen(q, k, v, cu_q, cu_k, **kw))}
+        check(tuple(o.shape) == tuple(q.shape) and o.dtype == dtype,
+              f"{tag}: output {o.dtype} {tuple(o.shape)}")
+        qp, kp, vp, masks = vl.pack_varlen(q, k, v, cu_q, cu_k, **kw)
+        Tq, Tk = qp.shape[1], kp.shape[1]
+        want_o = vl.varlen_fwd_plain(qp, kp, vp, *masks, True, sm)
+        within("entry output", o, want_o[:, :tq].transpose(0, 1))
+        del o
+        ko = drive(f"{tag} varlen_fwd", lambda: vl.varlen_fwd(
+            qp, kp, vp, *masks, True, sm), {"varlen_fwd": 1}, main=False)
+        err_o = within("varlen_fwd", ko, want_o)
+        check(not ko[:, tq:].any(), f"{tag}: varlen_fwd's pad tail is not 0")
+        del ko
+
+        pairs = visible_pairs(lens_q, lens_k, align == "bottom-right") * Hq
+        ids = 4 * (2 * Tq + 2 * Tk) + masks[4].numel() * 4
+        q_el, kv_el = Hq * Tq * D, Hkv * Tk * D
+        mask = vl._visible(*(t[:n] for t, n in zip(masks[:4], (tq, tk, tq,
+                                                               tk))), True)
+        q4, k4, v4, g4 = (t.transpose(0, 1)[None] for t in (q, k, v, g))
+        lib = library(q4, k4, v4, mask, g4, dtype, grad,
+                      want_o[None, :, :tq])
+        case = {"shape": [tq, tk, Hq, Hkv, D], "visible_pairs": pairs,
+                "tolerance": f"normwise {tol}"}
+        res[f"varlen_fwd_{cfg}{name}"] = {
+            **case, "max_abs_err": err_o[0], "normwise_err": err_o[1],
+            "ms": device_ms(torch, lambda: vl.varlen_fwd(
+                qp, kp, vp, *masks, True, sm), 5),
+            "plain_ms": device_ms(torch, lambda: vl.varlen_fwd_plain(
+                qp, kp, vp, *masks, True, sm), 2),
+            **{k_: lib[k_] for k_ in ("library_ms", "library",
+                                      "library_normwise_err")},
+            **bound(4 * D * pairs, (2 * q_el + 2 * kv_el) * esize + ids,
+                    peak)}
+        del want_o
+        res[f"entry_{cfg}{name}"] = entry
+        if not grad:
+            return
+
+        part = drive(f"{tag} varlen_fwd_partial",
+                     lambda: vl.varlen_fwd_partial(qp, kp, vp, *masks, True,
+                                                   sm),
+                     {"varlen_fwd_partial": 1}, main=False)
+        pacc, pm, pl = vl.varlen_fwd_partial_plain(qp, kp, vp, *masks, True,
+                                                    sm)
+        seen = pl > 0
+        acc, m, l = part
+        check(bool((m[~seen] == -1e30).all()) and not l[~seen].any()
+              and not acc[~seen].any(), f"{tag}: a row that sees no key "
+              f"has l, acc != 0 or M != -1e30")
+        check(not l[:, tq:].any(), f"{tag}: l's pad tail is not 0")
+        errs = [within("varlen_fwd_partial acc", acc, pacc),
+                within("varlen_fwd_partial l", l, pl),
+                within("varlen_fwd_partial m", m[seen], pm[seen])]
+        del part, acc, m, l
+        lv = pl[..., None]
+        o_plain = torch.where(lv > 0, pacc / lv, 0.0).to(dtype)
+        lse2 = pm + torch.log2(pl)
+        gp = vl._pack(g, Tq)
+        delta = (gp.float() * o_plain.float()).sum(-1)
+        del pacc, pm, pl, lv, seen
+        bwd_args = (qp, kp, vp, gp, lse2, delta, *masks, True, sm)
+        dkdv = drive(f"{tag} varlen_bwd_dkdv",
+                     lambda: vl.varlen_bwd_dkdv(*bwd_args),
+                     {"varlen_bwd_dkdv": 1}, main=False)
+        want_dkdv = vl.varlen_bwd_dkdv_plain(*bwd_args)
+        err_dkdv = [within(f"varlen_bwd_dkdv {n}", a, b)
+                    for n, a, b in zip("kv", dkdv, want_dkdv)]
+        del dkdv
+        dq = drive(f"{tag} varlen_bwd_dq", lambda: vl.varlen_bwd_dq(
+            *bwd_args), {"varlen_bwd_dq": 1}, main=False)
+        want_dq = vl.varlen_bwd_dq_plain(*bwd_args)
+        err_dq = within("varlen_bwd_dq", dq, want_dq)
+        del dq
+
+        # the autograd call against the plain versions of every kernel
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd(grad_out):
+            out = vl.flash_attention_varlen(*leaves, cu_q, cu_k, **kw)
+            out.backward(grad_out)
+            return out
+
+        train = {"varlen_fwd_partial": 1, "varlen_bwd_dkdv": 1,
+                 "varlen_bwd_dq": 1}
+        out = drive(f"{tag} grad", lambda: fwd_bwd(g), train)
+        within("grad output", out.detach(), o_plain[:, :tq].transpose(0, 1))
+        grad_errs = {
+            lbl: within(f"d{lbl}", t.grad, w[:, :n].transpose(0, 1).to(
+                dtype))[1]
+            for lbl, t, w, n in (("q", leaves[0], want_dq, tq),
+                                 ("k", leaves[1], want_dkdv[0], tk),
+                                 ("v", leaves[2], want_dkdv[1], tk))}
+        del out, want_dq, want_dkdv, o_plain
+        if dtype == torch.float32:
+            # one document's gradient reaches no other document
+            d0, d1 = int(cu_q[1]), int(cu_q[2])
+            g1 = torch.zeros_like(g)
+            g1[d0:d1] = g[d0:d1]
+            for t in leaves:
+                t.grad = None
+            drive(f"{tag} one document's gradient", lambda: fwd_bwd(g1),
+                  train, main=False)
+            for lbl, t in zip("qkv", leaves):
+                check(not t.grad[:d0].any() and not t.grad[d1:].any(),
+                      f"{tag}: document 1's d{lbl} reaches another document")
+                check(bool(t.grad[d0:d1].any()),
+                      f"{tag}: document 1's d{lbl} is 0")
+            res["no_cross_document_gradient"] = {
+                "document": 1, "rows": [d0, d1], "outside_exactly_zero": True}
+        entry["forward_backward_ms_median"] = median_ms(lambda: fwd_bwd(g))
+        del leaves
+        torch.cuda.empty_cache()
+
+        lq_el = Hq * Tq
+        res[f"varlen_fwd_{cfg}{name}"]["grad_normwise_err"] = grad_errs
+        res[f"varlen_fwd_partial_{cfg}{name}"] = {
+            **case, "max_abs_err": max(e[0] for e in errs),
+            "normwise_err": max(e[1] for e in errs),
+            "ms": device_ms(torch, lambda: vl.varlen_fwd_partial(
+                qp, kp, vp, *masks, True, sm), 5),
+            "plain_ms": device_ms(torch, lambda: vl.varlen_fwd_partial_plain(
+                qp, kp, vp, *masks, True, sm), 2),
+            **{k_: lib[k_] for k_ in ("library_ms", "library",
+                                      "library_normwise_err")},
+            **bound(4 * D * pairs, (q_el + 2 * kv_el) * esize + ids
+                    + 4 * q_el + 8 * lq_el, peak)}
+        bwd_in = (2 * q_el + 2 * kv_el) * esize + 8 * lq_el + ids
+        lib_bwd = {"library_ms": lib["library_bwd_ms"],
+                   "library": lib["library"] + ": its backward (dq, dk, dv)"}
+        res[f"varlen_bwd_dkdv_{cfg}{name}"] = {
+            **case, "max_abs_err": max(e[0] for e in err_dkdv),
+            "normwise_err": max(e[1] for e in err_dkdv),
+            "ms": device_ms(torch, lambda: vl.varlen_bwd_dkdv(*bwd_args), 3),
+            "plain_ms": device_ms(torch, lambda: vl.varlen_bwd_dkdv_plain(
+                *bwd_args), 1),
+            **lib_bwd, **bound(8 * D * pairs, bwd_in + 8 * kv_el, peak)}
+        res[f"varlen_bwd_dq_{cfg}{name}"] = {
+            **case, "max_abs_err": err_dq[0], "normwise_err": err_dq[1],
+            "ms": device_ms(torch, lambda: vl.varlen_bwd_dq(*bwd_args), 3),
+            "plain_ms": device_ms(torch, lambda: vl.varlen_bwd_dq_plain(
+                *bwd_args), 1),
+            **lib_bwd, **bound(6 * D * pairs, bwd_in + 4 * q_el, peak)}
+
+    # -- the packed training batch ----------------------------------------
+    lens = varlen_pack_lengths(c)
+    res["pack"] = {"documents": len(lens), "lengths": lens,
+                   "tokens": sum(lens), "pack": c["pack"]}
+    for dtype in (torch.float32, torch.bfloat16):
+        run("", lens, lens, 3, dtype, "top-left", grad=True)
+        torch.cuda.empty_cache()
+
+    # -- the chunked-prefill step -------------------------------------------
+    lens_k = [int(n) for n in np.random.default_rng(1).integers(
+        c["chunk"], c["context"] + 1, size=c["chunks"])]
+    res["prefill"] = {"chunk": c["chunk"], "key_lengths": lens_k}
+    run("prefill_", [c["chunk"]] * c["chunks"], lens_k, 4, torch.bfloat16,
+        "bottom-right", grad=False)
+    torch.cuda.empty_cache()
+
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"varlen": res}), flush=True)
+    return res
+
+
+# the varlen phase's kernels: (name, source, replaced TPU kernel, headline
+# case)
+VARLEN_KERNELS = (
+    ("varlen_fwd", "flash_attention_varlen.cu",
+     "tilelang_mesh_tpu/ops/flash_attention_varlen.py:147", "float32"),
+    ("varlen_fwd_partial", "flash_attention_varlen.cu",
+     "tilelang_mesh_tpu/ops/flash_attention_varlen.py:123", "float32"),
+    ("varlen_bwd_dkdv", "varlen_bwd.cu",
+     "tilelang_mesh_tpu/ops/flash_attention_varlen.py:192", "float32"),
+    ("varlen_bwd_dq", "varlen_bwd.cu",
+     "tilelang_mesh_tpu/ops/flash_attention_varlen.py:274", "float32"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -2434,6 +2788,8 @@ def main() -> int:
     gq = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
     la = importlib.import_module(
         "tilelang_mesh_tpu_torch.ops.linear_attention")
+    vl = importlib.import_module(
+        "tilelang_mesh_tpu_torch.ops.flash_attention_varlen")
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -2456,7 +2812,8 @@ def main() -> int:
     sources = ("paged_decode", "decode", "mla_decode", "flash_attention",
                "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm", "mamba2",
                "gdn", "linear_attention", "gemm_s8", "gemm_variants",
-               "gemv", "quantize_act", "bitnet_gemm")
+               "gemv", "quantize_act", "bitnet_gemm",
+               "flash_attention_varlen", "varlen_bwd")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -2515,6 +2872,9 @@ def main() -> int:
 
     phase("bitnet_gqa")
     bg = bitnet_gqa_phase(torch, bn, qa, gq, gb)
+
+    phase("varlen")
+    vr = varlen_phase(torch, vl, fa, gq, gb)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -2612,6 +2972,7 @@ def main() -> int:
                               "launches": var["launches"][fixup]}
         kernels.append(entry)
     kernels += kernel_entries(bg, BITNET_GQA_KERNELS)
+    kernels += kernel_entries(vr, VARLEN_KERNELS)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

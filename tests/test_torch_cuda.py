@@ -49,7 +49,10 @@ IEEE divide and rounding); BitLinear and the BitFFN block on the card
 equal to the same module's reference mode on the card (the same int32
 sums, the same torch epilogue). Grouped-query attention at the
 attention kernels' bounds above, and its autograd on the card against
-the same Function on the CPU at 1e-4 normwise.
+the same Function on the CPU at 1e-4 normwise. Packed varlen attention
+at the attention kernels' bounds, with M compared where l > 0 (a row that
+sees no key has l = 0, acc = 0 and M = -1e30 in both), and its autograd
+on the card against the CPU at 1e-4 normwise.
 """
 
 import dataclasses
@@ -81,6 +84,8 @@ from tilelang_mesh_tpu_torch.resilience.retry import global_breaker
 fa = importlib.import_module("tilelang_mesh_tpu_torch.ops.flash_attention")
 la = importlib.import_module("tilelang_mesh_tpu_torch.ops.linear_attention")
 gqa = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
+vl = importlib.import_module(
+    "tilelang_mesh_tpu_torch.ops.flash_attention_varlen")
 
 pytestmark = pytest.mark.cuda
 
@@ -1209,3 +1214,179 @@ def test_gqa_autograd_on_card_matches_cpu(cuda, causal):
     assert _normwise(outs[1].cuda(), outs[0].cuda()) <= 1e-4
     for a, b in zip(*grads):
         assert _normwise(b.cuda(), a.cuda()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# packed varlen attention (csrc/flash_attention_varlen.cu, varlen_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _varlen_inputs(dev, lens_q, lens_k, Hq, Hkv, D, dtype, causal, align,
+                   block_M, block_N, seed=0):
+    """Packed kernel operands as the entry point builds them
+    (``pack_varlen``), with a ragged tail of 3 query and 2 key rows past
+    cu_seqlens[-1], and the backward's lse2 and delta from the plain
+    partial forward."""
+    cu_q = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)]).astype(np.int32)
+    tq, tk = int(cu_q[-1]) + 3, int(cu_k[-1]) + 2
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v, masks = vl.pack_varlen(rnd(tq, Hq, D), rnd(tk, Hkv, D),
+                                    rnd(tk, Hkv, D), cu_q, cu_k, causal,
+                                    block_M, block_N, align)
+    do = rnd(*q.shape)
+    sm = 1.0 / math.sqrt(D)
+    acc, m, l = vl.varlen_fwd_partial_plain(q, k, v, *masks, causal, sm)
+    lv = l[..., None]
+    o = torch.where(lv > 0, acc / lv, 0.0).to(dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, m + torch.log2(l), delta, masks, sm, tq
+
+
+VARLEN_CASES = [  # lens_q, lens_k, block_M, block_N
+    ([100, 37, 260], [100, 37, 260], 128, 128),
+    ([20, 35, 11], [44, 17, 52], 32, 32),      # lens_q != lens_k
+    ([70, 1, 90], [30, 100, 20], 40, 56),      # no multiple of the tiles
+    ([300], [300], 128, 64),
+]
+VARLEN_MODES = [(False, "top-left"), (True, "top-left"),
+                (True, "bottom-right")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,align", VARLEN_MODES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 2)])
+@pytest.mark.parametrize("case", VARLEN_CASES)
+def test_varlen_forward_kernels_match_plain(cuda, dtype, causal, align, d,
+                                            Hq, Hkv, case):
+    """Both forward kernels, MHA and group 4: dead tiles skipped, rows
+    that see no key (the pad tail, bottom-right rows of a sequence with
+    more queries than keys) 0 in O, l and acc and -1e30 in M."""
+    lens_q, lens_k, bM, bN = case
+    q, k, v, _, _, _, masks, sm, tq = _varlen_inputs(
+        cuda, lens_q, lens_k, Hq, Hkv, d, dtype, causal, align, bM, bN)
+    before = dict(vl.launches)
+    o = vl.varlen_fwd(q, k, v, *masks, causal, sm)
+    acc, m, l = vl.varlen_fwd_partial(q, k, v, *masks, causal, sm)
+    torch.cuda.synchronize()
+    assert vl.launches == {**before,
+                           "varlen_fwd": before["varlen_fwd"] + 1,
+                           "varlen_fwd_partial":
+                               before["varlen_fwd_partial"] + 1}
+    pacc, pm, pl = vl.varlen_fwd_partial_plain(q, k, v, *masks, causal, sm)
+    assert o.dtype == dtype
+    assert _normwise(o, vl.varlen_fwd_plain(q, k, v, *masks, causal, sm)) \
+        <= ATTN_TOL[dtype]
+    assert _normwise((acc, l), (pacc, pl)) <= ATTN_TOL[dtype]
+    seen = pl > 0
+    assert _normwise(m[seen], pm[seen]) <= ATTN_TOL[dtype]
+    assert bool((m[~seen] == -1e30).all()) and not l[~seen].any()
+    assert not acc[~seen].any() and not o[~seen].any()
+    assert not o[:, tq:].any() and not l[:, tq:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,align", VARLEN_MODES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 2)])
+@pytest.mark.parametrize("case", VARLEN_CASES)
+def test_varlen_backward_kernels_match_plain(cuda, dtype, causal, align, d,
+                                             Hq, Hkv, case):
+    """dK/dV (the table read transposed, the group summed) and dQ: lse2
+    is -inf on rows that see no key, and the kernels' select keeps their
+    P at 0 (no NaN)."""
+    lens_q, lens_k, bM, bN = case
+    q, k, v, do, lse2, delta, masks, sm, _ = _varlen_inputs(
+        cuda, lens_q, lens_k, Hq, Hkv, d, dtype, causal, align, bM, bN)
+    assert bool(torch.isinf(lse2).any())
+    before = dict(vl.launches)
+    dkdv = vl.varlen_bwd_dkdv(q, k, v, do, lse2, delta, *masks, causal, sm)
+    dq = vl.varlen_bwd_dq(q, k, v, do, lse2, delta, *masks, causal, sm)
+    torch.cuda.synchronize()
+    assert vl.launches == {**before,
+                           "varlen_bwd_dkdv": before["varlen_bwd_dkdv"] + 1,
+                           "varlen_bwd_dq": before["varlen_bwd_dq"] + 1}
+    assert _normwise(dkdv, vl.varlen_bwd_dkdv_plain(
+        q, k, v, do, lse2, delta, *masks, causal, sm)) <= ATTN_TOL[dtype]
+    assert _normwise(dq, vl.varlen_bwd_dq_plain(
+        q, k, v, do, lse2, delta, *masks, causal, sm)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal,align", VARLEN_MODES)
+def test_varlen_autograd_on_card_matches_cpu(cuda, causal, align):
+    """flash_attention_varlen's kernel path on the card (one partial, one
+    dK/dV and one dQ launch) against the same entry on CPU tensors, at
+    group 4 with a ragged tail."""
+    lens_q, lens_k = [70, 130, 9], [90, 120, 9]
+    rng = np.random.default_rng(1)
+    tq, tk = sum(lens_q) + 5, sum(lens_k) + 3
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((tq, 8, 64), (tk, 2, 64), (tk, 2, 64),
+                            (tq, 8, 64)))
+    cu_q = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)]).astype(np.int32)
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = dict(vl.launches)
+        o = vl.flash_attention_varlen(*leaves, cu_q, cu_k, causal=causal,
+                                      causal_align=align, block_M=64,
+                                      block_N=64)
+        o.backward(g.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert vl.launches == {**before,
+                                   "varlen_fwd_partial":
+                                       before["varlen_fwd_partial"] + 1,
+                                   "varlen_bwd_dkdv":
+                                       before["varlen_bwd_dkdv"] + 1,
+                                   "varlen_bwd_dq":
+                                       before["varlen_bwd_dq"] + 1}
+        outs.append(o.detach().cpu())
+        grads.append([t.grad.cpu() for t in leaves])
+    assert _normwise(outs[1].cuda(), outs[0].cuda()) <= 1e-4
+    for a, b in zip(*grads):
+        assert _normwise(b.cuda(), a.cuda()) <= 1e-4
+
+
+def _varlen_calls(dev):
+    q, k, v, do, lse2, delta, masks, sm, _ = _varlen_inputs(
+        dev, [9, 20], [9, 20], 4, 2, 16, torch.float32, True, "top-left",
+        16, 16)
+    return [lambda: vl.varlen_fwd(q, k, v, *masks, True, sm),
+            lambda: vl.varlen_fwd_partial(q, k, v, *masks, True, sm),
+            lambda: vl.varlen_bwd_dkdv(q, k, v, do, lse2, delta, *masks,
+                                       True, sm),
+            lambda: vl.varlen_bwd_dq(q, k, v, do, lse2, delta, *masks, True,
+                                     sm)]
+
+
+def test_varlen_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError naming the wrapper, and neither counts a
+    launch; a head_dim without an instance is refused before."""
+    calls = _varlen_calls(cuda)
+    before = dict(vl.launches)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for call, name in zip(calls, vl.launches):
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert vl.launches == before
+    x = torch.zeros((1, 8, 48), device=cuda)
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda)
+    live = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        vl.varlen_fwd(x, x, x, ids, ids, ids, ids, live, True, 0.1)

@@ -7,6 +7,10 @@ from .bitnet import (bitnet_gemm, bitnet_gemm_kernel,  # noqa: F401
 from .dequant_gemm import (dequant_gemm_kernel,  # noqa: F401
                            dequant_matmul, dequant_matmul_twopass,
                            quantize_w4_per_channel, w4a8_matmul)
+from .flash_attention_varlen import (flash_attention_varlen,  # noqa: F401
+                                     varlen_bwd_dkdv_kernel,
+                                     varlen_bwd_dq_kernel,
+                                     varlen_fwd_kernel)
 from .flash_decoding import (decode_partials,  # noqa: F401
                              decode_partials_plain, flash_decode,
                              flash_decode_paged, flash_decode_paged_pool,
@@ -60,4 +64,6 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "bitnet_linear", "bitnet_linear_reference", "gqa_attention",
            "gqa_fwd", "gqa_fwd_kernel", "gqa_fwd_partial",
            "gqa_fwd_partial_kernel", "gqa_fwd_partial_plain",
-           "gqa_fwd_plain", "quantize_act_int8", "quantize_act_int8_plain"]
+           "gqa_fwd_plain", "quantize_act_int8", "quantize_act_int8_plain",
+           "flash_attention_varlen", "varlen_fwd_kernel",
+           "varlen_bwd_dkdv_kernel", "varlen_bwd_dq_kernel"]

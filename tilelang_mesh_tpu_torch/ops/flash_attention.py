@@ -20,7 +20,9 @@ and mask top-left causal (query i sees keys j <= i).
 otherwise the forward kernel — as the JAX package's ``custom_vjp`` does.
 ``backward="reference"`` differentiates the dense ``_reference_attention``
 instead. ``differentiable`` and ``launch_fwd`` are shared with
-``ops/gqa.py``, whose kernels are the same source with fewer KV heads.
+``ops/gqa.py``, whose kernels are the same source with fewer KV heads;
+``differentiable`` also carries ``ops/flash_attention_varlen.py``, whose
+document masks ride along as operands without gradients.
 
 Each kernel's wrapper launches it on a CUDA tensor (a build or launch
 failure raises) and runs its plain PyTorch version (``*_plain``: dense
@@ -221,26 +223,28 @@ def mha_fwd_kernel(B, H, Sq, Sk, D, causal=False, sm_scale=None,
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel mode of ``_make_attention_vjp``: the forward normalises the
-    ``partial`` op's ``(acc, m, l)`` (the MHA or the GQA partial kernel),
-    zeroing rows with ``l == 0``, and saves ``lse2 = m + log2(l)``; the
-    backward runs the dK/dV and dQ kernels, which sum a KV head's group."""
+    ``partial`` op's ``(acc, m, l)`` (the MHA, GQA or varlen partial
+    kernel), zeroing rows with ``l == 0``, and saves ``lse2 = m +
+    log2(l)`` (``-inf`` on those rows); the backward runs ``bwd``, the
+    dK/dV and dQ kernels. ``aux`` are trailing operands that are not
+    differentiable (varlen's document masks): both ops take them after
+    q, k, v, and their gradients are None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, partial):
-        acc, m, l = partial(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, partial, bwd, *aux):
+        acc, m, l = partial(q, k, v, *aux, causal, sm_scale)
         lv = l[..., None]
         o = torch.where(lv > 0, acc / lv, 0.0).to(q.dtype)
-        ctx.save_for_backward(q, k, v, o, m + torch.log2(l))
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.save_for_backward(q, k, v, o, m + torch.log2(l), *aux)
+        ctx.causal, ctx.sm_scale, ctx.bwd = causal, sm_scale, bwd
         return o
 
     @staticmethod
     def backward(ctx, g):
-        from .gqa_bwd import gqa_attention_bwd
-        q, k, v, o, lse2 = ctx.saved_tensors
-        dq, dk, dv = gqa_attention_bwd(q, k, v, o, lse2, g, ctx.causal,
-                                       ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+        q, k, v, o, lse2, *aux = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, *aux, o, lse2, g, ctx.causal,
+                             ctx.sm_scale)
+        return (dq, dk, dv) + (None,) * (4 + len(aux))
 
 
 class _ReferenceAttention(torch.autograd.Function):
@@ -262,23 +266,34 @@ class _ReferenceAttention(torch.autograd.Function):
 
 
 def differentiable(q, k, v, causal, sm_scale, backward, fwd, partial,
-                   reference) -> torch.Tensor:
+                   reference, aux=(), bwd=None) -> torch.Tensor:
     """The JAX package's ``_make_attention_vjp`` for the attention ops:
     ``fwd`` alone when autograd needs no gradient of q, k or v; else
-    ``backward="kernel"`` runs ``partial`` forward and the backward
-    kernels, ``backward="reference"`` runs ``fwd`` forward and
-    differentiates ``reference``."""
+    ``backward="kernel"`` runs ``partial`` forward and ``bwd`` backward
+    (by default the group-summing kernels of ``ops/gqa_bwd.py``),
+    ``backward="reference"`` runs ``fwd`` forward and differentiates
+    ``reference``. ``aux`` are operands after q, k, v that take no
+    gradient; a dense ``reference`` cannot see them, so with ``aux`` the
+    reference mode is refused."""
     if backward not in ("kernel", "reference"):
         raise ValueError(
             f"backward must be 'kernel' or 'reference', got {backward!r}")
+    if backward == "reference" and aux:
+        raise ValueError(
+            "backward='reference' is not supported for ops with aux mask "
+            "operands: a dense reference would let gradients cross them; "
+            "use backward='kernel'")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     causal, sm_scale = bool(causal), float(sm_scale)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
-        return fwd(q, k, v, causal, sm_scale)
+        return fwd(q, k, v, *aux, causal, sm_scale)
     if backward == "kernel":
-        return _FlashAttention.apply(q, k, v, causal, sm_scale, partial)
+        if bwd is None:
+            from .gqa_bwd import gqa_attention_bwd as bwd
+        return _FlashAttention.apply(q, k, v, causal, sm_scale, partial,
+                                     bwd, *aux)
     return _ReferenceAttention.apply(q, k, v, causal, sm_scale, fwd,
                                      reference)
 
