@@ -120,6 +120,28 @@ Phases, in order; any failure raises and the script exits non-zero:
               document mask; bf16 enable_gqa, f32 the memory-efficient
               kernel on KV expanded by the group) times and the bound by
               the documents' visible pairs.
+14. attention_family — the eleventh main path: attention with sinks at
+              gpt-oss-20b's attention widths (see GPT_OSS: 64 query over 8
+              KV heads of 64, S 4096, f32 and bf16): attention_sink at
+              full causal and at the 128-token window (one attention_sink
+              launch each; the windowed time printed beside the full one
+              and gated under a fifth of it), and its training step
+              (backward="kernel": one GQA partial, one dK/dV, one dQ; the
+              output and dQ, dK, dV, dSinks against the plain versions
+              and against autograd through the dense reference);
+              the row softmax at the vocabulary row (4096 f32 and 1024
+              bf16 rows of 201088 -> f32) and the MoE router's width
+              (4096 x 8), one launch each, rows summing to 1;
+              block-sparse attention at LLaMA-2-7B's widths (see
+              SPARSE_ATTN: 32 heads of 128, S 4096, blocks 128, a random
+              mask of density 0.5) and seer attention (top-8 gates,
+              causal), one blocksparse_mha launch each; a row of dead
+              cells exactly 0, an all-ones causal mask equal to plain
+              causal attention. Each against its plain version; kernel,
+              plain, library (torch.softmax; SDPA over the dense bool
+              mask; for the sink, SDPA with a zero sink key and the sink
+              logits in an additive mask, and SDPA without sinks as
+              context, named apart) times and the bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -193,6 +215,10 @@ TRAIN_BATCH = 4
 # but at a rounding boundary a 1e-7 difference in p flips one bf16 ulp
 # (2**-8 relative), a few flips per row in 4096 keys.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the sink training step against autograd through the dense reference
+# (natural exp, float32 throughout, P not rounded), normwise: the CPU
+# tests' tolerances for the same comparison
+SINK_REF_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the model path against the dense plain path on the same weights
 # (float32 both; softmax in another form and order, 4 layers deep)
 MODEL_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
@@ -300,6 +326,31 @@ BITNET = dict(hidden=2560, inter=6912, heads=20, kv_heads=5, head_dim=128,
 # default_rng(4) (the prefill step); the op has no weights.
 VARLEN = dict(heads=20, kv_heads=5, head_dim=128, pack=16384, context=4096,
               min_doc=64, chunks=8, chunk=512)
+
+
+# Attention with sinks (ops/attention_sink.py) at gpt-oss-20b's attention
+# widths (https://huggingface.co/openai/gpt-oss-20b/blob/main/config.json:
+# num_attention_heads 64, num_key_value_heads 8, head_dim 64,
+# sliding_window 128, initial_context_length 4096, vocab_size 201088): one
+# attention call of the model's 24 layers, which alternate a 128-token
+# window and full causal attention, B 1, S 4096, f32 and bf16; the
+# training step (backward="kernel") at full causal. q, k, v, the incoming
+# gradient and the per-head sinks standard_normal from default_rng(5);
+# the op has no weights. The row softmax (ops/softmax.py) at the
+# vocabulary row: 4096 f32 rows -> f32, 1024 bf16 rows -> f32 (logits
+# 4 * standard_normal from a seeded device generator), and at the MoE
+# router's width (Mixtral-8x7B's 8 experts, 4096 tokens, as MOE_FULL).
+GPT_OSS = dict(heads=64, kv_heads=8, head_dim=64, seq=4096, window=128,
+               vocab=201088, vocab_rows=4096, vocab_rows_bf16=1024,
+               router_rows=4096, router_width=8)
+# Block-sparse and seer attention (ops/blocksparse_attention.py,
+# ops/seer_attention.py) at LLaMA-2-7B's attention widths (LLAMA2's
+# source: 32 heads of 128, 4096 positions), B 1, blocks of 128: a random
+# mask of density 0.5 (default_rng(6).random(cells) < 0.5), not causal;
+# seer's top-8 of default_rng(7).standard_normal gate logits, causal. q,
+# k, v standard_normal from default_rng(8).
+SPARSE_ATTN = dict(heads=32, head_dim=128, seq=4096, block=128,
+                   density=0.5, topk=8)
 
 
 def varlen_pack_lengths(cfg):
@@ -2728,6 +2779,375 @@ VARLEN_KERNELS = (
      "tilelang_mesh_tpu/ops/flash_attention_varlen.py:274", "float32"))
 
 
+def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
+    """Sink attention at gpt-oss-20b's attention widths (GPT_OSS), the
+    row softmax at its vocabulary row and the MoE router's width, and
+    block-sparse and seer attention at LLaMA-2-7B's (SPARSE_ATTN): each
+    main-path call through the public entry point with every counter
+    zeroed before it and read right after (attention_sink, softmax,
+    blocksparse_attention, seer_attention: one launch of their kernel;
+    the sink training step: one GQA partial, one dK/dV, one dQ); each
+    output (and the step's gradients) against the plain versions on the
+    card, the step's also against autograd through the dense reference;
+    the windowed sink beside the full-causal one; kernel, plain and
+    library times (for the sink, SDPA with a zero sink key and the sink
+    logits in its mask; SDPA on the sink-less attention as context,
+    named apart) and the bound by the visible pairs or the bytes; a dead
+    block-sparse row exactly 0 and an all-ones causal mask equal to
+    plain causal attention."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mods = (sk, smx, bsa, fa, gq, gb)
+    counted = {k: 0 for m in (sk, smx, bsa, gq, gb) for k in m.launches}
+    res = {}
+    reset_peak(torch)
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {k: n for m in mods for k, n in m.launches.items()}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def within(label, got, want, tol):
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, want {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return err, rel
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    def tname(dtype):
+        return str(dtype).replace("torch.", "")
+
+    def sink_library(q, k, v, sinks, window, want):
+        """SDPA computing attention with sinks, timed: K and V expanded
+        by the group, then per head one key and value row of zeros (the
+        sink) and 15 pad rows, 16-aligned; an additive mask (1, Hq, S, S
+        + 16) in q's type, 0 where the causal / window mask keeps a pair,
+        the head's sink logit in the zero key's column, -inf elsewhere.
+        softmax([scores, sink]) @ [V; 0] is then the sink kernel's
+        function. The operands are built outside the timed calls. float32
+        on the memory-efficient kernel; bfloat16 on cuDNN where it takes
+        the mask, else memory-efficient. Held within 2e-2 normwise of the
+        plain version's ``want``."""
+        Hq, S, D = q.shape[1], q.shape[2], q.shape[3]
+        pad = torch.zeros((1, Hq, 16, D), dtype=q.dtype, device=q.device)
+        kx, vx = (torch.cat([t.repeat_interleave(Hq // k.shape[1], 1), pad],
+                            2) for t in (k, v))
+        bias = torch.full((1, Hq, S, S + 16), -math.inf, dtype=q.dtype,
+                          device=q.device)
+        bias[..., :S].masked_fill_(sk.visible(S, S, True, window, q.device),
+                                   0.0)
+        bias[..., S] = sinks.to(q.dtype).view(Hq, 1)
+        backends = ([SDPBackend.EFFICIENT_ATTENTION] if q.dtype ==
+                    torch.float32 else [SDPBackend.CUDNN_ATTENTION,
+                                        SDPBackend.EFFICIENT_ATTENTION])
+
+        def call():
+            return F.scaled_dot_product_attention(q, kx, vx, attn_mask=bias)
+
+        for backend in backends:
+            try:
+                with sdpa_kernel([backend]):
+                    rel = normwise_err(call(), want)[1]
+            except RuntimeError:             # this backend refuses the call
+                continue
+            check(rel < 2e-2, f"the library yardstick (SDPA with a zero "
+                              f"sink key, {backend.name}) disagrees with "
+                              f"the plain version: {rel:.3e}")
+            with sdpa_kernel([backend]):
+                ms = device_ms(torch, call, 3)
+            return {"library_ms": ms, "library_normwise_err": rel,
+                    "library": f"SDPA ({backend.name}), K and V expanded by "
+                               f"the group with a zero sink key, the sink "
+                               f"logits in an additive mask (1, Hq, S, "
+                               f"S + 16)"}
+        check(False, f"no SDPA backend of {backends} takes the sink "
+                     f"yardstick's float mask")
+
+    # -- attention with sinks at gpt-oss-20b's widths ----------------------
+    c = GPT_OSS
+    Hq, Hkv, D, S, W = (c["heads"], c["kv_heads"], c["head_dim"], c["seq"],
+                        c["window"])
+    sm = 1.0 / math.sqrt(D)
+    rng = np.random.default_rng(5)
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((1, Hq, S, D), (1, Hkv, S, D), (1, Hkv, S, D),
+                          (1, Hq, S, D), (Hq,))]
+    full_pairs = causal_pairs(S, S)
+    win_pairs = sum(min(i + 1, W) for i in range(S))
+    # the key tiles (32 keys) a 64-row block visits, by the kernel's loop
+    # bounds (csrc/attention_sink.cu kv_span)
+    tiles = {"full": [(q0 + 63) // 32 + 1 for q0 in range(0, S, 64)],
+             "window": [(q0 + 63) // 32 - max(0, q0 - W + 1) // 32 + 1
+                        for q0 in range(0, S, 64)]}
+    res["sink_tiles_per_block"] = {
+        k: {"max": max(v), "mean": sum(v) / len(v)} for k, v in tiles.items()}
+    sinks = base[4].cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = tname(dtype)
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v, g = (t.cuda().to(dtype) for t in base[:4])
+        io_bytes = (2 * Hq + 2 * Hkv) * S * D * esize + 4 * Hq
+        sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 3)
+        for case, window, pairs in (("causal", None, full_pairs),
+                                    ("window128", W, win_pairs)):
+            wn = window or 0
+            with torch.no_grad():
+                o = drive(f"attention_sink {case} {name}",
+                          lambda: sk.attention_sink(q, k, v, sinks,
+                                                    window_size=window),
+                          {"attention_sink": 1})
+            want = sk.sink_fwd_plain(q, k, v, sinks, True, wn, sm)
+            err = within(f"attention_sink {case} {name}", o, want, tol)
+            del o
+            lib = sink_library(q, k, v, sinks, wn, want)
+            del want
+            torch.cuda.empty_cache()
+            entry = {
+                "shape": [1, Hq, Hkv, S, D], "window": window,
+                "visible_pairs": pairs * Hq, "max_abs_err": err[0],
+                "normwise_err": err[1], "tolerance": f"normwise {tol}",
+                "ms": device_ms(torch, lambda: sk.sink_fwd(
+                    q, k, v, sinks, True, wn, sm), 5),
+                "plain_ms": device_ms(torch, lambda: sk.sink_fwd_plain(
+                    q, k, v, sinks, True, wn, sm), 2),
+                **lib, **bound(4 * D * pairs * Hq, io_bytes, peak)}
+            if window is None:
+                entry["sdpa_without_sinks_ms"] = sdpa
+                entry["sdpa_without_sinks"] = ("SDPA, is_causal, enable_gqa, "
+                                               "no sinks (not the same "
+                                               "function)")
+            res[f"attention_sink_{case}_{name}"] = entry
+        full = res[f"attention_sink_causal_{name}"]["ms"]
+        windowed = res[f"attention_sink_window128_{name}"]["ms"]
+        print(f"attention_sink {name}: full causal {full:.4f} ms, window "
+              f"{W} {windowed:.4f} ms ({windowed / full:.3f} of it)",
+              flush=True)
+        check(windowed < full / 5, f"attention_sink {name}: the window-{W} "
+              f"call takes {windowed:.4f} ms, not under a fifth of full "
+              f"causal's {full:.4f}: tiles outside the window are visited")
+
+        # the training step: the GQA partial + the fold, dK/dV, dQ
+        acc, m, l = gq.gqa_fwd_partial_plain(q, k, v, True, sm)
+        o_plain, lse2 = sk.sink_stats(acc, m, l, sinks, dtype)
+        del acc, m, l
+        delta = (g.float() * o_plain.float()).sum(-1)
+        want = [*gb.gqa_bwd_dkdv_plain(q, k, v, g, lse2, delta, True, sm)]
+        want = [gb.gqa_bwd_dq_plain(q, k, v, g, lse2, delta, True, sm),
+                *want, sk.sink_grad(lse2, delta, sinks)]
+        del lse2, delta
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, sinks)]
+
+        def step():
+            out = sk.attention_sink(*leaves, backward="kernel")
+            out.backward(g)
+            return out
+
+        train = {"gqa_fwd_partial": 1, "gqa_bwd_dkdv": 1, "gqa_bwd_dq": 1}
+        out = drive(f"attention_sink training step {name}", step, train)
+        errs = {"o": within(f"sink step output {name}", out.detach(),
+                            o_plain, tol)[1]}
+        for lbl, t, w in zip(("dq", "dk", "dv", "dsinks"), leaves, want):
+            errs[lbl] = within(f"sink step {lbl} {name}", t.grad,
+                               w.to(t.dtype), tol)[1]
+        del o_plain, want
+        # the same step by autograd through the dense reference, which
+        # shares no code with the fold (sink_stats) or the closed-form
+        # dSinks (sink_grad) that the plain side above reuses
+        ref = [t.detach().requires_grad_() for t in (q, k, v, sinks)]
+        ref_o = sk.attention_sink_reference(*ref)
+        ref_o.backward(g)
+        rtol = SINK_REF_TOL[name]
+        ref_errs = {"o": within(f"sink step output {name} vs the reference",
+                                out.detach(), ref_o.detach(), rtol)[1]}
+        for lbl, t, r in zip(("dq", "dk", "dv", "dsinks"), leaves, ref):
+            ref_errs[lbl] = within(f"sink step {lbl} {name} vs the reference",
+                                   t.grad, r.grad, rtol)[1]
+        del out, ref_o, ref
+        for t in leaves:
+            t.grad = None
+        torch.cuda.empty_cache()
+
+        def sdpa_step():
+            lv = [t.detach().requires_grad_() for t in (q, k, v)]
+            F.scaled_dot_product_attention(*lv, is_causal=True,
+                                           enable_gqa=True).backward(g)
+
+        bhsd, kvsd = Hq * S * D, Hkv * S * D
+        res[f"sink_train_{name}"] = {
+            "shape": [1, Hq, Hkv, S, D], "normwise_err": errs,
+            "tolerance": f"normwise {tol}",
+            "reference_normwise_err": ref_errs,
+            "reference_tolerance": f"normwise {rtol}",
+            "ms": device_ms(torch, step, 3),
+            "sdpa_without_sinks_ms": device_ms(torch, sdpa_step, 3),
+            "sdpa_without_sinks": "SDPA forward + backward, is_causal, "
+                                  "enable_gqa, no sinks",
+            # #9 + #3 + #4 at this shape: 4 + 8 + 6 flops per pair and dim
+            **bound(18 * D * full_pairs * Hq,
+                    (5 * bhsd + 4 * kvsd) * esize + 4 * (bhsd + 2 * kvsd)
+                    + 8 * Hq * S + 8 * Hq, peak)}
+        del leaves, q, k, v, g
+        torch.cuda.empty_cache()
+
+    # -- the row softmax ---------------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for case, M, N, din in (
+            ("vocab", c["vocab_rows"], c["vocab"], torch.float32),
+            ("vocab_bf16", c["vocab_rows_bf16"], c["vocab"], torch.bfloat16),
+            ("router", c["router_rows"], c["router_width"], torch.float32)):
+        x = (4 * torch.randn((M, N), generator=gen, device="cuda")).to(din)
+        y = drive(f"softmax {case}", lambda: smx.softmax(
+            x, out_dtype=torch.float32), {"softmax": 1})
+        err = within(f"softmax {case}", y, smx.softmax_plain(
+            x, torch.float32), 1e-5)
+        rows = y.sum(1, dtype=torch.float64)
+        check(bool(((rows - 1).abs() < 1e-4).all()),
+              f"softmax {case}: a row sums to {float(rows.min())}..."
+              f"{float(rows.max())}")
+        del y, rows
+        nbytes = M * N * (x.element_size() + 4)
+        res[f"softmax_{case}"] = {
+            "shape": [M, N], "in": tname(din), "out": "float32",
+            "max_abs_err": err[0], "normwise_err": err[1],
+            "tolerance": "normwise 1e-5",
+            "ms": device_ms(torch, lambda: smx.softmax(
+                x, out_dtype=torch.float32), 5 if N > 8 else 50),
+            "plain_ms": device_ms(torch, lambda: smx.softmax_plain(
+                x, torch.float32), 2 if N > 8 else 20),
+            "library_ms": device_ms(torch, lambda: torch.softmax(
+                x, 1, dtype=torch.float32), 5 if N > 8 else 50),
+            "library": "torch.softmax(x, 1, dtype=float32)",
+            **bound(4 * M * N, nbytes, PEAK_F32_FLOPS)}
+        del x
+        torch.cuda.empty_cache()
+
+    # -- block-sparse and seer attention at LLaMA-2-7B's widths ------------
+    c = SPARSE_ATTN
+    H, D, S, blk = c["heads"], c["head_dim"], c["seq"], c["block"]
+    sm = 1.0 / math.sqrt(D)
+    n = S // blk
+    rng = np.random.default_rng(8)
+    base = [torch.from_numpy(rng.standard_normal((1, H, S, D),
+                                                 dtype=np.float32))
+            for _ in range(3)]
+    rand_mask = torch.from_numpy(
+        (np.random.default_rng(6).random((1, H, n, n)) < c["density"])
+        .astype(np.int32)).cuda()
+    gates = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, H, n, n)).astype(np.float32)).cuda()
+    seer_mask = seer.seer_block_mask(gates, c["topk"], blk, blk)
+    res["blocksparse_masks"] = {
+        "random_density": float(rand_mask.float().mean()),
+        "seer_density": float(seer_mask.float().mean())}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = tname(dtype)
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v = (t.cuda().to(dtype) for t in base)
+        for case, mask, causal, call in (
+                ("random", rand_mask, False,
+                 lambda: bsa.blocksparse_attention(q, k, v, rand_mask)),
+                ("seer", seer_mask, True,
+                 lambda: seer.seer_attention(q, k, v, gates,
+                                             topk=c["topk"]))):
+            with torch.no_grad():
+                o = drive(f"{case} attention {name}", call,
+                          {"blocksparse_mha": 1})
+            want = bsa.blocksparse_mha_plain(q, k, v, mask, blk, blk, causal,
+                                             sm)
+            err = within(f"{case} attention {name}", o, want, tol)
+            del o
+            dense = bsa.dense_mask(mask, blk, blk, causal)
+            pairs = int(dense.sum())
+            lib = F.scaled_dot_product_attention(q, k, v, attn_mask=dense)
+            lib_err = normwise_err(lib, want)[1]
+            check(lib_err < 2e-2, f"the library yardstick (SDPA, bool mask) "
+                                  f"disagrees with the plain version: "
+                                  f"{lib_err:.3e}")
+            del lib, want
+            res[f"blocksparse_mha_{case}_{name}"] = {
+                "shape": [1, H, S, D], "block": blk, "causal": causal,
+                "live_cells": int(mask.sum()), "visible_pairs": pairs,
+                "max_abs_err": err[0], "normwise_err": err[1],
+                "tolerance": f"normwise {tol}",
+                "ms": device_ms(torch, lambda: bsa.blocksparse_mha(
+                    q, k, v, mask, blk, blk, causal, sm), 5),
+                "plain_ms": device_ms(torch, lambda: bsa.blocksparse_mha_plain(
+                    q, k, v, mask, blk, blk, causal, sm), 2),
+                "library_ms": device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=dense), 3),
+                "library": "SDPA with the dense bool mask (B, H, S, S)",
+                "library_normwise_err": lib_err,
+                **bound(4 * D * pairs, 4 * H * S * D * esize
+                        + 4 * mask.numel(), peak)}
+            del dense
+        if dtype == torch.float32:
+            # a query block whose every cell is dead gives exactly 0; an
+            # all-ones causal mask is plain causal attention
+            r = n // 2
+            dead = rand_mask.clone()
+            dead[0, 0, r] = 0
+            o = drive("blocksparse dead row", lambda: bsa.blocksparse_attention(
+                q, k, v, dead), {"blocksparse_mha": 1}, main=False)
+            check(not o[0, 0, r * blk:(r + 1) * blk].any()
+                  and bool(o[0, 0, (r + 1) * blk:].abs().min(-1)[0].gt(0)
+                           .all()),
+                  "blocksparse: a row of dead cells is not exactly 0, or a "
+                  "live row is")
+            ones = torch.ones_like(rand_mask)
+            o = drive("blocksparse all ones causal",
+                      lambda: bsa.blocksparse_attention(q, k, v, ones,
+                                                        causal=True),
+                      {"blocksparse_mha": 1}, main=False)
+            res["blocksparse_zero_checks"] = {
+                "dead_row_exactly_zero": f"head 0, query block {r}",
+                "all_ones_causal_vs_mha_fwd_plain": within(
+                    "blocksparse all ones causal", o,
+                    fa.mha_fwd_plain(q, k, v, True, sm), tol)[1]}
+            del o, dead, ones
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"attention_family": res}), flush=True)
+    return res
+
+
+# the attention_family phase's kernels: (name, source, replaced TPU kernel,
+# headline case)
+ATTN_FAMILY_KERNELS = (
+    ("attention_sink", "attention_sink.cu",
+     "tilelang_mesh_tpu/ops/attention_sink.py:30", "causal_float32"),
+    ("softmax", "softmax.cu", "tilelang_mesh_tpu/ops/softmax.py:29",
+     "vocab"),
+    ("blocksparse_mha", "blocksparse_attention.cu",
+     "tilelang_mesh_tpu/ops/blocksparse_attention.py:21", "random_float32"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -2790,6 +3210,12 @@ def main() -> int:
         "tilelang_mesh_tpu_torch.ops.linear_attention")
     vl = importlib.import_module(
         "tilelang_mesh_tpu_torch.ops.flash_attention_varlen")
+    sk = importlib.import_module("tilelang_mesh_tpu_torch.ops.attention_sink")
+    smx = importlib.import_module("tilelang_mesh_tpu_torch.ops.softmax")
+    bsa = importlib.import_module(
+        "tilelang_mesh_tpu_torch.ops.blocksparse_attention")
+    seer = importlib.import_module(
+        "tilelang_mesh_tpu_torch.ops.seer_attention")
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -2813,7 +3239,8 @@ def main() -> int:
                "gqa_bwd", "grouped_gemm", "gemm", "dequant_gemm", "mamba2",
                "gdn", "linear_attention", "gemm_s8", "gemm_variants",
                "gemv", "quantize_act", "bitnet_gemm",
-               "flash_attention_varlen", "varlen_bwd")
+               "flash_attention_varlen", "varlen_bwd", "attention_sink",
+               "softmax", "blocksparse_attention")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -2875,6 +3302,9 @@ def main() -> int:
 
     phase("varlen")
     vr = varlen_phase(torch, vl, fa, gq, gb)
+
+    phase("attention_family")
+    af = attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -2973,6 +3403,18 @@ def main() -> int:
         kernels.append(entry)
     kernels += kernel_entries(bg, BITNET_GQA_KERNELS)
     kernels += kernel_entries(vr, VARLEN_KERNELS)
+    for entry in kernel_entries(af, ATTN_FAMILY_KERNELS):
+        if entry["name"] == "attention_sink":
+            entry["sdpa_without_sinks"] = {
+                k: af[f"attention_sink_causal_{k}"]["sdpa_without_sinks_ms"]
+                for k in ("float32", "bfloat16")}
+            entry["tiles_per_block"] = af["sink_tiles_per_block"]
+            entry["training_step"] = {
+                k: af[f"sink_train_{k}"] for k in ("float32", "bfloat16")}
+            entry["training_launches"] = {
+                k: af["launches"][k] for k in ("gqa_fwd_partial",
+                                               "gqa_bwd_dkdv", "gqa_bwd_dq")}
+        kernels.append(entry)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

@@ -52,7 +52,13 @@ attention kernels' bounds above, and its autograd on the card against
 the same Function on the CPU at 1e-4 normwise. Packed varlen attention
 at the attention kernels' bounds, with M compared where l > 0 (a row that
 sees no key has l = 0, acc = 0 and M = -1e30 in both), and its autograd
-on the card against the CPU at 1e-4 normwise.
+on the card against the CPU at 1e-4 normwise. Sink attention and
+block-sparse attention at the attention kernels' bounds, with rows whose
+every cell is dead exactly 0; the sink autograd on the card against the
+CPU at 1e-4 normwise. The row softmax, normwise: 1e-5 for a float32
+output (the same float32 shift, exp2 and divide; the row sum in another
+order), 1e-2 for a bfloat16 output (one ulp, 2**-8, at a rounding
+boundary); NaN rows at the plain version's positions.
 """
 
 import dataclasses
@@ -86,6 +92,11 @@ la = importlib.import_module("tilelang_mesh_tpu_torch.ops.linear_attention")
 gqa = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
 vl = importlib.import_module(
     "tilelang_mesh_tpu_torch.ops.flash_attention_varlen")
+sink = importlib.import_module("tilelang_mesh_tpu_torch.ops.attention_sink")
+smx = importlib.import_module("tilelang_mesh_tpu_torch.ops.softmax")
+bsa = importlib.import_module(
+    "tilelang_mesh_tpu_torch.ops.blocksparse_attention")
+seer = importlib.import_module("tilelang_mesh_tpu_torch.ops.seer_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -1390,3 +1401,239 @@ def test_varlen_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
     live = torch.ones((1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         vl.varlen_fwd(x, x, x, ids, ids, ids, ids, live, True, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# the row softmax (csrc/softmax.cu)
+# ---------------------------------------------------------------------------
+
+
+SOFTMAX_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+               torch.float16: 1e-2}
+
+
+def _softmax_close(got, want):
+    """Normwise within the output type's bound, NaN where the plain
+    version has NaN."""
+    assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got.float()[~nan], want.float()[~nan]
+    if w.numel():
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert err <= SOFTMAX_TOL[want.dtype], err
+
+
+@pytest.mark.parametrize("din,dout", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.float16, torch.float16)])
+@pytest.mark.parametrize("M,N", [(4096, 8), (37, 1), (9, 1024), (5, 1025),
+                                 (3, 49152), (3, 60001), (4, 201088)])
+def test_softmax_kernel_matches_plain(cuda, din, dout, M, N):
+    """Narrow rows (a warp a row: Mixtral's router width 8), rows a
+    block holds in shared memory, and rows wider than it (gpt-oss's
+    vocabulary, 201088: an online pass and a normalising pass)."""
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    x = (4 * torch.randn((M, N), generator=g, device=cuda)).to(din)
+    before = smx.launches["softmax"]
+    y = smx.softmax(x, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert smx.launches["softmax"] == before + 1
+    _softmax_close(y, smx.softmax_plain(x, dout))
+
+
+@pytest.mark.parametrize("N", [40, 3000, 60001])
+def test_softmax_kernel_nan_rows(cuda, N):
+    """All -inf and +inf rows are NaN, a row with some -inf is finite, in
+    both the warp and the block kernels."""
+    x = torch.randn((6, N), device=cuda)
+    x[0] = -math.inf
+    x[1, N // 2] = math.inf
+    x[2, : N // 2] = -math.inf
+    x[3, -1] = math.inf
+    x[3, 0] = -math.inf
+    y = smx.softmax(x)
+    _softmax_close(y, smx.softmax_plain(x, torch.float32))
+    assert torch.isnan(y[[0, 1, 3]]).all()
+    assert not torch.isnan(y[[2, 4, 5]]).any() and not y[2, : N // 2].any()
+
+
+# ---------------------------------------------------------------------------
+# attention with sinks (csrc/attention_sink.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sink_inputs(dev, B, Hq, Hkv, Sq, Sk, D, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return (rnd(B, Hq, Sq, D).to(dtype), rnd(B, Hkv, Sk, D).to(dtype),
+            rnd(B, Hkv, Sk, D).to(dtype), rnd(Hq))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 48, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 1)])
+@pytest.mark.parametrize("Sq,Sk", [(77, 77), (100, 260), (260, 100),
+                                   (192, 64)])
+def test_sink_kernel_matches_plain(cuda, dtype, causal, window, Hq, Hkv,
+                                   Sq, Sk):
+    """The window's edges (1: the key itself only; 48 inside a tile; 128),
+    causal and not (the window bounds keys from below only), ragged S,
+    Sq > Sk (rows whose window lies past Sk see no key: O = 0)."""
+    q, k, v, s = _sink_inputs(cuda, 1, Hq, Hkv, Sq, Sk, 64, dtype)
+    sm = 0.125
+    before = sink.launches["attention_sink"]
+    o = sink.sink_fwd(q, k, v, s, causal, window, sm)
+    torch.cuda.synchronize()
+    assert sink.launches["attention_sink"] == before + 1
+    assert o.dtype == dtype
+    assert _normwise(o, sink.sink_fwd_plain(q, k, v, s, causal, window,
+                                            sm)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_sink_kernel_head_dims(cuda, d):
+    q, k, v, s = _sink_inputs(cuda, 2, 4, 2, 150, 150, d, torch.float32)
+    o = sink.sink_fwd(q, k, v, s, True, 40, d ** -0.5)
+    assert _normwise(o, sink.sink_fwd_plain(q, k, v, s, True, 40,
+                                            d ** -0.5)) <= 1e-5
+
+
+def test_sink_bfloat16_sinks_on_card(cuda):
+    q, k, v, s = _sink_inputs(cuda, 1, 4, 2, 64, 64, 64, torch.float32)
+    sb = s.to(torch.bfloat16)
+    assert torch.equal(sink.attention_sink(q, k, v, sb),
+                       sink.attention_sink(q, k, v, sb.float()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sink_autograd_on_card_matches_cpu(cuda, causal):
+    """backward="kernel" on the card (one GQA partial, one dK/dV and one
+    dQ launch, no sink launch) against the same Function on CPU tensors,
+    dSinks included."""
+    q, k, v, s = _sink_inputs("cpu", 1, 8, 2, 128, 128, 64, torch.float32)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v, s)]
+        before = (dict(gqa.launches), dict(gb.launches),
+                  dict(sink.launches))
+        o = sink.attention_sink(*leaves, causal=causal, block_M=64,
+                                block_N=64, backward="kernel")
+        o.backward(g.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert gqa.launches["gqa_fwd_partial"] == \
+                before[0]["gqa_fwd_partial"] + 1
+            assert gb.launches == {k_: n + 1 for k_, n in before[1].items()}
+            assert sink.launches == before[2]
+        outs.append(o.detach().cpu())
+        grads.append([t.grad.cpu() for t in leaves])
+    assert _normwise(outs[1].cuda(), outs[0].cuda()) <= 1e-4
+    for a, b in zip(*grads):
+        assert _normwise(b.cuda(), a.cuda()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention (csrc/blocksparse_attention.cu)
+# ---------------------------------------------------------------------------
+
+
+BLOCKSPARSE_CASES = [  # Sq, Sk, block_M, block_N: cells under, at and
+    (128, 128, 32, 32),    # over the kernel's 64 x 32 tiles, unaligned
+    (192, 128, 64, 16),    # ones, and a ragged S
+    (120, 120, 40, 24),
+    (256, 256, 128, 128),
+    (100, 60, 100, 60),
+    (96, 160, 16, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["random", "dead_rows", "zeros"])
+@pytest.mark.parametrize("case", BLOCKSPARSE_CASES)
+def test_blocksparse_kernel_matches_plain(cuda, dtype, causal, kind, case):
+    """Liveness by the caller's cells: a tile overlapping a live cell is
+    computed, each pair masked by its own cell; a row whose every cell
+    is dead (or, causal, whose live cells lie above it) is exactly 0."""
+    Sq, Sk, bM, bN = case
+    q, k, v, _ = _sink_inputs(cuda, 2, 2, 2, Sq, Sk, 64, dtype, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    m = torch.randint(0, 2, (2, 2, Sq // bM, Sk // bN), generator=g,
+                      device=cuda, dtype=torch.int32)
+    if kind == "zeros":
+        m.zero_()
+    if kind == "dead_rows":
+        m[..., ::2, :] = 0
+    before = bsa.launches["blocksparse_mha"]
+    o = bsa.blocksparse_mha(q, k, v, m, bM, bN, causal, 0.125)
+    torch.cuda.synchronize()
+    assert bsa.launches["blocksparse_mha"] == before + 1
+    want = bsa.blocksparse_mha_plain(q, k, v, m, bM, bN, causal, 0.125)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
+    dead = ~bsa.dense_mask(m, bM, bN, causal).any(-1)
+    assert not o[dead].any() and torch.equal(o[dead], want[dead])
+
+
+def test_blocksparse_all_ones_causal_is_causal_attention(cuda):
+    q, k, v, _ = _sink_inputs(cuda, 1, 4, 4, 256, 256, 128, torch.float32)
+    ones = torch.ones((1, 4, 8, 8), dtype=torch.int32, device=cuda)
+    o = bsa.blocksparse_attention(q, k, v, ones, block_M=32, block_N=32,
+                                  causal=True)
+    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 128 ** -0.5)) <= 1e-5
+
+
+def test_seer_attention_on_card_matches_cpu(cuda):
+    q, k, v, _ = _sink_inputs("cpu", 1, 2, 2, 256, 256, 64, torch.float32)
+    gates = torch.randn((1, 2, 8, 8), generator=torch.Generator()
+                        .manual_seed(5))
+    want = seer.seer_attention(q, k, v, gates, topk=3, block_M=32,
+                               block_N=32)
+    got = seer.seer_attention(*(t.to(cuda) for t in (q, k, v, gates)),
+                              topk=3, block_M=32, block_N=32)
+    assert _normwise(got, want.to(cuda)) <= 1e-4
+
+
+def _slice10_calls(dev):
+    q, k, v, s = _sink_inputs(dev, 1, 2, 2, 64, 64, 16, torch.float32)
+    m = torch.ones((1, 2, 2, 2), dtype=torch.int32, device=dev)
+    x = torch.zeros((4, 8), device=dev)
+    return [(sink.launches, "attention_sink",
+             lambda: sink.sink_fwd(q, k, v, s, True, 0, 0.25)),
+            (smx.launches, "softmax", lambda: smx.softmax(x)),
+            (bsa.launches, "blocksparse_mha",
+             lambda: bsa.blocksparse_mha(q, k, v, m, 32, 32, False, 0.25))]
+
+
+def test_slice10_wrappers_raise_on_build_or_launch_failure(cuda,
+                                                           monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError naming the wrapper, and neither counts a
+    launch; a head_dim outside KERNEL_HEAD_DIMS is refused before."""
+    calls = _slice10_calls(cuda)
+    before = [dict(c) for c, _, _ in calls]
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, _, call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for _, name, call in calls:
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert [dict(c) for c, _, _ in calls] == before
+    x = torch.zeros((1, 2, 64, 48), device=cuda)
+    m = torch.ones((1, 2, 1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        sink.sink_fwd(x, x, x, torch.zeros(2, device=cuda), True, 0, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        bsa.blocksparse_mha(x, x, x, m, 64, 64, False, 0.1)

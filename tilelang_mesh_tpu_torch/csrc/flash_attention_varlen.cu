@@ -32,19 +32,22 @@
 //
 // Design: csrc/flash_attention.cu's loop — one block of 128 threads per
 // (64-query tile, query head), the prescaled Q tile in shared memory,
-// 32-key tiles of K and V loaded into shared memory, a 4 x 4 block of
-// scores per thread with CUDA-core FMAs, (m, l) updated with 8-lane
-// shuffles, P rounded to the input type and P @ V accumulated in
-// registers. What differs is the mask and which key tiles are visited:
-// the block first finds the span of key blocks with a live cell in its
-// query rows' BlockLive rows (one scan of those rows); for each 32-key
-// tile of that span it votes on whether the tile overlaps a live cell and
-// holds a visible pair (each thread reads one key's ids; the vote is also
-// the barrier before the tile's loads), and only then loads K, V and the
-// keys' ids; each score is masked with the elementwise document test. Live tiles form a near-diagonal band on the sorted packed axis,
-// so the work follows the documents' visible pairs. No tensor cores, TMA
-// or grid over cu_seqlens yet: this is the simple, exact version.
+// 32-key tiles of K and V loaded into shared memory, and
+// attention_tile.cuh's tile step (a 4 x 4 block of scores per thread
+// with CUDA-core FMAs, (m, l) updated with 8-lane shuffles, P rounded to
+// the input type and P @ V accumulated in registers). What differs is
+// the mask and which key tiles are visited: the block first finds the
+// span of key blocks with a live cell in its query rows' BlockLive rows
+// (one scan of those rows); for each 32-key tile of that span it votes
+// on whether the tile overlaps a live cell and holds a visible pair
+// (each thread reads one key's ids; the vote is also the barrier before
+// the tile's loads), and only then loads K, V and the keys' ids; each
+// score is masked with the elementwise document test. Live tiles form a
+// near-diagonal band on the sorted packed axis, so the work follows the
+// documents' visible pairs. No tensor cores, TMA or grid over
+// cu_seqlens yet: this is the simple, exact version.
 
+#include "attention_tile.cuh"
 #include "varlen_common.cuh"
 
 namespace {
@@ -56,8 +59,7 @@ constexpr int BN = 32;  // keys per tile
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1)) +
-         sizeof(int) * (2 * BM + 2 * BN + 2);
+  return tile_smem_bytes<BM, BN, D>() + sizeof(int) * (2 * BM + 2 * BN + 2);
 }
 
 template <int D, bool BF16, bool PARTIAL>
@@ -71,7 +73,6 @@ varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
            float* __restrict__ m_out, float* __restrict__ l_out, int group,
            int Tq, int Tk, int bM, int bN, int causal, float scale) {
   constexpr int RM = BM / kTy;  // query rows per thread
-  constexpr int CN = BN / kTx;  // keys per thread per tile
   constexpr int CD = D / kTx;   // output columns per thread
   constexpr int LD = D + 1, LP = BN + 1;
   extern __shared__ float smem[];
@@ -121,64 +122,14 @@ varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
     load_ids<BN>(pk, pos_k, k0, Tk, 0);
     __syncthreads();
 
-    float s[RM][CN];
-#pragma unroll
-    for (int a = 0; a < RM; ++a)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) s[a][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[RM], kc[CN];
-#pragma unroll
-      for (int a = 0; a < RM; ++a) qa[a] = Qs[(ty + kTy * a) * LD + d];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) kc[c] = Ks[(tx + kTx * c) * LD + d];
-#pragma unroll
-      for (int a = 0; a < RM; ++a)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < RM; ++a) {
-      const int ir = ty + kTy * a;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const int jc = tx + kTx * c;
-        if (!visible(sq[ir], pq[ir], sk[jc], pk[jc], causal))
-          s[a][c] = -INFINITY;
-        mx = fmaxf(mx, s[a][c]);
-      }
-      // the -1e30 floor keeps a row that has seen only masked keys finite
-      const float m_new = fmaxf(m[a], fmaxf(group_max(mx), -1e30f));
-      const float alpha = exp2f(m[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const float p = exp2f(s[a][c] - m_new);
-        rs += p;
-        Ps[ir * LP + tx + kTx * c] = Elem<BF16>::round(p);
-      }
-      l[a] = l[a] * alpha + group_sum(rs);
-      m[a] = m_new;
-#pragma unroll
-      for (int e = 0; e < CD; ++e) acc[a][e] *= alpha;
-    }
-    __syncwarp();  // a row's P is written and read by the same 8 lanes
-
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      float pa[RM], vc[CD];
-#pragma unroll
-      for (int a = 0; a < RM; ++a) pa[a] = Ps[(ty + kTy * a) * LP + j];
-#pragma unroll
-      for (int e = 0; e < CD; ++e) vc[e] = Vs[j * LD + tx + kTx * e];
-#pragma unroll
-      for (int a = 0; a < RM; ++a)
-#pragma unroll
-        for (int e = 0; e < CD; ++e) acc[a][e] = fmaf(pa[a], vc[e], acc[a][e]);
-    }
+    // Q is prescaled, so the tile step's scale is 1
+    attend_tile<BM, BN, D, BF16>(
+        Qs, Ks, Vs, Ps, 1.f,
+        [&](int a, int c) {
+          const int ir = ty + kTy * a, jc = tx + kTx * c;
+          return visible(sq[ir], pq[ir], sk[jc], pk[jc], causal);
+        },
+        m, l, acc);
   }
 
 #pragma unroll

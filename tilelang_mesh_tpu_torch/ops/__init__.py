@@ -1,9 +1,16 @@
 """Ported ops. Each kernel's wrapper launches its CUDA kernel on a CUDA
 tensor and runs its plain PyTorch version on a CPU tensor."""
 
+from .attention_sink import (attention_sink,  # noqa: F401
+                             attention_sink_reference, sink_fwd,
+                             sink_fwd_kernel, sink_fwd_plain)
 from .bitnet import (bitnet_gemm, bitnet_gemm_kernel,  # noqa: F401
                      bitnet_gemm_plain, bitnet_linear,
                      bitnet_linear_reference)
+from .blocksparse_attention import (blocksparse_attention,  # noqa: F401
+                                    blocksparse_mha, blocksparse_mha_kernel,
+                                    blocksparse_mha_plain,
+                                    blocksparse_reference)
 from .dequant_gemm import (dequant_gemm_kernel,  # noqa: F401
                            dequant_matmul, dequant_matmul_twopass,
                            quantize_w4_per_channel, w4a8_matmul)
@@ -41,6 +48,9 @@ from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
                   mla_decode_partials_plain, mla_decode_reference)
 from .quantize_act import (quantize_act_int8,  # noqa: F401
                            quantize_act_int8_plain)
+from .seer_attention import (seer_attention, seer_block_mask,  # noqa: F401
+                             seer_reference)
+from .softmax import softmax, softmax_kernel, softmax_plain  # noqa: F401
 
 __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "flash_decode_paged", "flash_decode_paged_pool",
@@ -66,4 +76,10 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "gqa_fwd_partial_kernel", "gqa_fwd_partial_plain",
            "gqa_fwd_plain", "quantize_act_int8", "quantize_act_int8_plain",
            "flash_attention_varlen", "varlen_fwd_kernel",
-           "varlen_bwd_dkdv_kernel", "varlen_bwd_dq_kernel"]
+           "varlen_bwd_dkdv_kernel", "varlen_bwd_dq_kernel",
+           "attention_sink", "attention_sink_reference", "sink_fwd",
+           "sink_fwd_kernel", "sink_fwd_plain", "softmax", "softmax_kernel",
+           "softmax_plain", "blocksparse_attention", "blocksparse_mha",
+           "blocksparse_mha_kernel", "blocksparse_mha_plain",
+           "blocksparse_reference", "seer_attention", "seer_block_mask",
+           "seer_reference"]
