@@ -142,6 +142,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               mask; for the sink, SDPA with a zero sink key and the sink
               logits in an additive mask, and SDPA without sinks as
               context, named apart) times and the bound.
+15. sparse_inference — the twelfth main path: sparse-attention
+              inference. vertical_slash_sparse_attention at LLaMA-3-8B-
+              Instruct-262k's attention widths (see MINFERENCE: 32 heads
+              of 128, K and V repeated from 8 KV heads, S 16384, blocks
+              64, 1000 columns and 6096 slashes picked by a copy of the
+              example's estimator from the last 32 queries), f32, bf16
+              and f16; nsa_attention (prefill, T 8192, selected blocks
+              and the 512-token window), nsa_attention_varlen (the same
+              widths over seeded documents summing to 8192 tokens) and
+              nsa_decode (B 8, 65536 keys) at the NSA paper's widths (see
+              NSA: 64 query heads in 4 groups of 16, D 128, blocks of 64,
+              16 selected), f32 and bf16. Each call one launch of its
+              kernel, read right after; each output against its plain
+              version on the card; a row that sees nothing exactly 0;
+              kernel, plain and library (SDPA over the dense bool masks;
+              for NSA decode over the gathered blocks) times and the
+              bound by the visible pairs.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -351,6 +368,32 @@ GPT_OSS = dict(heads=64, kv_heads=8, head_dim=64, seq=4096, window=128,
 # k, v standard_normal from default_rng(8).
 SPARSE_ATTN = dict(heads=32, head_dim=128, seq=4096, block=128,
                    density=0.5, topk=8)
+# MInference vertical-slash attention at LLaMA-3-8B-Instruct-262k's
+# attention widths (huggingface.co/gradientai/Llama-3-8B-Instruct-262k/
+# blob/main/config.json: 32 query over 8 KV heads of 128), the model for
+# which microsoft/MInference ships its vertical_and_slash patterns of
+# 1000 columns and 6096 slashes; K and V repeated to the 32 query heads,
+# as MInference does before its kernel. S is cut from 262144 to 16384 so
+# that SDPA's dense bool mask (8.6 GB) fits beside the rest. q, k, v
+# standard_normal from default_rng(11); the indices from the example's
+# estimator (examples/minference/example_vertical_slash_sparse_attn.py)
+# on the last 32 queries.
+MINFERENCE = dict(heads=32, kv_heads=8, head_dim=128, seq=16384, block=64,
+                  vertical=1000, slash=6096, last_q=32)
+# NSA at the widths of the NSA paper (Yuan et al. 2025, "Native Sparse
+# Attention", arXiv:2502.11089, section 4.1): 64 query heads in 4 GQA
+# groups, selection blocks of 64, 16 selected blocks, a 512-token window.
+# D 128 is the paper's d_v: the op takes one head width for q, k and v,
+# and the paper's d_k of 192 has no kernel instance (a cut). Prefill and
+# varlen at the pretraining length 8192 (B 1; the varlen documents'
+# lengths from default_rng(13), none a multiple of 64), decode at B 8
+# over the longest decoding context, 65536 keys. Each token selects block
+# 0, its own block, the one before and 13 more drawn from default_rng(12)
+# (all its blocks, -1 padded, when it has fewer than 16); gates
+# uniform(0.2, 1).
+NSA = dict(heads=64, kv_heads=4, head_dim=128, block=64, selected=16,
+           window=512, seq=8192, decode_batch=8, decode_context=65536,
+           min_doc=300, max_doc=3000)
 
 
 def varlen_pack_lengths(cfg):
@@ -3148,6 +3191,494 @@ ATTN_FAMILY_KERNELS = (
      "tilelang_mesh_tpu/ops/blocksparse_attention.py:21", "random_float32"))
 
 
+def vs_estimate(torch, q, k, n_vertical, n_slash, last_q):
+    """The vertical and slash indices of
+    examples/minference/example_vertical_slash_sparse_attn.py:14-32, in
+    torch: the last ``last_q`` queries' causal softmax; the columns of
+    most mass and the diagonals (i - j) of most mass."""
+    B, H, S, D = q.shape
+    dev = q.device
+    qk = torch.einsum("bhqd,bhkd->bhqk", q[:, :, -last_q:].float(),
+                      k.float()) / math.sqrt(D)
+    qi = torch.arange(S - last_q, S, device=dev)[:, None]
+    kj = torch.arange(S, device=dev)[None, :]
+    p = torch.softmax(qk.masked_fill(qi < kj, -math.inf), dim=-1)
+    v_idx = torch.argsort(-p.sum(2), dim=-1, stable=True)[..., :n_vertical]
+    offs = qi - kj
+    slash = torch.zeros((B, H, S), device=dev)
+    slash.index_add_(2, offs.clamp(0, S - 1).reshape(-1),
+                     torch.where(offs >= 0, p, 0.0).reshape(B, H, -1))
+    s_idx = torch.argsort(-slash, dim=-1, stable=True)[..., :n_slash]
+    return v_idx.to(torch.int32), s_idx.to(torch.int32)
+
+
+def nsa_selections(rng, pos, H, S, BS):
+    """(len(pos), H, S) int32 block ids for tokens at the local positions
+    ``pos``: block 0, the token's own block, the one before and S - 3
+    more drawn from the blocks between; a token with at most S blocks
+    behind it takes all of them, -1 padded (as
+    tests/test_sparse_attention.py:65-76)."""
+    import numpy as np
+    own = np.asarray(pos) // BS
+    nb = int(own.max()) + 1
+    blocks = np.arange(nb)
+    keys = rng.random((len(own), H, nb))
+    between = (blocks >= 1) & (blocks[None, :] <= own[:, None] - 2)
+    keys = np.where(between[:, None, :], keys, -1.0)
+    extra = np.argsort(-keys, axis=-1, kind="stable")[..., :S - 3]
+    ones = np.ones((len(own), H, 1), np.int64)
+    sel = np.concatenate([0 * ones, (own - 1)[:, None, None] * ones,
+                          own[:, None, None] * ones, extra], -1)
+    few = own < S
+    if few.any():
+        first = np.arange(S)[None, :]
+        sel[few] = np.where(first <= own[few, None], first, -1)[:, None, :]
+    return sel.astype(np.int32)
+
+
+def selected_keys(torch, starts, bound, BS):
+    """Keys each slot of ``starts`` (first keys, -1: none) contributes
+    under the causal ``bound`` (broadcast against starts' leading dims),
+    summed."""
+    n = (bound - starts.long() + 1).clamp(0, BS)
+    return int(torch.where(starts >= 0, n, 0).sum())
+
+
+def sparse_inference_phase(torch, mi, nsa):
+    """Sparse-attention inference: vertical_slash_sparse_attention at
+    LLaMA-3-8B-Instruct-262k's attention widths (MINFERENCE), and
+    nsa_attention, nsa_attention_varlen and nsa_decode at the NSA paper's
+    (NSA); each main-path call through the public entry point with every
+    counter zeroed before it and read right after (one launch of its
+    kernel); each output against the plain version on the card; a row
+    that sees nothing exactly 0; kernel, plain and library times (SDPA
+    over the dense bool masks, built outside the timed calls; for decode
+    over the gathered blocks, gathered outside) and the bound by the
+    visible pairs or the bytes."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mods = (mi, nsa)
+    counted = {k: 0 for m in mods for k in m.launches}
+    res = {}
+    reset_peak(torch)
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        got = {k: n for m in mods for k, n in m.launches.items()}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def within(label, got, want, tol):
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, want {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return err, rel
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    def library(label, call, want, name, rows=None, backends=None):
+        """SDPA computing the kernel's function, timed: the first backend
+        that takes the call of ``backends``, by default float32's
+        memory-efficient kernel, or cuDNN then the memory-efficient
+        kernel in 16-bit; held within 2e-2 normwise of the plain
+        version's ``want`` (on ``rows`` where given: SDPA gives NaN on a
+        row that sees nothing)."""
+        if backends is None:
+            backends = ([SDPBackend.EFFICIENT_ATTENTION]
+                        if want.dtype == torch.float32 else
+                        [SDPBackend.CUDNN_ATTENTION,
+                         SDPBackend.EFFICIENT_ATTENTION])
+        for backend in backends:
+            try:
+                with sdpa_kernel([backend]):
+                    got = call()
+            except RuntimeError:             # this backend refuses the call
+                continue
+            if rows is not None:
+                got, want = got[rows], want[rows]
+            rel = normwise_err(got, want)[1]
+            del got
+            check(rel < 2e-2, f"{label}: the library yardstick "
+                              f"({backend.name}) disagrees with the plain "
+                              f"version: {rel:.3e}")
+            with sdpa_kernel([backend]):
+                ms = device_ms(torch, call, 2)
+            return {"library_ms": ms, "library_normwise_err": rel,
+                    "library": f"{name} ({backend.name})"}
+        check(False, f"{label}: no SDPA backend of {backends} takes the "
+                     f"call")
+
+    def tname(dtype):
+        return str(dtype).replace("torch.", "")
+
+    # -- vertical-slash attention at LLaMA-3-8B-Instruct-262k's widths -----
+    c = MINFERENCE
+    H, D, S, blk = c["heads"], c["head_dim"], c["seq"], c["block"]
+    sm = 1.0 / math.sqrt(D)
+    rng = np.random.default_rng(11)
+    rep = H // c["kv_heads"]
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((1, H, S, D), (1, c["kv_heads"], S, D),
+                          (1, c["kv_heads"], S, D))]
+    base[1:] = [t.repeat_interleave(rep, 1) for t in base[1:]]
+    q, k = (t.cuda() for t in base[:2])
+    v_idx, s_idx = vs_estimate(torch, q, k, c["vertical"], c["slash"],
+                               c["last_q"])
+    vm, bm = mi._build_masks(v_idx, s_idx, S, S, blk, blk)
+    dm = mi.diagonal_mask(s_idx, S)
+    dense = torch.empty((1, H, S, S), dtype=torch.bool, device="cuda")
+    j = torch.arange(S, device="cuda")
+    pairs = 0
+    for i0 in range(0, S, 1024):
+        i = j[i0:i0 + 1024]
+        d = i[:, None] - j[None, :]
+        rows = (((vm != 0)[:, :, None, :] | (dm != 0)[:, :, d.clamp_min(0)])
+                & (d >= 0) & (bm != 0)[:, :, i // blk][..., j // blk])
+        dense[:, :, i0:i0 + 1024] = rows
+        pairs += int(torch.count_nonzero(rows))
+    del rows, d
+    seen = dense.any(-1)
+    res["vs_sparse_masks"] = {
+        "vertical": c["vertical"], "slash": c["slash"],
+        "live_cells": int(bm.sum()), "cells": bm.numel(),
+        "visible_pairs": pairs, "causal_pairs": causal_pairs(S, S) * H,
+        "rows_seeing_nothing": int((~seen).sum())}
+    del q, k
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = tname(dtype)
+        tol = ATTN_TOL.get(name, 2e-2)
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v = (t.cuda().to(dtype) for t in base)
+        o = drive(f"vertical_slash {name}",
+                  lambda: mi.vertical_slash_sparse_attention(
+                      q, k, v, v_idx, s_idx, block_M=blk, block_N=blk),
+                  {"vs_sparse": 1})
+        want = mi.vs_sparse_plain(q, k, v, vm, dm, bm, blk, blk, sm)
+        err = within(f"vertical_slash {name}", o, want, tol)
+        check(not o[~seen].any(), f"vertical_slash {name}: a row that "
+                                  f"sees nothing is not exactly 0")
+        del o
+        lib = library(f"vertical_slash {name}",
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, attn_mask=dense), want,
+                      "SDPA over the dense bool mask (1, H, S, S)", seen)
+        del want
+        torch.cuda.empty_cache()
+        res[f"vs_sparse_{name}"] = {
+            "shape": [1, H, S, D], "block": blk, "max_abs_err": err[0],
+            "normwise_err": err[1], "tolerance": f"normwise {tol}",
+            "ms": device_ms(torch, lambda: mi.vs_sparse(
+                q, k, v, vm, dm, bm, blk, blk, sm), 3),
+            "entry_ms": device_ms(
+                torch, lambda: mi.vertical_slash_sparse_attention(
+                    q, k, v, v_idx, s_idx, block_M=blk, block_N=blk), 3),
+            "plain_ms": device_ms(torch, lambda: mi.vs_sparse_plain(
+                q, k, v, vm, dm, bm, blk, blk, sm), 1),
+            **lib, **bound(4 * D * pairs, 4 * H * S * D * esize
+                           + 4 * (vm.numel() + dm.numel() + bm.numel()),
+                           peak)}
+        if dtype == torch.float32:
+            # rows 0-4 see nothing under one slash at 5 and one column at
+            # S - 1: exactly 0
+            one = torch.full((1, H, 1), S - 1, dtype=torch.int32,
+                             device="cuda")
+            o = drive("vertical_slash empty rows",
+                      lambda: mi.vertical_slash_sparse_attention(
+                          q, k, v, one, one * 0 + 5), {"vs_sparse": 1},
+                      main=False)
+            check(not o[:, :, :5].any() and bool(o[:, :, 5].abs().sum(-1)
+                                                  .gt(0).all()),
+                  "vertical_slash: a row that sees nothing is not exactly "
+                  "0, or a row that sees a key is")
+            res["vs_sparse_zero_check"] = "rows 0-4 of every head exactly 0"
+            del o
+        del q, k, v
+        torch.cuda.empty_cache()
+    del dense, seen, base
+    torch.cuda.empty_cache()
+
+    # -- NSA at the NSA paper's widths -------------------------------------
+    c = NSA
+    HQ, Hk, D, BS, S, W, T = (c["heads"], c["kv_heads"], c["head_dim"],
+                              c["block"], c["selected"], c["window"],
+                              c["seq"])
+    G = HQ // Hk
+    sm = 1.0 / math.sqrt(D)
+    rng = np.random.default_rng(12)
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((1, T, HQ, D), (1, T, Hk, D), (1, T, Hk, D))]
+    gates = [torch.from_numpy(rng.uniform(0.2, 1.0, (1, T, HQ))
+                              .astype(np.float32)).cuda() for _ in range(2)]
+    bi = torch.from_numpy(nsa_selections(rng, np.arange(T), Hk, S, BS))[
+        None].cuda()
+    cnt = torch.full((1, T, Hk), S, dtype=torch.int32, device="cuda")
+    t_idx = torch.arange(T, device="cuda")
+    sel_keys = selected_keys(torch, bi.long() * BS,
+                             t_idx[None, :, None, None], BS)
+    win_keys = sum(min(t + 1, W) for t in range(T))
+    # the dense selected mask (1, HQ, T, T) and the window's (1, 1, T, T)
+    nb = T // BS
+    blkm = torch.zeros((Hk, T, nb + 1), dtype=torch.bool, device="cuda")
+    blkm.scatter_(2, torch.where(bi[0] >= 0, bi[0], nb).long()
+                  .permute(1, 0, 2), True)
+    causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    sel_dense = (blkm[..., :nb].repeat_interleave(BS, -1)[..., :T]
+                 & causal).repeat_interleave(G, 0)[None]
+    d = t_idx[:, None] - t_idx[None, :]
+    win_dense = ((d >= 0) & (d < W)).expand(1, HQ, T, T).contiguous()
+    del blkm, causal, d
+    check(int(torch.count_nonzero(sel_dense[0, ::G])) == sel_keys,
+          "nsa: the dense selected mask and the slots' keys disagree")
+    res["nsa_selection"] = {"selected_keys": sel_keys,
+                            "window_keys": win_keys * Hk}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = tname(dtype)
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v = (t.cuda().to(dtype) for t in base)
+        q5 = q.reshape(1, T, Hk, G, D)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        gs, gw = (g.reshape(1, T, Hk, G) for g in gates)
+        o = drive(f"nsa_attention {name}", lambda: nsa.nsa_attention(
+            q, k, v, gates[0], gates[1], bi, block_size=BS, window_size=W),
+            {"nsa_fwd": 1})
+        want = nsa.nsa_fwd_plain(q5, kh, vh, bi, cnt, gs, gw, BS, W, sm)
+        err = within(f"nsa_attention {name}", o, want.reshape(o.shape), tol)
+        del o
+        qh = q.transpose(1, 2)
+        kx, vx = (t.transpose(1, 2).repeat_interleave(G, 1) for t in (k, v))
+        gsh, gwh = (g.transpose(1, 2)[..., None].to(dtype) for g in gates)
+
+        def two_sdpa():
+            return (F.scaled_dot_product_attention(qh, kx, vx,
+                                                   attn_mask=sel_dense) * gsh
+                    + F.scaled_dot_product_attention(qh, kx, vx,
+                                                     attn_mask=win_dense)
+                    * gwh)
+
+        lib = library(f"nsa_attention {name}", two_sdpa,
+                      want.reshape(1, T, HQ, D).transpose(1, 2),
+                      "two SDPA calls over the dense selected (1, HQ, T, T) "
+                      "and window masks, each weighted by its gate")
+        del want
+        torch.cuda.empty_cache()
+        io = (2 * T * HQ * D + 2 * T * Hk * D) * esize
+        res[f"nsa_fwd_{name}"] = {
+            "shape": [1, T, HQ, Hk, D], "block": BS, "selected": S,
+            "window": W, "max_abs_err": err[0], "normwise_err": err[1],
+            "tolerance": f"normwise {tol}",
+            "ms": device_ms(torch, lambda: nsa.nsa_fwd(
+                q5, kh, vh, bi, cnt, gs, gw, BS, W, sm), 3),
+            "plain_ms": device_ms(torch, lambda: nsa.nsa_fwd_plain(
+                q5, kh, vh, bi, cnt, gs, gw, BS, W, sm), 1),
+            **lib, **bound(4 * D * G * (sel_keys + win_keys * Hk),
+                           io + 4 * bi.numel() + 4 * cnt.numel()
+                           + 8 * T * HQ, peak)}
+        if dtype == torch.float32:
+            # no slot and no window: exactly 0
+            o = drive("nsa_attention empty rows", lambda: nsa.nsa_attention(
+                q[:, :256], k[:, :256], v[:, :256], gates[0][:, :256],
+                gates[1][:, :256], bi[:, :256], block_counts=0,
+                block_size=BS), {"nsa_fwd": 1}, main=False)
+            check(not o.any(), "nsa_attention: tokens that select nothing "
+                               "are not exactly 0")
+            res["nsa_zero_check"] = "256 tokens with block_counts 0 and no " \
+                                    "window exactly 0"
+            del o
+        del q, k, v, q5, kh, vh, qh, kx, vx
+        torch.cuda.empty_cache()
+    del sel_dense, win_dense
+    torch.cuda.empty_cache()
+
+    # -- packed documents ----------------------------------------------------
+    lens = []
+    drng = np.random.default_rng(13)
+    while sum(lens) + c["max_doc"] < T:
+        n = int(drng.integers(c["min_doc"], c["max_doc"] + 1))
+        if n % BS:
+            lens.append(n)
+    rest = T - sum(lens)                 # the last document's length,
+    shift = next(x for x in range(BS)    # moved by a few tokens off a
+                 if (rest - x) % BS and (lens[-1] + x) % BS)   # multiple
+    lens[-1] += shift
+    lens.append(rest - shift)
+    check(sum(lens) == T and all(n % BS for n in lens),
+          f"varlen lengths {lens}")
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    pos = np.concatenate([np.arange(n) for n in lens])
+    vbi = torch.from_numpy(nsa_selections(rng, pos, Hk, S, BS)).cuda()
+    offs, vcnt = nsa.varlen_offsets(vbi, torch.full((T, Hk), S,
+                                                    dtype=torch.int32,
+                                                    device="cuda"), cu, BS)
+    v_keys = selected_keys(torch, offs, t_idx[:, None, None], BS)
+    diff = torch.zeros((Hk, T, T + 1), dtype=torch.int16, device="cuda")
+    lo = offs.permute(1, 0, 2).long()
+    one = torch.ones_like(lo, dtype=torch.int16)
+    diff.scatter_add_(2, torch.where(lo >= 0, lo, T), one)
+    diff.scatter_add_(2, torch.where(lo >= 0, (lo + BS).clamp_max(T), T),
+                      -one)
+    vdense = (diff.cumsum(-1, dtype=torch.int16)[..., :T] > 0) & torch.ones(
+        (T, T), dtype=torch.bool, device="cuda").tril()
+    del diff, lo, one
+    check(int(torch.count_nonzero(vdense)) == v_keys,
+          "nsa varlen: the dense mask and the slots' keys disagree")
+    vdense = vdense.repeat_interleave(G, 0)[None]
+    res["nsa_varlen_documents"] = {"lengths": lens, "selected_keys": v_keys}
+    vg = gates[0][0]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = tname(dtype)
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v = (t[0].cuda().to(dtype) for t in base)
+        o = drive(f"nsa_attention_varlen {name}",
+                  lambda: nsa.nsa_attention_varlen(q, k, v, vg, vbi, cu,
+                                                   block_size=BS),
+                  {"nsa_varlen_fwd": 1})
+        q5 = q.reshape(1, T, Hk, G, D)
+        kh, vh = (t.permute(1, 0, 2)[None] for t in (k, v))
+        gs = vg.reshape(1, T, Hk, G)
+        args = (q5, kh, vh, offs[None], vcnt[None], gs, BS, sm)
+        want = nsa.nsa_varlen_fwd_plain(*args)
+        err = within(f"nsa_attention_varlen {name}", o, want.reshape(
+            o.shape), tol)
+        del o
+        qh = q.transpose(0, 1)[None]
+        kx, vx = (t.transpose(0, 1)[None].repeat_interleave(G, 1)
+                  for t in (k, v))
+        gh = vg.transpose(0, 1)[None, ..., None].to(dtype)
+        lib = library(
+            f"nsa_attention_varlen {name}",
+            lambda: F.scaled_dot_product_attention(
+                qh, kx, vx, attn_mask=vdense) * gh,
+            want.reshape(1, T, HQ, D).transpose(1, 2),
+            "one SDPA call over the packed selected mask (1, HQ, T, T), "
+            "weighted by g_slc")
+        del want
+        torch.cuda.empty_cache()
+        res[f"nsa_varlen_fwd_{name}"] = {
+            "shape": [T, HQ, Hk, D], "documents": len(lens),
+            "max_abs_err": err[0], "normwise_err": err[1],
+            "tolerance": f"normwise {tol}",
+            "ms": device_ms(torch, lambda: nsa.nsa_varlen_fwd(*args), 3),
+            "plain_ms": device_ms(torch, lambda: nsa.nsa_varlen_fwd_plain(
+                *args), 1),
+            **lib, **bound(4 * D * G * v_keys,
+                           (2 * T * HQ * D + 2 * T * Hk * D) * esize
+                           + 8 * T * Hk * S + 4 * T * HQ, peak)}
+        if dtype == torch.float32:
+            o = drive("nsa_attention_varlen empty rows",
+                      lambda: nsa.nsa_attention_varlen(
+                          q, k, v, vg, vbi, cu, block_counts=0,
+                          block_size=BS), {"nsa_varlen_fwd": 1}, main=False)
+            check(not o.any(), "nsa_attention_varlen: tokens that select "
+                               "nothing are not exactly 0")
+            del o
+        del q, k, v, q5, kh, vh, qh, kx, vx
+        torch.cuda.empty_cache()
+    del vdense, base, gates
+    torch.cuda.empty_cache()
+
+    # -- decode over 65536 keys ----------------------------------------------
+    Bd, Tk = c["decode_batch"], c["decode_context"]
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((Bd, HQ, D), (Bd, Tk, Hk, D), (Bd, Tk, Hk, D))]
+    dg = torch.from_numpy(rng.uniform(0.2, 1.0, (Bd, HQ)).astype(
+        np.float32)).cuda()
+    dbi = torch.from_numpy(nsa_selections(
+        rng, np.full(Bd, Tk - 1), Hk, S, BS)).cuda()
+    dcnt = torch.full((Bd, Hk), S, dtype=torch.int32, device="cuda")
+    d_keys = selected_keys(torch, dbi.long() * BS, Tk - 1, BS)
+    keys = (dbi.long() * BS)[..., None] + torch.arange(BS, device="cuda")
+    keys = keys.reshape(Bd, Hk, S * BS)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = tname(dtype)
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        q, k, v = (t.cuda().to(dtype) for t in base)
+        o = drive(f"nsa_decode {name}", lambda: nsa.nsa_decode(
+            q, k, v, dg, dbi, block_size=BS), {"nsa_decode": 1})
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        args = (q.reshape(Bd, Hk, G, D), kh, vh, dbi, dcnt,
+                dg.reshape(Bd, Hk, G), BS, sm)
+        want = nsa.nsa_decode_fwd_plain(*args)
+        err = within(f"nsa_decode {name}", o, want.reshape(o.shape), tol)
+        del o
+        at = (torch.arange(Bd, device="cuda")[:, None, None],
+              torch.arange(Hk, device="cuda")[None, :, None], keys)
+        kg, vgath = kh[at], vh[at]
+        qd = q[:, :, None]
+        gd = dg[..., None, None].to(dtype)
+        lib = library(f"nsa_decode {name}",
+                      lambda: F.scaled_dot_product_attention(
+                          qd, kg, vgath, enable_gqa=True) * gd,
+                      want.reshape(Bd, HQ, 1, D),
+                      "SDPA with enable_gqa over the selected blocks, "
+                      "gathered outside the timed call, weighted by g_slc",
+                      backends=[SDPBackend.FLASH_ATTENTION,
+                                SDPBackend.EFFICIENT_ATTENTION,
+                                SDPBackend.CUDNN_ATTENTION,
+                                SDPBackend.MATH])
+        del want, kg, vgath
+        o = drive(f"nsa_decode empty rows {name}", lambda: nsa.nsa_decode(
+            q, k, v, dg, dbi, block_counts=0, block_size=BS),
+            {"nsa_decode": 1}, main=False)
+        check(not o.any(), "nsa_decode: a step that selects nothing is not "
+                           "exactly 0")
+        del o
+        res[f"nsa_decode_{name}"] = {
+            "shape": [Bd, Tk, HQ, Hk, D], "blocks": Bd * Hk,
+            "max_abs_err": err[0], "normwise_err": err[1],
+            "tolerance": f"normwise {tol}",
+            "ms": device_ms(torch, lambda: nsa.nsa_decode_fwd(*args), 20),
+            "plain_ms": device_ms(torch, lambda: nsa.nsa_decode_fwd_plain(
+                *args), 3),
+            "zero_check": "block_counts 0: exactly 0",
+            **lib, **bound(4 * D * G * d_keys,
+                           2 * Bd * HQ * D * esize + 2 * d_keys * D * esize
+                           + 4 * (dbi.numel() + dcnt.numel() + dg.numel()),
+                           PEAK_F32_FLOPS if dtype == torch.float32
+                           else PEAK_BF16_FLOPS)}
+        del q, k, v, kh, vh
+        torch.cuda.empty_cache()
+
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"sparse_inference": res}), flush=True)
+    return res
+
+
+# the sparse_inference phase's kernels: (name, source, replaced TPU
+# kernel, headline case)
+SPARSE_INFERENCE_KERNELS = (
+    ("vs_sparse", "minference.cu", "tilelang_mesh_tpu/ops/minference.py:31",
+     "float32"),
+    ("nsa_fwd", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:79", "float32"),
+    ("nsa_varlen_fwd", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:245",
+     "float32"),
+    ("nsa_decode", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:334", "float32"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -3195,7 +3726,6 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import _build
     from tilelang_mesh_tpu_torch.ops import bitnet as bn
     from tilelang_mesh_tpu_torch.ops import dequant_gemm as dqg
-    from tilelang_mesh_tpu_torch.ops import flash_attention as fa
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops import gemm as gm
     from tilelang_mesh_tpu_torch.ops import gemm_variants as gv
@@ -3205,6 +3735,8 @@ def main() -> int:
     from tilelang_mesh_tpu_torch.ops import mamba2 as m2
     from tilelang_mesh_tpu_torch.ops import mla
     from tilelang_mesh_tpu_torch.ops import quantize_act as qa
+    # ops/__init__ shadows these modules with their functions
+    fa = importlib.import_module("tilelang_mesh_tpu_torch.ops.flash_attention")
     gq = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa")
     la = importlib.import_module(
         "tilelang_mesh_tpu_torch.ops.linear_attention")
@@ -3216,6 +3748,8 @@ def main() -> int:
         "tilelang_mesh_tpu_torch.ops.blocksparse_attention")
     seer = importlib.import_module(
         "tilelang_mesh_tpu_torch.ops.seer_attention")
+    mi = importlib.import_module("tilelang_mesh_tpu_torch.ops.minference")
+    nsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa")
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -3240,7 +3774,7 @@ def main() -> int:
                "gdn", "linear_attention", "gemm_s8", "gemm_variants",
                "gemv", "quantize_act", "bitnet_gemm",
                "flash_attention_varlen", "varlen_bwd", "attention_sink",
-               "softmax", "blocksparse_attention")
+               "softmax", "blocksparse_attention", "minference", "nsa")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -3305,6 +3839,9 @@ def main() -> int:
 
     phase("attention_family")
     af = attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb)
+
+    phase("sparse_inference")
+    si = sparse_inference_phase(torch, mi, nsa)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -3415,6 +3952,7 @@ def main() -> int:
                 k: af["launches"][k] for k in ("gqa_fwd_partial",
                                                "gqa_bwd_dkdv", "gqa_bwd_dq")}
         kernels.append(entry)
+    kernels += kernel_entries(si, SPARSE_INFERENCE_KERNELS)
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

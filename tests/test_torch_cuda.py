@@ -43,7 +43,11 @@ same kernel on flipped operands); 1e-2 in bfloat16, where both round to
 bf16 at the same points but a 1e-7 difference at a rounding boundary
 flips one bf16 ulp (2**-8), and bf16 linear attention's q @ state runs
 as q @ hi + q @ lo on the tensor cores (about 2**-17 of the state).
-BitNet: the int8 x ternary GEMM equal to its plain version (exact int32
+float16 through the attention, decode, MLA, grouped and w4a16 kernels
+at the bounds of bfloat16 (2e-2 attention and MLA, 1e-2 a GEMM output;
+decode 1e-4, float32 arithmetic on widened K/V). Vertical-slash and NSA
+attention at the attention kernels' bounds, with rows that see nothing
+exactly 0. BitNet: the int8 x ternary GEMM equal to its plain version (exact int32
 sums); the int8 activation quantiser the same bytes (Q and S: the same
 IEEE divide and rounding); BitLinear and the BitFFN block on the card
 equal to the same module's reference mode on the card (the same int32
@@ -97,11 +101,13 @@ smx = importlib.import_module("tilelang_mesh_tpu_torch.ops.softmax")
 bsa = importlib.import_module(
     "tilelang_mesh_tpu_torch.ops.blocksparse_attention")
 seer = importlib.import_module("tilelang_mesh_tpu_torch.ops.seer_attention")
+mi = importlib.import_module("tilelang_mesh_tpu_torch.ops.minference")
+nsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa")
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 @pytest.fixture
@@ -1637,3 +1643,318 @@ def test_slice10_wrappers_raise_on_build_or_launch_failure(cuda,
         sink.sink_fwd(x, x, x, torch.zeros(2, device=cuda), True, 0, 0.1)
     with pytest.raises(ValueError, match="head_dim"):
         bsa.blocksparse_mha(x, x, x, m, 64, 64, False, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# float16 through the repaired kernels
+# ---------------------------------------------------------------------------
+
+
+def _f16_attention_cases(dev):
+    """(name, kernel call, plain call) of each attention kernel in
+    float16."""
+    f16 = torch.float16
+    q, k, v, do, lse2, delta, sm = _attn_inputs(dev, 2, 4, 2, 100, 130, 64,
+                                                f16, True)
+    qm, km, vm, dom, lse2m, deltam, _ = _attn_inputs(dev, 2, 4, 4, 100, 130,
+                                                     64, f16, True)
+    q1, k1, v1, s1 = _sink_inputs(dev, 1, 4, 2, 150, 150, 64, f16)
+    mask = torch.randint(0, 2, (1, 4, 150 // 30, 150 // 50),
+                         generator=torch.Generator(device=dev).manual_seed(4),
+                         device=dev, dtype=torch.int32)
+    qb, kb, vb = q1, k1.repeat_interleave(2, 1), v1.repeat_interleave(2, 1)
+    cu = np.array([0, 40, 128], np.int32)
+    qv, kv_, vv = (t[0].transpose(0, 1)[:128].contiguous()
+                   for t in (qm, km, vm))
+    return [
+        ("mha_fwd", lambda: fa.mha_fwd(qm, km, vm, True, sm),
+         lambda: fa.mha_fwd_plain(qm, km, vm, True, sm)),
+        ("mha_fwd_partial", lambda: fa.mha_fwd_partial(qm, km, vm, True, sm),
+         lambda: fa.mha_fwd_partial_plain(qm, km, vm, True, sm)),
+        ("gqa_fwd", lambda: gqa.gqa_fwd(q, k, v, False, sm),
+         lambda: gqa.gqa_fwd_plain(q, k, v, False, sm)),
+        ("gqa_bwd_dkdv",
+         lambda: gb.gqa_bwd_dkdv(q, k, v, do, lse2, delta, True, sm),
+         lambda: gb.gqa_bwd_dkdv_plain(q, k, v, do, lse2, delta, True, sm)),
+        ("gqa_bwd_dq",
+         lambda: gb.gqa_bwd_dq(q, k, v, do, lse2, delta, True, sm),
+         lambda: gb.gqa_bwd_dq_plain(q, k, v, do, lse2, delta, True, sm)),
+        ("varlen", lambda: vl.flash_attention_varlen(qv, kv_, vv, cu, cu,
+                                                     causal=True),
+         lambda: vl.flash_attention_varlen(qv.cpu(), kv_.cpu(), vv.cpu(),
+                                           cu, cu, causal=True).to(dev)),
+        ("attention_sink", lambda: sink.sink_fwd(q1, k1, v1, s1, True, 48,
+                                                 0.125),
+         lambda: sink.sink_fwd_plain(q1, k1, v1, s1, True, 48, 0.125)),
+        ("blocksparse_mha",
+         lambda: bsa.blocksparse_mha(qb, kb, vb, mask, 30, 50, True, 0.125),
+         lambda: bsa.blocksparse_mha_plain(qb, kb, vb, mask, 30, 50, True,
+                                           0.125)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_attention_kernels_float16(cuda, case):
+    """Each attention kernel in float16 (Q, K, V, P and O in the input
+    type, float32 arithmetic) against its plain version."""
+    name, kernel, plain = _f16_attention_cases(cuda)[case]
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].dtype == want[0].dtype
+    assert _normwise(got, want) <= ATTN_TOL[torch.float16], name
+
+
+def test_attention_autograd_float16_on_card_matches_cpu(cuda):
+    """flash_attention's kernel path in float16 (partial forward, dK/dV
+    and dQ) against the same Function on CPU tensors."""
+    q, k, v, do, *_ = _attn_inputs("cpu", 1, 2, 2, 128, 128, 64,
+                                   torch.float16, True)
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*leaves, causal=True)
+        o.backward(do.to(dev))
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        assert _normwise(b, a.to(cuda)) <= 2e-2
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_kernels_float16(cuda, d):
+    q, kp, vp, table = _case(cuda, 3, 4, d, 16, 8, 40, torch.float16)
+    got = fd.paged_decode_partials(q, kp, vp, table, 16, 4, 0.1)
+    torch.cuda.synchronize()
+    want = fd.paged_decode_partials_plain(q, kp, vp, table, 16, 4, 0.1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+    k = kp[:, :256].reshape(4, 2, 128, d).transpose(0, 1).contiguous()
+    v = vp[:, :256].reshape(4, 2, 128, d).transpose(0, 1).contiguous()
+    qq = q[:2]
+    got = fd.decode_partials(qq, k, v, 2, 0.1)
+    want = fd.decode_partials_plain(qq, k, v, 2, 0.1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def test_mla_decode_float16(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qc, qr, ckv, kpe = (torch.randn(s, generator=g, device=cuda)
+                        .to(torch.float16)
+                        for s in ((2, 16, 512), (2, 16, 64), (2, 256, 512),
+                                  (2, 256, 64)))
+    got = mla.mla_decode_partials(qc, qr, ckv, kpe, 2, 0.05)
+    torch.cuda.synchronize()
+    want = mla.mla_decode_partials_plain(qc, qr, ckv, kpe, 2, 0.05)
+    assert _normwise(got, want) <= 2e-2
+
+
+def test_gemm_kernels_float16(cuda):
+    """The grouped GEMMs and the w4a16 kernels in float16."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((3, 130, 96), generator=g, device=cuda).half()
+    w = torch.randn((3, 96, 72), generator=g, device=cuda).half()
+    assert _normwise(gg.grouped_matmul(x, w),
+                     gg.grouped_matmul_plain(x, w)) <= 1e-2
+    a = x[0]
+    got = gg.varlen_grouped_matmul(torch.cat([a, a]), w[:2], [130, 130])
+    want = gg.varlen_grouped_matmul_plain(torch.cat([a, a]), w[:2],
+                                          [130, 130])
+    assert _normwise(got, want) <= 1e-5
+    packed = torch.randint(0, 256, (64, 136), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    scales = torch.rand((4, 136), generator=g, device=cuda)
+    act = torch.randn((40, 128), generator=g, device=cuda).half()
+    assert torch.equal(dqg.dequant_int4(packed, scales, 32, torch.float16),
+                       dqg.dequant_int4_plain(packed, scales, 32,
+                                              torch.float16))
+    assert _normwise(dqg.dequant_matmul(act, packed, scales, block_K2=32),
+                     dqg.dequant_matmul_plain(act, packed, scales, 32)) \
+        <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# vertical-slash sparse attention (csrc/minference.cu)
+# ---------------------------------------------------------------------------
+
+
+def _vs_case(dev, H, S, D, dtype, bM, bN, nv, ns, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((1, H, S, D), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    v_idx = torch.randint(0, S, (1, H, nv), generator=g, device=dev)
+    # slashes past S and below 0 too: they never match
+    s_idx = torch.randint(-8, S + 8, (1, H, ns), generator=g, device=dev)
+    vmask, bmask = mi._build_masks(v_idx, s_idx, S, S, bM, bN)
+    return q, k, v, vmask, mi.diagonal_mask(s_idx, S), bmask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64), (16, 128)])
+def test_vs_sparse_kernel_matches_plain(cuda, dtype, d, blocks):
+    q, k, v, vm, dm, bm = _vs_case(cuda, 2, 256, d, dtype, *blocks, 12, 9)
+    before = mi.launches["vs_sparse"]
+    o = mi.vs_sparse(q, k, v, vm, dm, bm, *blocks, d ** -0.5)
+    torch.cuda.synchronize()
+    assert mi.launches["vs_sparse"] == before + 1
+    assert _normwise(o, mi.vs_sparse_plain(q, k, v, vm, dm, bm, *blocks,
+                                           d ** -0.5)) <= ATTN_TOL[dtype]
+
+
+def test_vs_sparse_rows_that_see_nothing_are_zero(cuda):
+    """Slash 5 only and one column at 200: rows 0-4 see no key (O
+    exactly 0), and a slash at S or past matches nothing."""
+    q, k, v, *_ = _vs_case(cuda, 1, 256, 64, torch.float32, 64, 64, 1, 1)
+    v_idx = torch.tensor([[[200]]], device=cuda)
+    s_idx = torch.tensor([[[5, 256, 300]]], device=cuda)
+    o = mi.vertical_slash_sparse_attention(q, k, v, v_idx, s_idx)
+    want = mi.vs_sparse_reference(q, k, v, v_idx, s_idx)
+    assert not o[0, 0, :5].any()
+    assert _normwise(o, want) <= 1e-5
+
+
+def test_vs_sparse_all_diagonals_is_causal_attention(cuda):
+    q, k, v, *_ = _vs_case(cuda, 2, 192, 64, torch.float32, 64, 64, 1, 1)
+    s_idx = torch.arange(192, device=cuda).expand(1, 2, 192)
+    o = mi.vertical_slash_sparse_attention(q, k, v, s_idx[..., :1], s_idx)
+    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 0.125)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# NSA inference (csrc/nsa.cu)
+# ---------------------------------------------------------------------------
+
+
+def _nsa_case(dev, B, T, G, H, D, S, BS, dtype, counts=None, seed=0):
+    """Every token selects its own block, block 0 and random earlier ones
+    (or -1); ``counts`` below S where given."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, H, G, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, T, H, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    own = (torch.arange(T, device=dev) // BS)[None, :, None, None]
+    r = torch.randint(0, 1 << 20, (B, T, H, S), generator=g, device=dev)
+    bi = torch.where(r % 5 == 0, -1, r % (own + 1))
+    bi[..., 0] = own[..., 0]
+    bi[..., -1] = 0
+    gs, gw = (torch.rand((B, T, H, G), generator=g, device=dev) * 0.8 + 0.2
+              for _ in range(2))
+    cnt = torch.full((B, T, H), S, device=dev, dtype=torch.int32) \
+        if counts is None else torch.randint(
+            0, S + 1, (B, T, H), generator=g, device=dev, dtype=torch.int32)
+    return (q, k.transpose(1, 2), v.transpose(1, 2), bi.to(torch.int32),
+            cnt, gs, gw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("T,BS,window", [(64, 16, 0), (40, 16, 24),
+                                         (100, 32, 48), (96, 64, 300)])
+@pytest.mark.parametrize("G,H", [(2, 2), (4, 1), (16, 2), (24, 1)])
+def test_nsa_fwd_kernel_matches_plain(cuda, dtype, T, BS, window, G, H):
+    """Ragged T (40, 100: the last block partial), groups padded to the
+    row tile (2, 4, 16, and 24 in the 64-row tile), a window past T."""
+    q, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 2, T, G, H, 32, 4, BS,
+                                           dtype)
+    before = nsa.launches["nsa_fwd"]
+    o = nsa.nsa_fwd(q, kh, vh, bi, cnt, gs, gw, BS, window, 0.2)
+    torch.cuda.synchronize()
+    assert nsa.launches["nsa_fwd"] == before + 1
+    want = nsa.nsa_fwd_plain(q, kh, vh, bi, cnt, gs, gw, BS, window, 0.2)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_nsa_kernels_head_dims_and_counts(cuda, d):
+    """Each head_dim; block counts below S, 0 included: a token with no
+    slot and no window gives exactly 0."""
+    q, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 1, 80, 4, 2, d, 3, 16,
+                                           torch.float32, counts=True)
+    o = nsa.nsa_fwd(q, kh, vh, bi, cnt, gs, gw, 16, 0, d ** -0.5)
+    want = nsa.nsa_fwd_plain(q, kh, vh, bi, cnt, gs, gw, 16, 0, d ** -0.5)
+    assert _normwise(o, want) <= 1e-5
+    empty = cnt == 0
+    assert bool(empty.any()) and not o[empty].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G", [2, 16])
+def test_nsa_varlen_kernel_matches_plain(cuda, dtype, G):
+    """Packed sequences of 37, 64 and 27 tokens plus 8 pad rows, through
+    the entry point: each token's keys stay in its sequence."""
+    lens, H, D, S, BS = [37, 64, 27], 2, 64, 3, 16
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    T = int(cu[-1]) + 8
+    q, kh, vh, bi, cnt, gs, _ = _nsa_case(cuda, 1, T, G, H, D, S, BS, dtype)
+    args = (q.reshape(T, H * G, D), kh[0].transpose(0, 1),
+            vh[0].transpose(0, 1), gs.reshape(T, H * G), bi[0] % 2)
+    before = nsa.launches["nsa_varlen_fwd"]
+    o = nsa.nsa_attention_varlen(*args, cu, block_size=BS)
+    torch.cuda.synchronize()
+    assert nsa.launches["nsa_varlen_fwd"] == before + 1
+    want = nsa.nsa_attention_varlen(*(t.cpu() for t in args), cu,
+                                    block_size=BS)
+    assert _normwise(o, want.to(cuda)) <= ATTN_TOL[dtype]
+    assert not o[int(cu[-1]):].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("Tk,BS,G", [(64, 16, 4), (1000, 64, 16),
+                                     (77, 32, 2)])
+def test_nsa_decode_kernel_matches_plain(cuda, dtype, Tk, BS, G):
+    q, kh, vh, bi, cnt, gs, _ = _nsa_case(cuda, 3, Tk, G, 2, 128, 5, BS,
+                                          dtype, counts=True)
+    args = (q[:, -1], kh, vh, bi[:, -1], cnt[:, -1], gs[:, -1], BS, 0.09)
+    before = nsa.launches["nsa_decode"]
+    o = nsa.nsa_decode_fwd(*args)
+    torch.cuda.synchronize()
+    assert nsa.launches["nsa_decode"] == before + 1
+    assert _normwise(o, nsa.nsa_decode_fwd_plain(*args)) <= ATTN_TOL[dtype]
+
+
+def _slice11_calls(dev):
+    q, k, v, vm, dm, bm = _vs_case(dev, 1, 64, 16, torch.float32, 32, 32,
+                                   2, 2)
+    nq, kh, vh, bi, cnt, gs, gw = _nsa_case(dev, 1, 32, 2, 1, 16, 2, 8,
+                                            torch.float32)
+    return [(mi.launches, "vs_sparse",
+             lambda: mi.vs_sparse(q, k, v, vm, dm, bm, 32, 32, 0.25)),
+            (nsa.launches, "nsa_fwd",
+             lambda: nsa.nsa_fwd(nq, kh, vh, bi, cnt, gs, gw, 8, 4, 0.25)),
+            (nsa.launches, "nsa_varlen_fwd",
+             lambda: nsa.nsa_varlen_fwd(nq, kh, vh, bi, cnt, gs, 8, 0.25)),
+            (nsa.launches, "nsa_decode",
+             lambda: nsa.nsa_decode_fwd(nq[:, 0], kh, vh, bi[:, 0],
+                                        cnt[:, 0], gs[:, 0], 8, 0.25))]
+
+
+def test_slice11_wrappers_raise_on_build_or_launch_failure(cuda,
+                                                           monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError naming the wrapper, and neither counts a
+    launch; a head_dim or group the kernel lacks is refused before."""
+    calls = _slice11_calls(cuda)
+    before = [dict(c) for c, _, _ in calls]
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, _, call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for _, name, call in calls:
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert [dict(c) for c, _, _ in calls] == before
+    nq, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 1, 16, 65, 1, 16, 2, 8,
+                                            torch.float32)
+    with pytest.raises(ValueError, match="groups"):
+        nsa.nsa_fwd(nq, kh, vh, bi, cnt, gs, gw, 8, 0, 0.25)

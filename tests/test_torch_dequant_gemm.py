@@ -283,10 +283,17 @@ def test_dequant_errors_match_jax():
         port.dequant_matmul_twopass(torch.from_numpy(x2), p2, s2)
     assert tuple(port.dequant_matmul_twopass(
         torch.from_numpy(x2), p2, s2, dq_block=1024).shape) == (4, 16)
-    # types the kernels do not take
-    with pytest.raises(TypeError):
-        port.dequant_matmul(torch.zeros((4, 512), dtype=torch.float16),
-                            packed, scales)
+    # float16 activations compute what the JAX package computes in
+    # float16 (they raised before the float16 repair), at the w4a16 bound
+    x16 = x.astype(np.float16)
+    want16 = ref.dequant_matmul(jnp.asarray(x16), jnp.asarray(packed),
+                                jnp.asarray(scales))
+    got16 = port.dequant_matmul(torch.from_numpy(x16), packed, scales)
+    assert got16.dtype == torch.float16
+    np.testing.assert_allclose(got16.float().numpy(),
+                               np.asarray(want16, np.float32), rtol=2e-2,
+                               atol=2e-1)
+    # a weight type the kernels do not take
     with pytest.raises(TypeError):
         port.dequant_matmul(torch.from_numpy(x), packed.astype(np.int8),
                             scales)

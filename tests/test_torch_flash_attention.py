@@ -200,3 +200,71 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         port_bwd.gqa_bwd_dq(qt, torch.zeros(1, 3, 16, 16),
                             torch.zeros(1, 3, 16, 16), qt, lse2, lse2, True,
                             0.25)
+
+
+# the three calls of mha_fwd_kernel the JAX package's users make: the
+# example's (examples/flash_attention/example_mha_fwd.py:22), the
+# factory's positional order, and bench.py:1275's keywords. S is 128:
+# the JAX factory does not clamp its default 128-row tiles, and gives
+# NaN for a shorter sequence.
+_MHA_CALLS = {
+    "example": ((1, 2, 128, 128, 32), dict(causal=True, dtype="float32")),
+    "positional": ((1, 2, 128, 128, 32, 64, 64, True, None, "float32", 2),
+                   {}),
+    "bench": ((1, 2, 128, 128, 32), dict(block_M=64, block_N=64,
+                                         causal=True, sm_scale=0.2,
+                                         dtype="bfloat16", num_stages=2)),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_MHA_CALLS))
+def test_mha_fwd_kernel_takes_the_jax_calls(form):
+    """The bound kernel takes JAX's argument list (tile hints, a dtype
+    by name) and returns O within 2e-2 of the JAX kernel's."""
+    args, kw = _MHA_CALLS[form]
+    dtype = kw.get("dtype", args[9] if len(args) > 9 else None)
+    q, k, v = _arrays([(1, 2, 128, 32)] * 3, seed=31)
+    jt = getattr(jnp, dtype)
+    want = ref.mha_fwd_kernel(*args, **kw)(*(jnp.asarray(a, jt)
+                                             for a in (q, k, v)))
+    tt = getattr(torch, dtype)
+    got = port.mha_fwd_kernel(*args, **kw)(*(t.to(tt)
+                                             for t in _t(q, k, v)))
+    assert got.dtype == tt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=TOL,
+                               atol=TOL)
+
+
+def test_mha_entry_points_take_the_jax_keywords():
+    """flash_attention, flash_attention_partial, flash_attention_bwd and
+    gqa_attention_bwd take the JAX package's tile hints, by keyword and
+    in its positional order, and compute what they compute without."""
+    from tilelang_mesh_tpu_torch import ops as port_ops
+    from tilelang_mesh_tpu_torch.ops.flash_attention_bwd import \
+        flash_attention_bwd
+    q, k, v, g = _t(*_qkv((1, 2, 64, 64, 32), seed=32))
+    base = port.flash_attention(q, k, v, True)
+    torch.testing.assert_close(
+        port.flash_attention(q, k, v, True, None, 64, 64, 2), base)
+    torch.testing.assert_close(
+        port.flash_attention(q, k, v, causal=True, block_M=32, block_N=16,
+                             num_stages=3), base)
+    acc, m, l = port.flash_attention_partial(q, k, v, True, 0.25, 32, 32, 2)
+    want = port.flash_attention_partial(q, k, v, True, 0.25)
+    for a, b in zip((acc, m, l), want):
+        torch.testing.assert_close(a, b)
+    lse2 = m + torch.log2(l)
+    o = (acc / l[..., None]).to(q.dtype)
+    grads = port_bwd.gqa_attention_bwd(q, k, v, o, lse2, g, True, 0.25)
+    for got in (flash_attention_bwd(q, k, v, o, lse2, g, True, 0.25, 32,
+                                    32),
+                port_bwd.gqa_attention_bwd(q, k, v, o, lse2, g, True, 0.25,
+                                           block_M=32, block_N=64)):
+        for a, b in zip(got, grads):
+            torch.testing.assert_close(a, b)
+    # exported beside the function of the same name, as the JAX package
+    # exports them
+    assert port_ops.mha_fwd_kernel is port.mha_fwd_kernel
+    assert port_ops.flash_attention_partial is port.flash_attention_partial
+    assert port_ops.flash_attention_bwd is flash_attention_bwd

@@ -11,9 +11,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tl_attn {
 
@@ -22,12 +25,16 @@ constexpr int kTy = 16;
 constexpr int kTx = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-// element type of the inputs; the arithmetic is float32 for both
-template <bool BF16>
+// Element types of the inputs, by the codes the Python wrappers pass
+// (ops/gemm.py's DTYPE_CODES, as gemm_tile.cuh's DType); the arithmetic
+// is float32 for all three.
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 3;
+
+template <int DT>
 struct Elem;
 
 template <>
-struct Elem<false> {
+struct Elem<kF32> {
   using T = float;
   static __device__ __forceinline__ float load(const T* p, long long i) {
     return p[i];
@@ -40,7 +47,7 @@ struct Elem<false> {
 };
 
 template <>
-struct Elem<true> {
+struct Elem<kBF16> {
   using T = __nv_bfloat16;
   static __device__ __forceinline__ float load(const T* p, long long i) {
     return __bfloat162float(p[i]);
@@ -53,21 +60,55 @@ struct Elem<true> {
   }
 };
 
+template <>
+struct Elem<kF16> {
+  using T = __half;
+  static __device__ __forceinline__ float load(const T* p, long long i) {
+    return __half2float(p[i]);
+  }
+  static __device__ __forceinline__ void store(T* p, long long i, float x) {
+    p[i] = __float2half_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+};
+
+template <int DT>
+using elem_t = std::integral_constant<int, DT>;
+
+// f(elem_t<DT>{}) for the runtime code `dt`; cudaErrorInvalidValue for
+// a code without an instance. A launcher instantiates its kernels
+// through it: [&](auto e) { return run<D, decltype(e)::value>(...); }.
+template <class F>
+int with_elem(int dt, F f) {
+  switch (dt) {
+    case kF32:
+      return f(elem_t<kF32>{});
+    case kBF16:
+      return f(elem_t<kBF16>{});
+    case kF16:
+      return f(elem_t<kF16>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // rows [r0, r0 + R) of a row-major (S, D) matrix into the tile
 // dst[R][D + 1] as float32, times `scale` and rounded to the input type
 // when SCALE, zero past row S. Consecutive threads take consecutive
 // columns: coalesced reads, conflict-free shared stores.
-template <int R, int D, bool BF16, bool SCALE = false>
+template <int R, int D, int DT, bool SCALE = false>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const typename Elem<BF16>::T* src,
+                                          const typename Elem<DT>::T* src,
                                           int r0, int S, float scale = 1.f) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     float x = 0.f;
     if (r0 + r < S) {
-      x = Elem<BF16>::load(src, (long long)(r0 + r) * D + c);
-      if (SCALE) x = Elem<BF16>::round(x * scale);
+      x = Elem<DT>::load(src, (long long)(r0 + r) * D + c);
+      if (SCALE) x = Elem<DT>::round(x * scale);
     }
     dst[r * LD + c] = x;
   }

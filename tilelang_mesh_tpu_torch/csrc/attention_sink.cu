@@ -4,7 +4,7 @@
 // Replaces the TPU kernel of tilelang_mesh_tpu/ops/attention_sink.py:
 //   sink_fwd_kernel (:30) -> tl_sink_fwd
 // Same contract:
-//   Q (B, Hq, Sq, D), K, V (B, Hkv, Sk, D) float32 or bfloat16,
+//   Q (B, Hq, Sq, D), K, V (B, Hkv, Sk, D) float32, bfloat16 or float16,
 //   contiguous; query head h reads KV head h / (Hq / Hkv); Sinks (Hq,)
 //   float32. Scores in the exp2 domain: S = float(Q K^T) * scale, scale =
 //   sm_scale * log2(e). Query i sees key j when j < Sk and, causal, j <=
@@ -58,12 +58,12 @@ __device__ __forceinline__ void kv_span(int q0, int Sk, int causal,
   if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / BN;
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads)
-sink_fwd(const typename Elem<BF16>::T* __restrict__ q,
-         const typename Elem<BF16>::T* __restrict__ k,
-         const typename Elem<BF16>::T* __restrict__ v,
-         const float* __restrict__ sinks, typename Elem<BF16>::T* __restrict__ o,
+sink_fwd(const typename Elem<DT>::T* __restrict__ q,
+         const typename Elem<DT>::T* __restrict__ k,
+         const typename Elem<DT>::T* __restrict__ v,
+         const float* __restrict__ sinks, typename Elem<DT>::T* __restrict__ o,
          int H, int group, int Sq, int Sk, int causal, int window,
          float scale) {
   constexpr int RM = BM / kTy;  // query rows per thread
@@ -81,7 +81,7 @@ sink_fwd(const typename Elem<BF16>::T* __restrict__ q,
   const auto* kg = k + bkv * Sk * D;
   const auto* vg = v + bkv * Sk * D;
 
-  load_tile<BM, D, BF16>(Qs, q + bh * Sq * D, q0, Sq);
+  load_tile<BM, D, DT>(Qs, q + bh * Sq * D, q0, Sq);
 
   float m[RM], l[RM], acc[RM][CD];
 #pragma unroll
@@ -97,10 +97,10 @@ sink_fwd(const typename Elem<BF16>::T* __restrict__ q,
   for (int kb = kb_lo; kb <= kb_hi; ++kb) {
     const int k0 = kb * BN;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<BN, D, BF16>(Ks, kg, k0, Sk);
-    load_tile<BN, D, BF16>(Vs, vg, k0, Sk);
+    load_tile<BN, D, DT>(Ks, kg, k0, Sk);
+    load_tile<BN, D, DT>(Vs, vg, k0, Sk);
     __syncthreads();
-    attend_tile<BM, BN, D, BF16>(
+    attend_tile<BM, BN, D, DT>(
         Qs, Ks, Vs, Ps, scale,
         [&](int a, int c) {
           const int i = q0 + ty + kTy * a, j = k0 + tx + kTx * c;
@@ -121,17 +121,17 @@ sink_fwd(const typename Elem<BF16>::T* __restrict__ q,
     const long long row = bh * Sq + i;
 #pragma unroll
     for (int e = 0; e < CD; ++e)
-      Elem<BF16>::store(o, row * D + tx + kTx * e, acc[a][e] / den);
+      Elem<DT>::store(o, row * D + tx + kTx * e, acc[a][e] / den);
   }
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run(const void* q, const void* k, const void* v, const float* sinks,
         void* o, int B, int H, int group, int Sq, int Sk, int causal,
         int window, float scale, cudaStream_t stream) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((Sq + BM - 1) / BM, H, B);
-  return launch(sink_fwd<D, BF16>, grid, tile_smem_bytes<BM, BN, D>(),
+  return launch(sink_fwd<D, DT>, grid, tile_smem_bytes<BM, BN, D>(),
                 stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), sinks, static_cast<T*>(o), H,
@@ -139,13 +139,13 @@ int run(const void* q, const void* k, const void* v, const float* sinks,
 }
 
 template <int D>
-int dispatch(int bf16, const void* q, const void* k, const void* v,
+int dispatch(int dt, const void* q, const void* k, const void* v,
              const float* sinks, void* o, int B, int H, int group, int Sq,
              int Sk, int causal, int window, float scale, cudaStream_t st) {
-  return bf16 ? run<D, true>(q, k, v, sinks, o, B, H, group, Sq, Sk, causal,
-                             window, scale, st)
-              : run<D, false>(q, k, v, sinks, o, B, H, group, Sq, Sk, causal,
-                              window, scale, st);
+  return with_elem(dt, [&](auto e) {
+    return run<D, decltype(e)::value>(q, k, v, sinks, o, B, H, group, Sq, Sk,
+                                      causal, window, scale, st);
+  });
 }
 
 }  // namespace
@@ -157,7 +157,7 @@ int dispatch(int bf16, const void* q, const void* k, const void* v,
 // contiguity before calling.
 extern "C" int tl_sink_fwd(const void* q, const void* k, const void* v,
                            const void* sinks, void* o, int B, int H, int Hkv,
-                           int Sq, int Sk, int D, int bf16, int causal,
+                           int Sq, int Sk, int D, int dt, int causal,
                            int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
@@ -165,16 +165,16 @@ extern "C" int tl_sink_fwd(const void* q, const void* k, const void* v,
   const float* sk = static_cast<const float*>(sinks);
   switch (D) {
     case 16:
-      return dispatch<16>(bf16, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
+      return dispatch<16>(dt, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
                           window, scale, st);
     case 32:
-      return dispatch<32>(bf16, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
+      return dispatch<32>(dt, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
                           window, scale, st);
     case 64:
-      return dispatch<64>(bf16, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
+      return dispatch<64>(dt, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
                           window, scale, st);
     case 128:
-      return dispatch<128>(bf16, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
+      return dispatch<128>(dt, q, k, v, sk, o, B, H, g, Sq, Sk, causal,
                            window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

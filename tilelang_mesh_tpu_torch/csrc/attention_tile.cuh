@@ -28,7 +28,7 @@ constexpr size_t tile_smem_bytes() {
   return sizeof(float) * (BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
 }
 
-template <int BM, int BN, int D, bool BF16, typename Vis>
+template <int BM, int BN, int D, int DT, typename Vis>
 __device__ __forceinline__ void attend_tile(const float* Qs, const float* Ks,
                                             const float* Vs, float* Ps,
                                             float scale, Vis vis,
@@ -75,7 +75,7 @@ __device__ __forceinline__ void attend_tile(const float* Qs, const float* Ks,
     for (int c = 0; c < CN; ++c) {
       const float p = exp2f(s[a][c] - m_new);
       rs += p;
-      Ps[(ty + kTy * a) * LP + tx + kTx * c] = Elem<BF16>::round(p);
+      Ps[(ty + kTy * a) * LP + tx + kTx * c] = Elem<DT>::round(p);
     }
     l[a] = l[a] * alpha + group_sum(rs);
     m[a] = m_new;

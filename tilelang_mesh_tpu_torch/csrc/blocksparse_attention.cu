@@ -3,7 +3,8 @@
 // Replaces the TPU kernel of tilelang_mesh_tpu/ops/blocksparse_attention.py:
 //   blocksparse_mha_kernel (:21) -> tl_blocksparse_mha
 // Same contract:
-//   Q (B, H, Sq, D), K, V (B, H, Sk, D) float32 or bfloat16, contiguous;
+//   Q (B, H, Sq, D), K, V (B, H, Sk, D) float32, bfloat16 or float16,
+//   contiguous;
 //   BlockMask (B, H, Sq / bM, Sk / bN) int32, nonzero = live, in the
 //   caller's blocks of bM queries by bN keys (Sq % bM == Sk % bN == 0).
 //   Scores in the exp2 domain: S = float(Q K^T) * scale, scale = sm_scale
@@ -43,27 +44,13 @@ using namespace tl_varlen;
 constexpr int BM = 64;  // query rows per block
 constexpr int BN = 32;  // keys per tile
 
-// Block-wide (one barrier): is a cell among rows r x columns c of the
-// (., nC) table live? Each thread reads a share of the cells. (The vote
-// of varlen_common.cuh, every thread running cells_live into
-// __syncthreads_or, decides the same, bit for bit, but ptxas then gives
-// the tile loop fewer registers and the kernel ran slower on the card.)
-__device__ __forceinline__ bool any_live(const int* __restrict__ live,
-                                         int nC, Cells r, Cells c) {
-  const int w = c.a1 - c.a0 + 1, n = (r.a1 - r.a0 + 1) * w;
-  int hit = 0;
-  for (int idx = threadIdx.x; idx < n && !hit; idx += kThreads)
-    hit = live[(long long)(r.a0 + idx / w) * nC + c.a0 + idx % w] != 0;
-  return __syncthreads_or(hit) != 0;
-}
-
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads)
-blocksparse_mha(const typename Elem<BF16>::T* __restrict__ q,
-                const typename Elem<BF16>::T* __restrict__ k,
-                const typename Elem<BF16>::T* __restrict__ v,
+blocksparse_mha(const typename Elem<DT>::T* __restrict__ q,
+                const typename Elem<DT>::T* __restrict__ k,
+                const typename Elem<DT>::T* __restrict__ v,
                 const int* __restrict__ mask,
-                typename Elem<BF16>::T* __restrict__ o, int H, int Sq,
+                typename Elem<DT>::T* __restrict__ o, int H, int Sq,
                 int Sk, int bM, int bN, int causal, float scale) {
   constexpr int RM = BM / kTy;  // query rows per thread
   constexpr int CD = D / kTx;   // output columns per thread
@@ -81,7 +68,7 @@ blocksparse_mha(const typename Elem<BF16>::T* __restrict__ q,
   const auto* kg = k + bh * Sk * D;
   const auto* vg = v + bh * Sk * D;
 
-  load_tile<BM, D, BF16>(Qs, q + bh * Sq * D, q0, Sq);
+  load_tile<BM, D, DT>(Qs, q + bh * Sq * D, q0, Sq);
 
   // the block's row cells, and each of this thread's rows' (rows past
   // Sq, never stored, take the last row's)
@@ -108,10 +95,10 @@ blocksparse_mha(const typename Elem<BF16>::T* __restrict__ q,
     // overwritten
     if (!any_live(live, nC, r, c)) continue;
     const bool one_cell = r.a0 == r.a1 && c.a0 == c.a1;  // and it is live
-    load_tile<BN, D, BF16>(Ks, kg, k0, Sk);
-    load_tile<BN, D, BF16>(Vs, vg, k0, Sk);
+    load_tile<BN, D, DT>(Ks, kg, k0, Sk);
+    load_tile<BN, D, DT>(Vs, vg, k0, Sk);
     __syncthreads();
-    attend_tile<BM, BN, D, BF16>(
+    attend_tile<BM, BN, D, DT>(
         Qs, Ks, Vs, Ps, scale,
         [&](int a, int cc) {
           const int i = q0 + ty + kTy * a, j = k0 + tx + kTx * cc;
@@ -128,18 +115,18 @@ blocksparse_mha(const typename Elem<BF16>::T* __restrict__ q,
     const long long row = bh * Sq + i;
 #pragma unroll
     for (int e = 0; e < CD; ++e)
-      Elem<BF16>::store(o, row * D + tx + kTx * e,
-                        l[a] > 0.f ? acc[a][e] / l[a] : 0.f);
+      Elem<DT>::store(o, row * D + tx + kTx * e,
+                      l[a] > 0.f ? acc[a][e] / l[a] : 0.f);
   }
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run(const void* q, const void* k, const void* v, const int* mask,
         void* o, int B, int H, int Sq, int Sk, int bM, int bN, int causal,
         float scale, cudaStream_t stream) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((Sq + BM - 1) / BM, H, B);
-  return launch(blocksparse_mha<D, BF16>, grid,
+  return launch(blocksparse_mha<D, DT>, grid,
                 tile_smem_bytes<BM, BN, D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), mask, static_cast<T*>(o), H, Sq,
@@ -147,13 +134,13 @@ int run(const void* q, const void* k, const void* v, const int* mask,
 }
 
 template <int D>
-int dispatch(int bf16, const void* q, const void* k, const void* v,
+int dispatch(int dt, const void* q, const void* k, const void* v,
              const int* mask, void* o, int B, int H, int Sq, int Sk, int bM,
              int bN, int causal, float scale, cudaStream_t st) {
-  return bf16 ? run<D, true>(q, k, v, mask, o, B, H, Sq, Sk, bM, bN, causal,
-                             scale, st)
-              : run<D, false>(q, k, v, mask, o, B, H, Sq, Sk, bM, bN, causal,
-                              scale, st);
+  return with_elem(dt, [&](auto e) {
+    return run<D, decltype(e)::value>(q, k, v, mask, o, B, H, Sq, Sk, bM, bN,
+                                      causal, scale, st);
+  });
 }
 
 }  // namespace
@@ -165,7 +152,7 @@ int dispatch(int bf16, const void* q, const void* k, const void* v,
 extern "C" int tl_blocksparse_mha(const void* q, const void* k,
                                   const void* v, const void* mask, void* o,
                                   int B, int H, int Sq, int Sk, int D,
-                                  int bM, int bN, int bf16, int causal,
+                                  int bM, int bN, int dt, int causal,
                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bM < 1 || bN < 1 || Sq % bM || Sk % bN)
@@ -173,16 +160,16 @@ extern "C" int tl_blocksparse_mha(const void* q, const void* k,
   const int* mk = static_cast<const int*>(mask);
   switch (D) {
     case 16:
-      return dispatch<16>(bf16, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
+      return dispatch<16>(dt, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
                           scale, st);
     case 32:
-      return dispatch<32>(bf16, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
+      return dispatch<32>(dt, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
                           scale, st);
     case 64:
-      return dispatch<64>(bf16, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
+      return dispatch<64>(dt, q, k, v, mk, o, B, H, Sq, Sk, bM, bN, causal,
                           scale, st);
     case 128:
-      return dispatch<128>(bf16, q, k, v, mk, o, B, H, Sq, Sk, bM, bN,
+      return dispatch<128>(dt, q, k, v, mk, o, B, H, Sq, Sk, bM, bN,
                            causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

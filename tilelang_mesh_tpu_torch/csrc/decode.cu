@@ -46,10 +46,10 @@ struct StridedRows {
 extern "C" int tl_decode(const void* q, const void* k, const void* v,
                          void* op, void* mp, void* lp, int B, int H, int S,
                          int D, int n_split, long long sb, long long sh,
-                         long long sr, int bf16, float scale, void* stream) {
+                         long long sr, int dt, float scale, void* stream) {
   const int chunk = S / n_split;
   const StridedRows rows{sb, sh, sr, chunk};
   return tl_splitkv::launch(q, k, v, op, mp, lp, B, H, D, n_split, chunk,
-                            bf16 != 0, scale, rows,
+                            dt, scale, rows,
                             static_cast<cudaStream_t>(stream));
 }

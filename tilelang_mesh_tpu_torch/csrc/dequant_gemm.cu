@@ -8,15 +8,17 @@
 // low half of A's columns with the low nibbles and the high half with
 // the high ones.
 //   dequant_gemm_kernel (:62) -> tl_dequant_gemm (w4a16, fused)
-//     C (M, N) = A (M, K) @ B, A float32 or bfloat16, C in A's type. The
+//     C (M, N) = A (M, K) @ B, A float32, bfloat16 or float16, C in A's
+//     type. The
 //     k-tile of the block tile loop is BK/2 packed rows: its A tile is
 //     the two (128 x BK/2) windows at k0 and K/2 + k0, its B tile the
 //     low and the high nibbles of one packed (BK/2 x 128) tile, each
 //     ((b & 0xF) - 8) * s in float32 and rounded to A's type before the
 //     product, as the TPU kernel's B_lo / B_hi fragments of A's type are.
 //   dequant_int4_kernel (:127) -> tl_dequant_int4
-//     Bd (K, N) in float32 or bfloat16: rows [0, K/2) the low nibbles,
-//     [K/2, K) the high, with the same float32 multiply and rounding.
+//     Bd (K, N) in float32, bfloat16 or float16: rows [0, K/2) the low
+//     nibbles, [K/2, K) the high, with the same float32 multiply and
+//     rounding.
 //   w4a8_gemm_kernel (:204) -> tl_w4a8_gemm
 //     C (M, N) f32 = (A (M, K) int8 @ B int4, exact int32 sums) * Sa[m]
 //     * Sw[n], on mma.sync m16n8k32 s8; the unpack writes B n-major into
@@ -44,8 +46,11 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
-// The w4a16 source of the float32 (BK 16) and bf16 (BK 32) loops: A
+// The w4a16 source of the float32 (BK 16) and 16-bit (BK 32) loops: A
 // (M, K) of T as its two halves, B unpacked from P and S.
 template <typename T, int BK, int PAD>
 struct W4 {
@@ -199,19 +204,19 @@ dequant_gemm_f32(const float* __restrict__ a,
   f32::for_each<false, false>(acc, Store<float>{c, k.rows, k.m0, k.n0, N});
 }
 
+// T: __nv_bfloat16 or __half (the mma.sync instruction follows it)
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-dequant_gemm_bf16(const __nv_bfloat16* __restrict__ a,
-                  const uint8_t* __restrict__ packed,
-                  const float* __restrict__ scales,
-                  __nv_bfloat16* __restrict__ c, int M, int N, int K2,
-                  int gs, int vec_a, int vec_p) {
+dequant_gemm_h16(const T* __restrict__ a, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ scales, T* __restrict__ c, int M,
+                 int N, int K2, int gs, int vec_a, int vec_p) {
   const Block k(M, N);
-  const W4<__nv_bfloat16, bf16::BK, bf16::PAD> src{
+  const W4<T, bf16::BK, bf16::PAD> src{
       a + (long long)k.m0 * 2 * K2, packed, scales, k.rows, k.n0, K2, N,
       gs, K2 / gs, vec_a != 0, vec_p != 0};
   bf16::Acc<float> acc;
   bf16::loop<false, false>(src, (K2 + src.BKH - 1) / src.BKH, acc);
-  bf16::for_each(acc, Store<__nv_bfloat16>{c, k.rows, k.m0, k.n0, N});
+  bf16::for_each(acc, Store<T>{c, k.rows, k.m0, k.n0, N});
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -242,6 +247,13 @@ __device__ __forceinline__ void put8(__nv_bfloat16* p, const float (&v)[8]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+  *reinterpret_cast<uint4*>(p) = w;
+}
+__device__ __forceinline__ void put8(__half* p, const float (&v)[8]) {
+  uint4 w;
+  __half2* h = reinterpret_cast<__half2*>(&w);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __floats2half2_rn(v[2 * q], v[2 * q + 1]);
   *reinterpret_cast<uint4*>(p) = w;
 }
 
@@ -298,20 +310,24 @@ bool aligned(const void* p) {
 // launched); the Python wrapper checks shapes, types, devices, the group
 // size and the grid's range before calling.
 
-// a (M, 2 K2) float32 or bf16 (bf16 = 1), packed (K2, N) u8, scales
-// (2 K2 / gs, N) f32, c (M, N) in a's type
+// a (M, 2 K2) of the type code `type` (kF32, kBF16 or kF16), packed
+// (K2, N) u8, scales (2 K2 / gs, N) f32, c (M, N) in a's type
 extern "C" int tl_dequant_gemm(const void* a, const void* packed,
                                const float* scales, void* c, int M, int N,
-                               int K2, int gs, int bf16, void* stream) {
+                               int K2, int gs, int type, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const int v = bf16 ? 8 : 4;
+  const int v = type == kF32 ? 4 : 8;
   const int vec_a = aligned(a) && K2 % v == 0;
   const int vec_p = aligned(packed) && N % 16 == 0;
   const auto* p = static_cast<const uint8_t*>(packed);
-  if (bf16)
-    dequant_gemm_bf16<<<tile_count(M, N), kThreads, 0, s>>>(
+  if (type == kBF16)
+    dequant_gemm_h16<<<tile_count(M, N), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a), p, scales,
         static_cast<__nv_bfloat16*>(c), M, N, K2, gs, vec_a, vec_p);
+  else if (type == kF16)
+    dequant_gemm_h16<<<tile_count(M, N), kThreads, 0, s>>>(
+        static_cast<const __half*>(a), p, scales, static_cast<__half*>(c), M,
+        N, K2, gs, vec_a, vec_p);
   else
     dequant_gemm_f32<<<tile_count(M, N), kThreads, 0, s>>>(
         static_cast<const float*>(a), p, scales, static_cast<float*>(c), M,
@@ -319,10 +335,10 @@ extern "C" int tl_dequant_gemm(const void* a, const void* packed,
   return (int)cudaGetLastError();
 }
 
-// packed (K2, N) u8, scales (2 K2 / gs, N) f32 -> out (2 K2, N) float32
-// or bf16 (bf16 = 1)
+// packed (K2, N) u8, scales (2 K2 / gs, N) f32 -> out (2 K2, N) of the
+// type code `type` (kF32, kBF16 or kF16)
 extern "C" int tl_dequant_int4(const void* packed, const float* scales,
-                               void* out, int K2, int N, int gs, int bf16,
+                               void* out, int K2, int N, int gs, int type,
                                void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const uint8_t*>(packed);
@@ -330,7 +346,7 @@ extern "C" int tl_dequant_int4(const void* packed, const float* scales,
                   aligned(out);
   const int per_block = kThreads * (v8 ? 8 : 1);
   const dim3 grid((N + per_block - 1) / per_block, min(K2, 65535));
-  if (bf16) {
+  if (type == kBF16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
     if (v8)
       dequant_int4<__nv_bfloat16, 8><<<grid, kThreads, 0, s>>>(p, scales, o,
@@ -338,6 +354,14 @@ extern "C" int tl_dequant_int4(const void* packed, const float* scales,
     else
       dequant_int4<__nv_bfloat16, 1><<<grid, kThreads, 0, s>>>(p, scales, o,
                                                                K2, N, gs);
+  } else if (type == kF16) {
+    auto* o = static_cast<__half*>(out);
+    if (v8)
+      dequant_int4<__half, 8><<<grid, kThreads, 0, s>>>(p, scales, o, K2, N,
+                                                        gs);
+    else
+      dequant_int4<__half, 1><<<grid, kThreads, 0, s>>>(p, scales, o, K2, N,
+                                                        gs);
   } else {
     auto* o = static_cast<float*>(out);
     if (v8)

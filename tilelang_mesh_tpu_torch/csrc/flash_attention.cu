@@ -8,9 +8,10 @@
 //   gqa_fwd_kernel (:21)           -> tl_mha_fwd(Hkv | H, partial = 0)
 //   gqa_fwd_partial_kernel (:63)   -> tl_mha_fwd(Hkv | H, partial = 1)
 // Same contract:
-//   Q (B, H, Sq, D), K, V (B, Hkv, Sk, D) float32 or bfloat16,
-//   contiguous; query head h reads KV head h / (H / Hkv), so MHA is
-//   Hkv = H (the same addresses as before KV heads were added)
+//   Q (B, H, Sq, D), K, V (B, Hkv, Sk, D) float32, bfloat16 or
+//   float16 (`dt`: attention_common.cuh's codes), contiguous; query
+//   head h reads KV head h / (H / Hkv), so MHA is Hkv = H (the same
+//   addresses as before KV heads were added)
 //   Q is prescaled once: Qs = dtype(float(Q) * scale), scale =
 //   sm_scale * log2(e), so every score is already in the exp2 domain.
 //   Causal masking is top-left (query i sees keys j <= i); KV tiles
@@ -58,11 +59,11 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
 }
 
-template <int D, bool BF16, bool PARTIAL>
+template <int D, int DT, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads)
-mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
-        const typename Elem<BF16>::T* __restrict__ k,
-        const typename Elem<BF16>::T* __restrict__ v, void* __restrict__ o,
+mha_fwd(const typename Elem<DT>::T* __restrict__ q,
+        const typename Elem<DT>::T* __restrict__ k,
+        const typename Elem<DT>::T* __restrict__ v, void* __restrict__ o,
         float* __restrict__ m_out, float* __restrict__ l_out, int H,
         int group, int Sq, int Sk, int causal, float scale) {
   constexpr int RM = BM / kTy;  // query rows per thread
@@ -83,7 +84,7 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
   const auto* kg = k + bkv * Sk * D;
   const auto* vg = v + bkv * Sk * D;
 
-  load_tile<BM, D, BF16, true>(Qs, q + bh * Sq * D, q0, Sq, scale);
+  load_tile<BM, D, DT, true>(Qs, q + bh * Sq * D, q0, Sq, scale);
 
   float m[RM], l[RM], acc[RM][CD];
 #pragma unroll
@@ -99,8 +100,8 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
   for (int kb = 0; kb < n_kv; ++kb) {
     const int k0 = kb * BN;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<BN, D, BF16>(Ks, kg, k0, Sk);
-    load_tile<BN, D, BF16>(Vs, vg, k0, Sk);
+    load_tile<BN, D, DT>(Ks, kg, k0, Sk);
+    load_tile<BN, D, DT>(Vs, vg, k0, Sk);
     __syncthreads();
 
     float s[RM][CN];
@@ -140,7 +141,7 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
       for (int c = 0; c < CN; ++c) {
         const float p = exp2f(s[a][c] - m_new);
         rs += p;
-        Ps[(ty + kTy * a) * LP + tx + kTx * c] = Elem<BF16>::round(p);
+        Ps[(ty + kTy * a) * LP + tx + kTx * c] = Elem<DT>::round(p);
       }
       l[a] = l[a] * alpha + group_sum(rs);
       m[a] = m_new;
@@ -179,40 +180,38 @@ mha_fwd(const typename Elem<BF16>::T* __restrict__ q,
     } else {
       // clamped divide: a fully underflowed row gives 0, not 0/0
       const float den = fmaxf(l[a], 1e-30f);
-      auto* ot = static_cast<typename Elem<BF16>::T*>(o);
+      auto* ot = static_cast<typename Elem<DT>::T*>(o);
 #pragma unroll
       for (int e = 0; e < CD; ++e)
-        Elem<BF16>::store(ot, row * D + tx + kTx * e, acc[a][e] / den);
+        Elem<DT>::store(ot, row * D + tx + kTx * e, acc[a][e] / den);
     }
   }
 }
 
-template <int D, bool BF16, bool PARTIAL>
+template <int D, int DT, bool PARTIAL>
 int run(const void* q, const void* k, const void* v, void* o, void* m,
         void* l, int B, int H, int group, int Sq, int Sk, int causal,
         float scale, cudaStream_t stream) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((Sq + BM - 1) / BM, H, B);
-  return launch(mha_fwd<D, BF16, PARTIAL>, grid, fwd_smem_bytes<D>(), stream,
+  return launch(mha_fwd<D, DT, PARTIAL>, grid, fwd_smem_bytes<D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), o, static_cast<float*>(m),
                 static_cast<float*>(l), H, group, Sq, Sk, causal, scale);
 }
 
 template <int D>
-int dispatch(int bf16, int partial, const void* q, const void* k,
+int dispatch(int dt, int partial, const void* q, const void* k,
              const void* v, void* o, void* m, void* l, int B, int H,
              int group, int Sq, int Sk, int causal, float scale,
              cudaStream_t st) {
-  if (bf16)
-    return partial ? run<D, true, true>(q, k, v, o, m, l, B, H, group, Sq,
-                                        Sk, causal, scale, st)
-                   : run<D, true, false>(q, k, v, o, m, l, B, H, group, Sq,
-                                         Sk, causal, scale, st);
-  return partial ? run<D, false, true>(q, k, v, o, m, l, B, H, group, Sq,
-                                       Sk, causal, scale, st)
-                 : run<D, false, false>(q, k, v, o, m, l, B, H, group, Sq,
-                                        Sk, causal, scale, st);
+  return with_elem(dt, [&](auto e) {
+    constexpr int DT = decltype(e)::value;
+    return partial ? run<D, DT, true>(q, k, v, o, m, l, B, H, group, Sq, Sk,
+                                      causal, scale, st)
+                   : run<D, DT, false>(q, k, v, o, m, l, B, H, group, Sq,
+                                       Sk, causal, scale, st);
+  });
 }
 
 }  // namespace
@@ -223,23 +222,23 @@ int dispatch(int bf16, int partial, const void* q, const void* k,
 // Python wrapper checks shapes, types and contiguity before calling.
 extern "C" int tl_mha_fwd(const void* q, const void* k, const void* v,
                           void* o, void* m, void* l, int B, int H, int Hkv,
-                          int Sq, int Sk, int D, int bf16, int causal,
+                          int Sq, int Sk, int D, int dt, int causal,
                           int partial, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const int g = H / Hkv;
   switch (D) {
     case 16:
-      return dispatch<16>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
+      return dispatch<16>(dt, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 32:
-      return dispatch<32>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
+      return dispatch<32>(dt, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 64:
-      return dispatch<64>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
+      return dispatch<64>(dt, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                           causal, scale, st);
     case 128:
-      return dispatch<128>(bf16, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
+      return dispatch<128>(dt, partial, q, k, v, o, m, l, B, H, g, Sq, Sk,
                            causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

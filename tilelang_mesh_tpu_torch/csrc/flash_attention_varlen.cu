@@ -6,7 +6,8 @@
 //   varlen_fwd (:147)                         -> tl_varlen_fwd(partial = 0)
 //   varlen_fwd_partial (:123, return_partials) -> tl_varlen_fwd(partial = 1)
 // Same contract:
-//   Q (Hq, Tq, D), K, V (Hkv, Tk, D) float32 or bfloat16, contiguous;
+//   Q (Hq, Tq, D), K, V (Hkv, Tk, D) float32, bfloat16 or float16,
+//   contiguous;
 //   query head h reads KV head h / (Hq / Hkv); SeqQ, PosQ (Tq,) and
 //   SeqK, PosK (Tk,) int32; BlockLive (Tq / bM, Tk / bN) int32.
 //   Q is prescaled once: Qs = dtype(float(Q) * scale), scale = sm_scale *
@@ -62,11 +63,11 @@ constexpr size_t fwd_smem_bytes() {
   return tile_smem_bytes<BM, BN, D>() + sizeof(int) * (2 * BM + 2 * BN + 2);
 }
 
-template <int D, bool BF16, bool PARTIAL>
+template <int D, int DT, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads)
-varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
-           const typename Elem<BF16>::T* __restrict__ k,
-           const typename Elem<BF16>::T* __restrict__ v,
+varlen_fwd(const typename Elem<DT>::T* __restrict__ q,
+           const typename Elem<DT>::T* __restrict__ k,
+           const typename Elem<DT>::T* __restrict__ v,
            const int* __restrict__ seq_q, const int* __restrict__ seq_k,
            const int* __restrict__ pos_q, const int* __restrict__ pos_k,
            const int* __restrict__ live, void* __restrict__ o,
@@ -92,7 +93,7 @@ varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
   const auto* kg = k + hkv * Tk * D;
   const auto* vg = v + hkv * Tk * D;
 
-  load_tile<BM, D, BF16, true>(Qs, q + (long long)h * Tq * D, q0, Tq, scale);
+  load_tile<BM, D, DT, true>(Qs, q + (long long)h * Tq * D, q0, Tq, scale);
   load_ids<BM>(sq, seq_q, q0, Tq, -1);
   load_ids<BM>(pq, pos_q, q0, Tq, 0);
 
@@ -116,14 +117,14 @@ varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
                                      cells_of(k0, min(k0 + BN, Tk), bN), sq,
                                      pq, seq_k, pos_k, k0, Tk, -2, causal))
       continue;
-    load_tile<BN, D, BF16>(Ks, kg, k0, Tk);
-    load_tile<BN, D, BF16>(Vs, vg, k0, Tk);
+    load_tile<BN, D, DT>(Ks, kg, k0, Tk);
+    load_tile<BN, D, DT>(Vs, vg, k0, Tk);
     load_ids<BN>(sk, seq_k, k0, Tk, -2);
     load_ids<BN>(pk, pos_k, k0, Tk, 0);
     __syncthreads();
 
     // Q is prescaled, so the tile step's scale is 1
-    attend_tile<BM, BN, D, BF16>(
+    attend_tile<BM, BN, D, DT>(
         Qs, Ks, Vs, Ps, 1.f,
         [&](int a, int c) {
           const int ir = ty + kTy * a, jc = tx + kTx * c;
@@ -148,11 +149,11 @@ varlen_fwd(const typename Elem<BF16>::T* __restrict__ q,
     } else {
       // a row that sees no key gives 0 (the TPU kernel's select)
       const bool seen = l[a] > 0.f;
-      auto* ot = static_cast<typename Elem<BF16>::T*>(o);
+      auto* ot = static_cast<typename Elem<DT>::T*>(o);
 #pragma unroll
       for (int e = 0; e < CD; ++e)
-        Elem<BF16>::store(ot, row * D + tx + kTx * e,
-                          seen ? acc[a][e] / l[a] : 0.f);
+        Elem<DT>::store(ot, row * D + tx + kTx * e,
+                        seen ? acc[a][e] / l[a] : 0.f);
     }
   }
 }
@@ -166,11 +167,11 @@ struct Args {
   float scale;
 };
 
-template <int D, bool BF16, bool PARTIAL>
+template <int D, int DT, bool PARTIAL>
 int run(const Args& a, cudaStream_t stream) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((a.Tq + BM - 1) / BM, a.Hq);
-  return launch(varlen_fwd<D, BF16, PARTIAL>, grid, fwd_smem_bytes<D>(),
+  return launch(varlen_fwd<D, DT, PARTIAL>, grid, fwd_smem_bytes<D>(),
                 stream, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), a.seq_q, a.seq_k, a.pos_q, a.pos_k,
                 a.live, a.o, a.m, a.l, a.group, a.Tq, a.Tk, a.bM, a.bN,
@@ -178,10 +179,11 @@ int run(const Args& a, cudaStream_t stream) {
 }
 
 template <int D>
-int dispatch(int bf16, int partial, const Args& a, cudaStream_t st) {
-  if (bf16)
-    return partial ? run<D, true, true>(a, st) : run<D, true, false>(a, st);
-  return partial ? run<D, false, true>(a, st) : run<D, false, false>(a, st);
+int dispatch(int dt, int partial, const Args& a, cudaStream_t st) {
+  return with_elem(dt, [&](auto e) {
+    constexpr int DT = decltype(e)::value;
+    return partial ? run<D, DT, true>(a, st) : run<D, DT, false>(a, st);
+  });
 }
 
 }  // namespace
@@ -196,7 +198,7 @@ extern "C" int tl_varlen_fwd(const void* q, const void* k, const void* v,
                              const void* pos_q, const void* pos_k,
                              const void* live, void* o, void* m, void* l,
                              int Hq, int Hkv, int Tq, int Tk, int D,
-                             int block_M, int block_N, int bf16, int causal,
+                             int block_M, int block_N, int dt, int causal,
                              int partial, float scale, void* stream) {
   if (Hkv < 1 || Hq % Hkv || block_M < 1 || block_N < 1 || Tq % block_M ||
       Tk % block_N)
@@ -223,13 +225,13 @@ extern "C" int tl_varlen_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return dispatch<16>(bf16, partial, a, st);
+      return dispatch<16>(dt, partial, a, st);
     case 32:
-      return dispatch<32>(bf16, partial, a, st);
+      return dispatch<32>(dt, partial, a, st);
     case 64:
-      return dispatch<64>(bf16, partial, a, st);
+      return dispatch<64>(dt, partial, a, st);
     case 128:
-      return dispatch<128>(bf16, partial, a, st);
+      return dispatch<128>(dt, partial, a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

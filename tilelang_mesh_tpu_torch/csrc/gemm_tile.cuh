@@ -780,11 +780,12 @@ __device__ __forceinline__ void gemm_tile(const Tile<float, OutT>& t, int K,
   });
 }
 
-template <bool TRANS_B, typename OutT>
-__device__ __forceinline__ void gemm_tile(const Tile<__nv_bfloat16, OutT>& t,
-                                          int K, int N, bool vec) {
-  const bf16::Direct<false, TRANS_B> src{t.a, t.b, K, t.rows, t.n0, K, N,
-                                         vec};
+// T: __nv_bfloat16 or __half (the mma.sync instruction follows it)
+template <bool TRANS_B, typename T, typename OutT>
+__device__ __forceinline__ std::enable_if_t<sizeof(T) == 2> gemm_tile(
+    const Tile<T, OutT>& t, int K, int N, bool vec) {
+  const Direct<T, bf16::BK, bf16::PAD, false, TRANS_B> src{
+      t.a, t.b, K, t.rows, t.n0, K, N, vec};
   bf16::Acc<float> acc;
   bf16::loop<false, TRANS_B>(src, (K + bf16::BK - 1) / bf16::BK, acc);
   bf16::for_each(acc, [&](int r, int c, float v) {

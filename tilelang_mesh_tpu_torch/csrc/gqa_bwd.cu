@@ -4,7 +4,7 @@
 //   gqa_bwd_dkdv_kernel (:29) -> tl_gqa_bwd_dkdv
 //   gqa_bwd_dq_kernel (:103)  -> tl_gqa_bwd_dq
 // MHA is group = 1 (ops/flash_attention_bwd.py:22). Same contract:
-//   Q, dO (B, Hq, Sq, D); K, V (B, Hkv, Sk, D), float32 or bfloat16;
+//   Q, dO (B, Hq, Sq, D); K, V (B, Hkv, Sk, D), float32, bfloat16 or float16;
 //   L = lse2 = m + log2(l) and Delta = sum(dO * O, -1), (B, Hq, Sq) f32;
 //   query head h reads KV head h / (Hq / Hkv);
 //   P = exp2(Q K^T * scale2 - L), scale2 = sm_scale * log2(e), 0 where
@@ -57,12 +57,12 @@ constexpr size_t dq_smem_bytes() {
                           DQ_ROWS * (DQ_KT + 1) + 2 * DQ_ROWS);
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads)
-gqa_bwd_dkdv(const typename Elem<BF16>::T* __restrict__ q,
-             const typename Elem<BF16>::T* __restrict__ k,
-             const typename Elem<BF16>::T* __restrict__ v,
-             const typename Elem<BF16>::T* __restrict__ dout,
+gqa_bwd_dkdv(const typename Elem<DT>::T* __restrict__ q,
+             const typename Elem<DT>::T* __restrict__ k,
+             const typename Elem<DT>::T* __restrict__ v,
+             const typename Elem<DT>::T* __restrict__ dout,
              const float* __restrict__ L, const float* __restrict__ Delta,
              float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv,
              int Sq, int Sk, int causal, float scale2, float sm_scale) {
@@ -85,8 +85,8 @@ gqa_bwd_dkdv(const typename Elem<BF16>::T* __restrict__ q,
   const int group = Hq / Hkv;
   const long long bhk = (long long)b * Hkv + hk;
 
-  load_tile<KV_ROWS, D, BF16>(Ks, k + bhk * Sk * D, k0, Sk);
-  load_tile<KV_ROWS, D, BF16>(Vs, v + bhk * Sk * D, k0, Sk);
+  load_tile<KV_ROWS, D, DT>(Ks, k + bhk * Sk * D, k0, Sk);
+  load_tile<KV_ROWS, D, DT>(Vs, v + bhk * Sk * D, k0, Sk);
 
   float dk_acc[RN][CD], dv_acc[RN][CD];
 #pragma unroll
@@ -101,8 +101,8 @@ gqa_bwd_dkdv(const typename Elem<BF16>::T* __restrict__ q,
     for (int qb = q_first; qb < n_q; ++qb) {
       const int q0 = qb * KV_QT;
       __syncthreads();  // the previous step's readers are done
-      load_tile<KV_QT, D, BF16>(Qs, q + bhq * Sq * D, q0, Sq);
-      load_tile<KV_QT, D, BF16>(dOs, dout + bhq * Sq * D, q0, Sq);
+      load_tile<KV_QT, D, DT>(Qs, q + bhq * Sq * D, q0, Sq);
+      load_tile<KV_QT, D, DT>(dOs, dout + bhq * Sq * D, q0, Sq);
       load_vec<KV_QT>(Ls, L + bhq * Sq, q0, Sq);
       load_vec<KV_QT>(Ds, Delta + bhq * Sq, q0, Sq);
       __syncthreads();
@@ -143,8 +143,8 @@ gqa_bwd_dkdv(const typename Elem<BF16>::T* __restrict__ q,
           const bool live = i < Sq && j < Sk && (!causal || i >= j);
           const float p = live ? exp2f(st[a][c] * scale2 - Ls[ic]) : 0.f;
           const float ds = p * (dpt[a][c] - Ds[ic]) * sm_scale;
-          Pt[(ty + kTy * a) * LQ + ic] = Elem<BF16>::round(p);
-          dSt[(ty + kTy * a) * LQ + ic] = Elem<BF16>::round(ds);
+          Pt[(ty + kTy * a) * LQ + ic] = Elem<DT>::round(p);
+          dSt[(ty + kTy * a) * LQ + ic] = Elem<DT>::round(ds);
         }
       }
       __syncwarp();  // a key's P^T, dS^T row is written and read by its 8 lanes
@@ -186,12 +186,12 @@ gqa_bwd_dkdv(const typename Elem<BF16>::T* __restrict__ q,
   }
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads)
-gqa_bwd_dq(const typename Elem<BF16>::T* __restrict__ q,
-           const typename Elem<BF16>::T* __restrict__ k,
-           const typename Elem<BF16>::T* __restrict__ v,
-           const typename Elem<BF16>::T* __restrict__ dout,
+gqa_bwd_dq(const typename Elem<DT>::T* __restrict__ q,
+           const typename Elem<DT>::T* __restrict__ k,
+           const typename Elem<DT>::T* __restrict__ v,
+           const typename Elem<DT>::T* __restrict__ dout,
            const float* __restrict__ L, const float* __restrict__ Delta,
            float* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int causal,
            float scale2, float sm_scale) {
@@ -215,8 +215,8 @@ gqa_bwd_dq(const typename Elem<BF16>::T* __restrict__ q,
   const auto* kg = k + bhk * Sk * D;
   const auto* vg = v + bhk * Sk * D;
 
-  load_tile<DQ_ROWS, D, BF16>(Qs, q + bhq * Sq * D, q0, Sq);
-  load_tile<DQ_ROWS, D, BF16>(dOs, dout + bhq * Sq * D, q0, Sq);
+  load_tile<DQ_ROWS, D, DT>(Qs, q + bhq * Sq * D, q0, Sq);
+  load_tile<DQ_ROWS, D, DT>(dOs, dout + bhq * Sq * D, q0, Sq);
   load_vec<DQ_ROWS>(Ls, L + bhq * Sq, q0, Sq);
   load_vec<DQ_ROWS>(Ds, Delta + bhq * Sq, q0, Sq);
 
@@ -231,8 +231,8 @@ gqa_bwd_dq(const typename Elem<BF16>::T* __restrict__ q,
   for (int kb = 0; kb < n_kv; ++kb) {
     const int k0 = kb * DQ_KT;
     __syncthreads();  // the previous step's readers are done
-    load_tile<DQ_KT, D, BF16>(Ks, kg, k0, Sk);
-    load_tile<DQ_KT, D, BF16>(Vs, vg, k0, Sk);
+    load_tile<DQ_KT, D, DT>(Ks, kg, k0, Sk);
+    load_tile<DQ_KT, D, DT>(Vs, vg, k0, Sk);
     __syncthreads();
 
     float s[RM][CN], dp[RM][CN];
@@ -270,7 +270,7 @@ gqa_bwd_dq(const typename Elem<BF16>::T* __restrict__ q,
         const bool live = i < Sq && j < Sk && (!causal || i >= j);
         const float p = live ? exp2f(s[a][c] * scale2 - Ls[ir]) : 0.f;
         const float ds = p * (dp[a][c] - Ds[ir]) * sm_scale;
-        dSs[ir * LP + tx + kTx * c] = Elem<BF16>::round(ds);
+        dSs[ir * LP + tx + kTx * c] = Elem<DT>::round(ds);
       }
     }
     __syncwarp();  // a row's dS is written and read by its 8 lanes
@@ -307,22 +307,22 @@ struct Args {
   float scale2, sm_scale;
 };
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run_dkdv(const Args& a, float* dk, float* dv, cudaStream_t st) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((a.Sk + KV_ROWS - 1) / KV_ROWS, a.Hkv, a.B);
-  return launch(gqa_bwd_dkdv<D, BF16>, grid, dkdv_smem_bytes<D>(), st,
+  return launch(gqa_bwd_dkdv<D, DT>, grid, dkdv_smem_bytes<D>(), st,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.L, a.Delta, dk, dv, a.Hq, a.Hkv, a.Sq, a.Sk, a.causal,
                 a.scale2, a.sm_scale);
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run_dq(const Args& a, float* dq, cudaStream_t st) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   const dim3 grid((a.Sq + DQ_ROWS - 1) / DQ_ROWS, a.Hq, a.B);
-  return launch(gqa_bwd_dq<D, BF16>, grid, dq_smem_bytes<D>(), st,
+  return launch(gqa_bwd_dq<D, DT>, grid, dq_smem_bytes<D>(), st,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.L, a.Delta, dq, a.Hq, a.Hkv, a.Sq, a.Sk, a.causal, a.scale2,
@@ -341,7 +341,7 @@ extern "C" int tl_gqa_bwd_dkdv(const void* q, const void* k, const void* v,
                                const void* dout, const void* L,
                                const void* Delta, void* dk, void* dv, int B,
                                int Hq, int Hkv, int Sq, int Sk, int D,
-                               int bf16, int causal, float scale2,
+                               int dt, int causal, float scale2,
                                float sm_scale, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(L),
                static_cast<const float*>(Delta), B, Hq, Hkv, Sq, Sk, causal,
@@ -349,10 +349,11 @@ extern "C" int tl_gqa_bwd_dkdv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-#define TL_CASE(DIM)                                       \
-  case DIM:                                                \
-    return bf16 ? run_dkdv<DIM, true>(a, dkf, dvf, st)     \
-                : run_dkdv<DIM, false>(a, dkf, dvf, st);
+#define TL_CASE(DIM)                                                  \
+  case DIM:                                                           \
+    return with_elem(dt, [&](auto e) {                                \
+      return run_dkdv<DIM, decltype(e)::value>(a, dkf, dvf, st);      \
+    });
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:
@@ -364,7 +365,7 @@ extern "C" int tl_gqa_bwd_dkdv(const void* q, const void* k, const void* v,
 extern "C" int tl_gqa_bwd_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* L,
                              const void* Delta, void* dq, int B, int Hq,
-                             int Hkv, int Sq, int Sk, int D, int bf16,
+                             int Hkv, int Sq, int Sk, int D, int dt,
                              int causal, float scale2, float sm_scale,
                              void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(L),
@@ -372,10 +373,11 @@ extern "C" int tl_gqa_bwd_dq(const void* q, const void* k, const void* v,
                scale2, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dqf = static_cast<float*>(dq);
-#define TL_CASE(DIM)                               \
-  case DIM:                                        \
-    return bf16 ? run_dq<DIM, true>(a, dqf, st)    \
-                : run_dq<DIM, false>(a, dqf, st);
+#define TL_CASE(DIM)                                                  \
+  case DIM:                                                           \
+    return with_elem(dt, [&](auto e) {                                \
+      return run_dq<DIM, decltype(e)::value>(a, dqf, st);             \
+    });
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:

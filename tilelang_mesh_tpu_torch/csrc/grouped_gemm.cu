@@ -2,10 +2,10 @@
 //
 // Replaces two TPU kernels of tilelang_mesh_tpu/ops/grouped_gemm.py:
 //   grouped_gemm_kernel (:17)        -> tl_grouped_gemm
-//     X (E, M, K) @ W (E, K, N) -> O (E, M, N) in X's type, float32
-//     accumulation; grid (m-tile, n-tile, expert) with the m-tile
-//     fastest, so the blocks that read one column panel of W[e] run
-//     together and share it through L2.
+//     X (E, M, K) @ W (E, K, N) -> O (E, M, N) in X's type (float32,
+//     bfloat16 or float16), float32 accumulation; grid (m-tile, n-tile,
+//     expert) with the m-tile fastest, so the blocks that read one
+//     column panel of W[e] run together and share it through L2.
 //   varlen_grouped_gemm_kernel (:58) -> tl_varlen_grouped_gemm
 //     A (sum sizes, K) holds every group's rows back to back; block bx
 //     reads its expert BlkExp[bx] and first row BlkRow[bx] from device
@@ -65,21 +65,38 @@ int launch(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int run_varlen(const void* a, const void* b, const int* blk_exp,
+               const int* blk_row, const int* group_end, float* out, int N,
+               int K, int trans_b, int vec, dim3 grid, cudaStream_t s) {
+  const auto* pa = static_cast<const T*>(a);
+  const auto* pb = static_cast<const T*>(b);
+  return trans_b ? launch(varlen_grouped_gemm<T, true>, grid, s, pa, pb,
+                          blk_exp, blk_row, group_end, out, N, K, vec)
+                 : launch(varlen_grouped_gemm<T, false>, grid, s, pa, pb,
+                          blk_exp, blk_row, group_end, out, N, K, vec);
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 =
 // launched); the Python wrapper checks shapes, types, devices and the
-// grid's range before calling.
+// grid's range before calling. `type` is the operands' DType code
+// (gemm_tile.cuh): kF32, kBF16 or kF16.
 extern "C" int tl_grouped_gemm(const void* x, const void* w, void* o, int E,
-                               int M, int N, int K, int bf16, void* stream) {
+                               int M, int N, int K, int type, void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, E);
   const auto s = static_cast<cudaStream_t>(stream);
-  const int vec = vec_ok(x, w, K, N, false, bf16 ? 2 : 4);
-  if (bf16)
+  const int vec = vec_ok(x, w, K, N, false, type == kF32 ? 4 : 2);
+  if (type == kBF16)
     return launch(grouped_gemm<__nv_bfloat16>, grid, s,
                   static_cast<const __nv_bfloat16*>(x),
                   static_cast<const __nv_bfloat16*>(w),
                   static_cast<__nv_bfloat16*>(o), M, N, K, vec);
+  if (type == kF16)
+    return launch(grouped_gemm<__half>, grid, s,
+                  static_cast<const __half*>(x), static_cast<const __half*>(w),
+                  static_cast<__half*>(o), M, N, K, vec);
   return launch(grouped_gemm<float>, grid, s, static_cast<const float*>(x),
                 static_cast<const float*>(w), static_cast<float*>(o), M, N,
                 K, vec);
@@ -88,26 +105,18 @@ extern "C" int tl_grouped_gemm(const void* x, const void* w, void* o, int E,
 extern "C" int tl_varlen_grouped_gemm(const void* a, const void* b,
                                       const int* blk_exp, const int* blk_row,
                                       const int* group_end, void* c, int TB,
-                                      int N, int K, int trans_b, int bf16,
+                                      int N, int K, int trans_b, int type,
                                       void* stream) {
   const dim3 grid(TB, (N + BN - 1) / BN);
   const auto s = static_cast<cudaStream_t>(stream);
-  const int vec = vec_ok(a, b, K, N, trans_b != 0, bf16 ? 2 : 4);
+  const int vec = vec_ok(a, b, K, N, trans_b != 0, type == kF32 ? 4 : 2);
   float* out = static_cast<float*>(c);
-  if (bf16) {
-    const auto* pa = static_cast<const __nv_bfloat16*>(a);
-    const auto* pb = static_cast<const __nv_bfloat16*>(b);
-    return trans_b ? launch(varlen_grouped_gemm<__nv_bfloat16, true>, grid, s,
-                            pa, pb, blk_exp, blk_row, group_end, out, N, K,
-                            vec)
-                   : launch(varlen_grouped_gemm<__nv_bfloat16, false>, grid,
-                            s, pa, pb, blk_exp, blk_row, group_end, out, N, K,
-                            vec);
-  }
-  const auto* pa = static_cast<const float*>(a);
-  const auto* pb = static_cast<const float*>(b);
-  return trans_b ? launch(varlen_grouped_gemm<float, true>, grid, s, pa, pb,
-                          blk_exp, blk_row, group_end, out, N, K, vec)
-                 : launch(varlen_grouped_gemm<float, false>, grid, s, pa, pb,
-                          blk_exp, blk_row, group_end, out, N, K, vec);
+  if (type == kBF16)
+    return run_varlen<__nv_bfloat16>(a, b, blk_exp, blk_row, group_end, out,
+                                     N, K, trans_b, vec, grid, s);
+  if (type == kF16)
+    return run_varlen<__half>(a, b, blk_exp, blk_row, group_end, out, N, K,
+                              trans_b, vec, grid, s);
+  return run_varlen<float>(a, b, blk_exp, blk_row, group_end, out, N, K,
+                           trans_b, vec, grid, s);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel tilelang_mesh_tpu/ops/mla.py :: mla_decode_kernel.
 // Same contract:
-//   Qc  (B, H, DC)       float32 or bfloat16, contiguous
+//   Qc  (B, H, DC)       float32, bfloat16 or float16, contiguous
 //   Qr  (B, H, DR)       same type
 //   CKV (B, S, DC)       same type; DC contiguous, batch and row strides
 //   KPE (B, S, DR)       are arguments, so the serving path passes the two
@@ -12,9 +12,10 @@
 //   Lp  (B, ns, H)       float32 sum of exp2(score - Mp)
 // with score = (qc . ckv + qr . kpe) * sm_scale * log2(e) and split s
 // covering the keys [s*chunk, (s+1)*chunk), chunk = S / ns. The latent
-// is both key and value. In bfloat16, p is rounded to bfloat16 before
-// p * ckv (the TPU kernel's copy of S_f to an input-typed fragment); l
-// sums the unrounded p. No mask: every key of a split is live.
+// is both key and value. In bfloat16 and float16, p is rounded to the
+// input type before p * ckv (the TPU kernel's copy of S_f to an
+// input-typed fragment); l sums the unrounded p. No mask: every key of a
+// split is live.
 //
 // Bound: operations in float32 (2*(DC+DR) + 2*DC flops per key and head
 // against (DC+DR) * 4 bytes per key shared by all H heads: at H = 128
@@ -47,38 +48,40 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_kv_decode.cuh"
+
 namespace {
+
+using tl_splitkv::kBF16;
+using tl_splitkv::kF16;
+using tl_splitkv::kF32;
+using tl_splitkv::unpack;
 
 constexpr int kThreads = 256;
 constexpr int kG = 16;    // query heads per block
 constexpr int kT = 32;    // keys per tile
 constexpr unsigned kFull = 0xffffffffu;
 
-// 16 bytes -> float: 4 float32 or 8 bfloat16 (bf16 is the high half of
-// a float32, little-endian: element 0 is the low 16 bits of a word)
-template <bool BF16>
-__device__ __forceinline__ void unpack(const uint4& v, float* out) {
-  if constexpr (BF16) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-    out[0] = __uint_as_float(v.x);
-    out[1] = __uint_as_float(v.y);
-    out[2] = __uint_as_float(v.z);
-    out[3] = __uint_as_float(v.w);
-  }
-}
-
-template <bool BF16>
+// element i of an input of type code DT, as float
+template <int DT>
 __device__ __forceinline__ float load1(const void* p, long long i) {
-  if constexpr (BF16)
+  if constexpr (DT == kBF16)
     return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  else if constexpr (DT == kF16)
+    return __half2float(static_cast<const __half*>(p)[i]);
   else
     return static_cast<const float*>(p)[i];
+}
+
+// p as the TPU kernel keeps it in an input-typed fragment
+template <int DT>
+__device__ __forceinline__ float round_to(float p) {
+  if constexpr (DT == kBF16)
+    return __bfloat162float(__float2bfloat16_rn(p));
+  else if constexpr (DT == kF16)
+    return __half2float(__float2half_rn(p));
+  else
+    return p;
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
@@ -95,7 +98,7 @@ constexpr size_t smem_bytes() {
                           2 * kG * kT + 3 * kG);
 }
 
-template <int DC, int DR, bool BF16>
+template <int DC, int DR, int DT>
 __global__ void __launch_bounds__(kThreads, 2)
 mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
            const void* __restrict__ ckv, const void* __restrict__ kpe,
@@ -106,7 +109,7 @@ mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
   constexpr int DK = DC + DR;            // floats per staged row
   constexpr int NC1 = DK / 4;            // float4 columns of a staged row
   constexpr int NC2 = DC / 4;            // float4 columns of the latent
-  constexpr int VEC = BF16 ? 8 : 4;      // elements per 16-byte load
+  constexpr int VEC = DT == kF32 ? 4 : 8;   // elements per 16-byte load
   constexpr int NCC = DC / VEC, NCL = (DC + DR) / VEC;   // loads per row
   constexpr int LOADS = (kT * NCL + kThreads - 1) / kThreads;
   constexpr int BATCH = LOADS < 8 ? LOADS : 8;
@@ -135,8 +138,8 @@ mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
     const int h = hg * kG + i / DK, k = i % DK;
     float x = 0.f;
     if (h < H)
-      x = k < DC ? load1<BF16>(qc, ((long long)b * H + h) * DC + k)
-                 : load1<BF16>(qr, ((long long)b * H + h) * DR + k - DC);
+      x = k < DC ? load1<DT>(qc, ((long long)b * H + h) * DC + k)
+                 : load1<DT>(qr, ((long long)b * H + h) * DR + k - DC);
     s_q[i] = x;
   }
   if (tid < kG) {
@@ -187,7 +190,7 @@ mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
         if (i0 + i < LOADS && idx < kT * NCL) {
           const int r = idx / NCL, c = idx % NCL;
           float f[VEC];
-          unpack<BF16>(buf[i], f);
+          unpack<DT>(buf[i], f);
           float4* dst = reinterpret_cast<float4*>(s_kv + r * DK + c * VEC);
 #pragma unroll
           for (int v = 0; v < VEC / 4; ++v)
@@ -249,8 +252,7 @@ mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           ps += __shfl_xor_sync(kFull, ps, off);
-        s_p[lane * kG + h] =
-            BF16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+        s_p[lane * kG + h] = round_to<DT>(p);
         if (lane == 0) {
           const float alpha = exp2f(m_old - m_new);
           s_a[h] = alpha;
@@ -312,13 +314,13 @@ mla_decode(const void* __restrict__ qc, const void* __restrict__ qr,
   }
 }
 
-template <int DC, int DR, bool BF16>
+template <int DC, int DR, int DT>
 int launch(const void* qc, const void* qr, const void* ckv, const void* kpe,
            void* op, void* mp, void* lp, int B, int H, int n_split, int chunk,
            long long csb, long long csr, long long ksb, long long ksr,
            float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DC, DR>();
-  auto kernel = mla_decode<DC, DR, BF16>;
+  auto kernel = mla_decode<DC, DR, DT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -332,25 +334,37 @@ int launch(const void* qc, const void* qr, const void* ckv, const void* kpe,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Returns cudaErrorInvalidValue for a (DC, DR) pair without an instance;
+// Returns cudaErrorInvalidValue for a (DC, DR) pair or a type code `dt`
+// (split_kv_decode.cuh's) without an instance;
 // the Python wrapper checks shapes, strides and alignment before calling.
 // Strides are in elements.
 extern "C" int tl_mla_decode(const void* qc, const void* qr, const void* ckv,
                              const void* kpe, void* op, void* mp, void* lp,
                              int B, int H, int S, int DC, int DR, int n_split,
                              long long csb, long long csr, long long ksb,
-                             long long ksr, int bf16, float scale,
+                             long long ksr, int dt, float scale,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunk = S / n_split;
-#define TL_CASE(C, R)                                                        \
-  if (DC == C && DR == R)                                                    \
-    return bf16 ? launch<C, R, true>(qc, qr, ckv, kpe, op, mp, lp, B, H,     \
-                                     n_split, chunk, csb, csr, ksb, ksr,     \
-                                     scale, st)                              \
-                : launch<C, R, false>(qc, qr, ckv, kpe, op, mp, lp, B, H,    \
-                                      n_split, chunk, csb, csr, ksb, ksr,    \
-                                      scale, st);
+#define TL_CASE(C, R)                                                   \
+  if (DC == C && DR == R) {                                             \
+    switch (dt) {                                                       \
+      case kF32:                                                        \
+        return launch<C, R, kF32>(qc, qr, ckv, kpe, op, mp, lp, B, H,   \
+                                  n_split, chunk, csb, csr, ksb, ksr,   \
+                                  scale, st);                           \
+      case kBF16:                                                       \
+        return launch<C, R, kBF16>(qc, qr, ckv, kpe, op, mp, lp, B, H,  \
+                                   n_split, chunk, csb, csr, ksb, ksr,  \
+                                   scale, st);                          \
+      case kF16:                                                        \
+        return launch<C, R, kF16>(qc, qr, ckv, kpe, op, mp, lp, B, H,   \
+                                  n_split, chunk, csb, csr, ksb, ksr,   \
+                                  scale, st);                           \
+      default:                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+    }                                                                   \
+  }
   TL_CASE(512, 64)
   TL_CASE(256, 32)
   TL_CASE(32, 16)

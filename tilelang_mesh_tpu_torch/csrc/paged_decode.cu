@@ -52,11 +52,11 @@ struct PagedRows {
 extern "C" int tl_paged_decode(const void* q, const void* kp, const void* vp,
                                const void* tab, void* op, void* mp, void* lp,
                                int B, int H, int PP, int PS, int D,
-                               int n_split, long long rows, int bf16,
+                               int n_split, long long rows, int dt,
                                float scale, void* stream) {
   const int pps = PP / n_split;
   const PagedRows walk{static_cast<const int*>(tab), rows, PP, PS, pps, D};
   return tl_splitkv::launch(q, kp, vp, op, mp, lp, B, H, D, n_split,
-                            pps * PS, bf16 != 0, scale, walk,
+                            pps * PS, dt, scale, walk,
                             static_cast<cudaStream_t>(stream));
 }

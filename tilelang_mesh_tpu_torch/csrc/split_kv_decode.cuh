@@ -3,7 +3,8 @@
 // One block of kWarps warps per (h, split, b) computes the exp2-domain
 // partials of single-token attention over one split's rows:
 //   Q   (B, H, D)        float32 (the wrappers flatten (B, H, 1, D))
-//   K/V rows             float32 or bfloat16, D contiguous elements each
+//   K/V rows             float32, bfloat16 or float16 (the code DT, as
+//                        attention_common.cuh's), D contiguous elements
 //   Op  (B, ns, H, D)    float32 unnormalised sum of p * v
 //   Mp  (B, ns, H)       float32 running max of the scores, exp2 domain
 //   Lp  (B, ns, H)       float32 sum of exp2(score - Mp)
@@ -29,6 +30,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -38,17 +40,27 @@ namespace tl_splitkv {
 constexpr int kWarps = 4;
 constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
+// element type codes of K and V (ops/gemm.py's DTYPE_CODES)
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 3;
 
-// 16 bytes -> float: 4 float32 or 8 bfloat16 (bf16 is the high half of
-// a float32, little-endian: element 0 is the low 16 bits of a word)
-template <bool BF16>
+// 16 bytes -> float: 4 float32, or 8 bfloat16 or float16 (bf16 is the
+// high half of a float32; little-endian: element 0 is the low 16 bits
+// of a word)
+template <int DT>
 __device__ __forceinline__ void unpack(const uint4& v, float* out) {
-  if constexpr (BF16) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (DT == kBF16) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       out[2 * i] = __uint_as_float(w[i] << 16);
       out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else if constexpr (DT == kF16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __half2float(__ushort_as_half((unsigned short)w[i]));
+      out[2 * i + 1] =
+          __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
     }
   } else {
     out[0] = __uint_as_float(v.x);
@@ -64,13 +76,13 @@ __device__ __forceinline__ float merge_scale(float m, float mx) {
   return m == -INFINITY ? 0.f : exp2f(m - mx);
 }
 
-template <int D, bool BF16, class Rows>
+template <int D, int DT, class Rows>
 __global__ void __launch_bounds__(kWarps * 32)
 split_kv_decode(const float* __restrict__ q, const uint4* __restrict__ kp,
                 const uint4* __restrict__ vp, float* __restrict__ op,
                 float* __restrict__ mp, float* __restrict__ lp, int H,
                 int n_split, int n_rows, float scale, Rows rows) {
-  constexpr int VEC = BF16 ? 8 : 4;         // elements per 16-byte load
+  constexpr int VEC = DT == kF32 ? 4 : 8;   // elements per 16-byte load
   constexpr int CHUNKS = D / VEC;           // 16-byte chunks per row
   constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32;   // lanes per row
   constexpr int NCH = CHUNKS / LPR;         // chunks per lane per row
@@ -127,7 +139,7 @@ split_kv_decode(const float* __restrict__ q, const uint4* __restrict__ kp,
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           float kf[VEC];
-          unpack<BF16>(kr[u][c], kf);
+          unpack<DT>(kr[u][c], kf);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) dot = fmaf(qr[c][e], kf[e], dot);
         }
@@ -154,7 +166,7 @@ split_kv_decode(const float* __restrict__ q, const uint4* __restrict__ kp,
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         float vf[VEC];
-        unpack<BF16>(vr[u][c], vf);
+        unpack<DT>(vr[u][c], vf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[c][e] = fmaf(p, vf[e], acc[c][e]);
       }
@@ -218,26 +230,30 @@ split_kv_decode(const float* __restrict__ q, const uint4* __restrict__ kp,
 }
 
 // Launches the kernel over the grid (H, n_split, B) on `stream` for the
-// head_dim D (64, 128 or 256) and returns cudaGetLastError() (0 =
-// launched), or cudaErrorInvalidValue for a head_dim without an instance.
+// head_dim D (64, 128 or 256) and the K/V type code dt, and returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
+// head_dim or type without an instance.
 template <class Rows>
 int launch(const void* q, const void* kp, const void* vp, void* op, void* mp,
-           void* lp, int B, int H, int D, int n_split, int n_rows, bool bf16,
+           void* lp, int B, int H, int D, int n_split, int n_rows, int dt,
            float scale, Rows rows, cudaStream_t stream) {
   const dim3 grid(H, n_split, B);
-#define TL_CASE(DIM, BF)                                                    \
-  split_kv_decode<DIM, BF, Rows><<<grid, kWarps * 32, 0, stream>>>(         \
+#define TL_CASE(DIM, DT)                                                    \
+  split_kv_decode<DIM, DT, Rows><<<grid, kWarps * 32, 0, stream>>>(         \
       static_cast<const float*>(q), static_cast<const uint4*>(kp),          \
       static_cast<const uint4*>(vp), static_cast<float*>(op),               \
       static_cast<float*>(mp), static_cast<float*>(lp), H, n_split, n_rows, \
       scale, rows)
-  switch (D * 2 + (bf16 ? 1 : 0)) {
-    case 64 * 2: TL_CASE(64, false); break;
-    case 64 * 2 + 1: TL_CASE(64, true); break;
-    case 128 * 2: TL_CASE(128, false); break;
-    case 128 * 2 + 1: TL_CASE(128, true); break;
-    case 256 * 2: TL_CASE(256, false); break;
-    case 256 * 2 + 1: TL_CASE(256, true); break;
+  switch (D * 4 + dt) {
+    case 64 * 4 + kF32: TL_CASE(64, kF32); break;
+    case 64 * 4 + kBF16: TL_CASE(64, kBF16); break;
+    case 64 * 4 + kF16: TL_CASE(64, kF16); break;
+    case 128 * 4 + kF32: TL_CASE(128, kF32); break;
+    case 128 * 4 + kBF16: TL_CASE(128, kBF16); break;
+    case 128 * 4 + kF16: TL_CASE(128, kF16); break;
+    case 256 * 4 + kF32: TL_CASE(256, kF32); break;
+    case 256 * 4 + kBF16: TL_CASE(256, kBF16); break;
+    case 256 * 4 + kF16: TL_CASE(256, kF16); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

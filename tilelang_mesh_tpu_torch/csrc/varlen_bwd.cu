@@ -5,7 +5,7 @@
 //   varlen_bwd_dkdv_kernel (:192) -> tl_varlen_bwd_dkdv
 //   varlen_bwd_dq_kernel (:274)   -> tl_varlen_bwd_dq
 // Same contract:
-//   Q, dO (Hq, Tq, D); K, V (Hkv, Tk, D), float32 or bfloat16;
+//   Q, dO (Hq, Tq, D); K, V (Hkv, Tk, D), float32, bfloat16 or float16;
 //   L = lse2 = m + log2(l) and Delta = sum(dO * O, -1), (Hq, Tq) f32;
 //   SeqQ, PosQ (Tq,), SeqK, PosK (Tk,), BlockLive (Tq / bM, Tk / bN)
 //   int32; query head h reads KV head h / (Hq / Hkv);
@@ -79,10 +79,10 @@ struct Args {
   float scale2, sm_scale;
 };
 
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads)
 varlen_bwd_dkdv(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   constexpr int RN = KV_ROWS / kTy;  // keys per thread
   constexpr int CQ = KV_QT / kTx;    // queries per thread per step
   constexpr int CD = D / kTx;        // output columns per thread
@@ -109,9 +109,9 @@ varlen_bwd_dkdv(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   const int group = a.Hq / a.Hkv, Tq = a.Tq, Tk = a.Tk;
   const long long kv_off = (long long)hk * Tk * D;
 
-  load_tile<KV_ROWS, D, BF16>(Ks, static_cast<const T*>(a.k) + kv_off, k0,
+  load_tile<KV_ROWS, D, DT>(Ks, static_cast<const T*>(a.k) + kv_off, k0,
                               Tk);
-  load_tile<KV_ROWS, D, BF16>(Vs, static_cast<const T*>(a.v) + kv_off, k0,
+  load_tile<KV_ROWS, D, DT>(Vs, static_cast<const T*>(a.v) + kv_off, k0,
                               Tk);
   load_ids<KV_ROWS>(sk, a.seq_k, k0, Tk, -2);
   load_ids<KV_ROWS>(pk, a.pos_k, k0, Tk, 0);
@@ -136,8 +136,8 @@ varlen_bwd_dkdv(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
               a.live, nC, cells_of(q0, min(q0 + KV_QT, Tq), a.bM), cols, sk,
               pk, a.seq_q, a.pos_q, q0, Tq, -1, a.causal))
         continue;
-      load_tile<KV_QT, D, BF16>(Qs, q + hq * Tq * D, q0, Tq);
-      load_tile<KV_QT, D, BF16>(dOs, dout + hq * Tq * D, q0, Tq);
+      load_tile<KV_QT, D, DT>(Qs, q + hq * Tq * D, q0, Tq);
+      load_tile<KV_QT, D, DT>(dOs, dout + hq * Tq * D, q0, Tq);
       load_vec<KV_QT>(Ls, a.L + hq * Tq, q0, Tq);
       load_vec<KV_QT>(Ds, a.Delta + hq * Tq, q0, Tq);
       load_ids<KV_QT>(sq, a.seq_q, q0, Tq, -1);
@@ -181,8 +181,8 @@ varlen_bwd_dkdv(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
                               ? exp2f(st[r][c] * a.scale2 - Ls[ic])
                               : 0.f;
           const float ds = p * (dpt[r][c] - Ds[ic]) * a.sm_scale;
-          Pt[jr * LQ + ic] = Elem<BF16>::round(p);
-          dSt[jr * LQ + ic] = Elem<BF16>::round(ds);
+          Pt[jr * LQ + ic] = Elem<DT>::round(p);
+          dSt[jr * LQ + ic] = Elem<DT>::round(ds);
         }
       }
       __syncwarp();  // a key's P^T, dS^T row is written and read by its 8 lanes
@@ -227,10 +227,10 @@ varlen_bwd_dkdv(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
 // At least one block an SM is all the bound promises (shared memory
 // holds two at D = 128 anyway): without it ptxas fits this kernel in 128
 // registers and loses the dS loop's overlap of loads and FMAs.
-template <int D, bool BF16>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 varlen_bwd_dq(const Args a, float* __restrict__ dq) {
-  using T = typename Elem<BF16>::T;
+  using T = typename Elem<DT>::T;
   constexpr int RM = DQ_ROWS / kTy;  // query rows per thread
   constexpr int CN = DQ_KT / kTx;    // keys per thread per step
   constexpr int CD = D / kTx;        // output columns per thread
@@ -257,9 +257,9 @@ varlen_bwd_dq(const Args a, float* __restrict__ dq) {
   const T* kg = static_cast<const T*>(a.k) + kv_off;
   const T* vg = static_cast<const T*>(a.v) + kv_off;
 
-  load_tile<DQ_ROWS, D, BF16>(Qs, static_cast<const T*>(a.q) + hq * Tq * D,
+  load_tile<DQ_ROWS, D, DT>(Qs, static_cast<const T*>(a.q) + hq * Tq * D,
                               q0, Tq);
-  load_tile<DQ_ROWS, D, BF16>(
+  load_tile<DQ_ROWS, D, DT>(
       dOs, static_cast<const T*>(a.dout) + hq * Tq * D, q0, Tq);
   load_vec<DQ_ROWS>(Ls, a.L + hq * Tq, q0, Tq);
   load_vec<DQ_ROWS>(Ds, a.Delta + hq * Tq, q0, Tq);
@@ -284,8 +284,8 @@ varlen_bwd_dq(const Args a, float* __restrict__ dq) {
             a.live, nC, rows, cells_of(k0, min(k0 + DQ_KT, Tk), a.bN), sq, pq,
             a.seq_k, a.pos_k, k0, Tk, -2, a.causal))
       continue;
-    load_tile<DQ_KT, D, BF16>(Ks, kg, k0, Tk);
-    load_tile<DQ_KT, D, BF16>(Vs, vg, k0, Tk);
+    load_tile<DQ_KT, D, DT>(Ks, kg, k0, Tk);
+    load_tile<DQ_KT, D, DT>(Vs, vg, k0, Tk);
     load_ids<DQ_KT>(sk, a.seq_k, k0, Tk, -2);
     load_ids<DQ_KT>(pk, a.pos_k, k0, Tk, 0);
     __syncthreads();
@@ -326,7 +326,7 @@ varlen_bwd_dq(const Args a, float* __restrict__ dq) {
                             ? exp2f(s[r][c] * a.scale2 - Ls[ir])
                             : 0.f;
         const float ds = p * (dp[r][c] - Ds[ir]) * a.sm_scale;
-        dSs[ir * LP + jc] = Elem<BF16>::round(ds);
+        dSs[ir * LP + jc] = Elem<DT>::round(ds);
       }
     }
     __syncwarp();  // a row's dS is written and read by its 8 lanes
@@ -356,17 +356,17 @@ varlen_bwd_dq(const Args a, float* __restrict__ dq) {
   }
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run_dkdv(const Args& a, float* dk, float* dv, cudaStream_t st) {
   const dim3 grid((a.Tk + KV_ROWS - 1) / KV_ROWS, a.Hkv);
-  return launch(varlen_bwd_dkdv<D, BF16>, grid, dkdv_smem_bytes<D>(), st, a,
+  return launch(varlen_bwd_dkdv<D, DT>, grid, dkdv_smem_bytes<D>(), st, a,
                 dk, dv);
 }
 
-template <int D, bool BF16>
+template <int D, int DT>
 int run_dq(const Args& a, float* dq, cudaStream_t st) {
   const dim3 grid((a.Tq + DQ_ROWS - 1) / DQ_ROWS, a.Hq);
-  return launch(varlen_bwd_dq<D, BF16>, grid, dq_smem_bytes<D>(), st, a, dq);
+  return launch(varlen_bwd_dq<D, DT>, grid, dq_smem_bytes<D>(), st, a, dq);
 }
 
 #define TL_HEAD_DIMS(X) X(16) X(32) X(64) X(128)
@@ -388,7 +388,7 @@ extern "C" int tl_varlen_bwd_dkdv(
     const void* L, const void* Delta, const void* seq_q, const void* seq_k,
     const void* pos_q, const void* pos_k, const void* live, void* dk,
     void* dv, int Hq, int Hkv, int Tq, int Tk, int D, int block_M,
-    int block_N, int bf16, int causal, float scale2, float sm_scale,
+    int block_N, int dt, int causal, float scale2, float sm_scale,
     void* stream) {
   if (bad_args(Hq, Hkv, Tq, Tk, block_M, block_N))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -401,10 +401,11 @@ extern "C" int tl_varlen_bwd_dkdv(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-#define TL_CASE(DIM)                                   \
-  case DIM:                                            \
-    return bf16 ? run_dkdv<DIM, true>(a, dkf, dvf, st) \
-                : run_dkdv<DIM, false>(a, dkf, dvf, st);
+#define TL_CASE(DIM)                                                  \
+  case DIM:                                                           \
+    return with_elem(dt, [&](auto e) {                                \
+      return run_dkdv<DIM, decltype(e)::value>(a, dkf, dvf, st);      \
+    });
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:
@@ -417,7 +418,7 @@ extern "C" int tl_varlen_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* L, const void* Delta, const void* seq_q, const void* seq_k,
     const void* pos_q, const void* pos_k, const void* live, void* dq, int Hq,
-    int Hkv, int Tq, int Tk, int D, int block_M, int block_N, int bf16,
+    int Hkv, int Tq, int Tk, int D, int block_M, int block_N, int dt,
     int causal, float scale2, float sm_scale, void* stream) {
   if (bad_args(Hq, Hkv, Tq, Tk, block_M, block_N))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -429,10 +430,11 @@ extern "C" int tl_varlen_bwd_dq(
                block_N, causal, scale2, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dqf = static_cast<float*>(dq);
-#define TL_CASE(DIM)                           \
-  case DIM:                                    \
-    return bf16 ? run_dq<DIM, true>(a, dqf, st) \
-                : run_dq<DIM, false>(a, dqf, st);
+#define TL_CASE(DIM)                                                  \
+  case DIM:                                                           \
+    return with_elem(dt, [&](auto e) {                                \
+      return run_dq<DIM, decltype(e)::value>(a, dqf, st);             \
+    });
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:

@@ -57,6 +57,20 @@ __device__ __forceinline__ bool cells_live(const int* __restrict__ live,
   return false;
 }
 
+// Block-wide (one barrier): is a cell among rows r x columns c of the
+// (., nC) table live? Each thread reads a share of the cells. (The
+// block-sparse kernel's vote: every thread running cells_live into
+// __syncthreads_or decides the same, bit for bit, but ptxas then gave
+// its tile loop fewer registers and it ran slower on the card.)
+__device__ __forceinline__ bool any_live(const int* __restrict__ live,
+                                         int nC, Cells r, Cells c) {
+  const int w = c.a1 - c.a0 + 1, n = (r.a1 - r.a0 + 1) * w;
+  int hit = 0;
+  for (int idx = threadIdx.x; idx < n && !hit; idx += kThreads)
+    hit = live[(long long)(r.a0 + idx / w) * nC + c.a0 + idx % w] != 0;
+  return __syncthreads_or(hit) != 0;
+}
+
 // Block-wide (three barriers): the first and last index along one axis
 // of a live cell among rows r x columns c of the (., nC) table. COLS:
 // the column index (the forward and dQ, row by row), else the row index

@@ -14,6 +14,9 @@ from .blocksparse_attention import (blocksparse_attention,  # noqa: F401
 from .dequant_gemm import (dequant_gemm_kernel,  # noqa: F401
                            dequant_matmul, dequant_matmul_twopass,
                            quantize_w4_per_channel, w4a8_matmul)
+from .flash_attention import (flash_attention,  # noqa: F401
+                              flash_attention_partial, mha_fwd_kernel)
+from .flash_attention_bwd import flash_attention_bwd  # noqa: F401
 from .flash_attention_varlen import (flash_attention_varlen,  # noqa: F401
                                      varlen_bwd_dkdv_kernel,
                                      varlen_bwd_dq_kernel,
@@ -33,8 +36,9 @@ from .gemm_variants import (blocksparse_gemm_kernel,  # noqa: F401
                             blocksparse_matmul, gemv, gemv_kernel,
                             matmul_splitk, matmul_streamk, splitk_kernel,
                             streamk_kernel)
-from .grouped_gemm import (grouped_matmul,  # noqa: F401
-                           grouped_matmul_plain, varlen_grouped_matmul,
+from .grouped_gemm import (grouped_gemm_kernel,  # noqa: F401
+                           grouped_matmul, grouped_matmul_plain,
+                           varlen_grouped_matmul,
                            varlen_grouped_matmul_plain,
                            varlen_grouped_matmul_reference)
 from .linear_attention import (linear_attention,  # noqa: F401
@@ -44,22 +48,31 @@ from .linear_attention import (linear_attention,  # noqa: F401
 from .mamba2 import (mamba2_chunk_scan,  # noqa: F401
                      mamba2_chunk_scan_plain, mamba2_chunk_scan_torch,
                      mamba2_reference)
+from .minference import (vertical_slash_sparse_attention,  # noqa: F401
+                         vs_sparse, vs_sparse_kernel, vs_sparse_plain,
+                         vs_sparse_reference)
 from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
                   mla_decode_partials_plain, mla_decode_reference)
+from .nsa import (nsa_attention, nsa_attention_varlen,  # noqa: F401
+                  nsa_decode, nsa_decode_kernel, nsa_fwd_kernel,
+                  nsa_reference, nsa_varlen_fwd_kernel)
 from .quantize_act import (quantize_act_int8,  # noqa: F401
                            quantize_act_int8_plain)
 from .seer_attention import (seer_attention, seer_block_mask,  # noqa: F401
                              seer_reference)
 from .softmax import softmax, softmax_kernel, softmax_plain  # noqa: F401
 
-__all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
+__all__ = ["flash_attention", "flash_attention_partial", "mha_fwd_kernel",
+           "flash_attention_bwd", "decode_partials",
+           "decode_partials_plain", "flash_decode",
            "flash_decode_paged", "flash_decode_paged_pool",
            "pages_to_hmajor", "paged_decode_partials",
            "paged_decode_partials_plain", "mla_decode",
            "mla_decode_partials", "mla_decode_partials_plain",
            "mla_decode_reference", "grouped_matmul", "grouped_matmul_plain",
            "varlen_grouped_matmul", "varlen_grouped_matmul_plain",
-           "varlen_grouped_matmul_reference", "matmul", "matmul_kernel",
+           "varlen_grouped_matmul_reference", "grouped_gemm_kernel",
+           "matmul", "matmul_kernel",
            "matmul_splitk", "splitk_kernel", "matmul_streamk",
            "streamk_kernel", "gemv", "gemv_kernel", "blocksparse_matmul",
            "blocksparse_gemm_kernel",
@@ -82,4 +95,8 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "softmax_plain", "blocksparse_attention", "blocksparse_mha",
            "blocksparse_mha_kernel", "blocksparse_mha_plain",
            "blocksparse_reference", "seer_attention", "seer_block_mask",
-           "seer_reference"]
+           "seer_reference",
+           "vertical_slash_sparse_attention", "vs_sparse", "vs_sparse_kernel",
+           "vs_sparse_plain", "vs_sparse_reference", "nsa_attention",
+           "nsa_attention_varlen", "nsa_decode", "nsa_decode_kernel",
+           "nsa_fwd_kernel", "nsa_reference", "nsa_varlen_fwd_kernel"]

@@ -37,6 +37,8 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from .flash_attention import causal_mask, check_attention_args
+from ._factory import bind
+from .gemm import DTYPE_CODES, _as_dtype
 from .gqa import _expand_kv, gqa_fwd_partial
 
 __all__ = ["attention_sink", "attention_sink_reference", "sink_fwd",
@@ -122,7 +124,7 @@ def _launch(q, k, v, sinks, causal, window, sm_scale):
     fn.restype = ctypes.c_int
     code = stream_call(fn, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), sinks.data_ptr(), o.data_ptr(), B, Hq,
-                       Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
+                       Hkv, Sq, Sk, D, DTYPE_CODES[q.dtype],
                        int(bool(causal)), int(window),
                        float(sm_scale) * _LOG2E)
     if code != 0:
@@ -149,18 +151,12 @@ def sink_fwd_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
     tile sizes are the TPU's hints): ``fn(q, k, v, sinks) -> o``."""
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not fit {Hkv} KV heads")
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    want = ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))
-
-    def fn(q, k, v, sinks):
-        got = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
-        if got != want or q.dtype != dtype:
-            raise ValueError(f"kernel bound to {want} {dtype}, called with "
-                             f"{got} {q.dtype}")
-        return sink_fwd(q, k, v, sinks, bool(causal), int(window),
-                        float(sm_scale))
-
-    return fn
+    return bind("sink_fwd_kernel",
+                [((B, Hq, Sq, D), _as_dtype(dtype)), ((B, Hkv, Sk, D), None),
+                 ((B, Hkv, Sk, D), None), ((Hq,), None)],
+                lambda q, k, v, sinks: sink_fwd(q, k, v, sinks, bool(causal),
+                                                int(window),
+                                                float(sm_scale)))
 
 
 # ---------------------------------------------------------------------------

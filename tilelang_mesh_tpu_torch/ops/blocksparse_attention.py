@@ -25,6 +25,8 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from .flash_attention import _LOG2E, causal_mask, check_attention_args
+from ._factory import bind
+from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["blocksparse_attention", "blocksparse_reference",
            "blocksparse_mha", "blocksparse_mha_plain",
@@ -110,7 +112,7 @@ def _launch(q, k, v, block_mask, block_M, block_N, causal, sm_scale):
     code = stream_call(fn, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), mask.data_ptr(), o.data_ptr(), B, H, Sq,
                        Sk, D, block_M, block_N,
-                       int(q.dtype == torch.bfloat16), int(bool(causal)),
+                       DTYPE_CODES[q.dtype], int(bool(causal)),
                        float(sm_scale) * _LOG2E)
     if code != 0:
         raise KernelLaunchError("blocksparse_mha", code)
@@ -134,18 +136,13 @@ def blocksparse_mha_kernel(B, H, Sq, Sk, D, block_M, block_N, sm_scale,
                            dtype, num_stages=2, causal=False):
     """The kernel bound to one shape (the JAX factory's arguments):
     ``fn(q, k, v, block_mask) -> o``."""
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    want = ((B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D))
-
-    def fn(q, k, v, block_mask):
-        got = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
-        if got != want or q.dtype != dtype:
-            raise ValueError(f"kernel bound to {want} {dtype}, called with "
-                             f"{got} {q.dtype}")
-        return blocksparse_mha(q, k, v, block_mask, block_M, block_N,
-                               bool(causal), float(sm_scale))
-
-    return fn
+    return bind("blocksparse_mha_kernel",
+                [((B, H, Sq, D), _as_dtype(dtype)), ((B, H, Sk, D), None),
+                 ((B, H, Sk, D), None),
+                 ((B, H, Sq // block_M, Sk // block_N), None)],
+                lambda q, k, v, block_mask: blocksparse_mha(
+                    q, k, v, block_mask, block_M, block_N, bool(causal),
+                    float(sm_scale)))
 
 
 def blocksparse_attention(q, k, v, block_mask, sm_scale=None, block_M=128,

@@ -9,11 +9,11 @@ float32, the low half's G2 rows first. Three CUDA kernels
 ``csrc/gemm_tile.cuh``) replace the TPU's:
 
 * ``dequant_matmul`` — ``dequant_gemm_kernel``, fused w4a16: ``a (M,
-  K)`` float32 or bfloat16 times B unpacked in the kernel, each weight
+  K)`` float32, bfloat16 or float16 times B unpacked in the kernel, each weight
   ``(nibble - 8) * scale`` in float32 rounded to a's type, float32
   accumulation, returned in a's type.
 * ``dequant_int4`` — ``dequant_int4_kernel``: the unpacked ``B (K, N)``
-  in float32 or bfloat16, the same values. ``dequant_matmul_twopass``
+  in float32, bfloat16 or float16, the same values. ``dequant_matmul_twopass``
   runs it, then ``ops/gemm.py``'s ``matmul``.
 * ``w4a8_matmul`` — ``w4a8_gemm_kernel``: per-token int8 activations
   (``ops/bitnet.py::quantize_activations``) times the int4 weights with
@@ -45,16 +45,17 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from .bitnet import quantize_activations
-from .gemm import _as_dtype, check_grid, matmul
+from .gemm import DTYPE_CODES, _as_dtype, check_grid, matmul
+from ._factory import bind
 
 __all__ = ["dequant_matmul", "dequant_matmul_plain", "dequant_gemm_kernel",
            "dequant_int4", "dequant_int4_plain", "dequant_matmul_twopass",
            "w4a8_matmul", "w4a8_gemm", "w4a8_gemm_plain",
            "quantize_w4_per_channel", "pack_planar", "unpack_planar",
            "pack_reference", "repack_from_reference", "launches",
-           "reset_launches"]
+           "reset_launches", "dequant_int4_kernel", "w4a8_gemm_kernel"]
 
-_A_DTYPES = (torch.float32, torch.bfloat16)
+_A_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads these around each call to prove the path used the kernels)
@@ -129,7 +130,7 @@ def _dequant_int4_launch(packed, scales, gs, out_dtype):
     fn.restype = ctypes.c_int
     code = stream_call(fn, packed.device, packed.data_ptr(),
                        scales.data_ptr(), out.data_ptr(), K2, N, gs,
-                       int(out_dtype == torch.bfloat16))
+                       DTYPE_CODES[out_dtype])
     if code != 0:
         raise KernelLaunchError("dequant_int4", code)
     launches["dequant_int4"] += 1
@@ -139,11 +140,11 @@ def _dequant_int4_launch(packed, scales, gs, out_dtype):
 def dequant_int4(packed, scales, group_size: int,
                  out_dtype=torch.bfloat16) -> torch.Tensor:
     """packed (K2, N) uint8 planar + scales (2 K2 / group_size rows, N)
-    float32 -> B (2 K2, N) in float32 or bfloat16. CUDA tensors launch
-    the kernel; CPU tensors run the plain version."""
+    float32 -> B (2 K2, N) in float32, bfloat16 or float16. CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
     if out_dtype not in _A_DTYPES:
         raise TypeError(f"dequant_int4: output {out_dtype} is not ported "
-                        f"(float32 or bfloat16)")
+                        f"(float32, bfloat16 or float16)")
     _check_device(packed.device, "dequant_int4")
     scales = _on(scales, packed.device)
     _check_weights(packed, scales, "dequant_int4")
@@ -187,7 +188,7 @@ def _dequant_gemm_launch(a, packed, scales, gs):
     fn.restype = ctypes.c_int
     code = stream_call(fn, a.device, a.data_ptr(), packed.data_ptr(),
                        scales.data_ptr(), c.data_ptr(), M, N, K2, gs,
-                       int(a.dtype == torch.bfloat16))
+                       DTYPE_CODES[a.dtype])
     if code != 0:
         raise KernelLaunchError("dequant_gemm", code)
     launches["dequant_gemm"] += 1
@@ -198,7 +199,7 @@ def _dequant_gemm(a, packed, scales, gs):
     """a (M, K) @ unpack(packed, scales (2 G2, N)) at group size gs."""
     if a.dtype not in _A_DTYPES:
         raise TypeError(f"dequant_matmul: activations {a.dtype} are not "
-                        f"ported (float32 or bfloat16)")
+                        f"ported (float32, bfloat16 or float16)")
     _check_device(a.device, "dequant_matmul")
     if a.is_cuda:
         return _dequant_gemm_launch(a.contiguous(), packed.contiguous(),
@@ -208,7 +209,7 @@ def _dequant_gemm(a, packed, scales, gs):
 
 def dequant_matmul(a, packed, scales, group_size=None, block_M=128,
                    block_N=128, block_K2=128):
-    """a (M, K) float32 or bfloat16; packed (K/2, N) uint8 planar;
+    """a (M, K) float32, bfloat16 or float16; packed (K/2, N) uint8 planar;
     scales (2G, N) float32 -> (M, N) in a's type. The group size is
     ``min(block_K2, K/2)``, and ``group_size`` must agree with it (the
     JAX package's rule). CUDA tensors launch the kernel; CPU tensors run
@@ -293,7 +294,7 @@ def dequant_matmul_twopass(a, packed, scales, block_M=1024, block_N=1024,
             f"pass dq_block={gs}")
     if a.dtype not in _A_DTYPES:
         raise TypeError(f"dequant_matmul_twopass: activations {a.dtype} are"
-                        f" not ported (float32 or bfloat16)")
+                        f" not ported (float32, bfloat16 or float16)")
     bd = dequant_int4(packed, scales, gs, a.dtype)
     return matmul(a, bd)
 
@@ -449,3 +450,28 @@ def repack_from_reference(packed_ref):
     q[0::2] = even
     q[1::2] = odd
     return pack_planar(q)
+
+
+def dequant_int4_kernel(K2, N, block_K2=512, block_N=512,
+                        out_dtype="bfloat16"):
+    """The unpack bound to one shape (the JAX factory's arguments, group
+    size ``block_K2``): ``fn(Bp (K2, N) uint8, S (2, G2, N) float32) ->
+    Bd (2 K2, N)`` in ``out_dtype``."""
+    out_dt = _as_dtype(out_dtype)
+    G2 = K2 // block_K2
+    return bind("dequant_int4_kernel",
+                [((K2, N), torch.uint8), ((2, G2, N), torch.float32)],
+                lambda packed, scales: dequant_int4(
+                    packed, scales.reshape(2 * G2, N), block_K2, out_dt))
+
+
+def w4a8_gemm_kernel(M, N, K, block_M=128, block_N=128, block_K2=256,
+                     num_stages=2):
+    """The w4a8 kernel bound to one shape (the JAX factory's arguments):
+    ``fn(A (M, 2, K/2) int8, Bp (K/2, N) uint8, Sw (1, N), Sa (M, 1)
+    float32) -> C (M, N)`` float32."""
+    K2 = K // 2
+    return bind("w4a8_gemm_kernel",
+                [((M, 2, K2), torch.int8), ((K2, N), torch.uint8),
+                 ((1, N), torch.float32), ((M, 1), torch.float32)],
+                w4a8_gemm)

@@ -39,6 +39,8 @@ from typing import Optional
 import torch
 
 from ..resilience.errors import KernelLaunchError
+from ._factory import bind
+from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd",
            "mha_fwd_partial", "mha_fwd_plain", "mha_fwd_partial_plain",
@@ -49,7 +51,7 @@ _LOG2E = 1.44269504
 
 # head_dim values csrc/flash_attention.cu and csrc/gqa_bwd.cu instantiate
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads these around the model run to prove the path used the kernels)
@@ -76,7 +78,8 @@ def check_attention_args(q, k, v, *, group: bool = False) -> None:
     if (Hq % Hkv) if group else (Hq != Hkv):
         raise ValueError(f"{Hq} query heads do not fit {Hkv} KV heads")
     if q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES:
-        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+        raise TypeError(f"q, k, v must share float32, bfloat16 or float16, "
+                        f"got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
@@ -161,7 +164,7 @@ def launch_fwd(name, q, k, v, causal, sm_scale, partial):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   m.data_ptr() if partial else None,
                   l.data_ptr() if partial else None, B, H, Hkv, Sq, Sk, D,
-                  int(q.dtype == torch.bfloat16), int(bool(causal)),
+                  DTYPE_CODES[q.dtype], int(bool(causal)),
                   int(partial), float(sm_scale) * _LOG2E, stream)
     if code != 0:
         raise KernelLaunchError(name, code)
@@ -192,28 +195,27 @@ def mha_fwd_partial(q, k, v, causal: bool, sm_scale: float):
     return mha_fwd_partial_plain(q, k, v, causal, sm_scale)
 
 
-def flash_attention_partial(q, k, v, causal, sm_scale):
+def flash_attention_partial(q, k, v, causal, sm_scale, block_M=128,
+                            block_N=128, num_stages=2):
     """Unnormalised blockwise attention: ``(acc_f32, m, l)`` in the exp2
-    domain for cross-shard merging. The kernel picks its own tiles."""
+    domain for cross-shard merging. ``block_M``, ``block_N`` and
+    ``num_stages`` are the TPU's tile hints: the kernel picks its own
+    tiles."""
     return mha_fwd_partial(q, k, v, causal, sm_scale)
 
 
-def mha_fwd_kernel(B, H, Sq, Sk, D, causal=False, sm_scale=None,
-                   dtype=torch.bfloat16):
-    """The forward kernel bound to one shape (for benchmarking and
-    inspection): returns ``fn(q, k, v) -> o``."""
+def mha_fwd_kernel(B, H, Sq, Sk, D, block_M=128, block_N=128, causal=False,
+                   sm_scale=None, dtype="bfloat16", num_stages=2):
+    """The forward kernel bound to one shape and type (the JAX factory's
+    arguments, for benchmarking and inspection): returns ``fn(q, k, v) ->
+    o``. ``dtype`` is a torch dtype or its name; the tile hints are
+    accepted and the kernel picks its own tiles."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    want = ((B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D))
-
-    def fn(q, k, v):
-        got = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
-        if got != want or q.dtype != dtype:
-            raise ValueError(f"kernel bound to {want} {dtype}, called with "
-                             f"{got} {q.dtype}")
-        return mha_fwd(q, k, v, causal, sm_scale)
-
-    return fn
+    return bind("mha_fwd_kernel", [((B, H, Sq, D), _as_dtype(dtype)),
+                                   ((B, H, Sk, D), None),
+                                   ((B, H, Sk, D), None)],
+                lambda q, k, v: mha_fwd(q, k, v, causal, sm_scale))
 
 
 # ---------------------------------------------------------------------------
@@ -311,14 +313,17 @@ def _reference_attention(q, k, v, causal: bool, sm_scale: float):
 
 
 def flash_attention(q, k, v, causal: bool = False,
-                    sm_scale: Optional[float] = None,
+                    sm_scale: Optional[float] = None, block_M: int = 128,
+                    block_N: int = 128, num_stages: int = 2,
                     backward: str = "kernel") -> torch.Tensor:
     """Differentiable multi-head attention on the kernels.
 
     When autograd needs a gradient of q, k or v, ``backward="kernel"``
     (the default) runs the partial kernel forward and the dK/dV and dQ
     kernels backward; ``backward="reference"`` differentiates the dense
-    reference. Otherwise the forward kernel runs alone.
+    reference. Otherwise the forward kernel runs alone. ``block_M``,
+    ``block_N`` and ``num_stages`` are the TPU's tile hints (the JAX
+    signature); the kernels pick their own tiles.
     """
     return differentiable(q, k, v, causal, sm_scale, backward, mha_fwd,
                           mha_fwd_partial, _reference_attention)

@@ -52,6 +52,8 @@ import torch.nn.functional as F
 from ..resilience.errors import KernelLaunchError
 from .flash_attention import (_DTYPES, _LOG2E, KERNEL_HEAD_DIMS, _prescale_q,
                               differentiable)
+from ._factory import bind
+from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["flash_attention_varlen", "pack_varlen", "varlen_fwd", "varlen_fwd_partial",
            "varlen_bwd_dkdv", "varlen_bwd_dq", "varlen_fwd_plain",
@@ -161,8 +163,8 @@ def _check(q, k, v, seq_q, seq_k, pos_q, pos_k, block_live, extra=()):
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     if q.dtype != k.dtype or k.dtype != v.dtype or q.dtype not in _DTYPES:
-        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"q, k, v must share float32, bfloat16 or float16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, t, n in (("seq_q", seq_q, Tq), ("seq_k", seq_k, Tk),
                        ("pos_q", pos_q, Tq), ("pos_k", pos_k, Tk)):
         if t.shape != (n,) or t.dtype != torch.int32:
@@ -350,7 +352,7 @@ def _launch_fwd(name, q, k, v, masks, blocks, causal, sm_scale, partial):
         o, m, l = torch.empty_like(q), None, None
     _call("flash_attention_varlen", "tl_varlen_fwd", name,
           (q, k, v, *masks, o, m, l),
-          (Hq, Hkv, Tq, Tk, D, *blocks, int(q.dtype == torch.bfloat16),
+          (Hq, Hkv, Tq, Tk, D, *blocks, DTYPE_CODES[q.dtype],
            int(bool(causal)), int(partial)),
           (float(sm_scale) * _LOG2E,), q.device)
     return (o, m, l) if partial else o
@@ -388,7 +390,7 @@ def _launch_bwd(name, q, k, v, do, lse2, delta, masks, blocks, outs, causal,
     Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[:2]
     _call("varlen_bwd", f"tl_{name}", name, (*ins, *outs),
-          (Hq, Hkv, Tq, Tk, D, *blocks, int(q.dtype == torch.bfloat16),
+          (Hq, Hkv, Tq, Tk, D, *blocks, DTYPE_CODES[q.dtype],
            int(bool(causal))), (float(sm_scale) * _LOG2E, float(sm_scale)),
           q.device)
 
@@ -429,19 +431,11 @@ def varlen_bwd_dq(q, k, v, do, lse2, delta, seq_q, seq_k, pos_q, pos_k,
 # ---------------------------------------------------------------------------
 
 
-def _bind(op, want, dtype):
+def _bind(name, op, want, dtype):
     """``op`` behind a check that its operands have the bound shapes and
-    type."""
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-
-    def fn(*operands):
-        got = tuple(tuple(t.shape) for t in operands)
-        if got != want or operands[0].dtype != dtype:
-            raise ValueError(f"kernel bound to {want} {dtype}, called with "
-                             f"{got} {operands[0].dtype}")
-        return op(*operands)
-
-    return fn
+    q the bound type."""
+    return bind(name, [(want[0], _as_dtype(dtype))]
+                + [(w, None) for w in want[1:]], op)
 
 
 def _shapes(Hq, Hkv, Tq, Tk, D, block_M, block_N):
@@ -462,7 +456,8 @@ def varlen_fwd_kernel(Hq, Hkv, Tq, Tk, D, block_M, block_N, causal,
     want = ((Hq, Tq, D), (Hkv, Tk, D), (Hkv, Tk, D),
             *_shapes(Hq, Hkv, Tq, Tk, D, block_M, block_N))
     op = varlen_fwd_partial if return_partials else varlen_fwd
-    return _bind(lambda *a: op(*a, bool(causal), float(sm_scale)), want,
+    return _bind("varlen_fwd_kernel",
+                 lambda *a: op(*a, bool(causal), float(sm_scale)), want,
                  dtype)
 
 
@@ -473,7 +468,8 @@ def varlen_bwd_dkdv_kernel(Hq, Hkv, Tq, Tk, D, block_M, block_N, causal,
     D)."""
     want = ((Hq, Tq, D), (Hkv, Tk, D), (Hkv, Tk, D), (Hq, Tq, D), (Hq, Tq),
             (Hq, Tq), *_shapes(Hq, Hkv, Tq, Tk, D, block_M, block_N))
-    return _bind(lambda *a: varlen_bwd_dkdv(*a, bool(causal),
+    return _bind("varlen_bwd_dkdv_kernel",
+                 lambda *a: varlen_bwd_dkdv(*a, bool(causal),
                                             float(sm_scale)), want, dtype)
 
 
@@ -483,7 +479,8 @@ def varlen_bwd_dq_kernel(Hq, Hkv, Tq, Tk, D, block_M, block_N, causal,
     SeqQ, SeqK, PosQ, PosK, BlockLive) -> dQ`` float32 (Hq, Tq, D)."""
     want = ((Hq, Tq, D), (Hkv, Tk, D), (Hkv, Tk, D), (Hq, Tq, D), (Hq, Tq),
             (Hq, Tq), *_shapes(Hq, Hkv, Tq, Tk, D, block_M, block_N))
-    return _bind(lambda *a: varlen_bwd_dq(*a, bool(causal),
+    return _bind("varlen_bwd_dq_kernel",
+                 lambda *a: varlen_bwd_dq(*a, bool(causal),
                                           float(sm_scale)), want, dtype)
 
 

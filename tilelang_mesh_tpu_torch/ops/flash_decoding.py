@@ -30,13 +30,19 @@ import math
 import torch
 
 from ..resilience.errors import KernelLaunchError
+from .gemm import DTYPE_CODES
+from ._factory import bind
+from .gemm import _as_dtype
+
+# K / V types the decode kernels take
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "flash_decode_paged", "pages_to_hmajor", "clamp_splits",
            "merge_splits",
            "paged_decode_partials", "paged_decode_partials_plain",
            "flash_decode_paged_pool", "launches", "reset_launches",
-           "KERNEL_HEAD_DIMS"]
+           "KERNEL_HEAD_DIMS", "decode_kernel", "paged_decode_kernel"]
 
 _LOG2E = 1.44269504
 
@@ -90,9 +96,8 @@ def _check(q, kp, vp, page_table, page_size, n_split):
             or kp.shape[2] != D:
         raise ValueError(f"pools must be (H={H}, rows, D={D}), got "
                          f"{tuple(kp.shape)} / {tuple(vp.shape)}")
-    if kp.dtype != vp.dtype or kp.dtype not in (torch.float32,
-                                                torch.bfloat16):
-        raise TypeError(f"pools must share float32 or bfloat16, got "
+    if kp.dtype != vp.dtype or kp.dtype not in _DTYPES:
+        raise TypeError(f"pools must share float32, bfloat16 or float16, got "
                         f"{kp.dtype} / {vp.dtype}")
     if page_table.dim() != 2 or page_table.shape[0] != B:
         raise ValueError(f"page_table must be (B={B}, PP), got "
@@ -140,7 +145,7 @@ def _launch(q, kp, vp, page_table, page_size, n_split, sm_scale):
         code = fn(qf.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                   tab.data_ptr(), op.data_ptr(), mp.data_ptr(),
                   lp.data_ptr(), B, H, PP, int(page_size), D, n_split,
-                  kp.shape[1], int(kp.dtype == torch.bfloat16),
+                  kp.shape[1], DTYPE_CODES[kp.dtype],
                   float(sm_scale) * _LOG2E, stream)
     if code != 0:
         raise KernelLaunchError("paged_decode", code, site="serve.step")
@@ -242,8 +247,8 @@ def _check_contiguous(q, k, v, n_split):
             or k.shape[3] != D or k.shape[2] < 1:
         raise ValueError(f"k, v must be (B={B}, H={H}, S, D={D}), got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if k.dtype != v.dtype or k.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"k, v must share float32 or bfloat16, got "
+    if k.dtype != v.dtype or k.dtype not in _DTYPES:
+        raise TypeError(f"k, v must share float32, bfloat16 or float16, got "
                         f"{k.dtype} / {v.dtype}")
     S = k.shape[2]
     if n_split < 1 or S % n_split:
@@ -283,7 +288,7 @@ def _launch_contiguous(q, k, v, n_split, sm_scale):
         code = fn(qf.data_ptr(), k.data_ptr(), v.data_ptr(), op.data_ptr(),
                   mp.data_ptr(), lp.data_ptr(), B, H, S, D, n_split,
                   k.stride(0), k.stride(1), k.stride(2),
-                  int(k.dtype == torch.bfloat16), float(sm_scale) * _LOG2E,
+                  DTYPE_CODES[k.dtype], float(sm_scale) * _LOG2E,
                   stream)
     if code != 0:
         raise KernelLaunchError("decode", code)
@@ -337,3 +342,30 @@ def flash_decode_paged(q, kv_pages, v_pages, page_table, sm_scale=None,
     v = v_pages[idx].reshape(B, S, H, D).transpose(1, 2)
     return flash_decode(q, k, v, sm_scale=sm_scale, block_N=block_N,
                         n_split=n_split)
+
+
+def decode_kernel(B, H, S, D, n_split, block_N, sm_scale, dtype,
+                  num_stages=2):
+    """The contiguous split-KV kernel bound to one shape (the JAX
+    factory's arguments): ``fn(q (B, H, 1, D), k, v (B, H, S, D)) ->
+    (op (B, ns, H, D), mp, lp (B, ns, H, 1))`` float32 partials."""
+    dt = _as_dtype(dtype)
+    return bind("decode_kernel", [((B, H, 1, D), dt), ((B, H, S, D), dt),
+                                  ((B, H, S, D), dt)],
+                lambda q, k, v: decode_partials(q, k, v, n_split, sm_scale))
+
+
+def paged_decode_kernel(B, H, PP, PS, D, n_split, rows, sm_scale, dtype):
+    """The page-walking kernel bound to one shape (the JAX factory's
+    arguments): ``fn(q (B, H, 1, D), kp, vp (H, rows, D), tab (B, PP)
+    int32) -> (op (B, ns, H, D), mp, lp (B, ns, H, 1))`` float32
+    partials. The table may be a numpy array."""
+    dt = _as_dtype(dtype)
+
+    def op(q, kp, vp, tab):
+        tab = torch.as_tensor(tab, dtype=torch.int32, device=kp.device)
+        return paged_decode_partials(q, kp, vp, tab, PS, n_split, sm_scale)
+
+    return bind("paged_decode_kernel",
+                [((B, H, 1, D), dt), ((H, rows, D), dt), ((H, rows, D), dt),
+                 ((B, PP), None)], op)

@@ -36,10 +36,13 @@ from typing import Optional
 import torch
 
 from . import _seqmix as sm
+from ._factory import bind
+from .gemm import _as_dtype
 
 __all__ = ["gdn_chunk_fwd_tl", "gdn_chunk_fwd_tl_plain", "gdn_chunk_fwd",
            "gdn_chunk_cumsum", "gdn_scaled_dot_kkt", "gdn_wy_fast",
-           "gdn_reference", "launches", "reset_launches"]
+           "gdn_reference", "launches", "reset_launches",
+           "gdn_chunk_fwd_kernel"]
 
 launches = {"gdn_chunk_fwd": 0}
 
@@ -263,3 +266,15 @@ def gdn_reference(q, k, v, g, beta, scale: Optional[float] = None,
     if output_final_state:
         return out, h
     return out
+
+
+def gdn_chunk_fwd_kernel(B, H, Tt, K, V, chunk, scale, dtype="float32"):
+    """The GDN kernel bound to one shape (the JAX factory's arguments):
+    ``fn(q, k (B, H, T, K), v (B, H, T, V), g, beta (B, H, T) float32)
+    -> o (B, H, T, V)``."""
+    dt = _as_dtype(dtype)
+    return bind("gdn_chunk_fwd_kernel",
+                [((B, H, Tt, K), dt), ((B, H, Tt, K), dt), ((B, H, Tt, V), dt),
+                 ((B, H, Tt), torch.float32), ((B, H, Tt), torch.float32)],
+                lambda q, k, v, g, beta: gdn_chunk_fwd_tl(
+                    q, k, v, g, beta, int(chunk), float(scale)))

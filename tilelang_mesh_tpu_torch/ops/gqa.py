@@ -29,9 +29,11 @@ from typing import Optional
 
 import torch
 
+from ._factory import bind
 from .flash_attention import (_reference_attention, check_attention_args,
                               differentiable, launch_fwd,
                               mha_fwd_partial_plain, mha_fwd_plain)
+from .gemm import _as_dtype
 
 __all__ = ["gqa_attention", "gqa_fwd", "gqa_fwd_partial", "gqa_fwd_plain",
            "gqa_fwd_partial_plain", "gqa_fwd_kernel",
@@ -113,17 +115,10 @@ def _bound(op, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale, dtype):
     picks its own."""
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not fit {Hkv} KV heads")
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    want = ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))
-
-    def fn(q, k, v):
-        got = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
-        if got != want or q.dtype != dtype:
-            raise ValueError(f"kernel bound to {want} {dtype}, called with "
-                             f"{got} {q.dtype}")
-        return op(q, k, v, bool(causal), float(sm_scale))
-
-    return fn
+    return bind(op.__name__ + "_kernel",
+                [((B, Hq, Sq, D), _as_dtype(dtype)), ((B, Hkv, Sk, D), None),
+                 ((B, Hkv, Sk, D), None)],
+                lambda q, k, v: op(q, k, v, bool(causal), float(sm_scale)))
 
 
 def gqa_fwd_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,

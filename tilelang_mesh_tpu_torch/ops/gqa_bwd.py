@@ -28,10 +28,12 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from .flash_attention import _LOG2E, causal_mask, check_attention_args
+from ._factory import bind
+from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["gqa_attention_bwd", "gqa_bwd_dkdv", "gqa_bwd_dq",
            "gqa_bwd_dkdv_plain", "gqa_bwd_dq_plain", "launches",
-           "reset_launches"]
+           "reset_launches", "gqa_bwd_dkdv_kernel", "gqa_bwd_dq_kernel"]
 
 # kernel name -> launches through its wrapper
 launches = {"gqa_bwd_dkdv": 0, "gqa_bwd_dq": 0}
@@ -122,7 +124,7 @@ def _launch(name, q, k, v, do, lse2, delta, outs, causal, sm_scale):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(*(t.data_ptr() for t in args),
                   *(t.data_ptr() for t in outs), B, Hq, Hkv, Sq, Sk, D,
-                  int(q.dtype == torch.bfloat16), int(bool(causal)),
+                  DTYPE_CODES[q.dtype], int(bool(causal)),
                   float(sm_scale) * _LOG2E, float(sm_scale), stream)
     if code != 0:
         raise KernelLaunchError(name, code)
@@ -153,13 +155,41 @@ def gqa_bwd_dq(q, k, v, do, lse2, delta, causal, sm_scale):
     return dq
 
 
-def gqa_attention_bwd(q, k, v, o, lse2, g, causal, sm_scale, delta=None):
+def gqa_attention_bwd(q, k, v, o, lse2, g, causal, sm_scale, block_M=128,
+                      block_N=128, delta=None):
     """``(dq, dk, dv)`` in the input types, from the forward's output
     ``o`` and ``lse2 = m + log2(l)`` (exp2 domain) and the incoming
     gradient ``g``. ``delta`` (= sum(g * o, -1), float32) may be passed
-    by callers that already computed it."""
+    by callers that already computed it. ``block_M`` and ``block_N`` are
+    the TPU's tile hints (the JAX signature); the kernels pick their
+    own tiles."""
     if delta is None:
         delta = (g.float() * o.float()).sum(dim=-1)
     dk, dv = gqa_bwd_dkdv(q, k, v, g, lse2, delta, causal, sm_scale)
     dq = gqa_bwd_dq(q, k, v, g, lse2, delta, causal, sm_scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_specs(B, Hq, Hkv, Sq, Sk, D, dtype):
+    dt = _as_dtype(dtype)
+    return [((B, Hq, Sq, D), dt), ((B, Hkv, Sk, D), dt),
+            ((B, Hkv, Sk, D), dt), ((B, Hq, Sq, D), dt),
+            ((B, Hq, Sq), torch.float32), ((B, Hq, Sq), torch.float32)]
+
+
+def gqa_bwd_dkdv_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
+                        sm_scale, dtype, num_stages=2):
+    """The dK/dV kernel bound to one shape (the JAX factory's arguments):
+    ``fn(q, k, v, do, lse2, delta) -> (dk, dv)`` float32."""
+    return bind("gqa_bwd_dkdv_kernel",
+                _bwd_specs(B, Hq, Hkv, Sq, Sk, D, dtype),
+                lambda *a: gqa_bwd_dkdv(*a, bool(causal), float(sm_scale)))
+
+
+def gqa_bwd_dq_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
+                      sm_scale, dtype, num_stages=2):
+    """The dQ kernel bound to one shape (the JAX factory's arguments):
+    ``fn(q, k, v, do, lse2, delta) -> dq`` float32."""
+    return bind("gqa_bwd_dq_kernel",
+                _bwd_specs(B, Hq, Hkv, Sq, Sk, D, dtype),
+                lambda *a: gqa_bwd_dq(*a, bool(causal), float(sm_scale)))

@@ -33,12 +33,16 @@ import numpy as np
 import torch
 
 from ..resilience.errors import KernelLaunchError
+from .gemm import DTYPE_CODES
+from ._factory import bind
+from .gemm import _as_dtype
 
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "varlen_grouped_matmul",
            "varlen_grouped_matmul_plain", "varlen_grouped_matmul_reference",
-           "launches", "reset_launches", "KERNEL_BLOCK_M"]
+           "launches", "reset_launches", "KERNEL_BLOCK_M",
+           "grouped_gemm_kernel", "varlen_grouped_gemm_kernel"]
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # rows of the kernels' block tile (csrc/gemm_tile.cuh BM); the
 # token-sorted tables are built with it
 KERNEL_BLOCK_M = 128
@@ -57,8 +61,8 @@ def reset_launches() -> None:
 
 def _check_operands(a, b, what: str) -> None:
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
-        raise TypeError(f"{what}: operands must share float32 or bfloat16, "
-                        f"got {a.dtype}, {b.dtype}")
+        raise TypeError(f"{what}: operands must share float32, bfloat16 or "
+                        f"float16, got {a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"{what}: operands must share a device, got "
                          f"{a.device}, {b.device}")
@@ -95,7 +99,7 @@ def _grouped_launch(x, w):
     fn.restype = ctypes.c_int
     code = stream_call(fn, x.device, x.data_ptr(), w.data_ptr(),
                         out.data_ptr(), E, M, N, K,
-                        int(x.dtype == torch.bfloat16))
+                        DTYPE_CODES[x.dtype])
     if code != 0:
         raise KernelLaunchError("grouped_gemm", code)
     launches["grouped_gemm"] += 1
@@ -184,7 +188,7 @@ def _varlen_launch(a, b, sizes, trans_b):
     base = tables.data_ptr()
     code = stream_call(fn, a.device, a.data_ptr(), b.data_ptr(), base,
                         base + 4 * TB, base + 8 * TB, out.data_ptr(), TB, N,
-                        K, int(bool(trans_b)), int(a.dtype == torch.bfloat16))
+                        K, int(bool(trans_b)), DTYPE_CODES[a.dtype])
     if code != 0:
         raise KernelLaunchError("varlen_grouped_gemm", code)
     launches["varlen_grouped_gemm"] += 1
@@ -214,3 +218,46 @@ def varlen_grouped_matmul(a, b, sizes, block_M=128, block_N=128,
     if a.is_cuda:
         return _varlen_launch(a, b, sizes, trans_b)
     return varlen_grouped_matmul_plain(a, b, sizes, trans_b)
+
+
+def grouped_gemm_kernel(E, M, N, K, block_M=128, block_N=128, block_K=128,
+                        in_dtype="bfloat16", accum_dtype="float32",
+                        out_dtype=None, num_stages=2):
+    """The dense kernel bound to one shape (the JAX factory's arguments):
+    ``fn(x (E, M, K), w (E, K, N)) -> (E, M, N)`` in the input type, with
+    float32 accumulation (the only pair the kernel stores)."""
+    in_dt = _as_dtype(in_dtype)
+    if _as_dtype(out_dtype or in_dtype) != in_dt \
+            or _as_dtype(accum_dtype) != torch.float32:
+        raise TypeError(f"grouped_gemm_kernel: {in_dtype} -> {out_dtype} "
+                        f"with a {accum_dtype} accumulator is not ported "
+                        f"(the output is the input type, float32 sums)")
+    return bind("grouped_gemm_kernel", [((E, M, K), in_dt),
+                                        ((E, K, N), in_dt)], grouped_matmul)
+
+
+def varlen_grouped_gemm_kernel(rows_pad, TB, E, K, N, block_M, block_N,
+                               block_K, in_dtype, trans_b=False):
+    """The token-sorted kernel bound to one shape (the JAX factory's
+    arguments): ``fn(a (rows_pad, K), b, blk_exp (TB,), blk_row (TB,))
+    -> c (TB * block_M, N)`` float32, block i of ``c`` being the
+    ``block_M`` rows of ``a`` from ``blk_row[i]`` times expert
+    ``blk_exp[i]`` of b ((E, K, N), or (E, N, K) with ``trans_b``), all
+    of them, as the JAX kernel writes its block-padded output. The
+    tables may be numpy arrays."""
+    in_dt = _as_dtype(in_dtype)
+    b_shape = (E, N, K) if trans_b else (E, K, N)
+
+    def op(a, b, blk_exp, blk_row):
+        exp = torch.as_tensor(np.asarray(blk_exp), device=a.device).long()
+        row = torch.as_tensor(np.asarray(blk_row), device=a.device).long()
+        if TB and int(row.max()) + block_M > rows_pad:
+            raise ValueError(f"varlen_grouped_gemm_kernel: a block reads "
+                             f"past the {rows_pad} rows of a")
+        rows = row[:, None] + torch.arange(block_M, device=a.device)
+        return varlen_grouped_matmul(a[rows.reshape(-1)], b[exp],
+                                     [block_M] * TB, trans_b=trans_b)
+
+    return bind("varlen_grouped_gemm_kernel",
+                [((rows_pad, K), in_dt), (b_shape, in_dt), ((TB,), None),
+                 ((TB,), None)], op)

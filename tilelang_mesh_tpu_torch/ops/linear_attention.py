@@ -41,10 +41,13 @@ import torch
 
 from . import _seqmix as sm
 from ._seqmix import norm_chunk as _norm_chunk
+from ._factory import bind
+from .gemm import _as_dtype
 
 __all__ = ["linear_attention", "linear_attention_plain",
-           "linear_attention_grads_plain", "linear_attention_reference", "retention", "retention_plain",
-           "retention_reference", "launches", "reset_launches"]
+           "linear_attention_grads_plain", "linear_attention_reference",
+           "retention", "retention_plain", "retention_reference", "launches",
+           "reset_launches", "linear_attention_kernel", "retention_kernel"]
 
 launches = {"linear_attention": 0, "retention": 0}
 
@@ -242,3 +245,35 @@ def retention_reference(q, k, v, gamma) -> torch.Tensor:
     g = torch.as_tensor(gamma, dtype=f32).to(q.device)[:, None, None]
     decay = torch.where(n >= 0, g ** n, 0.0)
     return ((s * decay) @ v.to(f32)).to(q.dtype)
+
+
+def _chunked(name, B, H, S, DK, DV, chunk, dtype, extra=()):
+    if S % chunk:
+        raise ValueError(f"{name}: chunk={chunk} does not divide S={S}")
+    dt = _as_dtype(dtype)
+    return [((B, H, S, DK), dt), ((B, H, S, DK), dt),
+            ((B, H, S, DV), dt), *extra]
+
+
+def linear_attention_kernel(B, H, S, DK, DV, chunk, dtype="float32",
+                            accum_dtype="float32"):
+    """The forward kernel bound to one shape (the JAX factory's
+    arguments): ``fn(q, k (B, H, S, DK), v (B, H, S, DV)) -> o``."""
+    if _as_dtype(accum_dtype) != torch.float32:
+        raise TypeError(f"linear_attention_kernel: a {accum_dtype} "
+                        f"accumulator is not ported (float32)")
+    return bind("linear_attention_kernel",
+                _chunked("linear_attention_kernel", B, H, S, DK, DV, chunk,
+                         dtype),
+                lambda q, k, v: _la(q, k, v, int(chunk)))
+
+
+def retention_kernel(B, H, S, DK, DV, chunk, dtype="float32"):
+    """The retention kernel bound to one shape (the JAX factory's
+    arguments): ``fn(q, k, v, gamma (H,)) -> o``; gamma may be a numpy
+    array."""
+    return bind("retention_kernel",
+                _chunked("retention_kernel", B, H, S, DK, DV, chunk, dtype,
+                         [((H,), None)]),
+                lambda q, k, v, gamma: retention(q, k, v, gamma,
+                                                 int(chunk)))

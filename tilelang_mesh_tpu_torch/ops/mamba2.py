@@ -29,10 +29,13 @@ import torch
 
 from . import _seqmix as sm
 from ._seqmix import norm_chunk as _norm_chunk
+from ._factory import bind
+from .gemm import _as_dtype
 
 __all__ = ["mamba2_chunk_scan", "mamba2_chunk_scan_plain",
            "mamba2_chunk_scan_torch", "mamba2_reference", "launches",
-           "reset_launches"]
+           "reset_launches", "mamba2_chunk_scan_kernel",
+           "mamba2_chunk_scan_xla"]
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads it around the main path's calls)
@@ -187,3 +190,23 @@ def mamba2_reference(x, dt, A, Bm, Cm) -> torch.Tensor:
         h = h * decay[..., None, None] + inject
         ys[:, t] = torch.einsum("bn,bhnp->bhp", cf[:, t], h)
     return ys.to(x.dtype)
+
+
+# the JAX package's name of the eager chunk-parallel baseline
+mamba2_chunk_scan_xla = mamba2_chunk_scan_torch
+
+
+def mamba2_chunk_scan_kernel(B, S, H, P, N, chunk, dtype="float32"):
+    """The SSD kernel bound to one shape (the JAX factory's arguments and
+    its head-major layout): ``fn(x (B, H, S, P), dt (B, H, S) float32,
+    A (H,) float32, Bm, Cm (B, S, N)) -> y (B, H, S, P)``; ``chunk``
+    divides S."""
+    dt_ = _as_dtype(dtype)
+    if S % chunk:
+        raise ValueError(f"chunk={chunk} does not divide S={S}")
+    return bind("mamba2_chunk_scan_kernel",
+                [((B, H, S, P), dt_), ((B, H, S), torch.float32),
+                 ((H,), torch.float32), ((B, S, N), dt_), ((B, S, N), dt_)],
+                lambda x, dt, A, Bm, Cm: mamba2_chunk_scan(
+                    x.transpose(1, 2), dt.transpose(1, 2), A, Bm, Cm,
+                    chunk).transpose(1, 2))

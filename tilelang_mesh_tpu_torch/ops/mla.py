@@ -24,13 +24,16 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from .flash_decoding import clamp_splits, merge_splits
+from .gemm import DTYPE_CODES
+from ._factory import bind
+from .gemm import _as_dtype
 
 __all__ = ["mla_decode", "mla_decode_partials", "mla_decode_partials_plain",
            "mla_decode_reference", "launches", "reset_launches",
-           "KERNEL_WIDTHS"]
+           "KERNEL_WIDTHS", "mla_decode_kernel"]
 
 _LOG2E = 1.44269504
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # (dc, dr) pairs csrc/mla_decode.cu instantiates: DeepSeek-V2/V3's, and
 # the tests' two
@@ -60,7 +63,8 @@ def _check(qc, qr, ckv, kpe, n_split):
             f"{tuple(ckv.shape)}, {tuple(kpe.shape)}")
     dts = {t.dtype for t in (qc, qr, ckv, kpe)}
     if len(dts) != 1 or qc.dtype not in _DTYPES:
-        raise TypeError(f"inputs must share float32 or bfloat16, got "
+        raise TypeError(f"inputs must share float32, bfloat16 or float16, "
+                        f"got "
                         f"{sorted(map(str, dts))}")
     if n_split < 1 or S % n_split:
         raise ValueError(f"n_split={n_split} must divide S={S}")
@@ -122,7 +126,7 @@ def _launch(qc, qr, ckv, kpe, n_split, sm_scale):
                   kpe.data_ptr(), op.data_ptr(), mp.data_ptr(),
                   lp.data_ptr(), B, H, S, dc, dr, n_split,
                   ckv.stride(0), ckv.stride(1), kpe.stride(0), kpe.stride(1),
-                  int(ckv.dtype == torch.bfloat16),
+                  DTYPE_CODES[ckv.dtype],
                   float(sm_scale) * _LOG2E, stream)
     if code != 0:
         raise KernelLaunchError("mla_decode", code, site="serve.step")
@@ -175,3 +179,16 @@ def mla_decode_reference(q_latent, q_rope, ckv, kpe, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bsc->bhc", p,
                         ckv.float()).to(q_latent.dtype)
+
+
+def mla_decode_kernel(B, H, S, dc, dr, n_split, block_N, sm_scale, dtype,
+                      num_stages=2):
+    """The MLA kernel bound to one shape (the JAX factory's arguments):
+    ``fn(qc (B, H, dc), qr (B, H, dr), ckv (B, S, dc), kpe (B, S, dr))
+    -> (op (B, ns, H, dc), mp, lp (B, ns, H))`` float32 partials."""
+    dt = _as_dtype(dtype)
+    return bind("mla_decode_kernel",
+                [((B, H, dc), dt), ((B, H, dr), dt), ((B, S, dc), dt),
+                 ((B, S, dr), dt)],
+                lambda qc, qr, ckv, kpe: mla_decode_partials(
+                    qc, qr, ckv, kpe, n_split, sm_scale))

@@ -1,0 +1,492 @@
+"""Native Sparse Attention (DeepSeek NSA) inference on the card.
+
+Counterpart of ``tilelang_mesh_tpu/ops/nsa.py`` (semantics of the
+upstream ``naive_nsa``): every query token attends (a) a per-token set
+of S selected KV blocks of ``block_size`` keys, gated by ``g_slc``, and
+(b) an optional sliding window, gated by ``g_swa``. The G = HQ // H
+query heads that share a KV head are one group. One CUDA source
+(``csrc/nsa.cu``) replaces three TPU kernels, which share its gather:
+
+* ``nsa_fwd`` — ``nsa_fwd_kernel``: both branches, gates applied, for
+  ``nsa_attention``;
+* ``nsa_varlen_fwd`` — ``nsa_varlen_fwd_kernel``: the selected branch
+  over packed sequences, block ids turned into raw packed row offsets,
+  for ``nsa_attention_varlen``;
+* ``nsa_decode_fwd`` — ``nsa_decode_kernel``: one token, the causal
+  bound the last key, for ``nsa_decode``.
+
+Every key read lies below the key length: on a ragged tail (T not a
+multiple of the block size) the TPU kernel's block copy runs past it and
+reads other rows, so the JAX kernel differs from its own reference
+there; the port follows the reference (``nsa_reference``). K and V are
+taken in the callers' (B, T, H, D) layout as strided views, with no
+copy. ``backward="kernel"`` (NSA training: the partial forward and the
+dK/dV and dQ kernels) comes with a later slice.
+
+Each wrapper launches its kernel on CUDA tensors (a build or launch
+failure raises) and runs its plain version on CPU tensors: each token's
+keys gathered a chunk of tokens at a time (so no call holds all tokens'
+gathered keys at once), an exp2 softmax rounded where the kernel rounds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..resilience.errors import KernelLaunchError
+from ._factory import bind
+from .flash_attention import _DTYPES, _LOG2E, KERNEL_HEAD_DIMS
+from .flash_attention_varlen import _cu_tensor, _seq_ids
+from .gemm import DTYPE_CODES, _as_dtype
+
+__all__ = ["nsa_attention", "nsa_attention_varlen", "nsa_decode",
+           "nsa_reference", "nsa_fwd", "nsa_fwd_plain", "nsa_fwd_kernel",
+           "nsa_varlen_fwd", "nsa_varlen_fwd_plain", "nsa_varlen_fwd_kernel",
+           "nsa_decode_fwd", "nsa_decode_fwd_plain", "nsa_decode_kernel",
+           "varlen_offsets", "launches", "reset_launches", "KERNEL_MAX_GROUP"]
+
+# kernel name -> launches through its wrapper
+launches = {"nsa_fwd": 0, "nsa_varlen_fwd": 0, "nsa_decode": 0}
+
+# the largest group (query heads a KV head) the kernel's row tile holds
+KERNEL_MAX_GROUP = 64
+# tokens a plain-version step gathers keys for
+PLAIN_TOKENS = 256
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _int32(x, device) -> torch.Tensor:
+    """An int32 tensor on ``device`` from a tensor or an array."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=torch.int32)
+
+
+def _counts(block_counts, S: int, shape, device) -> torch.Tensor:
+    """Slots each (token, KV head) reads: all S (None), an int, or an
+    array of ``shape``."""
+    if block_counts is None or isinstance(block_counts, int):
+        n = S if block_counts is None else block_counts
+        return torch.full(shape, n, dtype=torch.int32, device=device)
+    return _int32(block_counts, device)
+
+
+def _check(q, kh, vh, ids, cnt, gates, what: str) -> None:
+    """q (..., G, D) of N tokens' groups; kh, vh (B, H, Tk, D) views;
+    ids (N..., H, S), cnt (N..., H), gates (N..., H, G)."""
+    if q.dtype != kh.dtype or kh.dtype != vh.dtype or q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: q, k, v must share float32, bfloat16 or "
+                        f"float16, got {q.dtype}, {kh.dtype}, {vh.dtype}")
+    if kh.shape != vh.shape or kh.stride() != vh.stride() \
+            or kh.stride(-1) != 1:
+        raise ValueError(f"{what}: k and v must share a shape and strides "
+                         f"with contiguous head_dim")
+    if ids.dtype != torch.int32 or cnt.dtype != torch.int32 \
+            or gates.dtype != torch.float32:
+        raise TypeError(f"{what}: ids and counts must be int32 and gates "
+                        f"float32, got {ids.dtype}, {cnt.dtype}, "
+                        f"{gates.dtype}")
+    G, D = q.shape[-2:]
+    H = kh.shape[1]
+    if kh.shape[0] != q.shape[0] or kh.shape[-1] != D or q.shape[-3] != H \
+            or ids.shape[:-1] != q.shape[:-2] or cnt.shape != q.shape[:-2] \
+            or gates.shape != q.shape[:-1]:
+        raise ValueError(f"{what}: shapes do not fit: q {tuple(q.shape)}, "
+                         f"k {tuple(kh.shape)}, ids {tuple(ids.shape)}, "
+                         f"counts {tuple(cnt.shape)}, gates "
+                         f"{tuple(gates.shape)}")
+    devs = {t.device for t in (q, kh, vh, ids, cnt, gates)}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: operands on {sorted(map(str, devs))}")
+    dev = q.device
+    if dev.type == "cuda" and (D not in KERNEL_HEAD_DIMS
+                               or G > KERNEL_MAX_GROUP):
+        raise ValueError(f"{what}: the kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS} and groups of at most "
+                         f"{KERNEL_MAX_GROUP}, got {D}, {G}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
+    """One branch for N tokens' groups ``q (N, H, G, D)``: token n reads
+    the keys ``start[n, h, s] + j``, j < ``length``, of batch ``b[n]``,
+    those at most ``bound[n]`` (and below Tk) and of slots with ``start
+    >= 0``. Exp2 scores, ``m = max(rowmax, -1e30)``, ``p = exp2(s - m)``,
+    ``acc = dtype(p) @ v``: returns ``acc / max(l, 1e-30)`` float32."""
+    N, H, G, D = q.shape
+    Tk = kh.shape[2]
+    keys = start[..., None] + torch.arange(length, device=q.device)
+    ok = (start >= 0)[..., None] & (keys <= bound[:, None, None, None]) \
+        & (keys < Tk)
+    keys, ok = keys.reshape(N, H, -1), ok.reshape(N, H, -1)
+    at = (b[:, None, None], torch.arange(H, device=q.device)[None, :, None],
+          keys.clamp(0, Tk - 1))
+    s = torch.einsum("nhgd,nhld->nhgl", q.float(), kh[at].float())
+    s.mul_(float(sm_scale) * _LOG2E).masked_fill_(~ok[:, :, None, :],
+                                                  -math.inf)
+    m = s.amax(dim=-1, keepdim=True).clamp_min_(-1e30)
+    p = torch.exp2_(s.sub_(m))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("nhgl,nhld->nhgd", p.to(q.dtype).float(),
+                       vh[at].float())
+    return acc / l.clamp_min(1e-30)
+
+
+def _nsa_plain(q, kh, vh, starts, cnt, g_slc, g_swa, block_size: int,
+               window: int, bound, sm_scale: float,
+               tokens: int = PLAIN_TOKENS) -> torch.Tensor:
+    """The three kernels' plain version over ``q (B, T, H, G, D)``:
+    ``starts (B, T, H, S)`` the selected blocks' first keys (-1: none),
+    ``bound (T,)`` each token's causal bound, ``tokens`` tokens a step."""
+    B, T, H, G, D = q.shape
+    S = starts.shape[-1]
+    slot = torch.arange(S, device=q.device)
+    out = torch.empty_like(q)
+    for t0 in range(0, T, tokens):
+        t1 = min(t0 + tokens, T)
+        n = B * (t1 - t0)
+        qc = q[:, t0:t1].reshape(n, H, G, D)
+        b = torch.arange(B, device=q.device).repeat_interleave(t1 - t0)
+        bd = bound[t0:t1].repeat(B)
+        st = starts[:, t0:t1].reshape(n, H, S)
+        st = torch.where(slot < cnt[:, t0:t1].reshape(n, H, 1), st, -1)
+        o = _branch(qc, kh, vh, b, st, block_size, bd, sm_scale) \
+            * g_slc[:, t0:t1].reshape(n, H, G, 1)
+        if window > 0:
+            w0 = (bd - window + 1)[:, None, None].expand(n, H, 1)
+            o += _branch(qc, kh, vh, b, w0.clamp_min(0), window, bd,
+                         sm_scale) * g_swa[:, t0:t1].reshape(n, H, G, 1)
+        out[:, t0:t1] = o.reshape(B, t1 - t0, H, G, D).to(q.dtype)
+    return out
+
+
+def _block_starts(bi, block_size: int) -> torch.Tensor:
+    return torch.where(bi >= 0, bi.long() * block_size, -1)
+
+
+def nsa_fwd_plain(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int,
+                  window: int, sm_scale: float) -> torch.Tensor:
+    """Plain version of the fused forward: ``q (B, T, H, G, D)``, ``kh,
+    vh (B, H, Tk, D)``; O in q's type."""
+    T = q.shape[1]
+    return _nsa_plain(q, kh, vh, _block_starts(bi, block_size), cnt, g_slc,
+                      g_swa, block_size, window,
+                      torch.arange(T, device=q.device), sm_scale)
+
+
+def nsa_varlen_fwd_plain(q, kh, vh, offs, cnt, g_slc, block_size: int,
+                         sm_scale: float) -> torch.Tensor:
+    """Plain version of the varlen forward: ``q (1, T, H, G, D)``, ``offs
+    (1, T, H, S)`` raw packed row offsets (-1: none)."""
+    T = q.shape[1]
+    return _nsa_plain(q, kh, vh, torch.where(offs >= 0, offs.long(), -1),
+                      cnt, g_slc, g_slc, block_size, 0,
+                      torch.arange(T, device=q.device), sm_scale)
+
+
+def nsa_decode_fwd_plain(q, kh, vh, bi, cnt, g_slc, block_size: int,
+                         sm_scale: float) -> torch.Tensor:
+    """Plain version of decode: ``q (B, H, G, D)``, ``bi (B, H, S)``, the
+    causal bound the last key."""
+    Tk = kh.shape[2]
+    bound = torch.full((1,), Tk - 1, dtype=torch.long, device=q.device)
+    return _nsa_plain(q[:, None], kh, vh,
+                      _block_starts(bi, block_size)[:, None], cnt[:, None],
+                      g_slc[:, None], g_slc[:, None], block_size, 0, bound,
+                      sm_scale)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale):
+    """One launch of ``csrc/nsa.cu``'s ``entry``: the pointers of q, k,
+    v, ``operands`` and a new o; then ``dims`` (ints), K's and V's
+    ``strides`` (elements), the type code and the exp2 scale."""
+    from ._build import load, stream_call
+    q = q.contiguous()
+    o = torch.empty_like(q)
+    ptrs = [q, kh, vh, *(t.contiguous() for t in operands), o]
+    fn = getattr(load("nsa"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_int] * len(dims)
+                   + [ctypes.c_longlong] * len(strides)
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    code = stream_call(fn, q.device, *(t.data_ptr() for t in ptrs), *dims,
+                       *strides, DTYPE_CODES[q.dtype],
+                       float(sm_scale) * _LOG2E)
+    if code != 0:
+        raise KernelLaunchError(name, code)
+    launches[name] += 1
+    return o
+
+
+def nsa_fwd(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int, window: int,
+            sm_scale: float) -> torch.Tensor:
+    """NSA forward ``(B, T, H, G, D)`` in q's type: ``q (B, T, H, G, D)``,
+    ``kh, vh (B, H, Tk, D)`` (any strides, head_dim contiguous), ``bi (B,
+    T, H, S)`` block ids, ``cnt (B, T, H)``, gates ``(B, T, H, G)``
+    float32. CUDA tensors launch the kernel; CPU tensors run the plain
+    version."""
+    _check(q, kh, vh, bi, cnt, g_slc, "nsa_fwd")
+    if not q.is_cuda:
+        return nsa_fwd_plain(q, kh, vh, bi, cnt, g_slc, g_swa, block_size,
+                             window, sm_scale)
+    B, T, H, G, D = q.shape
+    return _launch("nsa_fwd", "tl_nsa_fwd", q, kh, vh,
+                   (bi, cnt, g_slc, g_swa),
+                   (B, T, H, G, kh.shape[2], D, bi.shape[-1], block_size,
+                    window), kh.stride()[:3], sm_scale)
+
+
+def nsa_varlen_fwd(q, kh, vh, offs, cnt, g_slc, block_size: int,
+                   sm_scale: float) -> torch.Tensor:
+    """The selected branch over packed tokens, ``(1, T, H, G, D)`` in q's
+    type: ``offs (1, T, H, S)`` raw packed row offsets of the selected
+    blocks (-1: none), ``kh, vh (1, H, Tk, D)``. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
+    _check(q, kh, vh, offs, cnt, g_slc, "nsa_varlen_fwd")
+    if not q.is_cuda:
+        return nsa_varlen_fwd_plain(q, kh, vh, offs, cnt, g_slc,
+                                    block_size, sm_scale)
+    _, T, H, G, D = q.shape
+    return _launch("nsa_varlen_fwd", "tl_nsa_varlen_fwd", q, kh, vh,
+                   (offs, cnt, g_slc),
+                   (T, H, G, kh.shape[2], D, offs.shape[-1], block_size),
+                   kh.stride()[1:3], sm_scale)
+
+
+def nsa_decode_fwd(q, kh, vh, bi, cnt, g_slc, block_size: int,
+                   sm_scale: float) -> torch.Tensor:
+    """One decode step ``(B, H, G, D)`` in q's type: ``q (B, H, G, D)``,
+    ``kh, vh (B, H, Tk, D)``, ``bi (B, H, S)``, ``cnt (B, H)``, ``g_slc
+    (B, H, G)``; every selected key up to the last is visible. CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
+    _check(q, kh, vh, bi, cnt, g_slc, "nsa_decode")
+    if not q.is_cuda:
+        return nsa_decode_fwd_plain(q, kh, vh, bi, cnt, g_slc, block_size,
+                                    sm_scale)
+    B, H, G, D = q.shape
+    return _launch("nsa_decode", "tl_nsa_decode", q, kh, vh,
+                   (bi, cnt, g_slc),
+                   (B, H, G, kh.shape[2], D, bi.shape[-1], block_size),
+                   kh.stride()[:3], sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# factories (the JAX package's arguments and kernel-side layouts)
+# ---------------------------------------------------------------------------
+
+
+def nsa_fwd_kernel(B, Tq, H, G, Tk, D, S, BS, window, sm_scale, dtype):
+    """``fn(Q (B, Tq, H, G, D), K, V (B, H, Tk, D), BI (B, Tq, H, S),
+    Cnt (B, Tq, H), Gslc, Gswa (B, Tq, H, G)) -> O``."""
+    dt = _as_dtype(dtype)
+    kv = ((B, H, Tk, D), dt)
+    return bind("nsa_fwd_kernel",
+                [((B, Tq, H, G, D), dt), kv, kv, ((B, Tq, H, S), None),
+                 ((B, Tq, H), None), ((B, Tq, H, G), torch.float32),
+                 ((B, Tq, H, G), torch.float32)],
+                lambda q, k, v, bi, cnt, gs, gw: nsa_fwd(
+                    q, k, v, _int32(bi, q.device), _int32(cnt, q.device),
+                    gs, gw, int(BS), int(window), float(sm_scale)))
+
+
+def nsa_varlen_fwd_kernel(Tq, H, G, Tk, D, S, BS, sm_scale, dtype):
+    """``fn(Q (1, Tq, H, G, D), K, V (1, H, Tk, D), Offs (1, Tq, H, S),
+    Cnt (1, Tq, H), Gslc (1, Tq, H, G)) -> O``; Offs are raw packed row
+    offsets."""
+    dt = _as_dtype(dtype)
+    kv = ((1, H, Tk, D), dt)
+    return bind("nsa_varlen_fwd_kernel",
+                [((1, Tq, H, G, D), dt), kv, kv, ((1, Tq, H, S), None),
+                 ((1, Tq, H), None), ((1, Tq, H, G), torch.float32)],
+                lambda q, k, v, offs, cnt, gs: nsa_varlen_fwd(
+                    q, k, v, _int32(offs, q.device), _int32(cnt, q.device),
+                    gs, int(BS), float(sm_scale)))
+
+
+def nsa_decode_kernel(B, H, G, Tk, D, S, BS, sm_scale, dtype):
+    """``fn(Q (B, H, G, D), K, V (B, H, Tk, D), BI (B, H, S), Cnt (B, H),
+    Gslc (B, H, G)) -> O``."""
+    dt = _as_dtype(dtype)
+    kv = ((B, H, Tk, D), dt)
+    return bind("nsa_decode_kernel",
+                [((B, H, G, D), dt), kv, kv, ((B, H, S), None),
+                 ((B, H), None), ((B, H, G), torch.float32)],
+                lambda q, k, v, bi, cnt, gs: nsa_decode_fwd(
+                    q, k, v, _int32(bi, q.device), _int32(cnt, q.device),
+                    gs, int(BS), float(sm_scale)))
+
+
+# ---------------------------------------------------------------------------
+# entry points (the reference layout)
+# ---------------------------------------------------------------------------
+
+
+def _group(HQ: int, H: int) -> int:
+    if H < 1 or HQ % H:
+        raise ValueError(f"{HQ} query heads do not fit {H} KV heads")
+    return HQ // H
+
+
+def nsa_attention(q, k, v, g_slc, g_swa, block_indices, block_counts=None,
+                  block_size: int = 64, window_size: int = 0,
+                  scale: Optional[float] = None,
+                  backward: Optional[str] = None) -> torch.Tensor:
+    """NSA forward, the reference layout (``naive_nsa``, head_first
+    False): q (B, T, HQ, D); k, v (B, T, H, D); g_slc, g_swa (B, T, HQ);
+    block_indices (B, T, H, S) block ids (-1: none); block_counts None
+    (all S), an int or (B, T, H). ``backward=None``: the fused inference
+    kernel, gates and window in the kernel, not differentiable."""
+    if backward is not None:
+        raise NotImplementedError(
+            "nsa_attention(backward=...): NSA training (the partial "
+            "forward and the dK/dV and dQ kernels) is ROADMAP slice 12; "
+            "the port has the inference kernel (backward=None)")
+    B, T, HQ, D = q.shape
+    Tk, H = k.shape[1], k.shape[2]
+    G = _group(HQ, H)
+    dev = q.device
+    bi = _int32(block_indices, dev)
+    cnt = _counts(block_counts, bi.shape[-1], (B, T, H), dev)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    gs = torch.as_tensor(g_slc, device=dev).float().reshape(B, T, H, G)
+    gw = torch.as_tensor(g_swa, device=dev).float().reshape(B, T, H, G)
+    o = nsa_fwd(q.reshape(B, T, H, G, D), k.transpose(1, 2),
+                v.transpose(1, 2), bi, cnt, gs, gw, int(block_size),
+                int(window_size), float(scale))
+    return o.reshape(B, T, HQ, D)
+
+
+def varlen_offsets(block_indices, counts, cu_seqlens, block_size: int):
+    """``(offs, counts)`` int32 of packed tokens: each sequence-local
+    block id as its packed row offset ``cu[seq] + id * block_size`` (-1
+    for none), and the counts with 0 for rows past ``cu[-1]``."""
+    T = block_indices.shape[0]
+    dev = block_indices.device
+    cu = _cu_tensor(cu_seqlens, dev)
+    sid, _, valid = _seq_ids(cu, T, T, fill=-1, device=dev)
+    start = cu[sid.clamp(0, cu.shape[0] - 2).long()]
+    offs = torch.where(block_indices >= 0, start[:, None, None]
+                       + block_indices * int(block_size), -1)
+    return (offs.to(torch.int32),
+            torch.where(valid[:, None], counts, 0).to(torch.int32))
+
+
+def nsa_attention_varlen(q, k, v, g_slc, block_indices, cu_seqlens,
+                         block_counts=None, block_size: int = 64,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Ragged-batch NSA, the selected branch: q (total, HQ, D); k, v
+    (total, H, D); g_slc (total, HQ); block_indices (total, H, S) with
+    sequence-local block ids; cu_seqlens (B + 1,), numpy or a tensor.
+    Each id becomes the packed row offset ``cu[seq] + id * block_size``;
+    packed order is position order, so the causal bound keeps a token's
+    keys inside its own sequence. Rows past ``cu[-1]`` select nothing
+    and give 0."""
+    T, HQ, D = q.shape
+    H = k.shape[1]
+    G = _group(HQ, H)
+    BS = int(block_size)
+    dev = q.device
+    bi = _int32(block_indices, dev)
+    cnt = _counts(block_counts, bi.shape[-1], (T, H), dev)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    offs, cnt = varlen_offsets(bi, cnt, cu_seqlens, BS)
+    gs = torch.as_tensor(g_slc, device=dev).float().reshape(1, T, H, G)
+    o = nsa_varlen_fwd(q.reshape(1, T, H, G, D), k.permute(1, 0, 2)[None],
+                       v.permute(1, 0, 2)[None], offs[None], cnt[None], gs,
+                       BS, float(scale))
+    return o.reshape(T, HQ, D)
+
+
+def nsa_decode(q, k, v, g_slc, block_indices, block_counts=None,
+               block_size: int = 64,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Decode step: q (B, HQ, D) attends the selected blocks of k, v (B,
+    Tk, H, D); block_indices (B, H, S); g_slc (B, HQ)."""
+    B, HQ, D = q.shape
+    Tk, H = k.shape[1], k.shape[2]
+    G = _group(HQ, H)
+    dev = q.device
+    bi = _int32(block_indices, dev)
+    cnt = _counts(block_counts, bi.shape[-1], (B, H), dev)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    gs = torch.as_tensor(g_slc, device=dev).float().reshape(B, H, G)
+    o = nsa_decode_fwd(q.reshape(B, H, G, D), k.transpose(1, 2),
+                       v.transpose(1, 2), bi, cnt, gs, int(block_size),
+                       float(scale))
+    return o.reshape(B, HQ, D)
+
+
+def nsa_reference(q, k, v, g_slc, g_swa, block_indices, block_counts=None,
+                  block_size: int = 64, window_size: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX package's dense reference of ``naive_nsa``, token by token
+    in float32 numpy with a natural-exp softmax; keys masked by position
+    (``0 <= idx <= t``), the output in q's type."""
+    B, Tq, HQ, D = q.shape
+    H = k.shape[2]
+    G = HQ // H
+    BS = block_size
+    S = block_indices.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+
+    def host(x, dtype):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().float().cpu().numpy()
+        return np.asarray(x, dtype)
+
+    qf, kf, vf, gsl, gsw = (host(t, np.float32)
+                            for t in (q, k, v, g_slc, g_swa))
+    bi = host(block_indices, np.int64)
+    if block_counts is None:
+        cnts = np.full((B, Tq, H), S)
+    elif isinstance(block_counts, int):
+        cnts = np.full((B, Tq, H), block_counts)
+    else:
+        cnts = host(block_counts, np.int64)
+    out = np.zeros((B, Tq, HQ, D), np.float32)
+    for b in range(B):
+        for t in range(Tq):
+            for h in range(HQ):
+                hk = h // G
+                sel = bi[b, t, hk][:cnts[b, t, hk]]
+                idx = (sel[:, None] * BS + np.arange(BS)[None, :]).ravel()
+                valid = (idx >= 0) & (idx <= t) & (sel >= 0).repeat(BS)
+                at = np.clip(idx, 0, Tq - 1)
+                sc = qf[b, t, h] @ kf[b, at, hk].T
+                sc = np.where(valid, sc * scale, -np.inf)
+                if np.any(valid):
+                    p = np.exp(sc - sc.max())
+                    p = p / p.sum()
+                    out[b, t, h] = (p @ vf[b, at, hk]) * gsl[b, t, h]
+                if window_size > 0:
+                    lo = max(0, t - window_size + 1)
+                    sw = qf[b, t, h] @ kf[b, lo:t + 1, hk].T * scale
+                    pw = np.exp(sw - sw.max())
+                    pw = pw / pw.sum()
+                    out[b, t, h] += (pw @ vf[b, lo:t + 1, hk]) * gsw[b, t, h]
+    return torch.from_numpy(out).to(q.dtype)
