@@ -159,6 +159,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               kernel, plain and library (SDPA over the dense bool masks;
               for NSA decode over the gathered blocks) times and the
               bound by the visible pairs.
+16. nsa_training — the thirteenth main path: NSA training at the NSA
+              paper's widths (see NSA, window 0): nsa_attention(
+              backward="kernel") forward and backward under autograd, T
+              8192, f32 and bf16 (one nsa_fwd_partial, one nsa_bwd_dkdv
+              and its fixed-order sum nsa_bwd_dkdv_sum, one nsa_bwd_dq a
+              step); the output against the fused inference kernel, dQ,
+              dK, dV, dG against the same step on the plain versions on
+              the card and against autograd through the dense graph at T
+              2048 (printed); a second step's gradients bit-equal; each
+              kernel against its plain version at the path's shapes;
+              kernel, plain and library (SDPA over the dense selected
+              bool mask: its forward, its backward, both) times and the
+              bound by the selected pairs.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -3679,6 +3692,368 @@ SPARSE_INFERENCE_KERNELS = (
     ("nsa_decode", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:334", "float32"))
 
 
+# the NSA training phase: the step's reduced length for the dense
+# reference (autograd through nsa_dense holds B T HQ T scores), and the
+# step against its plain version and against the dense reference
+NSA_REF_T = 2048
+NSA_REF_TOL = 3e-2
+
+
+def nsa_training_phase(torch, nsa, nb):
+    """NSA training at the NSA paper's widths (NSA, window 0): one
+    nsa_attention(backward="kernel") forward and backward under autograd
+    in f32 and bf16 with every counter zeroed before it and read right
+    after (one nsa_fwd_partial, one nsa_bwd_dkdv and its fixed-order sum
+    nsa_bwd_dkdv_sum, one nsa_bwd_dq); its output against the fused
+    inference kernel; dQ, dK, dV, dG against the same step on the plain
+    versions on the card, and against autograd through the dense graph
+    (nsa_dense) at T NSA_REF_T; a second step's gradients bit-equal;
+    each kernel against its plain version at the path's shapes; kernel,
+    plain and library (SDPA over the dense selected bool mask: the
+    forward for the partial, the backward for dK / dV and dQ, both for
+    the step) times and the bound by the selected pairs."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mods = (nsa, nb)
+    counted = {k: 0 for m in mods for k in m.launches}
+    res = {}
+    reset_peak(torch)
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = {k: n for m in mods for k, n in m.launches.items()}
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def within(label, got, want, tol):
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, want {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its reference: "
+                          f"{rel:.3e} of max |reference| > {tol}")
+        return err, rel
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    c = NSA
+    HQ, Hk, D, BS, S, T = (c["heads"], c["kv_heads"], c["head_dim"],
+                           c["block"], c["selected"], c["seq"])
+    G, NS = HQ // Hk, T // BS
+    sm = 1.0 / math.sqrt(D)
+    # q, k, v and the incoming gradient drawn on the card (a seeded
+    # generator: 1.4e8 numpy draws took seconds), the gates and the
+    # selections from default_rng(14)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    base = [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((1, T, HQ, D), (1, T, Hk, D), (1, T, Hk, D),
+                          (1, T, HQ, D))]
+    rng = np.random.default_rng(14)
+    gates = torch.from_numpy(rng.uniform(0.2, 1.0, (1, T, HQ)).astype(
+        np.float32)).cuda()
+    bi = torch.from_numpy(nsa_selections(rng, np.arange(T), Hk, S, BS))[
+        None].cuda()
+    cnt = torch.full((1, T, Hk), S, dtype=torch.int32, device="cuda")
+    t_idx = torch.arange(T, device="cuda")
+    sel_keys = selected_keys(torch, bi.long() * BS,
+                             t_idx[None, :, None, None], BS)
+    pairs = sel_keys * G                      # (query head, key) pairs
+    mask = nb.nsa_block_mask(bi, cnt, T, NS, BS)
+    _, _, chunks, first = nb.dkdv_plan(mask, G)
+    per_block = (first[1:] - first[:-1]).view(Hk, NS)
+    res["nsa_training_selection"] = {
+        "selected_keys": sel_keys, "pairs": pairs,
+        "dkdv_chunks": chunks.shape[0],
+        "dkdv_chunk_tokens": nb.DKDV_CHUNK_ROWS // G,
+        "block0_chunks": int(per_block[:, 0].max()),
+        "other_blocks_chunks_max": int(per_block[:, 1:].max()),
+        "block0_tokens": int((mask[0, :, :, 0] > 0).sum(0).max())}
+    # the dense selected mask (1, HQ, T, T) for SDPA
+    blkm = torch.zeros((Hk, T, NS + 1), dtype=torch.bool, device="cuda")
+    blkm.scatter_(2, torch.where(bi[0] >= 0, bi[0], NS).long()
+                  .permute(1, 0, 2), True)
+    sel_dense = (blkm[..., :NS].repeat_interleave(BS, -1)
+                 & torch.ones((T, T), dtype=torch.bool,
+                              device="cuda").tril()).repeat_interleave(
+        G, 0)[None]
+    del blkm
+    check(int(torch.count_nonzero(sel_dense[0, ::G])) == sel_keys,
+          "nsa training: the dense selected mask and the slots' keys "
+          "disagree")
+    T_ref = NSA_REF_T
+    print(f"nsa_training: autograd through the dense reference at T "
+          f"{T_ref} of {T} (its first {T_ref} tokens)", flush=True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        tol = ATTN_TOL[name]
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        q, k, v, go = (t.to(dtype) for t in base)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, gates)]
+        marks = [("start", time.perf_counter())]
+
+        def step(ls=leaves, bi=bi):
+            for t in ls:
+                t.grad = None
+            out = nsa.nsa_attention(*ls, ls[3], bi, block_size=BS,
+                                    backward="kernel")
+            out.backward(go[:, :out.shape[1]])
+            return out
+
+        out = drive(f"nsa training step {name}", step,
+                    {"nsa_fwd_partial": 1, "nsa_bwd_dkdv": 1,
+                     "nsa_bwd_dkdv_sum": 1, "nsa_bwd_dq": 1}).detach()
+        grads = [t.grad for t in leaves]
+        with torch.no_grad():
+            fused = drive(f"nsa fused forward {name}",
+                          lambda: nsa.nsa_attention(q, k, v, gates, gates,
+                                                    bi, block_size=BS),
+                          {"nsa_fwd": 1}, main=False)
+        errs = {"o_vs_fused": within(f"nsa step output {name} vs the "
+                                     f"fused forward", out, fused,
+                                     2e-2)[1]}
+        del fused
+        marks.append(("step", time.perf_counter()))
+        # the same step on the plain versions
+        q5 = q.reshape(1, T, Hk, G, D)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        gs = gates.reshape(1, T, Hk, G)
+        acc, m, l = nsa.nsa_fwd_partial_plain(q5, kh, vh, bi, cnt, BS, sm)
+        o_slc = torch.where(l[..., None] > 0, acc / l[..., None],
+                            0.0).to(dtype)
+        lse2 = m + torch.log2(l)
+        g5 = go.reshape(o_slc.shape)
+        want_o = (o_slc * gs[..., None]).reshape(out.shape).to(dtype)
+        want_dg = (g5.float() * o_slc.float()).sum(-1).reshape(gates.shape)
+        g_ = (g5.float() * gs[..., None]).to(dtype)
+        delta = (g_.float() * o_slc.float()).sum(-1)
+        dk_p, dv_p = nb.nsa_bwd_dkdv_plain(q5, kh, vh, g_, lse2, delta,
+                                           mask, BS, sm)
+        dq_p = nb.nsa_bwd_dq_plain(q5, kh, vh, g_, lse2, delta, bi, cnt,
+                                   BS, sm)
+        want = [dq_p.reshape(q.shape).to(dtype),
+                dk_p.transpose(1, 2).to(dtype),
+                dv_p.transpose(1, 2).to(dtype), want_dg]
+        errs["o"] = within(f"nsa step output {name}", out, want_o, tol)[1]
+        for lbl, got, w in zip(("dq", "dk", "dv", "dg"), grads, want):
+            errs[lbl] = within(f"nsa step {lbl} {name}", got, w, tol)[1]
+        del want_o, want
+        # no atomics: a second step gives the same bits
+        first_grads = [t.clone() for t in grads]
+        drive(f"nsa training step {name} again", step,
+              {"nsa_fwd_partial": 1, "nsa_bwd_dkdv": 1,
+               "nsa_bwd_dkdv_sum": 1, "nsa_bwd_dq": 1}, main=False)
+        check(all(torch.equal(a, t.grad) for a, t in zip(first_grads,
+                                                        leaves)),
+              f"nsa training step {name}: a second step's gradients "
+              f"differ in bits")
+        del first_grads
+
+        marks.append(("plain_step", time.perf_counter()))
+        # against autograd through the dense graph at T_ref
+        ref_leaves = [t.detach()[:, :T_ref].clone().requires_grad_()
+                      for t in (q, k, v, gates)]
+        r_out = drive(f"nsa training step {name} at T {T_ref}",
+                      lambda: step(ref_leaves, bi[:, :T_ref]),
+                      {"nsa_fwd_partial": 1, "nsa_bwd_dkdv": 1,
+                       "nsa_bwd_dkdv_sum": 1, "nsa_bwd_dq": 1},
+                      main=False).detach()
+        r_grads = [t.grad for t in ref_leaves]
+        dense_leaves = [t.detach().clone().requires_grad_()
+                        for t in ref_leaves]
+        d_out = nsa.nsa_dense(*dense_leaves, bi[:, :T_ref], block_size=BS)
+        d_out.backward(go[:, :T_ref].float())
+        ref_errs = {"o": within(f"nsa step output {name} vs the dense "
+                                f"reference", r_out, d_out.detach().to(
+                                    dtype), NSA_REF_TOL)[1]}
+        for lbl, got, t in zip(("dq", "dk", "dv", "dg"), r_grads,
+                               dense_leaves):
+            ref_errs[lbl] = within(f"nsa step {lbl} {name} vs the dense "
+                                   f"reference", got, t.grad,
+                                   NSA_REF_TOL)[1]
+        del ref_leaves, dense_leaves, d_out, r_out, r_grads
+        torch.cuda.empty_cache()
+
+        marks.append(("dense_reference", time.perf_counter()))
+        # each kernel alone against its plain version
+        got = nsa.nsa_fwd_partial(q5, kh, vh, bi, cnt, BS, sm)
+        seen = l > 0
+        e_acc = within(f"nsa_fwd_partial acc {name}", got[0], acc, tol)
+        e_l = within(f"nsa_fwd_partial l {name}", got[2], l, tol)
+        e_m = within(f"nsa_fwd_partial m {name}", got[1][seen], m[seen],
+                     1e-5)
+        check(bool((got[1][~seen] == -1e30).all()),
+              f"nsa_fwd_partial {name}: m of a row that sees nothing")
+        del got, acc, m
+        d_got = nb.nsa_bwd_dkdv(q5, kh, vh, g_, lse2, delta, mask, BS, sm)
+        e_dk = within(f"nsa_bwd_dkdv dk {name}", d_got[0], dk_p, tol)
+        e_dv = within(f"nsa_bwd_dkdv dv {name}", d_got[1], dv_p, tol)
+        again = nb.nsa_bwd_dkdv(q5, kh, vh, g_, lse2, delta, mask, BS, sm)
+        check(all(torch.equal(a, b) for a, b in zip(d_got, again)),
+              f"nsa_bwd_dkdv {name}: a second call differs in bits")
+        del d_got, again, dk_p, dv_p
+        q_got = nb.nsa_bwd_dq(q5, kh, vh, g_, lse2, delta, bi, cnt, BS, sm)
+        e_dq = within(f"nsa_bwd_dq {name}", q_got, dq_p, tol)
+        del q_got, dq_p
+        torch.cuda.empty_cache()
+
+        marks.append(("kernels_alone", time.perf_counter()))
+        # SDPA over the dense selected mask, KV expanded by the group: its
+        # output times the gate and its dQ / dK checked against the plain
+        # step, then the forward, the backward and both timed
+        qh = q.transpose(1, 2).detach().requires_grad_()
+        kx, vx = (t.transpose(1, 2).repeat_interleave(G, 1).detach()
+                  .requires_grad_() for t in (k, v))
+        gh = g_.reshape(1, T, HQ, D).transpose(1, 2)
+        backends = ([SDPBackend.EFFICIENT_ATTENTION] if dtype ==
+                    torch.float32 else [SDPBackend.CUDNN_ATTENTION,
+                                        SDPBackend.EFFICIENT_ATTENTION])
+        lib = None
+        for backend in backends:
+            try:
+                with sdpa_kernel([backend]):
+                    so = F.scaled_dot_product_attention(qh, kx, vx,
+                                                        attn_mask=sel_dense)
+                    sdq, sdk, _ = torch.autograd.grad(
+                        so, (qh, kx, vx), gh, retain_graph=True)
+            except RuntimeError:             # this backend refuses the call
+                continue
+            rel = {"o": normwise_err(so.detach().transpose(1, 2).reshape(
+                out.shape) * gates[..., None].to(dtype), out)[1],
+                   "dq": normwise_err(sdq.transpose(1, 2), grads[0])[1],
+                   "dk": normwise_err(sdk.view(1, Hk, G, T, D).sum(2)
+                                      .transpose(1, 2), grads[1])[1]}
+            del sdq, sdk
+            check(max(rel.values()) < 2e-2, f"nsa training {name}: the "
+                  f"library yardstick ({backend.name}) disagrees with the "
+                  f"step: {rel}")
+            with sdpa_kernel([backend]):
+                fwd_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kx, vx, attn_mask=sel_dense), 1)
+                bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+                    so, (qh, kx, vx), gh, retain_graph=True), 1)
+
+                def sdpa_step():
+                    o_ = F.scaled_dot_product_attention(
+                        qh, kx, vx, attn_mask=sel_dense)
+                    torch.autograd.grad(o_, (qh, kx, vx), gh)
+
+                step_ms = device_ms(torch, sdpa_step, 1)
+            lib = {"library_normwise_err": rel,
+                   "library": f"SDPA ({backend.name}) over the dense "
+                              f"selected bool mask (1, HQ, T, T), K and V "
+                              f"expanded by the group"}
+            break
+        check(lib is not None, f"nsa training {name}: no SDPA backend of "
+                               f"{backends} takes the call")
+        del so, qh, kx, vx, gh
+        torch.cuda.empty_cache()
+        marks.append(("library", time.perf_counter()))
+
+        qb, kb = T * HQ * D * esize, T * Hk * D * esize
+        ids = 4 * (bi.numel() + cnt.numel())
+        stats = 4 * T * HQ                   # one float32 (T, HQ) vector
+        args = (q5, kh, vh, g_, lse2, delta)
+        res[f"nsa_fwd_partial_{name}"] = {
+            "shape": [1, T, HQ, Hk, D], "block": BS, "selected": S,
+            "max_abs_err": e_acc[0], "normwise_err": e_acc[1],
+            "l_normwise_err": e_l[1], "m_normwise_err": e_m[1],
+            "tolerance": f"normwise {tol} (m 1e-5 where l > 0)",
+            "ms": device_ms(torch, lambda: nsa.nsa_fwd_partial(
+                q5, kh, vh, bi, cnt, BS, sm), 3),
+            "plain_ms": device_ms(torch, lambda: nsa.nsa_fwd_partial_plain(
+                q5, kh, vh, bi, cnt, BS, sm), 1),
+            "library_ms": fwd_ms, **lib,
+            "library_call": "the SDPA forward",
+            **bound(4 * D * pairs, qb + 2 * kb + ids + 4 * T * HQ * D
+                    + 2 * stats, peak)}
+        res[f"nsa_bwd_dkdv_{name}"] = {
+            "shape": [1, T, HQ, Hk, D], "max_abs_err": max(e_dk[0],
+                                                           e_dv[0]),
+            "normwise_err": max(e_dk[1], e_dv[1]),
+            "tolerance": f"normwise {tol}", "bits_equal_twice": True,
+            "ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv(
+                *args, mask, BS, sm), 3),
+            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv_plain(
+                *args, mask, BS, sm), 1),
+            "library_ms": bwd_ms, **lib,
+            "library_call": "the SDPA backward (dq, dk, dv)",
+            **bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * stats
+                    + 4 * mask.numel() + 2 * 4 * T * Hk * D, peak)}
+        res[f"nsa_bwd_dq_{name}"] = {
+            "shape": [1, T, HQ, Hk, D], "max_abs_err": e_dq[0],
+            "normwise_err": e_dq[1], "tolerance": f"normwise {tol}",
+            "ms": device_ms(torch, lambda: nb.nsa_bwd_dq(
+                *args, bi, cnt, BS, sm), 3),
+            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dq_plain(
+                *args, bi, cnt, BS, sm), 1),
+            "library_ms": bwd_ms, **lib,
+            "library_call": "the SDPA backward (dq, dk, dv)",
+            **bound(6 * D * pairs, 2 * qb + 2 * kb + 2 * stats + ids
+                    + 4 * T * HQ * D, peak)}
+        res[f"nsa_train_{name}"] = {
+            "shape": [1, T, HQ, Hk, D], "normwise_err": errs,
+            "tolerance": f"normwise {tol} (the output against the fused "
+                         f"forward 2e-2)",
+            "reference_normwise_err": ref_errs,
+            "reference": f"autograd through nsa_dense at T {T_ref}",
+            "reference_tolerance": f"normwise {NSA_REF_TOL}",
+            "bits_equal_twice": True,
+            "ms": device_ms(torch, step, 3),
+            "library_ms": step_ms,
+            "library": "SDPA forward + backward over the dense selected "
+                       "mask (no gate, no dG)",
+            # #34 + #37 + #38: 4 + 8 + 6 flops per pair and dim; q, k, v,
+            # the gates, the ids and the incoming gradient read, the output
+            # and the four gradients written
+            **bound(18 * D * pairs, 4 * qb + 4 * kb + 2 * stats + ids,
+                    peak)}
+        marks.append(("timed", time.perf_counter()))
+        res[f"nsa_train_{name}"]["host_seconds"] = {
+            b[0]: round(b[1] - a[1], 3) for a, b in zip(marks, marks[1:])}
+        print(f"nsa training {name}: step {res[f'nsa_train_{name}']['ms']:.3f}"
+              f" ms; partial {res[f'nsa_fwd_partial_{name}']['ms']:.3f}, "
+              f"dkdv {res[f'nsa_bwd_dkdv_{name}']['ms']:.3f}, dq "
+              f"{res[f'nsa_bwd_dq_{name}']['ms']:.3f}", flush=True)
+        del leaves, grads, q, k, v, go, q5, kh, vh, g_, lse2, delta, o_slc
+        del l, seen, out
+        torch.cuda.empty_cache()
+
+    del sel_dense
+    torch.cuda.empty_cache()
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"nsa_training": res}), flush=True)
+    return res
+
+
+# the nsa_training phase's kernels: (name, source, replaced TPU kernel,
+# headline case)
+NSA_TRAINING_KERNELS = (
+    ("nsa_fwd_partial", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:127",
+     "float32"),
+    ("nsa_bwd_dkdv", "nsa_bwd.cu", "tilelang_mesh_tpu/ops/nsa_bwd.py:28",
+     "float32"),
+    ("nsa_bwd_dq", "nsa_bwd.cu", "tilelang_mesh_tpu/ops/nsa_bwd.py:99",
+     "float32"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -3750,6 +4125,7 @@ def main() -> int:
         "tilelang_mesh_tpu_torch.ops.seer_attention")
     mi = importlib.import_module("tilelang_mesh_tpu_torch.ops.minference")
     nsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa")
+    from tilelang_mesh_tpu_torch.ops import nsa_bwd as nb
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -3774,7 +4150,8 @@ def main() -> int:
                "gdn", "linear_attention", "gemm_s8", "gemm_variants",
                "gemv", "quantize_act", "bitnet_gemm",
                "flash_attention_varlen", "varlen_bwd", "attention_sink",
-               "softmax", "blocksparse_attention", "minference", "nsa")
+               "softmax", "blocksparse_attention", "minference", "nsa",
+               "nsa_bwd")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -3842,6 +4219,9 @@ def main() -> int:
 
     phase("sparse_inference")
     si = sparse_inference_phase(torch, mi, nsa)
+
+    phase("nsa_training")
+    nt = nsa_training_phase(torch, nsa, nb)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -3953,6 +4333,18 @@ def main() -> int:
                                                "gqa_bwd_dkdv", "gqa_bwd_dq")}
         kernels.append(entry)
     kernels += kernel_entries(si, SPARSE_INFERENCE_KERNELS)
+    for entry in kernel_entries(nt, NSA_TRAINING_KERNELS):
+        if entry["name"] == "nsa_bwd_dkdv":     # the chunk partials' sum
+            entry["fixup"] = {"name": "nsa_bwd_dkdv_sum",
+                              "launches": nt["launches"]["nsa_bwd_dkdv_sum"]}
+        if entry["name"] == "nsa_fwd_partial":
+            entry["training_step"] = {
+                k: nt[f"nsa_train_{k}"] for k in ("float32", "bfloat16")}
+        kernels.append(entry)
+    check(all(k["launches"] > 0 for k in kernels
+              if k["name"] in [n for n, *_ in NSA_TRAINING_KERNELS])
+          and nt["launches"]["nsa_bwd_dkdv_sum"] > 0,
+          "nsa_training: a kernel of the path was not launched")
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

@@ -1958,3 +1958,184 @@ def test_slice11_wrappers_raise_on_build_or_launch_failure(cuda,
                                             torch.float32)
     with pytest.raises(ValueError, match="groups"):
         nsa.nsa_fwd(nq, kh, vh, bi, cnt, gs, gw, 8, 0, 0.25)
+
+
+# ---------------------------------------------------------------------------
+# NSA training (csrc/nsa.cu's partial forward, csrc/nsa_bwd.cu)
+# ---------------------------------------------------------------------------
+
+nsa_bwd = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa_bwd")
+
+
+def _nsa_grad_case(dev, B, T, G, H, D, S, BS, dtype, counts=None, seed=0):
+    """``_nsa_case``'s inputs (-1 slots, duplicate ids, block 0 in every
+    token's last slot) and the backward's: an incoming gradient, lse2 and
+    delta from the plain partial forward, the multiplicity map."""
+    q, kh, vh, bi, cnt, _, _ = _nsa_case(dev, B, T, G, H, D, S, BS, dtype,
+                                         counts, seed)
+    acc, m, l = nsa.nsa_fwd_partial_plain(q, kh, vh, bi, cnt, BS, 0.2)
+    o = torch.where(l[..., None] > 0, acc / l[..., None], 0.0).to(dtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    mask = nsa_bwd.nsa_block_mask(bi, cnt, T, -(-T // BS), BS)
+    return q, kh, vh, bi, cnt, do, m + torch.log2(l), delta, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("T,BS", [(64, 16), (40, 16), (100, 32), (96, 64)])
+@pytest.mark.parametrize("G,H", [(1, 3), (2, 2), (16, 1), (24, 1), (64, 1)])
+def test_nsa_fwd_partial_kernel_matches_plain(cuda, dtype, T, BS, G, H):
+    """(acc, m, l) of the selected branch: ragged T, groups 1 to 64,
+    counts below S (0 included: l = 0, m = -1e30, acc = 0)."""
+    q, kh, vh, bi, cnt, _, _ = _nsa_case(cuda, 2, T, G, H, 32, 4, BS, dtype,
+                                         counts=True)
+    before = nsa.launches["nsa_fwd_partial"]
+    acc, m, l = nsa.nsa_fwd_partial(q, kh, vh, bi, cnt, BS, 0.2)
+    torch.cuda.synchronize()
+    assert nsa.launches["nsa_fwd_partial"] == before + 1
+    wa, wm, wl = nsa.nsa_fwd_partial_plain(q, kh, vh, bi, cnt, BS, 0.2)
+    assert _normwise((acc, l), (wa, wl)) <= ATTN_TOL[dtype]
+    seen = wl > 0
+    assert bool(seen.any()) and bool((~seen).any())
+    assert _normwise(m[seen], wm[seen]) <= 1e-5
+    assert bool((m[~seen] == -1e30).all()) and not l[~seen].any() \
+        and not acc[~seen].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G,H", [(1, 3), (2, 2), (16, 1), (64, 1)])
+@pytest.mark.parametrize("chunk_rows", [2048, 40])
+def test_nsa_bwd_kernels_match_plain(cuda, monkeypatch, dtype, G, H,
+                                     chunk_rows):
+    """dK / dV (and its fixed-order sum) and dQ against the plain
+    versions: -1 slots, duplicate ids, counts below S; chunks of 40 rows
+    cut each block's tokens into many partials."""
+    monkeypatch.setattr(nsa_bwd, "DKDV_CHUNK_ROWS", chunk_rows)
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        cuda, 2, 96, G, H, 32, 4, 16, dtype, counts=True)
+    assert int(mask.max()) >= 2
+    before = dict(nsa_bwd.launches)
+    dk, dv = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, 16, 0.2)
+    dq = nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 16, 0.2)
+    torch.cuda.synchronize()
+    assert nsa_bwd.launches == {k: n + 1 for k, n in before.items()}
+    assert _normwise((dk, dv), nsa_bwd.nsa_bwd_dkdv_plain(
+        q, kh, vh, do, lse2, delta, mask, 16, 0.2)) <= ATTN_TOL[dtype]
+    assert _normwise(dq, nsa_bwd.nsa_bwd_dq_plain(
+        q, kh, vh, do, lse2, delta, bi, cnt, 16, 0.2)) <= ATTN_TOL[dtype]
+    # no atomics: the same bits again
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask,
+                                       16, 0.2)))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_nsa_training_kernels_head_dims(cuda, d):
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        cuda, 1, 128, 4, 2, d, 3, 32, torch.float32, counts=True)
+    acc, _, l = nsa.nsa_fwd_partial(q, kh, vh, bi, cnt, 32, 0.2)
+    wa, _, wl = nsa.nsa_fwd_partial_plain(q, kh, vh, bi, cnt, 32, 0.2)
+    assert _normwise((acc, l), (wa, wl)) <= 1e-5
+    got = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, 32, 0.2)
+    assert _normwise(got, nsa_bwd.nsa_bwd_dkdv_plain(
+        q, kh, vh, do, lse2, delta, mask, 32, 0.2)) <= 1e-5
+    got = nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 32, 0.2)
+    assert _normwise(got, nsa_bwd.nsa_bwd_dq_plain(
+        q, kh, vh, do, lse2, delta, bi, cnt, 32, 0.2)) <= 1e-5
+
+
+def test_nsa_bwd_dkdv_block0_of_every_token(cuda):
+    """The unbalanced case: every token selects block 0 (1024 tokens of
+    16 query heads: eight chunks of 2048 rows for block 0, one or two for
+    the others), summed in chunk order; the same bits on a second call."""
+    T, G, H, D, BS = 1024, 16, 2, 128, 64
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        cuda, 1, T, G, H, D, 4, BS, torch.float32)
+    assert bool((mask[..., 0] >= 1).all())
+    _, _, chunks, first = nsa_bwd.dkdv_plan(mask, G)
+    assert int(first[1] - first[0]) == T * G // nsa_bwd.DKDV_CHUNK_ROWS
+    got = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, BS, 0.2)
+    assert _normwise(got, nsa_bwd.nsa_bwd_dkdv_plain(
+        q, kh, vh, do, lse2, delta, mask, BS, 0.2)) <= 1e-5
+    again = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, BS, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nsa_training_autograd_on_card_matches_cpu(cuda, dtype):
+    """nsa_attention(backward="kernel") under autograd: one partial, one
+    dK / dV and its sum, one dQ; output and dQ, dK, dV, dG against the
+    same step on CPU tensors (the plain versions)."""
+    B, T, HQ, H, D, S, BS = 1, 192, 8, 2, 64, 4, 32
+    g = torch.Generator().manual_seed(3)
+    base = [torch.randn(s, generator=g) for s in
+            ((B, T, HQ, D), (B, T, H, D), (B, T, H, D), (B, T, HQ, D))]
+    gs = torch.rand((B, T, HQ), generator=g) * 0.8 + 0.2
+    own = torch.arange(T)[None, :, None, None] // BS
+    bi = torch.where(torch.rand((B, T, H, S), generator=g) < 0.2, -1,
+                     torch.randint(0, 1 << 20, (B, T, H, S), generator=g)
+                     % (own + 1))
+    bi[..., 0] = own[..., 0]
+    bi = bi.to(torch.int32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, dtype, copy=True).requires_grad_()
+                  for t in base[:3]]
+        leaves.append(gs.to(dev, copy=True).requires_grad_())
+        nsa.reset_launches()
+        nsa_bwd.reset_launches()
+        o = nsa.nsa_attention(*leaves[:3], leaves[3], leaves[3], bi.to(dev),
+                              block_size=BS, backward="kernel")
+        o.backward(base[3].to(dev).to(dtype))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert nsa.launches["nsa_fwd_partial"] == 1
+            assert nsa_bwd.launches == {"nsa_bwd_dkdv": 1,
+                                        "nsa_bwd_dkdv_sum": 1,
+                                        "nsa_bwd_dq": 1}
+        grads[str(dev)] = [o.detach()] + [t.grad for t in leaves]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _normwise(got, want.to(cuda)) <= tol
+
+
+def _slice12_calls(dev):
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        dev, 1, 32, 2, 1, 16, 2, 8, torch.float32)
+    return [(nsa.launches, "nsa_fwd_partial",
+             lambda: nsa.nsa_fwd_partial(q, kh, vh, bi, cnt, 8, 0.25)),
+            (nsa_bwd.launches, "nsa_bwd_dkdv",
+             lambda: nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask,
+                                          8, 0.25)),
+            (nsa_bwd.launches, "nsa_bwd_dq",
+             lambda: nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt,
+                                        8, 0.25))]
+
+
+def test_slice12_wrappers_raise_on_build_or_launch_failure(cuda,
+                                                           monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError naming the wrapper, and neither counts a
+    launch; a head_dim the kernels lack is refused before."""
+    calls = _slice12_calls(cuda)
+    before = [dict(c) for c, _, _ in calls]
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, _, call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for _, name, call in calls:
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert [dict(c) for c, _, _ in calls] == before
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        cuda, 1, 32, 2, 1, 24, 2, 8, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 8, 0.25)

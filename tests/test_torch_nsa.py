@@ -1,5 +1,6 @@
 """The port's NSA inference (tilelang_mesh_tpu_torch/ops/nsa.py) against
-the JAX package's (ops/nsa.py) on the same numpy-seeded inputs.
+the JAX package's (ops/nsa.py) on the same numpy-seeded inputs; its
+training backward in tests/test_torch_nsa_bwd.py.
 
 The JAX kernels run in Pallas interpret mode on the CPU, as
 tests/test_sparse_attention.py runs them; the port's on CPU tensors, i.e.
@@ -267,8 +268,12 @@ def test_factories_match_jax():
 
 
 def test_training_backward_is_a_later_slice():
+    """The training backward came with a later slice: backward="kernel"
+    now runs (tests/test_torch_nsa_bwd.py holds it against jax.grad)
+    and gives the fused forward's value."""
     a = _inputs(1, 16, 2, 1, 16, 2, 8)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        port.nsa_attention(*map(torch.from_numpy, a), block_size=8,
-                           backward="kernel")
+    got = port.nsa_attention(*map(torch.from_numpy, a), block_size=8,
+                             backward="kernel")
+    _close(got, port.nsa_attention(*map(torch.from_numpy, a),
+                                   block_size=8).numpy())
     assert port_ops.nsa_attention is port.nsa_attention

@@ -1,12 +1,14 @@
-// Native Sparse Attention (DeepSeek NSA) inference: the fused forward, the
-// packed varlen forward and decode, for Hopper (sm_90a).
+// Native Sparse Attention (DeepSeek NSA) forwards: the fused forward, the
+// packed varlen forward, decode and the training partial, for Hopper
+// (sm_90a).
 //
-// Replaces three TPU kernels of tilelang_mesh_tpu/ops/nsa.py, which share
+// Replaces four TPU kernels of tilelang_mesh_tpu/ops/nsa.py, which share
 // the selected-branch gather _nsa_selected_prelude (:42-75); here they
 // share one kernel body, nsa_fwd, and its gather attend_keys:
-//   nsa_fwd_kernel (:79)         -> tl_nsa_fwd
-//   nsa_varlen_fwd_kernel (:245) -> tl_nsa_varlen_fwd
-//   nsa_decode_kernel (:334)     -> tl_nsa_decode
+//   nsa_fwd_kernel (:79)          -> tl_nsa_fwd
+//   nsa_fwd_partial_kernel (:127) -> tl_nsa_fwd_partial
+//   nsa_varlen_fwd_kernel (:245)  -> tl_nsa_varlen_fwd
+//   nsa_decode_kernel (:334)      -> tl_nsa_decode
 // Same contract:
 //   Q, O (B, T, H, G, D) in float32, bfloat16 or float16 (`dt`:
 //   attention_common.cuh's codes), contiguous: the G = HQ / H query
@@ -25,6 +27,11 @@
 //   the input type), normalised as acc / max(l, 1e-30), so a branch
 //   that sees no key adds 0 (:103, :119). O = the gated sum, rounded to
 //   the input type once.
+//   The partial forward is the selected branch alone, without gates: it
+//   writes the unnormalised float32 acc (B, T, H, G, D) and the exp2
+//   statistics m (floored at -1e30) and l (B, T, H, G) instead of O, so
+//   a row that sees no key has l = 0 (the backward kernels' residuals,
+//   ops/nsa_bwd.py).
 //   Decode is T = 1 with the causal bound Tk - 1 for its one token
 //   (:337): Q, O (B, H, G, D), BI (B, H, S), Cnt (B, H), Gslc (B, H, G).
 //   Varlen is B = 1 with raw packed row offsets: packed order is
@@ -118,7 +125,11 @@ __device__ __forceinline__ void reset(float (&m)[BM / kTy],
   }
 }
 
-template <int BM, int D, int DT>
+// PARTIAL: the training partial, writing acc, m, l through o, gs, gw (it
+// has no gates): instances of their own, so that the fused forward's
+// code and Args stay as they were (a partial branch and three more Args
+// fields cost the fused forward 5 %: scripts/nsa_ab.py)
+template <int BM, int D, int DT, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads) nsa_fwd(const Args a) {
   using T = typename Elem<DT>::T;
   constexpr int RM = BM / kTy;  // query rows per thread
@@ -154,6 +165,24 @@ __global__ void __launch_bounds__(kThreads) nsa_fwd(const Args a) {
                            (int)min(off + a.BS, (long long)hi), Qs, Ks, Vs,
                            Ps, a.scale, m, l, acc);
   }
+  if constexpr (PARTIAL) {  // no gate, no window
+    float* pacc = static_cast<float*>(a.o);
+    float* pm = const_cast<float*>(a.gs);
+    float* pl = const_cast<float*>(a.gw);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int i = ty + kTy * r;
+      if (i >= a.G) continue;
+      const long long gi = row * a.G + i;
+#pragma unroll
+      for (int e = 0; e < CD; ++e) pacc[gi * D + tx + kTx * e] = acc[r][e];
+      if (tx == 0) {
+        pm[gi] = fmaxf(m[r], -1e30f);
+        pl[gi] = l[r];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int i = ty + kTy * r;
@@ -188,34 +217,39 @@ __global__ void __launch_bounds__(kThreads) nsa_fwd(const Args a) {
   }
 }
 
-template <int BM, int D, int DT>
+template <int BM, int D, int DT, bool PARTIAL>
 int run(const Args& a, int B, cudaStream_t st) {
   const dim3 grid(a.T, a.H, B);
-  return launch(nsa_fwd<BM, D, DT>, grid, tile_smem_bytes<BM, BN, D>(), st,
-                a);
+  return launch(nsa_fwd<BM, D, DT, PARTIAL>, grid,
+                tile_smem_bytes<BM, BN, D>(), st, a);
 }
 
 template <int D>
-int dispatch(int dt, const Args& a, int B, cudaStream_t st) {
+int dispatch(int dt, const Args& a, int B, bool partial, cudaStream_t st) {
   return with_elem(dt, [&](auto e) {
     constexpr int DT = decltype(e)::value;
-    return a.G <= 16 ? run<16, D, DT>(a, B, st) : run<64, D, DT>(a, B, st);
+    if (partial)
+      return a.G <= 16 ? run<16, D, DT, true>(a, B, st)
+                       : run<64, D, DT, true>(a, B, st);
+    return a.G <= 16 ? run<16, D, DT, false>(a, B, st)
+                     : run<64, D, DT, false>(a, B, st);
   });
 }
 
-int go(const Args& a, int B, int D, int dt, void* stream) {
+int go(const Args& a, int B, int D, int dt, void* stream,
+       bool partial = false) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.G < 1 || a.G > 64 || a.BS < 1 || a.S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16:
-      return dispatch<16>(dt, a, B, st);
+      return dispatch<16>(dt, a, B, partial, st);
     case 32:
-      return dispatch<32>(dt, a, B, st);
+      return dispatch<32>(dt, a, B, partial, st);
     case 64:
-      return dispatch<64>(dt, a, B, st);
+      return dispatch<64>(dt, a, B, partial, st);
     case 128:
-      return dispatch<128>(dt, a, B, st);
+      return dispatch<128>(dt, a, B, partial, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -255,6 +289,20 @@ extern "C" int tl_nsa_varlen_fwd(const void* q, const void* k, const void* v,
                static_cast<const float*>(gs), 0, sh, sr, T, H, G, Tk, S, BS,
                0, 1, -1, scale};
   return go(a, 1, D, dt, stream);
+}
+
+// the training partial: acc (B, T, H, G, D), m, l (B, T, H, G) float32
+extern "C" int tl_nsa_fwd_partial(const void* q, const void* k, const void* v,
+                                  const void* bi, const void* cnt,
+                                  void* acc, void* m, void* l, int B, int T,
+                                  int H, int G, int Tk, int D, int S, int BS,
+                                  long long sb, long long sh, long long sr,
+                                  int dt, float scale, void* stream) {
+  const Args a{q, k, v, acc, static_cast<const int*>(bi),
+               static_cast<const int*>(cnt), static_cast<const float*>(m),
+               static_cast<const float*>(l), sb, sh, sr, T, H, G, Tk, S, BS,
+               0, 0, -1, scale};
+  return go(a, B, D, dt, stream, true);
 }
 
 // one token: Q, O (B, H, G, D), causal bound Tk - 1

@@ -55,7 +55,8 @@ from .mla import (mla_decode, mla_decode_partials,  # noqa: F401
                   mla_decode_partials_plain, mla_decode_reference)
 from .nsa import (nsa_attention, nsa_attention_varlen,  # noqa: F401
                   nsa_decode, nsa_decode_kernel, nsa_fwd_kernel,
-                  nsa_reference, nsa_varlen_fwd_kernel)
+                  nsa_fwd_partial_kernel, nsa_reference,
+                  nsa_varlen_fwd_kernel)
 from .quantize_act import (quantize_act_int8,  # noqa: F401
                            quantize_act_int8_plain)
 from .seer_attention import (seer_attention, seer_block_mask,  # noqa: F401
@@ -99,4 +100,5 @@ __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd_kernel",
            "vertical_slash_sparse_attention", "vs_sparse", "vs_sparse_kernel",
            "vs_sparse_plain", "vs_sparse_reference", "nsa_attention",
            "nsa_attention_varlen", "nsa_decode", "nsa_decode_kernel",
-           "nsa_fwd_kernel", "nsa_reference", "nsa_varlen_fwd_kernel"]
+           "nsa_fwd_kernel", "nsa_fwd_partial_kernel", "nsa_reference",
+           "nsa_varlen_fwd_kernel"]

@@ -1,11 +1,11 @@
-"""Native Sparse Attention (DeepSeek NSA) inference on the card.
+"""Native Sparse Attention (DeepSeek NSA) on the card.
 
 Counterpart of ``tilelang_mesh_tpu/ops/nsa.py`` (semantics of the
 upstream ``naive_nsa``): every query token attends (a) a per-token set
 of S selected KV blocks of ``block_size`` keys, gated by ``g_slc``, and
 (b) an optional sliding window, gated by ``g_swa``. The G = HQ // H
 query heads that share a KV head are one group. One CUDA source
-(``csrc/nsa.cu``) replaces three TPU kernels, which share its gather:
+(``csrc/nsa.cu``) replaces four TPU kernels, which share its gather:
 
 * ``nsa_fwd`` — ``nsa_fwd_kernel``: both branches, gates applied, for
   ``nsa_attention``;
@@ -13,15 +13,20 @@ query heads that share a KV head are one group. One CUDA source
   over packed sequences, block ids turned into raw packed row offsets,
   for ``nsa_attention_varlen``;
 * ``nsa_decode_fwd`` — ``nsa_decode_kernel``: one token, the causal
-  bound the last key, for ``nsa_decode``.
+  bound the last key, for ``nsa_decode``;
+* ``nsa_fwd_partial`` — ``nsa_fwd_partial_kernel``: the selected branch
+  without gates, its unnormalised ``(acc, m, l)`` in the exp2 domain,
+  for ``nsa_attention(backward="kernel")`` under autograd.
 
 Every key read lies below the key length: on a ragged tail (T not a
 multiple of the block size) the TPU kernel's block copy runs past it and
 reads other rows, so the JAX kernel differs from its own reference
 there; the port follows the reference (``nsa_reference``). K and V are
 taken in the callers' (B, T, H, D) layout as strided views, with no
-copy. ``backward="kernel"`` (NSA training: the partial forward and the
-dK/dV and dQ kernels) comes with a later slice.
+copy. ``backward="kernel"`` is NSA training: the partial forward here,
+its output normalised outside the kernel and the gate applied outside
+the autograd Function (so d(g_slc) comes from autograd, as it comes
+from jax AD), and the dK/dV and dQ kernels of ``ops/nsa_bwd.py``.
 
 Each wrapper launches its kernel on CUDA tensors (a build or launch
 failure raises) and runs its plain version on CPU tensors: each token's
@@ -48,10 +53,13 @@ __all__ = ["nsa_attention", "nsa_attention_varlen", "nsa_decode",
            "nsa_reference", "nsa_fwd", "nsa_fwd_plain", "nsa_fwd_kernel",
            "nsa_varlen_fwd", "nsa_varlen_fwd_plain", "nsa_varlen_fwd_kernel",
            "nsa_decode_fwd", "nsa_decode_fwd_plain", "nsa_decode_kernel",
-           "varlen_offsets", "launches", "reset_launches", "KERNEL_MAX_GROUP"]
+           "nsa_fwd_partial", "nsa_fwd_partial_plain",
+           "nsa_fwd_partial_kernel", "nsa_dense", "varlen_offsets",
+           "launches", "reset_launches", "KERNEL_MAX_GROUP"]
 
 # kernel name -> launches through its wrapper
-launches = {"nsa_fwd": 0, "nsa_varlen_fwd": 0, "nsa_decode": 0}
+launches = {"nsa_fwd": 0, "nsa_varlen_fwd": 0, "nsa_decode": 0,
+            "nsa_fwd_partial": 0}
 
 # the largest group (query heads a KV head) the kernel's row tile holds
 KERNEL_MAX_GROUP = 64
@@ -82,7 +90,9 @@ def _counts(block_counts, S: int, shape, device) -> torch.Tensor:
 
 def _check(q, kh, vh, ids, cnt, gates, what: str) -> None:
     """q (..., G, D) of N tokens' groups; kh, vh (B, H, Tk, D) views;
-    ids (N..., H, S), cnt (N..., H), gates (N..., H, G)."""
+    ids (N..., H, S), cnt (N..., H), gates (N..., H, G) or None."""
+    if gates is None:                     # the partial forward has none
+        gates = torch.empty(q.shape[:-1], device=q.device)
     if q.dtype != kh.dtype or kh.dtype != vh.dtype or q.dtype not in _DTYPES:
         raise TypeError(f"{what}: q, k, v must share float32, bfloat16 or "
                         f"float16, got {q.dtype}, {kh.dtype}, {vh.dtype}")
@@ -122,20 +132,29 @@ def _check(q, kh, vh, ids, cnt, gates, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
-    """One branch for N tokens' groups ``q (N, H, G, D)``: token n reads
-    the keys ``start[n, h, s] + j``, j < ``length``, of batch ``b[n]``,
-    those at most ``bound[n]`` (and below Tk) and of slots with ``start
-    >= 0``. Exp2 scores, ``m = max(rowmax, -1e30)``, ``p = exp2(s - m)``,
-    ``acc = dtype(p) @ v``: returns ``acc / max(l, 1e-30)`` float32."""
-    N, H, G, D = q.shape
+def _key_index(kh, b, start, length: int, bound):
+    """The gather of the keys ``start[n, h, s] + j``, j < ``length``, of
+    batch ``b[n]``: ``(at, ok)``, ``kh[at]`` the (N, H, S * length, D)
+    keys and ``ok`` those at most ``bound[n]``, below Tk and of slots
+    with ``start >= 0``."""
+    N, H = start.shape[:2]
     Tk = kh.shape[2]
-    keys = start[..., None] + torch.arange(length, device=q.device)
+    dev = kh.device
+    keys = start[..., None] + torch.arange(length, device=dev)
     ok = (start >= 0)[..., None] & (keys <= bound[:, None, None, None]) \
         & (keys < Tk)
     keys, ok = keys.reshape(N, H, -1), ok.reshape(N, H, -1)
-    at = (b[:, None, None], torch.arange(H, device=q.device)[None, :, None],
+    at = (b[:, None, None], torch.arange(H, device=dev)[None, :, None],
           keys.clamp(0, Tk - 1))
+    return at, ok
+
+
+def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
+    """One branch for N tokens' groups ``q (N, H, G, D)`` over the keys of
+    ``_key_index``. Exp2 scores, ``m = max(rowmax, -1e30)``, ``p =
+    exp2(s - m)``, ``acc = dtype(p) @ v``: returns the unnormalised
+    ``(acc, m, l)`` float32, acc (N, H, G, D), m and l (N, H, G)."""
+    at, ok = _key_index(kh, b, start, length, bound)
     s = torch.einsum("nhgd,nhld->nhgl", q.float(), kh[at].float())
     s.mul_(float(sm_scale) * _LOG2E).masked_fill_(~ok[:, :, None, :],
                                                   -math.inf)
@@ -144,7 +163,29 @@ def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("nhgl,nhld->nhgd", p.to(q.dtype).float(),
                        vh[at].float())
-    return acc / l.clamp_min(1e-30)
+    return acc, m[..., 0], l[..., 0]
+
+
+def _normalised(acc, l):
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def _token_chunks(q, starts, cnt, bound, tokens: int):
+    """``(t0, t1, qc, b, bd, st)`` for each chunk of ``tokens`` tokens of
+    ``q (B, T, H, G, D)``: its N = B (t1 - t0) groups ``qc (N, H, G,
+    D)``, their batches ``b`` and causal bounds ``bd``, and their slots'
+    first keys ``st (N, H, S)``, -1 past the count."""
+    B, T, H, G, D = q.shape
+    S = starts.shape[-1]
+    slot = torch.arange(S, device=q.device)
+    for t0 in range(0, T, tokens):
+        t1 = min(t0 + tokens, T)
+        n = B * (t1 - t0)
+        b = torch.arange(B, device=q.device).repeat_interleave(t1 - t0)
+        st = starts[:, t0:t1].reshape(n, H, S)
+        st = torch.where(slot < cnt[:, t0:t1].reshape(n, H, 1), st, -1)
+        yield (t0, t1, q[:, t0:t1].reshape(n, H, G, D), b,
+               bound[t0:t1].repeat(B), st)
 
 
 def _nsa_plain(q, kh, vh, starts, cnt, g_slc, g_swa, block_size: int,
@@ -154,23 +195,17 @@ def _nsa_plain(q, kh, vh, starts, cnt, g_slc, g_swa, block_size: int,
     ``starts (B, T, H, S)`` the selected blocks' first keys (-1: none),
     ``bound (T,)`` each token's causal bound, ``tokens`` tokens a step."""
     B, T, H, G, D = q.shape
-    S = starts.shape[-1]
-    slot = torch.arange(S, device=q.device)
     out = torch.empty_like(q)
-    for t0 in range(0, T, tokens):
-        t1 = min(t0 + tokens, T)
-        n = B * (t1 - t0)
-        qc = q[:, t0:t1].reshape(n, H, G, D)
-        b = torch.arange(B, device=q.device).repeat_interleave(t1 - t0)
-        bd = bound[t0:t1].repeat(B)
-        st = starts[:, t0:t1].reshape(n, H, S)
-        st = torch.where(slot < cnt[:, t0:t1].reshape(n, H, 1), st, -1)
-        o = _branch(qc, kh, vh, b, st, block_size, bd, sm_scale) \
-            * g_slc[:, t0:t1].reshape(n, H, G, 1)
+    for t0, t1, qc, b, bd, st in _token_chunks(q, starts, cnt, bound,
+                                               tokens):
+        n = qc.shape[0]
+        acc, _, l = _branch(qc, kh, vh, b, st, block_size, bd, sm_scale)
+        o = _normalised(acc, l) * g_slc[:, t0:t1].reshape(n, H, G, 1)
         if window > 0:
             w0 = (bd - window + 1)[:, None, None].expand(n, H, 1)
-            o += _branch(qc, kh, vh, b, w0.clamp_min(0), window, bd,
-                         sm_scale) * g_swa[:, t0:t1].reshape(n, H, G, 1)
+            acc, _, l = _branch(qc, kh, vh, b, w0.clamp_min(0), window, bd,
+                                sm_scale)
+            o += _normalised(acc, l) * g_swa[:, t0:t1].reshape(n, H, G, 1)
         out[:, t0:t1] = o.reshape(B, t1 - t0, H, G, D).to(q.dtype)
     return out
 
@@ -211,19 +246,42 @@ def nsa_decode_fwd_plain(q, kh, vh, bi, cnt, g_slc, block_size: int,
                       sm_scale)[:, 0]
 
 
+def nsa_fwd_partial_plain(q, kh, vh, bi, cnt, block_size: int,
+                          sm_scale: float):
+    """Plain version of the partial forward: the selected branch of ``q
+    (B, T, H, G, D)`` without gates, ``(acc (B, T, H, G, D), m, l (B, T,
+    H, G))`` float32 in the exp2 domain, m floored at -1e30 (l = 0 on a
+    row that sees no key)."""
+    B, T, H, G, D = q.shape
+    dev = q.device
+    acc = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    m = torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    for t0, t1, qc, b, bd, st in _token_chunks(
+            q, _block_starts(bi, block_size), cnt,
+            torch.arange(T, device=dev), PLAIN_TOKENS):
+        a_, m_, l_ = _branch(qc, kh, vh, b, st, block_size, bd, sm_scale)
+        acc[:, t0:t1] = a_.reshape(B, t1 - t0, H, G, D)
+        m[:, t0:t1] = m_.reshape(B, t1 - t0, H, G)
+        l[:, t0:t1] = l_.reshape(B, t1 - t0, H, G)
+    return acc, m, l
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale):
+def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale,
+            outs=None):
     """One launch of ``csrc/nsa.cu``'s ``entry``: the pointers of q, k,
-    v, ``operands`` and a new o; then ``dims`` (ints), K's and V's
-    ``strides`` (elements), the type code and the exp2 scale."""
+    v, ``operands`` and the outputs (``outs``, by default a new o, which
+    is returned); then ``dims`` (ints), K's and V's ``strides``
+    (elements), the type code and the exp2 scale."""
     from ._build import load, stream_call
     q = q.contiguous()
-    o = torch.empty_like(q)
-    ptrs = [q, kh, vh, *(t.contiguous() for t in operands), o]
+    o = (torch.empty_like(q),) if outs is None else outs
+    ptrs = [q, kh, vh, *(t.contiguous() for t in operands), *o]
     fn = getattr(load("nsa"), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
                    + [ctypes.c_int] * len(dims)
@@ -236,7 +294,7 @@ def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale):
     if code != 0:
         raise KernelLaunchError(name, code)
     launches[name] += 1
-    return o
+    return o[0] if outs is None else o
 
 
 def nsa_fwd(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int, window: int,
@@ -291,6 +349,26 @@ def nsa_decode_fwd(q, kh, vh, bi, cnt, g_slc, block_size: int,
                    kh.stride()[:3], sm_scale)
 
 
+def nsa_fwd_partial(q, kh, vh, bi, cnt, block_size: int, sm_scale: float):
+    """The selected branch without gates, unnormalised: ``(acc (B, T, H,
+    G, D), m, l (B, T, H, G))`` float32 in the exp2 domain, for ``q (B,
+    T, H, G, D)``, ``kh, vh (B, H, Tk, D)`` (any strides, head_dim
+    contiguous), ``bi (B, T, H, S)``, ``cnt (B, T, H)``. m is floored at
+    -1e30 and l is 0 on a row that sees no key. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
+    _check(q, kh, vh, bi, cnt, None, "nsa_fwd_partial")
+    if not q.is_cuda:
+        return nsa_fwd_partial_plain(q, kh, vh, bi, cnt, block_size,
+                                     sm_scale)
+    B, T, H, G, D = q.shape
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    outs = (acc, torch.empty_like(acc[..., 0]), torch.empty_like(acc[..., 0]))
+    return _launch("nsa_fwd_partial", "tl_nsa_fwd_partial", q, kh, vh,
+                   (bi, cnt), (B, T, H, G, kh.shape[2], D, bi.shape[-1],
+                               block_size), kh.stride()[:3], sm_scale,
+                   outs=outs)
+
+
 # ---------------------------------------------------------------------------
 # factories (the JAX package's arguments and kernel-side layouts)
 # ---------------------------------------------------------------------------
@@ -324,6 +402,20 @@ def nsa_varlen_fwd_kernel(Tq, H, G, Tk, D, S, BS, sm_scale, dtype):
                     gs, int(BS), float(sm_scale)))
 
 
+def nsa_fwd_partial_kernel(B, Tq, H, G, Tk, D, S, BS, sm_scale, dtype):
+    """``fn(Q (B, Tq, H, G, D), K, V (B, H, Tk, D), BI (B, Tq, H, S),
+    Cnt (B, Tq, H)) -> (O, M, L)``: the unnormalised accumulator and the
+    exp2-domain statistics, float32."""
+    dt = _as_dtype(dtype)
+    kv = ((B, H, Tk, D), dt)
+    return bind("nsa_fwd_partial_kernel",
+                [((B, Tq, H, G, D), dt), kv, kv, ((B, Tq, H, S), None),
+                 ((B, Tq, H), None)],
+                lambda q, k, v, bi, cnt: nsa_fwd_partial(
+                    q, k, v, _int32(bi, q.device), _int32(cnt, q.device),
+                    int(BS), float(sm_scale)))
+
+
 def nsa_decode_kernel(B, H, G, Tk, D, S, BS, sm_scale, dtype):
     """``fn(Q (B, H, G, D), K, V (B, H, Tk, D), BI (B, H, S), Cnt (B, H),
     Gslc (B, H, G)) -> O``."""
@@ -353,15 +445,19 @@ def nsa_attention(q, k, v, g_slc, g_swa, block_indices, block_counts=None,
                   scale: Optional[float] = None,
                   backward: Optional[str] = None) -> torch.Tensor:
     """NSA forward, the reference layout (``naive_nsa``, head_first
-    False): q (B, T, HQ, D); k, v (B, T, H, D); g_slc, g_swa (B, T, HQ);
+    False): q (B, T, HQ, D); k, v (B, Tk, H, D); g_slc, g_swa (B, T, HQ);
     block_indices (B, T, H, S) block ids (-1: none); block_counts None
-    (all S), an int or (B, T, H). ``backward=None``: the fused inference
-    kernel, gates and window in the kernel, not differentiable."""
-    if backward is not None:
-        raise NotImplementedError(
-            "nsa_attention(backward=...): NSA training (the partial "
-            "forward and the dK/dV and dQ kernels) is ROADMAP slice 12; "
-            "the port has the inference kernel (backward=None)")
+    (all S), an int or (B, T, H).
+
+    ``backward=None``: the fused inference kernel, gates and window in
+    the kernel, not differentiable. ``backward="kernel"``: differentiable
+    in q, k, v and g_slc through the partial forward and the dK/dV and dQ
+    kernels (``ops/nsa_bwd.py``); without a gradient to compute it still
+    runs the partial forward, normalised outside the kernel and rounded
+    to q's type before the gate multiplies (in float32, then cast). It
+    requires ``window_size == 0`` and Tk a multiple of ``block_size``
+    (``ValueError`` otherwise, as the JAX package raises); there is no
+    ``backward="reference"`` for this op."""
     B, T, HQ, D = q.shape
     Tk, H = k.shape[1], k.shape[2]
     G = _group(HQ, H)
@@ -370,12 +466,45 @@ def nsa_attention(q, k, v, g_slc, g_swa, block_indices, block_counts=None,
     cnt = _counts(block_counts, bi.shape[-1], (B, T, H), dev)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    q5, kh, vh = q.reshape(B, T, H, G, D), k.transpose(1, 2), \
+        v.transpose(1, 2)
     gs = torch.as_tensor(g_slc, device=dev).float().reshape(B, T, H, G)
-    gw = torch.as_tensor(g_swa, device=dev).float().reshape(B, T, H, G)
-    o = nsa_fwd(q.reshape(B, T, H, G, D), k.transpose(1, 2),
-                v.transpose(1, 2), bi, cnt, gs, gw, int(block_size),
-                int(window_size), float(scale))
-    return o.reshape(B, T, HQ, D)
+    if backward is None:
+        gw = torch.as_tensor(g_swa, device=dev).float().reshape(B, T, H, G)
+        o = nsa_fwd(q5, kh, vh, bi, cnt, gs, gw, int(block_size),
+                    int(window_size), float(scale))
+        return o.reshape(B, T, HQ, D)
+
+    BS = int(block_size)
+    if window_size:
+        raise ValueError(
+            "nsa_attention backward requires window_size == 0 (the "
+            "reference backward asserts the same)")
+    if Tk % BS:
+        raise ValueError(
+            f"nsa_attention backward requires the KV length ({Tk}) to "
+            f"be a multiple of block_size ({block_size}): the dKdV "
+            f"sweep writes full KV blocks")
+    if backward == "reference":
+        raise ValueError("backward='reference' is not available for this op")
+    from .flash_attention import differentiable
+    from .nsa_bwd import nsa_attention_bwd, nsa_block_mask
+    mask = nsa_block_mask(bi, cnt, T, Tk // BS, BS)
+
+    def partial(q5, kh, vh, bi, cnt, mask, causal, sm_scale):
+        return nsa_fwd_partial(q5, kh, vh, bi, cnt, BS, sm_scale)
+
+    def primal(q5, kh, vh, bi, cnt, mask, causal, sm_scale):
+        acc, _, l = partial(q5, kh, vh, bi, cnt, mask, causal, sm_scale)
+        lv = l[..., None]
+        return torch.where(lv > 0, acc / lv, 0.0).to(q5.dtype)
+
+    # the gate multiplies outside the Function: d(g_slc) from autograd;
+    # dK and dV flow back through the (B, Tk, H, D) -> (B, H, Tk, D) views
+    o_slc = differentiable(q5, kh, vh, True, float(scale), backward, primal,
+                           partial, None, aux=(bi, cnt, mask),
+                           bwd=nsa_attention_bwd)
+    return (o_slc * gs[..., None]).reshape(B, T, HQ, D).to(q.dtype)
 
 
 def varlen_offsets(block_indices, counts, cu_seqlens, block_size: int):
@@ -438,6 +567,48 @@ def nsa_decode(q, k, v, g_slc, block_indices, block_counts=None,
                        v.transpose(1, 2), bi, cnt, gs, int(block_size),
                        float(scale))
     return o.reshape(B, HQ, D)
+
+
+def nsa_dense(q, k, v, g_slc, block_indices, block_counts=None,
+              block_size: int = 64,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """The selected branch as a dense graph that autograd differentiates:
+    q (B, T, HQ, D), k, v (B, Tk, H, D), g_slc (B, T, HQ). Each key
+    weighs as often as its block is validly selected (slot below the
+    count, id >= 0, first key at most t), keys past t weigh 0; a natural
+    exp softmax over the weighted keys in float32, 0 on a row that sees
+    nothing. Equal to the tests' dense JAX graph where no block is
+    listed twice. Holds B T HQ Tk scores: for reduced shapes."""
+    B, T, HQ, D = q.shape
+    Tk, H = k.shape[1], k.shape[2]
+    G = _group(HQ, H)
+    BS = int(block_size)
+    dev = q.device
+    bi = _int32(block_indices, dev).long()
+    S = bi.shape[-1]
+    cnt = _counts(block_counts, S, (B, T, H), dev)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    t = torch.arange(T, device=dev)[None, :, None, None]
+    ok = (bi >= 0) & (bi * BS <= t) \
+        & (torch.arange(S, device=dev) < cnt[..., None])
+    NS = -(-Tk // BS)
+    ok &= bi < NS
+    weight = torch.zeros((B, T, H, NS + 1), device=dev).scatter_add_(
+        -1, torch.where(ok, bi, NS), ok.float())[..., :NS]
+    weight = weight.repeat_interleave(BS, -1)[..., :Tk]
+    weight = weight * (torch.arange(Tk, device=dev) <= t).float()
+    s = torch.einsum("bthgd,bkhd->bthgk", q.float().reshape(B, T, H, G, D),
+                     k.float()) * scale
+    w = weight[:, :, :, None, :]
+    s = s.masked_fill(w == 0, -math.inf)
+    m = s.amax(-1, keepdim=True).detach()     # a shift: no gradient
+    p = w * torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    den = p.sum(-1, keepdim=True)
+    p = torch.where(den > 0, p / den.clamp_min(1e-30), 0.0)
+    o = torch.einsum("bthgk,bkhd->bthgd", p, v.float())
+    gs = torch.as_tensor(g_slc, device=dev).float().reshape(B, T, H, G, 1)
+    return (o * gs).reshape(B, T, HQ, D)
 
 
 def nsa_reference(q, k, v, g_slc, g_swa, block_indices, block_counts=None,
