@@ -172,6 +172,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               kernel, plain and library (SDPA over the dense selected
               bool mask: its forward, its backward, both) times and the
               bound by the selected pairs.
+17. dsa     — the fourteenth main path: DeepSeek-V3.2 sparse attention at
+              DeepSeek-V3.2-Exp's attention widths (see DSA: 128 heads,
+              latent 512, rope 64, indexer 64 heads of 128, top-2048; a
+              4096-query chunk over an 8192-token cache), f32 and bf16:
+              lightning_indexer -> topk_selector -> sparse_mla_fwd, one
+              launch each; each kernel against its plain version on the
+              same inputs (ids equal, -inf exactly), the kernel chain's O
+              against the plain chain's (rows that select the same set;
+              near-ties on the others), a dead row and a ragged shape;
+              kernel, plain and library (none; torch.topk; SDPA over the
+              dense selected mask) times and the bound; then the sparse
+              fine-tuning step (make_sparse_mla, S 1024 over 4096): dq and
+              dkv against autograd through the dense reference, three
+              Adam steps whose loss falls, the step's time.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -407,6 +421,34 @@ MINFERENCE = dict(heads=32, kv_heads=8, head_dim=128, seq=16384, block=64,
 NSA = dict(heads=64, kv_heads=4, head_dim=128, block=64, selected=16,
            window=512, seq=8192, decode_batch=8, decode_context=65536,
            min_doc=300, max_doc=3000)
+
+
+# DSA (DeepSeek sparse attention) at DeepSeek-V3.2-Exp's attention widths
+# (https://huggingface.co/deepseek-ai/DeepSeek-V3.2-Exp/blob/main/config.json:
+# num_attention_heads 128, kv_lora_rank 512 (the latent D),
+# qk_rope_head_dim 64 (the tail DT), index_n_heads 64, index_head_dim 128,
+# index_topk 2048), B 1: a 4096-query prefill chunk at the tail of an
+# 8192-token cache (q_offset 4096, so every query sees at least 4097 keys
+# and all 2048 slots are live), f32 and bf16. Departures, so this is not
+# DeepSeek-V3.2: one attention op, not 61 layers; activations drawn from
+# seeded generators on the card, no projections and no RoPE; sm_scale
+# the JAX default 1/sqrt(576), not DeepSeek's YaRN-scaled one; f32 and
+# bf16 where upstream runs the indexer in fp8 (the JAX kernel has no fp8
+# path). The sparse fine-tuning step (make_sparse_mla) at the same widths
+# with S cut to 1024 over a 4096-token cache: its backward is autograd
+# through the dense reference, whose gather at S 4096 would hold 19 GB in
+# f32.
+DSA = dict(heads=128, latent=512, rope=64, index_heads=64, index_dim=128,
+           topk=2048, seq=4096, cache=8192, ft_seq=1024, ft_cache=4096)
+# kernel vs plain, normwise: the indexer f32 the same products in another
+# order, bf16 exact products of bf16 inputs summed in f32 in another
+# order; sparse MLA as MLA decode (bf16 rounds p before p @ v); LSE 1e-5;
+# the kernel chain against the plain chain at sparse MLA's bound on the
+# rows that select the same set, near-ties on the others (see
+# dsa_phase); the fine-tuning gradients against autograd through the
+# dense reference at MLA's bounds
+DSA_TOL = {"indexer": {"float32": 1e-5, "bfloat16": 1e-2},
+           "mla": {"float32": 1e-5, "bfloat16": 2e-2}, "lse": 1e-5}
 
 
 def varlen_pack_lengths(cfg):
@@ -1315,6 +1357,7 @@ def gemm_phase(torch, gg, dtype):
     # cuBLAS on the padded layout does C·E rows against the routed rows
     padded_ms = cuda_ms(torch, lambda: torch.bmm(xpad, b), 5)
     starts = [sum(sizes[:e]) for e in range(E)]
+    res["varlen_entry_launches"] = 0
     for trans_b in (False, True):
         bb = b.transpose(1, 2).contiguous() if trans_b else b
 
@@ -1328,6 +1371,17 @@ def gemm_phase(torch, gg, dtype):
             return [a[s0:s0 + n] @ (bb[e].t() if trans_b else bb[e])
                     for e, (s0, n) in enumerate(zip(starts, sizes)) if n]
 
+        # the entry point's own path (the MoE layer does not call it): one
+        # call at the routed counts, its counters zeroed before and read
+        # right after; the comparison's launches below do not count
+        torch.cuda.synchronize()
+        gg.reset_launches()
+        kern()
+        torch.cuda.synchronize()
+        check(gg.launches == {"grouped_gemm": 0, "varlen_grouped_gemm": 1},
+              f"varlen_grouped_matmul trans_b={trans_b}: launches "
+              f"{gg.launches}, want one varlen_grouped_gemm")
+        res["varlen_entry_launches"] += 1
         err, rel = compare(f"varlen_grouped_gemm trans_b={trans_b}", kern,
                            plain)
         res["varlen_trans" if trans_b else "varlen"] = {
@@ -4054,6 +4108,373 @@ NSA_TRAINING_KERNELS = (
      "float32"))
 
 
+def dsa_phase(torch, dsa):
+    """DSA at DeepSeek-V3.2-Exp's attention widths (DSA), f32 and bf16:
+    the pipeline through the entry points (lightning_indexer,
+    topk_selector, sparse_mla_fwd: one launch each, every counter zeroed
+    before and read right after); each kernel against its plain version
+    on the same inputs (the selector on the kernel's own logits); the
+    kernel chain's O against the plain chain's; a row with no valid id
+    and a ragged shape at small size; kernel, plain and library
+    (none for the indexer; torch.topk; SDPA over the dense selected
+    mask) times and the bound by this run's visible pairs and live
+    slots; then the sparse fine-tuning step (make_sparse_mla) at S
+    ft_seq over ft_cache: dq and dkv against autograd through the dense
+    reference, three Adam steps whose loss falls, and the step's
+    time."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    counted = {k: 0 for k in dsa.launches}
+    res = {}
+    reset_peak(torch)
+
+    def drive(label, call, want_launches, main=True):
+        torch.cuda.synchronize()
+        dsa.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        got = dict(dsa.launches)
+        want = {k: want_launches.get(k, 0) for k in got}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        for k in counted:
+            counted[k] += got[k] if main else 0
+        return out
+
+    def within(label, got, want, tol):
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, want {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        check(rel <= tol, f"{label} disagrees with its reference: "
+                          f"{rel:.3e} of max |reference| > {tol}")
+        return err, rel
+
+    def logits_within(label, got, want, tol):
+        inf = torch.isinf(want)
+        check(torch.equal(torch.isinf(got), inf)
+              and bool((got[inf] == want[inf]).all()),
+              f"{label}: -inf not where the plain version has it")
+        return within(label, got[~inf], want[~inf], tol)
+
+    def bound(flops, nbytes, peak):
+        t, by = mm_bound(flops, nbytes, peak)
+        return {"bound_ms": t, "bound_by": by, "ops": flops,
+                "bytes": nbytes}
+
+    c = DSA
+    H, D, DT, HI, DI, topk = (c["heads"], c["latent"], c["rope"],
+                              c["index_heads"], c["index_dim"], c["topk"])
+    S, Skv = c["seq"], c["cache"]
+    off = Skv - S
+    sm = 1.0 / math.sqrt(D + DT)
+    t_idx = torch.arange(S, device="cuda")
+    visible = int(torch.clamp(off + t_idx + 1, max=Skv).sum())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        # activations from a seeded generator on the card (1.2 GB of q)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        qi, ki, q, kv = (torch.randn(shape, generator=gen, device="cuda")
+                         .to(dtype) for shape in (
+                             (1, S, HI, DI), (1, Skv, DI), (1, S, H, D + DT),
+                             (1, Skv, D + DT)))
+        w = torch.randn((1, S, HI), generator=gen, device="cuda")
+
+        def pipeline():
+            L = dsa.lightning_indexer(qi, ki, w)
+            ind = dsa.topk_selector(L, topk)
+            return (L, ind) + tuple(dsa.sparse_mla_fwd(q, kv, ind))
+
+        L, ind, o, lse = drive(
+            f"dsa pipeline {name}", pipeline,
+            {"lightning_indexer": 1, "topk_selector": 1,
+             "sparse_mla_fwd": 1})
+        check(o.dtype == dtype and tuple(o.shape) == (1, S, H, D)
+              and tuple(lse.shape) == (1, S, H)
+              and bool(torch.isfinite(o.float()).all())
+              and bool(torch.isfinite(lse).all()),
+              f"dsa pipeline {name}: O {o.dtype} {tuple(o.shape)} or LSE "
+              f"not finite")
+        check(bool(((ind >= 0) & (ind <= (off + t_idx)[None, :, None]))
+                   .all()), f"dsa pipeline {name}: a slot is not live")
+        slots = int((ind >= 0).sum())
+        # each kernel against its plain version on the same inputs
+        Lp = dsa.lightning_indexer_plain(qi, ki, w, off)
+        e_idx = logits_within(f"lightning_indexer {name}", L, Lp,
+                              DSA_TOL["indexer"][name])
+        ind_p = dsa.topk_selector_plain(L, topk)
+        check(torch.equal(ind, ind_p),
+              f"topk_selector {name}: ids differ from the plain version's")
+        o_p, lse_p = dsa.sparse_mla_fwd_plain(q, kv, ind, D, sm, off)
+        e_o = within(f"sparse_mla_fwd O {name}", o, o_p,
+                     DSA_TOL["mla"][name])
+        e_lse = within(f"sparse_mla_fwd LSE {name}", lse, lse_p,
+                       DSA_TOL["lse"])
+        del o_p, lse_p
+        # the kernel chain against the plain chain: the logits differ in
+        # the last bits, so near-ties swap places in a row's order (O
+        # does not care) or, at the topk-th slot, pick another id; such a
+        # row's O moves by that key's weight (up to ~5e-2 of max |O|, a
+        # mean over topk random rows). Rows that select the same set are
+        # held to the kernel-vs-plain bound; on the others the two
+        # selections' plain logits must agree as sorted values (near-ties
+        # only); the whole O's error is reported
+        ind_pp = dsa.topk_selector_plain(Lp, topk)
+        o_pp, _ = dsa.sparse_mla_fwd_plain(q, kv, ind_pp, D, sm, off)
+        same = (ind.sort(-1)[0] == ind_pp.sort(-1)[0]).all(-1)
+        flipped = int((ind != ind_pp).sum())
+        reordered = int((ind != ind_pp).any(-1).sum())
+        check(bool(same.any()), f"dsa chain {name}: no row selects the "
+                                f"same set")
+        e_chain = within(f"dsa chain {name} vs the plain chain, rows that "
+                         f"select the same set", o[same], o_pp[same],
+                         DSA_TOL["mla"][name])
+        within(f"dsa chain {name}: the plain logits of the kernel's and "
+               f"the plain selections",
+               Lp.gather(-1, ind.long()).sort(-1, descending=True)[0],
+               Lp.gather(-1, ind_pp.long()), DSA_TOL["indexer"][name])
+        chain_all = normwise_err(o, o_pp)[1]
+        del Lp, ind_pp, o_pp
+        torch.cuda.empty_cache()
+
+        # library yardsticks: torch.topk; SDPA over the dense selected
+        # mask with the heads as query heads over the one latent head
+        # expanded (Dqk 576, Dv 512), which attends all Skv keys
+        topk_ms = device_ms(torch, lambda: torch.topk(L, topk, dim=-1,
+                                                      sorted=True), 5)
+        check(torch.equal(torch.topk(L, topk, dim=-1, sorted=True)[0],
+                          L.gather(-1, ind.long())),
+              f"torch.topk {name}: values differ from the selected ones")
+        mask = torch.zeros((1, 1, S, Skv), dtype=torch.bool, device="cuda")
+        mask[0, 0].scatter_(1, ind[0].long(), True)
+        qh = q.transpose(1, 2)
+        sdpa_ms, library = None, None
+        for backend, kx, vx in (
+                (SDPBackend.EFFICIENT_ATTENTION,
+                 kv[:, None].expand(1, H, Skv, D + DT),
+                 kv[:, None, :, :D].expand(1, H, Skv, D)),
+                (SDPBackend.EFFICIENT_ATTENTION,
+                 kv[:, None].expand(1, H, Skv, D + DT).contiguous(),
+                 kv[:, None, :, :D].expand(1, H, Skv, D).contiguous()),
+                (SDPBackend.CUDNN_ATTENTION,
+                 kv[:, None].expand(1, H, Skv, D + DT).contiguous(),
+                 kv[:, None, :, :D].expand(1, H, Skv, D).contiguous())):
+            try:
+                with sdpa_kernel([backend]):
+                    so = F.scaled_dot_product_attention(qh, kx, vx,
+                                                        attn_mask=mask)
+            except RuntimeError:             # this backend refuses the call
+                continue
+            rel = normwise_err(so.transpose(1, 2), o)[1]
+            check(rel < 2e-2, f"dsa {name}: the library yardstick "
+                              f"({backend.name}) disagrees with the "
+                              f"kernel: {rel:.3e}")
+            del so
+            with sdpa_kernel([backend]):
+                sdpa_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kx, vx, attn_mask=mask), 1)
+            library = (f"SDPA ({backend.name}) over the dense selected "
+                       f"bool mask (1, 1, S, Skv), the {H} heads over the "
+                       f"one latent head expanded (Dqk {D + DT}, Dv {D}"
+                       f"{', K and V copied' if kx.is_contiguous() else ''}"
+                       f"); it scores all {Skv} keys, {Skv // topk}x the "
+                       f"kernel's {topk}; normwise {rel:.2e} from the "
+                       f"kernel")
+            break
+        check(library is not None, f"dsa {name}: no SDPA backend takes "
+                                   f"Dqk {D + DT} / Dv {D}")
+        del mask, kx, vx
+        torch.cuda.empty_cache()
+
+        triples = slots * H
+        res[f"lightning_indexer_{name}"] = {
+            "shape": [1, S, Skv, HI, DI], "q_offset": off,
+            "visible_pairs": visible,
+            "max_abs_err": e_idx[0], "normwise_err": e_idx[1],
+            "tolerance": f"normwise {DSA_TOL['indexer'][name]}, -inf "
+                         f"exactly",
+            "ms": device_ms(torch, lambda: dsa.lightning_indexer(qi, ki, w),
+                            3),
+            "plain_ms": device_ms(torch, lambda: dsa.lightning_indexer_plain(
+                qi, ki, w, off), 1),
+            "library_ms": None,
+            "library": "no library call: no single PyTorch call computes "
+                       "the head-weighted relu sum",
+            **bound(visible * HI * (2 * DI + 3),
+                    (S * HI * DI + Skv * DI) * esize + 4 * S * HI
+                    + 4 * S * Skv, peak)}
+        res[f"topk_selector_{name}"] = {
+            "shape": [1, S, Skv], "topk": topk, "max_abs_err": 0.0,
+            "tolerance": "ids equal",
+            "ms": device_ms(torch, lambda: dsa.topk_selector(L, topk), 5),
+            "plain_ms": device_ms(torch, lambda: dsa.topk_selector_plain(
+                L, topk), 1),
+            "library_ms": topk_ms,
+            "library": "torch.topk(L, topk, sorted=True) (its tie order "
+                       "is unspecified: values compared, not ids)",
+            **bound(0, 4 * S * Skv + 4 * S * topk, peak)}
+        res[f"sparse_mla_fwd_{name}"] = {
+            "shape": [1, S, Skv, H, D, DT], "topk": topk,
+            "live_slots": slots, "max_abs_err": e_o[0],
+            "normwise_err": e_o[1], "lse_normwise_err": e_lse[1],
+            "tolerance": f"normwise {DSA_TOL['mla'][name]} (LSE "
+                         f"{DSA_TOL['lse']})",
+            "chain_normwise_err_agreeing_rows": e_chain[1],
+            "chain_rows_another_set": int((~same).sum()),
+            "chain_rows_another_order": reordered,
+            "chain_slots_differing": flipped,
+            "chain_normwise_err_all_rows": chain_all,
+            "ms": device_ms(torch, lambda: dsa.sparse_mla_fwd(q, kv, ind),
+                            2),
+            "plain_ms": device_ms(torch, lambda: dsa.sparse_mla_fwd_plain(
+                q, kv, ind, D, sm, off), 1),
+            "library_ms": sdpa_ms, "library": library,
+            **bound(triples * (2 * (D + DT) + 2 * D),
+                    (S * H * (D + DT) + Skv * (D + DT) + S * H * D) * esize
+                    + 4 * S * topk + 4 * S * H, peak)}
+        print(f"dsa {name}: indexer "
+              f"{res[f'lightning_indexer_{name}']['ms']:.3f} ms, selector "
+              f"{res[f'topk_selector_{name}']['ms']:.3f} ms, sparse MLA "
+              f"{res[f'sparse_mla_fwd_{name}']['ms']:.3f} ms; chain: "
+              f"{flipped} slots in {reordered} rows differ, "
+              f"{int((~same).sum())} rows select another set, O "
+              f"{chain_all:.3e} normwise", flush=True)
+        del qi, ki, q, kv, w, L, ind, o, lse, same
+        torch.cuda.empty_cache()
+
+        # a ragged shape (S, Skv, H, topk no multiple of any tile) with a
+        # row whose ids are all -1, ids past the bound and duplicates
+        g2 = torch.Generator(device="cuda").manual_seed(22)
+        s2, skv2, t2 = 77, 300, 100
+        qi2, ki2, q2, kv2 = (torch.randn(shape, generator=g2, device="cuda")
+                             .to(dtype) for shape in (
+                                 (1, s2, 5, 40), (1, skv2, 40),
+                                 (1, s2, 20, D + DT), (1, skv2, D + DT)))
+        w2 = torch.randn((1, s2, 5), generator=g2, device="cuda")
+        L2 = drive(f"lightning_indexer ragged {name}",
+                   lambda: dsa.lightning_indexer(qi2, ki2, w2, q_offset=150),
+                   {"lightning_indexer": 1}, main=False)
+        logits_within(f"lightning_indexer ragged {name}", L2,
+                      dsa.lightning_indexer_plain(qi2, ki2, w2, 150),
+                      DSA_TOL["indexer"][name])
+        ind2 = drive(f"topk_selector ragged {name}",
+                     lambda: dsa.topk_selector(L2, t2),
+                     {"topk_selector": 1}, main=False)
+        check(torch.equal(ind2, dsa.topk_selector_plain(L2, t2)),
+              f"topk_selector ragged {name}: ids differ")
+        ind2 = torch.where(ind2 >= 0, ind2, 299)   # past the bound
+        ind2[0, :, 1::5] = ind2[0, :, 0::5][..., :ind2[0, :, 1::5].shape[-1]]
+        ind2[0, 40] = -1
+        o2, lse2 = drive(f"sparse_mla_fwd ragged {name}",
+                         lambda: dsa.sparse_mla_fwd(q2, kv2, ind2,
+                                                    block_I=t2),
+                         {"sparse_mla_fwd": 1}, main=False)
+        o2p, lse2p = dsa.sparse_mla_fwd_plain(q2, kv2, ind2, D, sm,
+                                              skv2 - s2)
+        within(f"sparse_mla_fwd ragged O {name}", o2, o2p,
+               DSA_TOL["mla"][name])
+        live = torch.ones_like(lse2, dtype=torch.bool)
+        live[0, 40] = False
+        within(f"sparse_mla_fwd ragged LSE {name}", lse2[live], lse2p[live],
+               DSA_TOL["lse"])
+        dead = torch.tensor(dsa.DEAD_ROW_LSE, dtype=torch.float32)
+        check(bool((o2[0, 40] == 0).all())
+              and bool((lse2[0, 40].cpu() == dead).all())
+              and bool((lse2p[0, 40].cpu() == dead).all()),
+              f"sparse_mla_fwd {name}: a row with no valid id is not O = 0, "
+              f"LSE {float(dead)}")
+        res[f"dsa_ragged_{name}"] = {
+            "shape": [1, s2, skv2, 20, D, DT], "topk": t2,
+            "dead_row": {"o_max_abs": 0.0, "lse": float(dead)}}
+        del qi2, ki2, q2, kv2, w2, L2, ind2, o2, lse2, o2p, lse2p
+
+        # the sparse fine-tuning step (make_sparse_mla) at ft_seq over
+        # ft_cache: ids from the indexer and selector, as the example
+        S3, Skv3 = c["ft_seq"], c["ft_cache"]
+        g3 = torch.Generator(device="cuda").manual_seed(23)
+        qi3, ki3, q3, kv3 = (torch.randn(shape, generator=g3, device="cuda")
+                             .to(dtype) for shape in (
+                                 (1, S3, HI, DI), (1, Skv3, DI),
+                                 (1, S3, H, D + DT), (1, Skv3, D + DT)))
+        w3 = torch.randn((1, S3, HI), generator=g3, device="cuda")
+        target = torch.randn((1, S3, H, D), generator=g3, device="cuda")
+        sparse_mla = dsa.make_sparse_mla()
+        ind3 = drive(f"dsa fine-tune ids {name}",
+                     lambda: dsa.topk_selector(dsa.lightning_indexer(
+                         qi3, ki3, w3), topk),
+                     {"lightning_indexer": 1, "topk_selector": 1})
+
+        def ft_step(qq, kk):
+            loss = ((sparse_mla(qq, kk, ind3).float() - target) ** 2).mean()
+            loss.backward()
+            return loss.detach()
+
+        leaves = [t.detach().clone().requires_grad_() for t in (q3, kv3)]
+        loss0 = drive(f"dsa fine-tune step {name}",
+                      lambda: ft_step(*leaves), {"sparse_mla_fwd": 1})
+        ref = [t.detach().clone().requires_grad_() for t in (q3, kv3)]
+        r_o, _ = dsa.sparse_mla_reference(*ref, ind3)
+        ((r_o.float() - target) ** 2).mean().backward()
+        del r_o
+        e_dq = within(f"dsa fine-tune dq {name}", leaves[0].grad,
+                      ref[0].grad, DSA_TOL["mla"][name])
+        e_dkv = within(f"dsa fine-tune dkv {name}", leaves[1].grad,
+                       ref[1].grad, DSA_TOL["mla"][name])
+        del ref
+        torch.cuda.empty_cache()
+        # Adam, as a fine-tuning run would step (plain SGD at the
+        # example's lr moves nothing at this size: the mean's gradient
+        # is 1/N of an element's)
+        losses = [float(loss0)]
+        qq, kk = leaves
+        opt = torch.optim.Adam([qq, kk], lr=1e-2)
+        for step in range(2):
+            opt.step()
+            opt.zero_grad()
+            losses.append(float(drive(
+                f"dsa fine-tune step {name} {step + 2}",
+                lambda: ft_step(qq, kk), {"sparse_mla_fwd": 1})))
+        check(losses[-1] < losses[0], f"dsa fine-tune {name}: the loss "
+                                      f"does not fall: {losses}")
+
+        def timed_step():
+            for t in (qq, kk):
+                t.grad = None
+            ft_step(qq, kk)
+
+        res[f"dsa_finetune_{name}"] = {
+            "shape": [1, S3, Skv3, H, D, DT], "topk": topk,
+            "dq_normwise_err": e_dq[1], "dkv_normwise_err": e_dkv[1],
+            "tolerance": f"normwise {DSA_TOL['mla'][name]} against "
+                         f"autograd through sparse_mla_reference",
+            "losses": losses, "ms": device_ms(torch, timed_step, 1)}
+        print(f"dsa fine-tune {name}: losses {losses}, step "
+              f"{res[f'dsa_finetune_{name}']['ms']:.1f} ms", flush=True)
+        del qi3, ki3, q3, kv3, w3, target, ind3, leaves, qq, kk, opt
+        torch.cuda.empty_cache()
+
+    res["launches"] = counted
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"dsa": res}), flush=True)
+    return res
+
+
+# the dsa phase's kernels: (name, source, replaced TPU kernel, headline
+# case)
+DSA_KERNELS = (
+    ("lightning_indexer", "dsa.cu", "tilelang_mesh_tpu/ops/dsa.py:39",
+     "float32"),
+    ("topk_selector", "dsa.cu", "tilelang_mesh_tpu/ops/dsa.py:101",
+     "float32"),
+    ("sparse_mla_fwd", "sparse_mla.cu", "tilelang_mesh_tpu/ops/dsa.py:147",
+     "float32"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -4126,6 +4547,7 @@ def main() -> int:
     mi = importlib.import_module("tilelang_mesh_tpu_torch.ops.minference")
     nsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa")
     from tilelang_mesh_tpu_torch.ops import nsa_bwd as nb
+    dsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.dsa")
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -4151,7 +4573,7 @@ def main() -> int:
                "gemv", "quantize_act", "bitnet_gemm",
                "flash_attention_varlen", "varlen_bwd", "attention_sink",
                "softmax", "blocksparse_attention", "minference", "nsa",
-               "nsa_bwd")
+               "nsa_bwd", "dsa", "sparse_mla")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -4222,6 +4644,9 @@ def main() -> int:
 
     phase("nsa_training")
     nt = nsa_training_phase(torch, nsa, nb)
+
+    phase("dsa")
+    ds = dsa_phase(torch, dsa)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -4294,12 +4719,14 @@ def main() -> int:
         "bf16": {k: gemm16["w1"][k] for k in keys},
         "w2": {"float32": {k: gemm32["w2"][k] for k in keys},
                "bfloat16": {k: gemm16["w2"][k] for k in keys}}})
-    # not on the MoE path; held on its routed counts
+    # not on the MoE path: its entry point driven at the MoE batch's
+    # routed counts (the kernels phase)
     kernels.append({
         "name": "varlen_grouped_gemm", "route": "cuda",
         "source": csrc + "grouped_gemm.cu",
         "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:58",
-        "launches": moe_res["launches"]["varlen_grouped_gemm"],
+        "launches": moe_res["launches"]["varlen_grouped_gemm"]
+        + gemm32["varlen_entry_launches"] + gemm16["varlen_entry_launches"],
         **{k: gemm32["varlen"][k] for k in keys + ("bound_by",)},
         "bmm_padded_ms": gemm32["varlen"]["bmm_padded_ms"],
         "bf16": {k: gemm16["varlen"][k] for k in keys},
@@ -4345,6 +4772,14 @@ def main() -> int:
               if k["name"] in [n for n, *_ in NSA_TRAINING_KERNELS])
           and nt["launches"]["nsa_bwd_dkdv_sum"] > 0,
           "nsa_training: a kernel of the path was not launched")
+    for entry in kernel_entries(ds, DSA_KERNELS):
+        if entry["name"] == "sparse_mla_fwd":
+            entry["finetune_step"] = {
+                k: ds[f"dsa_finetune_{k}"] for k in ("float32", "bfloat16")}
+        kernels.append(entry)
+    check(all(k["launches"] > 0 for k in kernels),
+          f"kernels never launched on their paths: "
+          f"{[k['name'] for k in kernels if not k['launches'] > 0]}")
     peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s, peak "
           f"device memory {peak} bytes")

@@ -62,7 +62,14 @@ every cell is dead exactly 0; the sink autograd on the card against the
 CPU at 1e-4 normwise. The row softmax, normwise: 1e-5 for a float32
 output (the same float32 shift, exp2 and divide; the row sum in another
 order), 1e-2 for a bfloat16 output (one ulp, 2**-8, at a rounding
-boundary); NaN rows at the plain version's positions.
+boundary); NaN rows at the plain version's positions. DSA: the lightning
+indexer normwise 1e-5 in float32 (the same float32 products in another
+order) and 1e-2 in bfloat16 and float16 (exact products of the 16-bit
+inputs, float32 sums in another order), -inf at the same places; the
+top-k selector's ids equal; sparse MLA at the attention kernels' bounds,
+its LSE 1e-5 of the largest, a row with no valid id exactly O = 0 and
+LSE -6.931472e29; the pipeline and a fine-tuning step's gradients on the
+card against the CPU at 1e-4 normwise.
 """
 
 import dataclasses
@@ -2139,3 +2146,188 @@ def test_slice12_wrappers_raise_on_build_or_launch_failure(cuda,
         cuda, 1, 32, 2, 1, 24, 2, 8, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 8, 0.25)
+
+
+# ---------------------------------------------------------------------------
+# DSA (csrc/dsa.cu: indexer and selector; csrc/sparse_mla.cu)
+# ---------------------------------------------------------------------------
+
+dsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.dsa")
+
+DSA_INDEXER_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+                   torch.float16: 1e-2}
+
+
+def _finite_normwise(got, want):
+    """-inf at the same places, the finite entries normwise."""
+    assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert bool((got[inf] == want[inf]).all())
+    g, w = got[~inf], want[~inf]
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,S,Skv,HI,DI,q_offset", [
+    (1, 64, 128, 4, 32, None), (2, 200, 333, 3, 48, 17),
+    (1, 130, 130, 2, 36, None), (1, 300, 1000, 8, 128, 500)])
+def test_lightning_indexer_kernel_matches_plain(cuda, dtype, B, S, Skv, HI,
+                                                DI, q_offset):
+    """Ragged S and Skv (no multiple of the 128 x 128 tile), a head width
+    off the 16-byte path (36 in 16-bit types), whole tiles past the
+    causal bound; -inf exactly where the plain version has it."""
+    qi = _randn(cuda, (B, S, HI, DI), dtype, 0)
+    ki = _randn(cuda, (B, Skv, DI), dtype, 1)
+    w = _randn(cuda, (B, S, HI), torch.float32, 2)
+    before = dsa.launches["lightning_indexer"]
+    got = dsa.lightning_indexer(qi, ki, w, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert dsa.launches["lightning_indexer"] == before + 1
+    off = Skv - S if q_offset is None else q_offset
+    want = dsa.lightning_indexer_plain(qi, ki, w, off)
+    assert _finite_normwise(got, want) <= DSA_INDEXER_TOL[dtype]
+
+
+def _selector_case(dev, B, S, Skv, seed):
+    """Small integers (ties), finite entries at and below -1e30, -inf,
+    NaN-free; a row with three candidates."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = torch.randint(-3, 4, (B, S, Skv), generator=g, device=dev).float()
+    u = torch.rand((B, S, Skv), generator=g, device=dev)
+    L[u < 0.1] = -2e30
+    L[(u >= 0.1) & (u < 0.15)] = -1e30
+    L[(u >= 0.15) & (u < 0.25)] = -math.inf
+    L[(u >= 0.25) & (u < 0.3)] = -0.0
+    L[0, 0, 3:] = -math.inf
+    return L
+
+
+@pytest.mark.parametrize("B,S,Skv,topk,ties", [
+    (2, 80, 96, 32, True), (1, 17, 1000, 300, True),
+    (1, 4, 8192, 2048, True), (1, 3, 50, 64, True),
+    (2, 33, 8192, 2048, False), (1, 5, 777, 1, False)])
+def test_topk_selector_kernel_equals_plain(cuda, B, S, Skv, topk, ties):
+    """Ids equal to the plain version's, ties to the smaller id, -1 past
+    the candidates; topk above Skv; continuous logits of the indexer."""
+    if ties:
+        L = _selector_case(cuda, B, S, Skv, Skv)
+    else:
+        qi = _randn(cuda, (B, S, 4, 32), torch.float32, 3)
+        ki = _randn(cuda, (B, Skv, 32), torch.float32, 4)
+        L = dsa.lightning_indexer(qi, ki, _randn(cuda, (B, S, 4),
+                                                 torch.float32, 5),
+                                  q_offset=Skv // 2)
+    before = dsa.launches["topk_selector"]
+    got = dsa.topk_selector(L, topk)
+    torch.cuda.synchronize()
+    assert dsa.launches["topk_selector"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, S, topk)
+    assert torch.equal(got, dsa.topk_selector_plain(L, topk))
+
+
+def _sparse_mla_case(dev, B, S, Skv, H, D, DT, topk, dtype, seed=0):
+    """Causal draws of ids with duplicates, -1 slots, ids past the causal
+    bound and at or past Skv, and one row with no valid id."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D + DT), generator=g, device=dev).to(dtype)
+    kv = torch.randn((B, Skv, D + DT), generator=g, device=dev).to(dtype)
+    bound = (Skv - S) + torch.arange(S, device=dev)
+    u = torch.rand((B, S, topk), generator=g, device=dev)
+    ind = (u * (bound[None, :, None] + 1).float()).long()
+    ind[..., 1::7] = ind[..., 0::7][..., :ind[..., 1::7].shape[-1]]
+    ind[..., 2::9] = -1
+    ind[..., 3::11] = Skv + 5
+    ind[:, :, 4::13] = (bound[None, :, None] + 1) % Skv
+    ind[0, S // 2] = -1
+    return q, kv, ind.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D,DT", dsa.KERNEL_WIDTHS)
+@pytest.mark.parametrize("B,S,Skv,H,topk", [(1, 64, 128, 8, 32),
+                                            (2, 37, 101, 20, 40)])
+def test_sparse_mla_kernel_matches_plain(cuda, dtype, D, DT, B, S, Skv, H,
+                                         topk):
+    """O normwise at the attention bounds, LSE 1e-5 of its largest live
+    value; the row with no valid id O exactly 0 and LSE the JAX kernel's
+    -6.931472e29. H not a multiple of the 16-head group, topk not a
+    multiple of the 32-slot tile."""
+    q, kv, ind = _sparse_mla_case(cuda, B, S, Skv, H, D, DT, topk, dtype)
+    sm = 1 / math.sqrt(D + DT)
+    before = dsa.launches["sparse_mla_fwd"]
+    o, lse = dsa.sparse_mla_fwd(q, kv, ind, tail_dim=DT, block_I=topk)
+    torch.cuda.synchronize()
+    assert dsa.launches["sparse_mla_fwd"] == before + 1
+    want_o, want_lse = dsa.sparse_mla_fwd_plain(q, kv, ind, D, sm, Skv - S)
+    assert _normwise(o, want_o) <= ATTN_TOL[dtype]
+    assert bool((o[0, S // 2] == 0).all())
+    dead = torch.zeros_like(lse, dtype=torch.bool)
+    dead[0, S // 2] = True
+    assert bool((lse[dead] == torch.tensor(dsa.DEAD_ROW_LSE)).all())
+    assert bool((want_lse[dead] == lse[dead]).all())
+    err = (lse[~dead] - want_lse[~dead]).abs().max()
+    assert float(err) <= 1e-5 * float(want_lse[~dead].abs().max())
+
+
+def test_dsa_chain_and_finetune_on_card_match_cpu(cuda):
+    """The pipeline (indexer, selector, sparse MLA) and a fine-tuning
+    step's gradients on the card against the same calls on the CPU, 1e-4
+    normwise (float32; the CPU runs the plain versions); the ids equal."""
+    B, S, Skv, HI, DI, H, D, DT, topk = 1, 64, 256, 4, 32, 16, 512, 64, 32
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in (
+        (B, S, HI, DI), (B, Skv, DI), (B, S, HI), (B, S, H, D + DT),
+        (B, Skv, D + DT), (B, S, H, D))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        qi, ki, w, q, kv, do = (torch.from_numpy(a).to(dev) for a in arrays)
+        ind = dsa.topk_selector(dsa.lightning_indexer(qi, ki, w), topk)
+        o, lse = dsa.sparse_mla_fwd(q, kv, ind)
+        qg, kvg = q.requires_grad_(), kv.requires_grad_()
+        dsa.make_sparse_mla()(qg, kvg, ind).backward(do)
+        outs[dev] = [t.detach().cpu() for t in (ind, o, lse, qg.grad,
+                                                kvg.grad)]
+    assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+    for g, w in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_dsa_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
+    """No fallback: a build failure is the build's error, a refused
+    launch a KernelLaunchError naming the wrapper, and neither counts a
+    launch; a row past the selector's shared memory and a latent width
+    without an instance are refused before."""
+    qi = torch.zeros((1, 8, 2, 32), device=cuda)
+    ki = torch.zeros((1, 8, 32), device=cuda)
+    w = torch.zeros((1, 8, 2), device=cuda)
+    L = torch.zeros((1, 8, 8), device=cuda)
+    q = torch.zeros((1, 8, 16, 192), device=cuda)
+    kv = torch.zeros((1, 8, 192), device=cuda)
+    ind = torch.zeros((1, 8, 16), dtype=torch.int32, device=cuda)
+    calls = [("lightning_indexer", lambda: dsa.lightning_indexer(qi, ki, w)),
+             ("topk_selector", lambda: dsa.topk_selector(L, 4)),
+             ("sparse_mla_fwd",
+              lambda: dsa.sparse_mla_fwd(q, kv, ind, block_I=16))]
+    before = dict(dsa.launches)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for name, call in calls:
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert dsa.launches == before
+    with pytest.raises(ValueError, match="shared memory"):
+        dsa.topk_selector(torch.zeros((1, 1, 60000), device=cuda), 2048)
+    with pytest.raises(ValueError, match="takes"):
+        dsa.sparse_mla_fwd(torch.zeros((1, 8, 4, 96), device=cuda),
+                           torch.zeros((1, 8, 96), device=cuda), ind,
+                           block_I=16)

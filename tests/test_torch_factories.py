@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from tilelang_mesh_tpu.ops import bitnet as ref_bitnet
 from tilelang_mesh_tpu.ops import dequant_gemm as ref_dq
+from tilelang_mesh_tpu.ops import dsa as ref_dsa
 from tilelang_mesh_tpu.ops import flash_decoding as ref_fd
 from tilelang_mesh_tpu.ops import gdn as ref_gdn
 from tilelang_mesh_tpu.ops import grouped_gemm as ref_gg
@@ -35,6 +36,7 @@ from tilelang_mesh_tpu.ops import mla as ref_mla
 from tilelang_mesh_tpu.quantize import quantization as ref_q
 from tilelang_mesh_tpu_torch import ops as port_ops
 from tilelang_mesh_tpu_torch.ops import dequant_gemm as port_dq
+from tilelang_mesh_tpu_torch.ops import dsa as port_dsa
 from tilelang_mesh_tpu_torch.ops import flash_decoding as port_fd
 from tilelang_mesh_tpu_torch.ops import gdn as port_gdn
 from tilelang_mesh_tpu_torch.ops import grouped_gemm as port_gg
@@ -257,3 +259,48 @@ def test_linear_attention_and_retention_kernels():
     want, got = _run(ref_la.retention_kernel(*args),
                      port_la.retention_kernel(*args), q, k, v, gamma)
     _close(want, got)
+
+
+# ------------------------------------------------------------------ DSA ----
+
+def test_dsa_kernels():
+    """lightning_indexer_kernel, topk_selector_kernel and
+    sparse_mla_fwd_kernel called as ops/dsa.py's wrappers call them, on
+    the same operands: the logits at 1e-3 (tests/test_dsa.py:35), the ids
+    equal, O 2e-2 and LSE 1e-3 (tests/test_dsa.py:57); each refuses
+    operands of another shape or type."""
+    B, S, Skv, HI, DI, H, D, DT, topk = 1, 32, 64, 2, 32, 4, 128, 64, 16
+    rng = np.random.default_rng(11)
+    qi, ki, w = _rand(rng, (B, S, HI, DI), (B, Skv, DI), (B, S, HI))
+    args = (B, S, Skv, HI, DI, 32, Skv - S, "float32")
+    want, got = _run(ref_dsa.lightning_indexer_kernel(*args),
+                     port_dsa.lightning_indexer_kernel(*args), qi, ki, w)
+    _close(want, got, rtol=1e-3, atol=1e-3)
+    logits = np.asarray(want[0], np.float32)
+    args = (B, S, Skv, topk, 32)
+    want, got = _run(ref_dsa.topk_selector_kernel(*args),
+                     port_dsa.topk_selector_kernel(*args), logits)
+    np.testing.assert_array_equal(got[0], want[0])
+    ind = want[0].astype(np.int32)
+    q, kv = _rand(rng, (B, S, H, D + DT), (B, Skv, D + DT))
+    args = (B, S, Skv, H, D, DT, topk, 16, Skv - S, 1 / math.sqrt(D + DT),
+            "float32")
+    want, got = _run(ref_dsa.sparse_mla_fwd_kernel(*args),
+                     port_dsa.sparse_mla_fwd_kernel(*args), q, kv, ind)
+    _close(want[:1], got[:1])
+    _close(want[1:], got[1:], rtol=1e-3, atol=1e-3)
+    for fn, ops in (
+            (port_dsa.lightning_indexer_kernel(B, S, Skv, HI, DI, 32,
+                                               Skv - S, "float32"),
+             (torch.zeros(B, S, HI, DI), torch.zeros(B, Skv + 1, DI),
+              torch.zeros(B, S, HI))),
+            (port_dsa.topk_selector_kernel(B, S, Skv, topk, 32),
+             (torch.zeros(B, S, Skv, dtype=torch.float64),)),
+            (port_dsa.sparse_mla_fwd_kernel(*args),
+             (torch.zeros(B, S, H, D + DT), torch.zeros(B, Skv, D + DT),
+              torch.zeros(B, S, topk, dtype=torch.int64)))):
+        with pytest.raises(ValueError):
+            fn(*ops)
+    for name in ("lightning_indexer_kernel", "topk_selector_kernel",
+                 "sparse_mla_fwd_kernel"):
+        assert getattr(port_ops, name) is getattr(port_dsa, name)

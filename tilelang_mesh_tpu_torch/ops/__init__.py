@@ -14,6 +14,10 @@ from .blocksparse_attention import (blocksparse_attention,  # noqa: F401
 from .dequant_gemm import (dequant_gemm_kernel,  # noqa: F401
                            dequant_matmul, dequant_matmul_twopass,
                            quantize_w4_per_channel, w4a8_matmul)
+from .dsa import (lightning_indexer,  # noqa: F401
+                  lightning_indexer_kernel, make_sparse_mla,
+                  sparse_mla_fwd, sparse_mla_fwd_kernel,
+                  sparse_mla_reference, topk_selector, topk_selector_kernel)
 from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_partial, mha_fwd_kernel)
 from .flash_attention_bwd import flash_attention_bwd  # noqa: F401
@@ -101,4 +105,7 @@ __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd_kernel",
            "vs_sparse_plain", "vs_sparse_reference", "nsa_attention",
            "nsa_attention_varlen", "nsa_decode", "nsa_decode_kernel",
            "nsa_fwd_kernel", "nsa_fwd_partial_kernel", "nsa_reference",
-           "nsa_varlen_fwd_kernel"]
+           "nsa_varlen_fwd_kernel", "lightning_indexer",
+           "lightning_indexer_kernel", "topk_selector",
+           "topk_selector_kernel", "sparse_mla_fwd", "sparse_mla_fwd_kernel",
+           "sparse_mla_reference", "make_sparse_mla"]
