@@ -186,6 +186,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               fine-tuning step (make_sparse_mla, S 1024 over 4096): dq and
               dkv against autograd through the dense reference, three
               Adam steps whose loss falls, the step's time.
+18. headline — the fifteenth main path: bench.py's headline GEMM
+              comparison as the port runs it (tilelang_mesh_tpu_torch.
+              bench): gemm_quickstart (1024^3), gemm_large (8192 x 8192 x
+              4096), fp8_gemm (4096^3) and w4a16_gemm (4096^3, group
+              512) through run_config at a 0.1 s loop target (bench's own
+              is 0.6 s), each record printed, then the headline geomean
+              line; the two yardsticks' launches counted over the four
+              configs (a CUDA graph's where it is captured). Then the
+              GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
+              x 4096 and fp8 -> f32 at 4096^3, and the w4a16 yardstick
+              (hand_w4a16) at 4096^3, group 512, each at the carver's two
+              top blocks, against their plain versions on the same inputs
+              (normwise: f32 1e-5, bf16 1e-2); kernel, plain and library
+              (torch.matmul; torch._scaled_mm with unit scales;
+              torch.matmul on the dequantised weight) times and the
+              bound.
 
 The peak device memory printed at the end is the script's: each phase
 that reads its own peak adds it to the script's before zeroing the
@@ -4475,6 +4491,177 @@ DSA_KERNELS = (
      "float32"))
 
 
+# the headline phase's loop target (bench.py's is 0.6 s): four configs,
+# each side calibrated and sampled three times, in about 20 s
+HEADLINE_TARGET_S = 0.1
+# the yardsticks against their plain versions, normwise by output type
+YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def headline_phase(torch, ys, gm, dqg):
+    """The headline GEMM comparison (tilelang_mesh_tpu_torch.bench): the
+    four configs at full size through ``run_config`` (counters zeroed
+    before, read right after; a CUDA graph's launches are counted where
+    they are captured, its replays not), each record printed, then the
+    headline geomean line. Then #42 (bf16 -> bf16 at 8192 x 8192 x 4096,
+    fp8 -> f32 at 4096^3) and #43 (4096^3, group 512), each at the
+    carver's two top blocks as bench sweeps them, against their plain
+    versions on the same inputs; kernel, plain and library (torch.matmul;
+    torch._scaled_mm with unit scales; torch.matmul on the dequantised
+    weight) times and the bound."""
+    import numpy as np
+    from tilelang_mesh_tpu_torch import bench as tb
+    from tilelang_mesh_tpu_torch.carver import MatmulTemplate, auto_arch
+    from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
+    arch = auto_arch()
+    peaks = tb._chip_peak_tflops(arch)
+    kind = torch.cuda.get_device_name(0)
+    reset_peak(torch)
+    res = {}
+
+    # -- the main path: bench's four configs ----------------------------
+    torch.cuda.synchronize()
+    for mod in (ys, gm, dqg):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    records = []
+    for name, build in tb._config_builders(False, arch=arch,
+                                           target_s=HEADLINE_TARGET_S):
+        rec = tb.run_config(name, build, peaks, rounds=3,
+                            target_s=HEADLINE_TARGET_S)
+        print(json.dumps(rec), flush=True)
+        check(rec["device"] == kind and rec["latency_ms"] > 0
+              and rec["baseline_ms"] > 0 and rec["vs_baseline"] > 0,
+              f"headline {name}: record {rec}")
+        records.append(rec)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["launches"] = dict(ys.launches)
+    res["library_launches"] = {**gm.launches, **dqg.launches}
+    res["records"] = records
+    res["seconds"] = time.perf_counter() - t0
+    check(all(n > 0 for n in res["launches"].values()),
+          f"headline: a yardstick was not launched: {res['launches']}")
+    head = tb.headline(records)
+    print(json.dumps(head), flush=True)
+    res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
+
+    def hold(label, got, want):
+        name = str(want.dtype).replace("torch.", "")
+        check(tuple(got.shape) == tuple(want.shape)
+              and got.dtype == want.dtype, f"{label}: {got.dtype} "
+              f"{tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{label}: non-finite output")
+        err, rel = normwise_err(got, want)
+        tol = YARDSTICK_TOL[name]
+        check(rel <= tol, f"{label} disagrees with its plain version: "
+                          f"{rel:.3e} of max |plain| > {tol}")
+        return {"max_abs_err": err, "normwise_err": rel,
+                "tolerance": f"normwise {tol}"}
+
+    def timed(kern, plain, library, iters=5):
+        return {"ms": device_ms(torch, kern, iters),
+                "plain_ms": device_ms(torch, plain, 3),
+                "library_ms": device_ms(torch, library, iters)}
+
+    # -- #42 against its plain version -----------------------------------
+    for label, seed, (M, N, K), dt, out in (
+            ("bf16_8192x8192x4096", 0, (8192, 8192, 4096), torch.bfloat16,
+             torch.bfloat16),
+            ("fp8_f32_4096", 2, (4096,) * 3, torch.float8_e4m3fn,
+             torch.float32)):
+        a_np, b_np = draw_np(seed, (M, K), (K, N))
+        a = torch.from_numpy(a_np).cuda().to(dt)
+        b = torch.from_numpy(b_np).cuda().to(dt)
+        del a_np, b_np
+        want = ys.hand_matmul_plain(a, b, out)
+        if dt == torch.float8_e4m3fn:      # cuBLASLt fp8, column-major B
+            one = torch.ones((), device="cuda")
+            bcol = b.T.contiguous().T
+
+            def library():
+                return torch._scaled_mm(a, bcol, scale_a=one, scale_b=one,
+                                        out_dtype=torch.float32)
+            lib_name = "torch._scaled_mm (unit scales)"
+            peak = PEAK_8BIT_OPS
+        else:
+            def library():
+                return torch.matmul(a, b)
+            lib_name = f"torch.matmul in {dt}"
+            peak = PEAK_BF16_FLOPS
+        flops = 2 * M * N * K
+        nbytes = (M * K + K * N) * a.element_size() + M * N * torch.empty(
+            (), dtype=out).element_size()
+        bound, by = mm_bound(flops, nbytes, peak)
+        hints = MatmulTemplate(M, N, K, str(dt).replace("torch.", ""),
+                               arch=arch).hints(2)
+        for i, h in enumerate(hints):
+            blk = (h.config["block_M"], h.config["block_N"],
+                   h.config["block_K"])
+            kern = ys.hand_matmul(M, N, K, *blk, dtype=dt, out_dtype=out)
+            r = hold(f"hand_matmul {label} {blk}", kern(a, b), want)
+            res[f"yardstick_gemm_{label}" + ("" if i == 0 else "_b2")] = {
+                "shape": [M, N, K], "block": list(blk), **r,
+                **timed(lambda: kern(a, b),
+                        lambda: ys.hand_matmul_plain(a, b, out), library),
+                "library": lib_name, "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes}
+        del a, b, want
+        torch.cuda.empty_cache()
+
+    # -- #43 against its plain version -----------------------------------
+    M = N = K = 4096
+    gs = 512
+    rng = np.random.default_rng(3)          # as cfg_w4a16 draws them
+    a = torch.from_numpy((rng.standard_normal((M, K)) * 0.1).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+    packed_np, scales_np = quantize_int4_planar(w_np, group_size=gs)
+    del w_np
+    K2 = K // 2
+    packed = torch.from_numpy(packed_np).cuda()
+    s3 = torch.from_numpy(scales_np).cuda().reshape(2, K2 // gs, N)
+    alo, ahi = a[:, :K2], a[:, K2:]
+    want = ys.hand_w4a16_plain(alo, ahi, packed, s3, gs)
+    bd = dqg.dequant_int4_plain(packed, s3.reshape(2 * K2 // gs, N), gs,
+                                torch.bfloat16)
+    flops = 2 * M * N * K
+    nbytes = M * K * 2 + K2 * N + s3.numel() * 4 + M * N * 2
+    bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS)
+    tiles = dict.fromkeys((h.config["block_M"], h.config["block_N"])
+                          for h in MatmulTemplate(M, N, K, "bfloat16",
+                                                  arch=arch).hints(2))
+    for i, tile in enumerate(tiles):
+        kern = ys.hand_w4a16(M, N, K, gs, *tile)
+        r = hold(f"hand_w4a16 4096_gs512 {tile}",
+                 kern(alo, ahi, packed, s3), want)
+        res["yardstick_w4a16_4096_gs512" + ("" if i == 0 else "_b2")] = {
+            "shape": [M, N, K], "group_size": gs, "tile": list(tile), **r,
+            **timed(lambda: kern(alo, ahi, packed, s3),
+                    lambda: ys.hand_w4a16_plain(alo, ahi, packed, s3, gs),
+                    lambda: torch.matmul(a, bd)),
+            "library": "torch.matmul on the dequantised bf16 weight "
+                       "(excludes the dequant)",
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+    del a, packed, s3, alo, ahi, want, bd
+    torch.cuda.empty_cache()
+    print(json.dumps({"headline": {k: v for k, v in res.items()
+                                   if k != "records"}}), flush=True)
+    reset_peak(torch)
+    return res
+
+
+# the headline phase's kernels: (name, source, replaced TPU kernel,
+# headline case); the other cases are nested under "variants"
+HEADLINE_KERNELS = (
+    ("yardstick_gemm", "yardstick_gemm.cu", "bench.py:262",
+     "bf16_8192x8192x4096"),
+    ("yardstick_w4a16", "yardstick_w4a16.cu", "bench.py:1366",
+     "4096_gs512"))
+
+
 def kernel_registers(log):
     """{kernel: [registers, spill-store bytes]} from ``nvcc -Xptxas -v``
     output; a kernel is named by its function and its template
@@ -4548,6 +4735,7 @@ def main() -> int:
     nsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.nsa")
     from tilelang_mesh_tpu_torch.ops import nsa_bwd as nb
     dsa = importlib.import_module("tilelang_mesh_tpu_torch.ops.dsa")
+    from tilelang_mesh_tpu_torch.ops import yardsticks as ys
 
     scratch = ROOT / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
@@ -4573,7 +4761,8 @@ def main() -> int:
                "gemv", "quantize_act", "bitnet_gemm",
                "flash_attention_varlen", "varlen_bwd", "attention_sink",
                "softmax", "blocksparse_attention", "minference", "nsa",
-               "nsa_bwd", "dsa", "sparse_mla")
+               "nsa_bwd", "dsa", "sparse_mla", "yardstick_gemm",
+               "yardstick_w4a16")
     t0 = time.perf_counter()
     _build.build_all(sources)
     for src in sources:
@@ -4647,6 +4836,9 @@ def main() -> int:
 
     phase("dsa")
     ds = dsa_phase(torch, dsa)
+
+    phase("headline")
+    hl = headline_phase(torch, ys, gm, dqg)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -4777,6 +4969,7 @@ def main() -> int:
             entry["finetune_step"] = {
                 k: ds[f"dsa_finetune_{k}"] for k in ("float32", "bfloat16")}
         kernels.append(entry)
+    kernels += kernel_entries(hl, HEADLINE_KERNELS)
     check(all(k["launches"] > 0 for k in kernels),
           f"kernels never launched on their paths: "
           f"{[k['name'] for k in kernels if not k['launches'] > 0]}")

@@ -69,7 +69,12 @@ inputs, float32 sums in another order), -inf at the same places; the
 top-k selector's ids equal; sparse MLA at the attention kernels' bounds,
 its LSE 1e-5 of the largest, a row with no valid id exactly O = 0 and
 LSE -6.931472e29; the pipeline and a fine-tuning step's gradients on the
-card against the CPU at 1e-4 normwise.
+card against the CPU at 1e-4 normwise. The bench yardsticks: the GEMM
+(#42) at the GEMM's bounds above; on integer operands in [-4, 4], whose
+f32 sums are exact in any order, bit-equal to its plain version at every
+instance; the w4a16 kernel (#43) 1e-2 normwise (bf16 output), and on
+integer activations with power-of-two scales (every product and sum
+exact) bit-equal.
 """
 
 import dataclasses
@@ -94,6 +99,7 @@ from tilelang_mesh_tpu_torch.ops import gdn
 from tilelang_mesh_tpu_torch.ops import mamba2
 from tilelang_mesh_tpu_torch.ops import mla
 from tilelang_mesh_tpu_torch.ops import quantize_act as qa
+from tilelang_mesh_tpu_torch.ops import yardsticks as ys
 from tilelang_mesh_tpu_torch.resilience.errors import KernelLaunchError
 from tilelang_mesh_tpu_torch.resilience import faults
 from tilelang_mesh_tpu_torch.resilience.retry import global_breaker
@@ -2331,3 +2337,198 @@ def test_dsa_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
         dsa.sparse_mla_fwd(torch.zeros((1, 8, 4, 96), device=cuda),
                            torch.zeros((1, 8, 96), device=cuda), ind,
                            block_I=16)
+
+
+# ---------------------------------------------------------------------------
+# the bench yardsticks (#42, #43)
+# ---------------------------------------------------------------------------
+
+# the GEMM yardstick's (input, output) types
+YS_PAIRS = [(torch.float32, torch.float32),
+            (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+            (torch.float16, torch.float16), (torch.float16, torch.float32),
+            (torch.float8_e4m3fn, torch.float8_e4m3fn),
+            (torch.float8_e4m3fn, torch.float32)]
+
+
+def _bit_equal(got, want):
+    """Equal bytes; an e4m3 output NaN at the same places, its finite
+    values equal."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float8_e4m3fn:
+        g, w = got.float(), want.float()
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+    else:
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("pair", YS_PAIRS, ids=lambda p: "-".join(
+    str(d).split(".")[1] for d in p))
+@pytest.mark.parametrize("blk", sorted(ys.KERNEL_BLOCKS),
+                         ids=lambda b: "x".join(map(str, b)))
+@pytest.mark.parametrize("shape", [(512, 512, 512), (256, 768, 192)])
+def test_yardstick_gemm_matches_plain(cuda, pair, blk, shape):
+    """#42 at every instance in every type pair: one launch a call,
+    within the output type's tolerance of the plain version."""
+    (dt, out), (M, N, K) = pair, shape
+    a = _operand(cuda, (M, K), dt, 21)
+    b = _operand(cuda, (K, N), dt, 22)
+    fn = ys.hand_matmul(M, N, K, *blk, dtype=dt, out_dtype=out)
+    before = ys.launches["yardstick_gemm"]
+    got = fn(a, b)
+    torch.cuda.synchronize()
+    assert ys.launches["yardstick_gemm"] == before + 1
+    _close(got, ys.hand_matmul_plain(a, b, out))
+
+
+@pytest.mark.parametrize("pair", YS_PAIRS, ids=lambda p: "-".join(
+    str(d).split(".")[1] for d in p))
+def test_yardstick_gemm_exact_on_integers(cuda, pair):
+    """Integer operands in [-4, 4] make every f32 sum exact in any order:
+    #42 bit-equal to the plain version at every instance (an e4m3 output
+    past its range NaN at the same places)."""
+    dt, out = pair
+    M = N = 512
+    K = 256
+    g = torch.Generator(device=cuda).manual_seed(23)
+    a = torch.randint(-4, 5, (M, K), generator=g, device=cuda).to(dt)
+    b = torch.randint(-4, 5, (K, N), generator=g, device=cuda).to(dt)
+    want = ys.hand_matmul_plain(a, b, out)
+    for blk in sorted(ys.KERNEL_BLOCKS):
+        _bit_equal(ys.hand_matmul(M, N, K, *blk, dtype=dt,
+                                  out_dtype=out)(a, b), want)
+
+
+def _w4a16_card(dev, M, K, N, gs, seed, exact=False):
+    """A (M, K) bf16, packed (K/2, N), scales (2, G2, N); ``exact``:
+    integer activations in [-2, 2] and power-of-two scales, so every
+    product and sum is exact in f32."""
+    from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    packed, scales = quantize_int4_planar(w, gs)
+    if exact:
+        a = rng.integers(-2, 3, (M, K)).astype(np.float32)
+        scales = np.exp2(rng.integers(-6, 0, scales.shape)).astype(
+            np.float32)
+    else:
+        a = rng.standard_normal((M, K)).astype(np.float32)
+    K2 = K // 2
+    return (torch.from_numpy(a).to(dev).to(torch.bfloat16),
+            torch.from_numpy(packed).to(dev),
+            torch.from_numpy(scales).to(dev).reshape(2, K2 // gs, N))
+
+
+@pytest.mark.parametrize("gs", [128, 512])
+@pytest.mark.parametrize("tile", sorted(ys.W4A16_TILES),
+                         ids=lambda t: "x".join(map(str, t)))
+def test_yardstick_w4a16_matches_plain(cuda, gs, tile):
+    """#43 on A's two halves as views of A's rows (row stride K): one
+    launch a call, 1e-2 normwise of the plain version; on exact inputs
+    bit-equal."""
+    M, K, N = 512, 2048, 512
+    for exact in (False, True):
+        a, packed, s3 = _w4a16_card(cuda, M, K, N, gs, 24, exact)
+        planar = a.reshape(M, 2, K // 2)
+        alo, ahi = planar[:, 0, :], planar[:, 1, :]
+        fn = ys.hand_w4a16(M, N, K, gs, *tile)
+        before = ys.launches["yardstick_w4a16"]
+        got = fn(alo, ahi, packed, s3)
+        torch.cuda.synchronize()
+        assert ys.launches["yardstick_w4a16"] == before + 1
+        want = ys.hand_w4a16_plain(alo, ahi, packed, s3, gs)
+        if exact:
+            _bit_equal(got, want)
+        else:
+            assert _normwise(got, want) <= 1e-2
+
+
+def test_yardsticks_refuse_and_raise(cuda, monkeypatch):
+    """Blocks and shapes the kernels do not take raise ValueError; a
+    build failure is the build's error and a refused launch a
+    KernelLaunchError, neither counting a launch (no fallback)."""
+    with pytest.raises(ValueError, match="instances"):
+        ys.hand_matmul(512, 512, 512, 64, 64, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        ys.hand_matmul(500, 512, 512, 128, 128, 32)
+    with pytest.raises(ValueError, match="instances"):
+        ys.hand_w4a16(512, 512, 1024, 128, 512, 512)
+    with pytest.raises(ValueError, match="K step"):
+        ys.hand_w4a16(512, 512, 1024, 32, 128, 128)
+    x = torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="want"):
+        ys.hand_matmul(256, 256, 128, 128, 128, 32)(x, x)
+    a, packed, s3 = _w4a16_card(cuda, 128, 256, 128, 64, 25)
+    calls = [("yardstick_gemm",
+              lambda: ys.hand_matmul(256, 256, 256, 128, 128, 32)(x, x)),
+             ("yardstick_w4a16",
+              lambda: ys.hand_w4a16(128, 128, 256, 64, 128, 128)(
+                  a[:, :128], a[:, 128:], packed, s3))]
+    before = dict(ys.launches)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for _, call in calls:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
+    for name, call in calls:
+        with pytest.raises(KernelLaunchError, match=name):
+            call()
+    assert ys.launches == before
+
+
+def test_bench_raises_when_a_yardstick_fails(cuda, monkeypatch):
+    """The headline configs on the card: a yardstick that does not build,
+    whose launch is refused, or whose result disagrees fails its config;
+    no other block and no torch composition takes its place."""
+    from tilelang_mesh_tpu_torch import bench as tb
+    load = _build.load
+    builds = {"gemm": lambda: tb.cfg_gemm(512, 512, 512, target_s=0.02),
+              "fp8_gemm": lambda: tb.cfg_fp8_gemm(512, 512, 512,
+                                                  target_s=0.02),
+              "w4a16_gemm": lambda: tb.cfg_w4a16(512, 512, 512, gs=128,
+                                                 target_s=0.02)}
+
+    def no_build(name):
+        if name.startswith("yardstick"):
+            raise RuntimeError(f"nvcc failed building {name}")
+        return load(name)
+
+    def refusing(name):
+        return _RefusingLib() if name.startswith("yardstick") \
+            else load(name)
+
+    for patch, err, match in ((no_build, RuntimeError, "nvcc failed"),
+                              (refusing, KernelLaunchError, "yardstick")):
+        monkeypatch.setattr(_build, "load", patch)
+        for build in builds.values():
+            with pytest.raises(err, match=match):
+                build()
+    monkeypatch.setattr(_build, "load", load)
+    gemm_launch, w4a16_launch = ys._gemm_launch, ys._w4a16_launch
+    monkeypatch.setattr(ys, "_gemm_launch",
+                        lambda *a: gemm_launch(*a) + 1.0)
+    monkeypatch.setattr(ys, "_w4a16_launch",
+                        lambda *a: w4a16_launch(*a) + 1.0)
+    for build in builds.values():
+        with pytest.raises(tb.BenchError, match="numeric mismatch"):
+            build()
+
+
+def test_do_bench_events_replays_a_graph(cuda):
+    """The events backend captures ``rep`` launches once (after one
+    warm-up launch) and replays them: per-call samples, one a round, a
+    launch counted where it is captured and no more."""
+    from tilelang_mesh_tpu_torch import profiler
+    a = _operand(cuda, (1024, 1024), torch.bfloat16, 26)
+    fn = ys.hand_matmul(1024, 1024, 1024, 128, 128, 64)
+    before = ys.launches["yardstick_gemm"]
+    st = profiler.do_bench_stats(fn, a, a, warmup=2, rep=8, rounds=4)
+    assert ys.launches["yardstick_gemm"] == before + 1 + 8
+    assert st["samples"] == 4 and st["reps"] == 8
+    assert 0 < st["min_ms"] <= st["p50_ms"] <= st["max_ms"] < 100
+    assert 0 < profiler.do_bench(fn, a, a, rep=8) < 100

@@ -66,6 +66,8 @@ from .quantize_act import (quantize_act_int8,  # noqa: F401
 from .seer_attention import (seer_attention, seer_block_mask,  # noqa: F401
                              seer_reference)
 from .softmax import softmax, softmax_kernel, softmax_plain  # noqa: F401
+from .yardsticks import (hand_matmul, hand_matmul_plain,  # noqa: F401
+                         hand_w4a16, hand_w4a16_plain)
 
 __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd_kernel",
            "flash_attention_bwd", "decode_partials",
@@ -108,4 +110,5 @@ __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd_kernel",
            "nsa_varlen_fwd_kernel", "lightning_indexer",
            "lightning_indexer_kernel", "topk_selector",
            "topk_selector_kernel", "sparse_mla_fwd", "sparse_mla_fwd_kernel",
-           "sparse_mla_reference", "make_sparse_mla"]
+           "sparse_mla_reference", "make_sparse_mla", "hand_matmul",
+           "hand_matmul_plain", "hand_w4a16", "hand_w4a16_plain"]
