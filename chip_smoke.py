@@ -274,7 +274,7 @@ TRAIN_BATCH = 4
 # order. bfloat16: both round P (and dS) to bf16 before their products,
 # but at a rounding boundary a 1e-7 difference in p flips one bf16 ulp
 # (2**-8 relative), a few flips per row in 4096 keys.
-ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # the sink training step against autograd through the dense reference
 # (natural exp, float32 throughout, P not rounded), normwise: the CPU
 # tests' tolerances for the same comparison
@@ -2540,7 +2540,15 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
                                  w.to(dtype))[1]
                      for lbl, t, w in zip(("dq", "dk", "dv"), leaves,
                                           (dq, dk, dv))}
-        del out, leaves, o_plain, dq, dk, dv
+        # the training step's attention: forward and backward, against
+        # SDPA's (enable_gqa) on the same leaves
+        sdpa = [t.detach().requires_grad_() for t in (q, k, v)]
+        step = {"autograd_step_ms": cuda_ms(torch, fwd_bwd, 3),
+                "sdpa_step_ms": cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        *sdpa, is_causal=True, enable_gqa=True).backward(do),
+                    3)}
+        del out, leaves, sdpa, o_plain, dq, dk, dv
         torch.cuda.empty_cache()
 
         bhsd, kvsd = B * Hq * S * D, B * Hkv * S * D
@@ -2571,7 +2579,7 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
                 torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
                     q, kx, vx, None, True, 0.0, True), 5),
             "library": "SDPA efficient attention with LSE on the expanded "
-                       "KV",
+                       "KV", **step,
             **bound(4 * D * pairs, (bhsd + 2 * kvsd) * esize + 4 * bhsd
                     + 8 * B * Hq * S, peak)}
         del q, k, v, do, kx, vx

@@ -17,7 +17,8 @@ rounding boundary flips one bf16 ulp. Attention kernels, normwise
 (max |kernel - plain| over max |plain|): 1e-5 in float32 (same
 arithmetic, another order); 2e-2 in bfloat16, where both round P and dS
 to bf16 before their products but a 1e-7 difference at a rounding
-boundary flips one bf16 ulp. The model on the card against the model on
+boundary flips one bf16 ulp; two calls of the backward pair give the
+same bits (no atomics). The model on the card against the model on
 the CPU: 1e-4 normwise (float32, different kernels and libraries).
 Grouped GEMMs, normwise: 1e-5 in float32 (the same float32 sums in
 another order); 1e-2 in bfloat16, where an output rounded to bf16 may
@@ -390,13 +391,20 @@ def test_forward_kernels_match_plain(cuda, dtype, causal, d, shape):
         <= ATTN_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# beyond one 64-row tile of the tensor-core kernels, neither S a multiple
+# of 64, group 4
+BWD_CASES = ATTN_CASES + [(2, 4, 2, 150, 150), (1, 4, 2, 64, 200),
+                          (1, 8, 2, 200, 330), (1, 8, 2, 330, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("shape", ATTN_CASES + [(2, 4, 2, 150, 150),
-                                                (1, 4, 2, 64, 200)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", BWD_CASES)
 def test_backward_kernels_match_plain(cuda, dtype, causal, d, shape):
-    """dK/dV and dQ, MHA and group 2 (4 query heads over 2 KV heads)."""
+    """dK/dV and dQ, MHA, group 2 and group 4 (float32 on CUDA cores,
+    bfloat16 and float16 on the tensor cores)."""
     args = _attn_inputs(cuda, *shape, d, dtype, causal)
     q, k, v, do, lse2, delta, sm = args
     before = dict(gb.launches)
@@ -410,6 +418,21 @@ def test_backward_kernels_match_plain(cuda, dtype, causal, d, shape):
         <= ATTN_TOL[dtype]
     assert _normwise(dq, gb.gqa_bwd_dq_plain(q, k, v, do, lse2, delta,
                                              causal, sm)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_kernels_are_deterministic(cuda, dtype, causal):
+    """Two calls give the same bits: every output element is written
+    once by one block, no atomics."""
+    args = _attn_inputs(cuda, 1, 8, 2, 200, 330, 128, dtype, causal)
+    first = (*gb.gqa_bwd_dkdv(*args[:6], causal, args[6]),
+             gb.gqa_bwd_dq(*args[:6], causal, args[6]))
+    second = (*gb.gqa_bwd_dkdv(*args[:6], causal, args[6]),
+              gb.gqa_bwd_dq(*args[:6], causal, args[6]))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_attention_autograd_on_card_matches_cpu(cuda):
@@ -426,10 +449,12 @@ def test_attention_autograd_on_card_matches_cpu(cuda):
         assert _normwise(b.cuda(), a.cuda()) <= ATTN_TOL[torch.float32]
 
 
-def test_refused_launch_raises(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_refused_launch_raises(cuda, dtype):
     """A grid the card refuses (65536 batches > gridDim.z) comes back as
     a KernelLaunchError, never as a silent no-op."""
-    q = torch.zeros((65536, 1, 1, 16), device=cuda)
+    q = torch.zeros((65536, 1, 1, 16), device=cuda, dtype=dtype)
     lse2 = torch.zeros((65536, 1, 1), device=cuda)
     for call in (lambda: fa.mha_fwd(q, q, q, True, 0.25),
                  lambda: fa.mha_fwd_partial(q, q, q, True, 0.25),

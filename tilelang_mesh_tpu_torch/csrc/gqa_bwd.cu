@@ -17,10 +17,14 @@
 //
 // Bound: operations. Per visible (i, j) pair dK/dV do 8 * D flops
 // (S, dP, dV, dK) and dQ 6 * D (S, dP, dQ), far above the balance point
-// at S = 4096, so the least time is the flops over the float32 rate.
+// at S = 4096, so the least time is the flops over the float32 rate, or
+// the bfloat16 / float16 tensor-core rate.
 //
 // Design: the TPU's no-atomics split is kept, so every output element is
 // written once by one block and the result is deterministic.
+//
+// float32 (`gqa_bwd_dkdv`, `gqa_bwd_dq`; CUDA-core FMAs, the reference's
+// float32 numerics):
 // * dkdv: one block per (32-key tile, KV head, batch) keeps its K and V
 //   tile in shared memory and its dK, dV rows in registers, and loops
 //   over the group's query heads and their 32-row Q tiles (from the
@@ -32,9 +36,35 @@
 // * dq: one block per (64-query tile, query head, batch) keeps Q, dO, L,
 //   Delta in shared memory and dQ in registers, and loops over 32-key
 //   tiles up to the diagonal, accumulating dQ += dS K.
-// Float32 CUDA-core FMAs throughout; tensor cores are later work.
+//
+// bfloat16 and float16 (`gqa_bwd_dkdv_mma`, `gqa_bwd_dq_mma`; tensor
+// cores): FlashAttention-2's backward, kept as two kernels. Operands sit
+// in shared memory in the input type, each row padded by 8 elements (an
+// odd count of 16-byte chunks, so the 8 rows of an ldmatrix hit 8 bank
+// groups); products are mma.sync m16n8k16 with float32 sums. In an
+// m16n8 accumulator lane (g, q2) = (lane / 4, 2 (lane % 4)) holds rows g
+// and g + 8, columns q2 and q2 + 1: two n8 tiles of P or dS are the A
+// fragment of the next product's k16 step, so P and dS are rounded to
+// the input type in registers and never touch shared memory.
+// * dkdv: one block per (64-key tile, KV head, batch), four warps of 16
+//   keys. K and V arrive once; the group's Q, dO, L and Delta tiles
+//   (BM query rows, from the diagonal tile on when causal) arrive by
+//   cp.async into two stages, the next while this one is computed. Each
+//   warp takes S^T = K Q^T and dP^T = V dO^T on its 16 keys, forms P and
+//   dS on the fragments (the mask only on edge tiles; a warp whose keys
+//   all follow the tile's queries skips it), and accumulates dV += P^T dO
+//   and dK += dS^T Q (dO and Q through ldmatrix.trans).
+// * dq: one block per (64-query tile, query head, batch), heaviest causal
+//   tiles first, four warps of 16 rows. Q and dO are held as A fragments
+//   and each lane's L and Delta in registers; K and V tiles of BN keys
+//   arrive by cp.async, double-buffered, up to the diagonal. Each warp
+//   takes S = Q K^T and dP = dO V^T, forms dS, and accumulates dQ += dS K
+//   (K through ldmatrix.trans).
+// BM = BN = 32 at D = 128, where a thread already holds 128 floats of
+// accumulators (dK and dV, or dQ and the Q, dO fragments), 64 below.
 
 #include "attention_common.cuh"
+#include "gemm_tile.cuh"
 
 namespace {
 
@@ -300,6 +330,367 @@ gqa_bwd_dq(const typename Elem<DT>::T* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 and float16: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace mma16 = tl_gemm::bf16;
+
+constexpr int kRows = 64;  // dkdv: keys a block; dq: query rows a block
+constexpr int kPad = 8;    // elements of padding a shared row
+
+// query rows a dkdv step and keys a dq step
+template <int D>
+constexpr int kStep = D > 64 ? 32 : 64;
+
+template <int D>
+constexpr size_t dkdv_mma_smem_bytes() {
+  return 2 * (size_t)(2 * kRows + 4 * kStep<D>) * (D + kPad) +
+         sizeof(float) * 4 * kStep<D>;
+}
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return 2 * (size_t)(2 * kRows + 4 * kStep<D>) * (D + kPad);
+}
+
+// two floats rounded to E (bf16 or f16) in one register, `lo` in the low
+// half: the operand layout of mma.sync
+template <typename E>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<E, __half>) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+}
+
+// 4 bytes global -> shared, zero-filled when !ok (src-size 0; `src` is
+// then any valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   tl_gemm::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// rows [r0, r0 + R) of a row-major (S, D) matrix into dst[R][D + kPad]
+// by cp.async, 16 bytes a thread, zero past row S
+template <int R, int D, typename E>
+__device__ __forceinline__ void issue_rows(E* dst, const E* src, int r0,
+                                           int S) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < R * CH; idx += kThreads) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < S;
+    tl_gemm::cp_async16(dst + r * (D + kPad) + c * 8,
+                        ok ? src + (long long)(r0 + r) * D + c * 8 : src,
+                        ok);
+  }
+}
+
+// c (+)= a . b over D for 16 rows of A (row-major at `a`) and the N rows
+// of B (row-major at `b`, so B^T is the product's k x n operand); N a
+// multiple of 16
+template <int D, int N, typename E>
+__device__ __forceinline__ void rows_dot_rows(float (&c)[N / 8][4],
+                                              const E* a, const E* b) {
+  constexpr int LD = D + kPad;
+  const int lane = threadIdx.x % 32, mat = lane / 8, mr = lane % 8;
+#pragma unroll
+  for (int ks = 0; ks < D; ks += 16) {
+    unsigned af[4];
+    mma16::ldmatrix_x4(af, a + (mr + 8 * (mat % 2)) * LD + ks + 8 * (mat / 2));
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      unsigned r[4];
+      mma16::ldmatrix_x4(r, b + (np * 16 + mr + 8 * (mat / 2)) * LD + ks +
+                                8 * (mat % 2));
+      mma16::mma<E>(c[2 * np], af, r[0], r[1]);
+      mma16::mma<E>(c[2 * np + 1], af, r[2], r[3]);
+    }
+  }
+}
+
+// c += A . B for the A fragments `af` of a 16 x K product (K / 16 k16
+// steps) and B the K rows of a row-major (K, D) tile at `b` (read through
+// ldmatrix.trans)
+template <int D, int K, typename E>
+__device__ __forceinline__ void frags_dot_tile(float (&c)[D / 8][4],
+                                               const unsigned (&af)[K / 16][4],
+                                               const E* b) {
+  constexpr int LD = D + kPad;
+  const int lane = threadIdx.x % 32, mat = lane / 8, mr = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      unsigned r[4];
+      mma16::ldmatrix_x4_trans(r, b + (kk * 16 + mr + 8 * (mat % 2)) * LD +
+                                      np * 16 + 8 * (mat / 2));
+      mma16::mma<E>(c[2 * np], af[kk], r[0], r[1]);
+      mma16::mma<E>(c[2 * np + 1], af[kk], r[2], r[3]);
+    }
+}
+
+// the A fragments of a 16 x N accumulator (N / 8 n8 tiles): tiles 2 kk
+// and 2 kk + 1 are k16 step kk's (a0, a1) and (a2, a3), rounded to E
+template <int N, typename E>
+__device__ __forceinline__ void to_frags(unsigned (&af)[N / 16][4],
+                                         const float (&c)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      af[kk][2 * h] = pack2<E>(c[2 * kk + h][0], c[2 * kk + h][1]);
+      af[kk][2 * h + 1] = pack2<E>(c[2 * kk + h][2], c[2 * kk + h][3]);
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// rows r0 + g and r0 + g + 8 (below S) of a (S, D) float32 output from a
+// 16 x D accumulator
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&c)[D / 8][4],
+                                           int r0, int S) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q2 = (lane % 4) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= S) continue;
+    float* row = out + (long long)r * D + q2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(row + 8 * nt) =
+          make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
+  }
+}
+
+template <int D, typename E>
+__global__ void __launch_bounds__(kThreads)
+gqa_bwd_dkdv_mma(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, const E* __restrict__ dout,
+                 const float* __restrict__ L,
+                 const float* __restrict__ Delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
+                 int causal, float scale2, float sm_scale) {
+  constexpr int BM = kStep<D>;
+  constexpr int LD = D + kPad;
+  static_assert(D % 16 == 0 && (LD / 8) % 2 == 1, "unsupported head_dim");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* sK = reinterpret_cast<E*>(smem_raw);              // [kRows][LD]
+  E* sV = sK + kRows * LD;                             // [kRows][LD]
+  E* sQ = sV + kRows * LD;                             // [2][BM][LD]
+  E* sO = sQ + 2 * BM * LD;                            // dO [2][BM][LD]
+  float* sL = reinterpret_cast<float*>(sO + 2 * BM * LD);  // [2][BM]
+  float* sDe = sL + 2 * BM;                                // [2][BM]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q2 = (lane % 4) * 2;
+  const int k0 = blockIdx.x * kRows, hk = blockIdx.y, b = blockIdx.z;
+  const int kw = k0 + 16 * warp;  // the warp's first key
+  const int group = Hq / Hkv;
+  const long long bhk = (long long)b * Hkv + hk;
+  const int n_q = (Sq + BM - 1) / BM;
+  const int q_first = causal ? min(k0 / BM, n_q) : 0;  // first i >= k0
+  const int n_qt = n_q - q_first;
+  const int n_steps = group * n_qt;  // (head in group, query tile)
+
+  // step t's Q, dO, L, Delta into stage t & 1
+  auto issue = [&](int t) {
+    const int st = t & 1, q0 = (q_first + t % n_qt) * BM;
+    const long long bhq = (long long)b * Hq + hk * group + t / n_qt;
+    issue_rows<BM, D>(sQ + st * BM * LD, q + bhq * Sq * D, q0, Sq);
+    issue_rows<BM, D>(sO + st * BM * LD, dout + bhq * Sq * D, q0, Sq);
+    if (tid < 2 * BM) {
+      const int r = tid % BM;
+      const float* src = (tid < BM ? L : Delta) + bhq * Sq;
+      cp_async4((tid < BM ? sL : sDe) + st * BM + r,
+                q0 + r < Sq ? src + q0 + r : src, q0 + r < Sq);
+    }
+  };
+  issue_rows<kRows, D>(sK, k + bhk * Sk * D, k0, Sk);
+  issue_rows<kRows, D>(sV, v + bhk * Sk * D, k0, Sk);
+  if (n_steps > 0) issue(0);
+  tl_gemm::cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int t = 0; t < n_steps; ++t) {
+    tl_gemm::cp_async_wait<0>();
+    __syncthreads();  // step t landed; step t - 1's readers are done
+    if (t + 1 < n_steps) issue(t + 1);
+    tl_gemm::cp_async_commit();
+    const int st = t & 1, q0 = (q_first + t % n_qt) * BM;
+    // keys past Sk, or all after the tile's last query: nothing to add
+    if (kw >= Sk || (causal && q0 + BM <= kw)) continue;
+    const E* tQ = sQ + st * BM * LD;
+    const E* tO = sO + st * BM * LD;
+    const float* tL = sL + st * BM;
+    const float* tD = sDe + st * BM;
+
+    // S^T (keys x queries) = K Q^T and dP^T = V dO^T
+    float s[BM / 8][4], dp[BM / 8][4];
+    zero(s);
+    zero(dp);
+    rows_dot_rows<D, BM>(s, sK + 16 * warp * LD, tQ);
+    rows_dot_rows<D, BM>(dp, sV + 16 * warp * LD, tO);
+
+    // P^T and dS^T, masked on an edge tile (i < j, or i past Sq)
+    const bool edge = (causal && q0 < kw + 16) || q0 + BM > Sq;
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ic = 8 * nt + q2 + (e & 1);
+        float p = exp2f(s[nt][e] * scale2 - tL[ic]);
+        if (edge) {
+          const int i = q0 + ic, j = kw + g + 8 * (e >> 1);
+          if (i >= Sq || (causal && i < j)) p = 0.f;
+        }
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - tD[ic]) * sm_scale;
+      }
+    unsigned pa[BM / 16][4], sa[BM / 16][4];
+    to_frags<BM, E>(pa, s);
+    to_frags<BM, E>(sa, dp);
+
+    // dV += P^T dO, dK += dS^T Q
+    frags_dot_tile<D, BM, E>(dv_acc, pa, tO);
+    frags_dot_tile<D, BM, E>(dk_acc, sa, tQ);
+  }
+  tl_gemm::cp_async_wait<0>();
+
+  store_rows<D>(dk + bhk * Sk * D, dk_acc, kw, Sk);
+  store_rows<D>(dv + bhk * Sk * D, dv_acc, kw, Sk);
+}
+
+template <int D, typename E>
+__global__ void __launch_bounds__(kThreads)
+gqa_bwd_dq_mma(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, const E* __restrict__ dout,
+               const float* __restrict__ L, const float* __restrict__ Delta,
+               float* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
+               int causal, float scale2, float sm_scale) {
+  constexpr int BN = kStep<D>;
+  constexpr int LD = D + kPad;
+  static_assert(D % 16 == 0 && (LD / 8) % 2 == 1, "unsupported head_dim");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* sQ = reinterpret_cast<E*>(smem_raw);  // [kRows][LD]
+  E* sO = sQ + kRows * LD;                 // dO [kRows][LD]
+  E* sK = sO + kRows * LD;                 // [2][BN][LD]
+  E* sV = sK + 2 * BN * LD;                // [2][BN][LD]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int mat = lane / 8, mr = lane % 8, g = lane / 4, q2 = (lane % 4) * 2;
+  // the last query tiles see the most keys when causal: they go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const long long bhq = (long long)b * Hq + h;
+  const long long bhk = (long long)b * Hkv + h / (Hq / Hkv);
+  const E* kg = k + bhk * Sk * D;
+  const E* vg = v + bhk * Sk * D;
+  int n_kv = (Sk + BN - 1) / BN;
+  if (causal) n_kv = min(n_kv, (q0 + kRows - 1) / BN + 1);
+
+  issue_rows<kRows, D>(sQ, q + bhq * Sq * D, q0, Sq);
+  issue_rows<kRows, D>(sO, dout + bhq * Sq * D, q0, Sq);
+  issue_rows<BN, D>(sK, kg, 0, Sk);
+  issue_rows<BN, D>(sV, vg, 0, Sk);
+  tl_gemm::cp_async_commit();
+
+  // the lane's rows qw + g, qw + g + 8: L, Delta, and the warp's Q and dO
+  // as A fragments
+  float lr[2], dr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = qw + g + 8 * hh;
+    lr[hh] = i < Sq ? L[bhq * Sq + i] : 0.f;
+    dr[hh] = i < Sq ? Delta[bhq * Sq + i] : 0.f;
+  }
+  tl_gemm::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[D / 16][4], of[D / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const int at = (16 * warp + mr + 8 * (mat % 2)) * LD + 16 * kd +
+                   8 * (mat / 2);
+    mma16::ldmatrix_x4(qf[kd], sQ + at);
+    mma16::ldmatrix_x4(of[kd], sO + at);
+  }
+
+  float dq_acc[D / 8][4];
+  zero(dq_acc);
+  for (int kb = 0; kb < n_kv; ++kb) {
+    tl_gemm::cp_async_wait<0>();
+    __syncthreads();  // tile kb landed; tile kb - 1's readers are done
+    if (kb + 1 < n_kv) {
+      const int st = (kb + 1) & 1;
+      issue_rows<BN, D>(sK + st * BN * LD, kg, (kb + 1) * BN, Sk);
+      issue_rows<BN, D>(sV + st * BN * LD, vg, (kb + 1) * BN, Sk);
+    }
+    tl_gemm::cp_async_commit();
+    const int k0 = kb * BN;
+    // rows past Sq, or all before the tile's first key: nothing to add
+    if (qw >= Sq || (causal && k0 > qw + 15)) continue;
+    const E* tK = sK + (kb & 1) * BN * LD;
+    const E* tV = sV + (kb & 1) * BN * LD;
+
+    // S = Q K^T and dP = dO V^T from the held fragments
+    float s[BN / 8][4], dp[BN / 8][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        const int at = (np * 16 + mr + 8 * (mat / 2)) * LD + 16 * kd +
+                       8 * (mat % 2);
+        unsigned r[4];
+        mma16::ldmatrix_x4(r, tK + at);
+        mma16::mma<E>(s[2 * np], qf[kd], r[0], r[1]);
+        mma16::mma<E>(s[2 * np + 1], qf[kd], r[2], r[3]);
+        mma16::ldmatrix_x4(r, tV + at);
+        mma16::mma<E>(dp[2 * np], of[kd], r[0], r[1]);
+        mma16::mma<E>(dp[2 * np + 1], of[kd], r[2], r[3]);
+      }
+
+    // dS, masked on an edge tile (i < j, or j past Sk)
+    const bool edge = (causal && k0 + BN - 1 > qw) || k0 + BN > Sk;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] * scale2 - lr[e >> 1]);
+        if (edge) {
+          const int i = qw + g + 8 * (e >> 1), j = k0 + 8 * nt + q2 + (e & 1);
+          if (j >= Sk || (causal && i < j)) p = 0.f;
+        }
+        dp[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * sm_scale;
+      }
+    unsigned da[BN / 16][4];
+    to_frags<BN, E>(da, dp);
+
+    // dQ += dS K
+    frags_dot_tile<D, BN, E>(dq_acc, da, tK);
+  }
+  tl_gemm::cp_async_wait<0>();
+
+  store_rows<D>(dq + bhq * Sq * D, dq_acc, qw, Sq);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *L, *Delta;
@@ -307,26 +698,55 @@ struct Args {
   float scale2, sm_scale;
 };
 
-template <int D, int DT>
-int run_dkdv(const Args& a, float* dk, float* dv, cudaStream_t st) {
-  using T = typename Elem<DT>::T;
-  const dim3 grid((a.Sk + KV_ROWS - 1) / KV_ROWS, a.Hkv, a.B);
-  return launch(gqa_bwd_dkdv<D, DT>, grid, dkdv_smem_bytes<D>(), st,
-                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                a.L, a.Delta, dk, dv, a.Hq, a.Hkv, a.Sq, a.Sk, a.causal,
-                a.scale2, a.sm_scale);
+template <int D>
+int run_dkdv(const Args& a, int dt, float* dk, float* dv, cudaStream_t st) {
+  const dim3 grid32((a.Sk + KV_ROWS - 1) / KV_ROWS, a.Hkv, a.B);
+  const dim3 grid16((a.Sk + kRows - 1) / kRows, a.Hkv, a.B);
+  auto go = [&](auto kernel, dim3 grid, size_t bytes, auto* e) {
+    using T = std::remove_pointer_t<decltype(e)>;
+    return launch(kernel, grid, bytes, st, static_cast<const T*>(a.q),
+                  static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                  static_cast<const T*>(a.dout), a.L, a.Delta, dk, dv, a.Hq,
+                  a.Hkv, a.Sq, a.Sk, a.causal, a.scale2, a.sm_scale);
+  };
+  switch (dt) {
+    case kF32:
+      return go(gqa_bwd_dkdv<D, kF32>, grid32, dkdv_smem_bytes<D>(),
+                (float*)nullptr);
+    case kBF16:
+      return go(gqa_bwd_dkdv_mma<D, __nv_bfloat16>, grid16,
+                dkdv_mma_smem_bytes<D>(), (__nv_bfloat16*)nullptr);
+    case kF16:
+      return go(gqa_bwd_dkdv_mma<D, __half>, grid16,
+                dkdv_mma_smem_bytes<D>(), (__half*)nullptr);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-template <int D, int DT>
-int run_dq(const Args& a, float* dq, cudaStream_t st) {
-  using T = typename Elem<DT>::T;
+template <int D>
+int run_dq(const Args& a, int dt, float* dq, cudaStream_t st) {
   const dim3 grid((a.Sq + DQ_ROWS - 1) / DQ_ROWS, a.Hq, a.B);
-  return launch(gqa_bwd_dq<D, DT>, grid, dq_smem_bytes<D>(), st,
-                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                a.L, a.Delta, dq, a.Hq, a.Hkv, a.Sq, a.Sk, a.causal, a.scale2,
-                a.sm_scale);
+  static_assert(DQ_ROWS == kRows, "both designs take 64 query rows a block");
+  auto go = [&](auto kernel, size_t bytes, auto* e) {
+    using T = std::remove_pointer_t<decltype(e)>;
+    return launch(kernel, grid, bytes, st, static_cast<const T*>(a.q),
+                  static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                  static_cast<const T*>(a.dout), a.L, a.Delta, dq, a.Hq,
+                  a.Hkv, a.Sq, a.Sk, a.causal, a.scale2, a.sm_scale);
+  };
+  switch (dt) {
+    case kF32:
+      return go(gqa_bwd_dq<D, kF32>, dq_smem_bytes<D>(), (float*)nullptr);
+    case kBF16:
+      return go(gqa_bwd_dq_mma<D, __nv_bfloat16>, dq_mma_smem_bytes<D>(),
+                (__nv_bfloat16*)nullptr);
+    case kF16:
+      return go(gqa_bwd_dq_mma<D, __half>, dq_mma_smem_bytes<D>(),
+                (__half*)nullptr);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 #define TL_HEAD_DIMS(X) X(16) X(32) X(64) X(128)
@@ -349,11 +769,9 @@ extern "C" int tl_gqa_bwd_dkdv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-#define TL_CASE(DIM)                                                  \
-  case DIM:                                                           \
-    return with_elem(dt, [&](auto e) {                                \
-      return run_dkdv<DIM, decltype(e)::value>(a, dkf, dvf, st);      \
-    });
+#define TL_CASE(DIM) \
+  case DIM:          \
+    return run_dkdv<DIM>(a, dt, dkf, dvf, st);
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:
@@ -373,11 +791,9 @@ extern "C" int tl_gqa_bwd_dq(const void* q, const void* k, const void* v,
                scale2, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dqf = static_cast<float*>(dq);
-#define TL_CASE(DIM)                                                  \
-  case DIM:                                                           \
-    return with_elem(dt, [&](auto e) {                                \
-      return run_dq<DIM, decltype(e)::value>(a, dqf, st);             \
-    });
+#define TL_CASE(DIM) \
+  case DIM:          \
+    return run_dq<DIM>(a, dt, dqf, st);
   switch (D) {
     TL_HEAD_DIMS(TL_CASE)
     default:

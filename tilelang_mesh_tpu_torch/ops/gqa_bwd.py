@@ -2,7 +2,9 @@
 
 Counterpart of ``tilelang_mesh_tpu/ops/gqa_bwd.py``. Two CUDA kernels
 (``csrc/gqa_bwd.cu``) replace the TPU's, keeping its no-atomics split so
-each output element is written once and the result is deterministic:
+each output element is written once and the result is deterministic
+(float32 on CUDA cores; bfloat16 and float16 on the tensor cores,
+``mma.sync`` with ``cp.async`` loads):
 
 * ``gqa_bwd_dkdv`` — ``gqa_bwd_dkdv_kernel``: a block per KV tile loops
   over its group's query heads and their Q tiles;
@@ -112,7 +114,9 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 def _launch(name, q, k, v, do, lse2, delta, outs, causal, sm_scale):
     from ._build import load
+    # the tensor-core kernels read 16-byte pieces of rows by cp.async
     args = [t.contiguous() for t in (q, k, v, do, lse2, delta)]
+    args = [t.clone() if t.data_ptr() % 16 else t for t in args]
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     fn = getattr(load("gqa_bwd"), f"tl_{name}")
