@@ -186,14 +186,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               fine-tuning step (make_sparse_mla, S 1024 over 4096): dq and
               dkv against autograd through the dense reference, three
               Adam steps whose loss falls, the step's time.
-18. headline — the fifteenth main path: bench.py's headline GEMM
+18. headline — the fifteenth main path: bench.py's headline
               comparison as the port runs it (tilelang_mesh_tpu_torch.
               bench): gemm_quickstart (1024^3), gemm_large (8192 x 8192 x
-              4096), fp8_gemm (4096^3) and w4a16_gemm (4096^3, group
-              512) through run_config at a 0.1 s loop target (bench's own
-              is 0.6 s), each record printed, then the headline geomean
-              line; the two yardsticks' launches counted over the four
-              configs (a CUDA graph's where it is captured). Then the
+              4096), flash_d64, flash_d128 and flash_d128_full (bf16,
+              B 2, H 16, S 2048; mha_fwd_kernel at the carver's best
+              tile against SDPA), fp8_gemm (4096^3) and w4a16_gemm
+              (4096^3, group 512) through run_config at a 0.1 s loop
+              target (bench's own is 0.6 s), each record printed, then
+              the headline geomean line and the four GEMM configs'
+              geomean; the two yardsticks' and mha_fwd's launches counted
+              over the seven configs (a CUDA graph's where it is
+              captured). Then the
               GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
               x 4096 and fp8 -> f32 at 4096^3, and the w4a16 yardstick
               (hand_w4a16) at 4096^3, group 512, each at the carver's two
@@ -4499,20 +4503,21 @@ DSA_KERNELS = (
      "float32"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): four configs,
-# each side calibrated and sampled three times, in about 20 s
+# the headline phase's loop target (bench.py's is 0.6 s): seven configs,
+# each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
 YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def headline_phase(torch, ys, gm, dqg):
-    """The headline GEMM comparison (tilelang_mesh_tpu_torch.bench): the
-    four configs at full size through ``run_config`` (counters zeroed
-    before, read right after; a CUDA graph's launches are counted where
-    they are captured, its replays not), each record printed, then the
-    headline geomean line. Then #42 (bf16 -> bf16 at 8192 x 8192 x 4096,
-    fp8 -> f32 at 4096^3) and #43 (4096^3, group 512), each at the
+def headline_phase(torch, ys, gm, dqg, fa):
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the seven
+    configs at full size through ``run_config`` (counters zeroed before,
+    read right after; a CUDA graph's launches are counted where they are
+    captured, its replays not; the flash configs launch ``mha_fwd``),
+    each record printed, then the headline geomean line, and the geomean
+    of the four GEMM configs alone. Then #42 (bf16 -> bf16 at 8192 x 8192
+    x 4096, fp8 -> f32 at 4096^3) and #43 (4096^3, group 512), each at the
     carver's two top blocks as bench sweeps them, against their plain
     versions on the same inputs; kernel, plain and library (torch.matmul;
     torch._scaled_mm with unit scales; torch.matmul on the dequantised
@@ -4527,9 +4532,9 @@ def headline_phase(torch, ys, gm, dqg):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's four configs ----------------------------
+    # -- the main path: bench's seven configs ---------------------------
     torch.cuda.synchronize()
-    for mod in (ys, gm, dqg):
+    for mod in (ys, gm, dqg, fa):
         mod.reset_launches()
     t0 = time.perf_counter()
     records = []
@@ -4545,14 +4550,20 @@ def headline_phase(torch, ys, gm, dqg):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     res["launches"] = dict(ys.launches)
-    res["library_launches"] = {**gm.launches, **dqg.launches}
+    res["library_launches"] = {**gm.launches, **dqg.launches,
+                               "mha_fwd": fa.launches["mha_fwd"]}
     res["records"] = records
     res["seconds"] = time.perf_counter() - t0
     check(all(n > 0 for n in res["launches"].values()),
           f"headline: a yardstick was not launched: {res['launches']}")
+    check(fa.launches["mha_fwd"] > 0,
+          "headline: the flash configs did not launch mha_fwd")
     head = tb.headline(records)
     print(json.dumps(head), flush=True)
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
+    res["geomean_vs_baseline_gemm"] = tb.headline(
+        [r for r in records if not r["config"].startswith("flash")])[
+            "geomean_vs_baseline"]
 
     def hold(label, got, want):
         name = str(want.dtype).replace("torch.", "")
@@ -4846,7 +4857,7 @@ def main() -> int:
     ds = dsa_phase(torch, dsa)
 
     phase("headline")
-    hl = headline_phase(torch, ys, gm, dqg)
+    hl = headline_phase(torch, ys, gm, dqg, fa)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

@@ -1,5 +1,5 @@
-"""The port's headline GEMM comparison (tilelang_mesh_tpu_torch/bench.py)
-on the CPU: the four configs at tiny sizes through ``run_config`` with
+"""The port's headline comparison (tilelang_mesh_tpu_torch/bench.py)
+on the CPU: the seven configs at tiny sizes through ``run_config`` with
 loose peaks, as tests/test_bench_configs.py runs bench.py's (the ops run
 their plain versions; the numbers are host times and mean nothing), the
 cross-check equal to bench.py's, the candidate sweep skipping only a
@@ -37,6 +37,13 @@ _CONFIGS = {
                                           target_s=_TARGET_S),
     "w4a16_gemm": lambda: port.cfg_w4a16(256, 256, 256, gs=64, device="cpu",
                                          arch=H100_SXM, target_s=_TARGET_S),
+    "flash_d64": lambda: port.cfg_flash(64, S=128, B=1, H=2, device="cpu",
+                                        arch=H100_SXM, target_s=_TARGET_S),
+    "flash_d128": lambda: port.cfg_flash(128, S=128, B=1, H=2, device="cpu",
+                                         arch=H100_SXM, target_s=_TARGET_S),
+    "flash_d128_full": lambda: port.cfg_flash(
+        128, S=128, B=1, H=2, causal=False, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
 }
 
 
@@ -49,19 +56,28 @@ def test_config_runs_on_cpu(name):
     assert rec["device"] == "cpu"
     assert rec["latency_ms"] > 0 and rec["baseline_ms"] > 0
     assert rec["vs_baseline"] > 0 and rec["reps"] > 0
+    if name.startswith("flash"):
+        # the winning tile is one of the carver's hints, named twice
+        from tilelang_mesh_tpu_torch.carver import FLASH_KERNEL_TILES
+        D = 64 if name == "flash_d64" else 128
+        assert tuple(rec["tile"]) in FLASH_KERNEL_TILES[D]
+        assert f"tile ({rec['tile'][0]},{rec['tile'][1]})" in rec["metric"]
+        assert f"causal={name != 'flash_d128_full'}" in rec["metric"]
 
 
 def test_config_names_and_headline_are_bench_py_s():
     import bench as ref
     names = [n for n, _ in port._config_builders(True)]
-    assert names == ["gemm_quickstart", "gemm_large", "fp8_gemm",
+    assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
+                     "flash_d128", "flash_d128_full", "fp8_gemm",
                      "w4a16_gemm"]
-    assert set(names) <= {n for n, _ in ref._config_builders(True)}
+    ref_names = [n for n, _ in ref._config_builders(True)]
+    assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
-            for n, v in zip(names, (0.5, 2.0, 1.25, 0.8))]
+            for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 0.8))]
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 4)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 7)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 
@@ -142,6 +158,20 @@ def test_config_raises_when_a_yardstick_fails(monkeypatch, config):
                  target_s=0.02)}[config]
     with pytest.raises(port.BenchError, match="numeric mismatch"):
         build()
+
+
+def test_flash_config_raises_when_the_kernel_disagrees(monkeypatch):
+    """A tile whose output disagrees with SDPA fails the flash config:
+    no other tile of the sweep takes its place."""
+    import importlib
+    fa = importlib.import_module(
+        "tilelang_mesh_tpu_torch.ops.flash_attention")
+    plain = fa.mha_fwd_plain
+    monkeypatch.setattr(fa, "mha_fwd_plain",
+                        lambda *a, **kw: plain(*a, **kw) + 1.0)
+    with pytest.raises(port.BenchError, match="numeric mismatch"):
+        port.cfg_flash(64, S=128, B=1, H=2, device="cpu", arch=H100_SXM,
+                       target_s=0.02)
 
 
 def test_pick_best_raises_a_device_fault():

@@ -1,10 +1,11 @@
 """The port's carver (tilelang_mesh_tpu_torch/carver) against the JAX
-package's (tilelang_mesh_tpu/carver): a GEMM tiling's roofline
-arithmetic (FLOPs, HBM bytes, step count) and the tile-size ladder are
-the JAX package's, the ranking breaks ties the same way, and every block
-the H100 template proposes at bench.py's GEMM shapes is an instance of
-the yardstick kernel. Exact comparisons: the quantities are integers or
-the same float expressions."""
+package's (tilelang_mesh_tpu/carver): a GEMM or attention tiling's
+roofline arithmetic (FLOPs, HBM bytes, step count) and the tile-size
+ladder are the JAX package's, the ranking breaks ties the same way, every
+block the H100 template proposes at bench.py's GEMM shapes is an instance
+of the yardstick kernel, and every attention tile it proposes is an
+instance of the forward kernel that fits the card. Exact comparisons: the
+quantities are integers or the same float expressions."""
 
 import pytest
 import torch
@@ -117,3 +118,53 @@ def test_auto_arch_raises_without_a_known_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda device=None: "NVIDIA H100 80GB HBM3")
     assert port_arch.auto_arch() is port.H100_SXM
+
+
+# bench.py's flash configs (cfg_flash: B 2, H 16, S 2048; 512 quick) and
+# ragged and rectangular shapes
+FLASH = [(2048, 2048, 64, True), (2048, 2048, 128, True),
+         (2048, 2048, 128, False), (512, 512, 128, True),
+         (1024, 4096, 64, False), (4096, 1024, 128, True)]
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", FLASH)
+def test_flash_candidate_arithmetic_matches_jax(Sq, Sk, D, causal):
+    """For every tiling the JAX FlashAttentionTemplate enumerates, the
+    port's Candidate of the same (bm, bn) has the same FLOPs, HBM bytes
+    and step count."""
+    jax_cands = ref.FlashAttentionTemplate(
+        Sq, Sk, D, batch_heads=32, causal=causal,
+        arch=ref.TPU_V5E).candidates()
+    assert jax_cands
+    t = port.FlashAttentionTemplate(Sq, Sk, D, batch_heads=32,
+                                    causal=causal, arch=port.H100_SXM)
+    for jc in jax_cands:
+        cfg = jc.config
+        pc = t.candidate(cfg["block_M"], cfg["block_N"])
+        assert pc.config == cfg
+        assert (pc.flops, pc.hbm_bytes, pc.n_tiles) == (
+            jc.flops, jc.hbm_bytes, jc.n_tiles)
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", FLASH + [
+    (77, 77, 16, True), (1000, 1000, 32, False)])
+def test_flash_hints_are_kernel_instances_that_fit(Sq, Sk, D, causal):
+    """The template proposes every instance of the kernel at the head_dim
+    (its candidate space), each within a block's shared memory and
+    register budget on the H100; an unbuilt head_dim raises."""
+    t = port.FlashAttentionTemplate(Sq, Sk, D, batch_heads=32,
+                                    causal=causal, arch=port.H100_SXM)
+    tiles = port.FLASH_KERNEL_TILES[D]
+    hints = t.hints(8)
+    assert sorted((h.config["block_M"], h.config["block_N"])
+                  for h in hints) == sorted(tiles)
+    policy = port.DefaultPolicy(port.H100_SXM)
+    for bm, bn in tiles:
+        c = t.candidate(bm, bn)
+        assert policy.fits(c)
+        # the Q tile and two stages of K and V, rows padded by 8
+        assert c.smem_bytes == (bm + 4 * bn) * (D + 8) * 2
+        assert c.smem_bytes <= port.H100_SXM.smem_per_block
+    assert port.recommend_hints(t, 2) == hints[:2]
+    with pytest.raises(ValueError, match="head_dim=48"):
+        port.FlashAttentionTemplate(Sq, Sk, 48, arch=port.H100_SXM).hints()

@@ -17,7 +17,7 @@ rounding boundary flips one bf16 ulp. Attention kernels, normwise
 (max |kernel - plain| over max |plain|): 1e-5 in float32 (same
 arithmetic, another order); 2e-2 in bfloat16, where both round P and dS
 to bf16 before their products but a 1e-7 difference at a rounding
-boundary flips one bf16 ulp; two calls of the backward pair give the
+boundary flips one bf16 ulp; two calls of an attention kernel give the
 same bits (no atomics). The model on the card against the model on
 the CPU: 1e-4 normwise (float32, different kernels and libraries).
 Grouped GEMMs, normwise: 1e-5 in float32 (the same float32 sums in
@@ -87,6 +87,7 @@ import numpy as np
 import pytest
 import torch
 
+from tilelang_mesh_tpu_torch.carver import FLASH_KERNEL_TILES
 from tilelang_mesh_tpu_torch.models import bitnet as bitnet_model
 from tilelang_mesh_tpu_torch.ops import _build
 from tilelang_mesh_tpu_torch.ops import bitnet
@@ -370,31 +371,110 @@ ATTN_CASES = [  # (B, Hq, Hkv, Sq, Sk) at each D
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("shape", ATTN_CASES)
-def test_forward_kernels_match_plain(cuda, dtype, causal, d, shape):
-    B, H, _, Sq, Sk = shape
-    q, k, v, _, _, _, sm = _attn_inputs(cuda, B, H, H, Sq, Sk, d, dtype,
-                                        causal)
-    before = dict(fa.launches)
-    o = fa.mha_fwd(q, k, v, causal, sm)
-    part = fa.mha_fwd_partial(q, k, v, causal, sm)
-    torch.cuda.synchronize()
-    assert fa.launches["mha_fwd"] == before["mha_fwd"] + 1
-    assert fa.launches["mha_fwd_partial"] == before["mha_fwd_partial"] + 1
-    assert o.dtype == dtype and all(t.dtype == torch.float32 for t in part)
-    assert _normwise(o, fa.mha_fwd_plain(q, k, v, causal, sm)) \
-        <= ATTN_TOL[dtype]
-    assert _normwise(part, fa.mha_fwd_partial_plain(q, k, v, causal, sm)) \
-        <= ATTN_TOL[dtype]
-
-
 # beyond one 64-row tile of the tensor-core kernels, neither S a multiple
 # of 64, group 4
 BWD_CASES = ATTN_CASES + [(2, 4, 2, 150, 150), (1, 4, 2, 64, 200),
                           (1, 8, 2, 200, 330), (1, 8, 2, 330, 200)]
+
+
+def _fwd_ops(Hq, Hkv):
+    """(module, forward, partial, their plain versions) of the attention
+    forward: the MHA wrappers when Hq == Hkv, else the GQA ones (the same
+    kernel)."""
+    if Hq == Hkv:
+        return fa, "mha_fwd", fa.mha_fwd_plain, fa.mha_fwd_partial_plain
+    return gqa, "gqa_fwd", gqa.gqa_fwd_plain, gqa.gqa_fwd_partial_plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", BWD_CASES)
+def test_forward_kernels_match_plain(cuda, dtype, causal, d, shape):
+    """The forward and the partial kernel at the default tile, MHA and
+    GQA groups 2 and 4 (float32 on CUDA cores, bfloat16 and float16 on
+    the tensor cores)."""
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, *shape, d, dtype, causal)
+    mod, name, plain, partial_plain = _fwd_ops(shape[1], shape[2])
+    before = dict(mod.launches)
+    o = getattr(mod, name)(q, k, v, causal, sm)
+    part = getattr(mod, name + "_partial")(q, k, v, causal, sm)
+    torch.cuda.synchronize()
+    assert mod.launches[name] == before[name] + 1
+    assert mod.launches[name + "_partial"] == before[name + "_partial"] + 1
+    assert o.dtype == dtype and all(t.dtype == torch.float32 for t in part)
+    assert _normwise(o, plain(q, k, v, causal, sm)) <= ATTN_TOL[dtype]
+    assert _normwise(part, partial_plain(q, k, v, causal, sm)) \
+        <= ATTN_TOL[dtype]
+
+
+FWD_TILES = [(d, tile) for d, tiles in FLASH_KERNEL_TILES.items()
+             for tile in tiles]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,tile", FWD_TILES)
+@pytest.mark.parametrize("shape", [(1, 2, 2, 200, 330), (1, 8, 2, 330, 200)])
+def test_forward_kernel_tiles_match_plain(cuda, dtype, causal, d, tile,
+                                          shape):
+    """Every (block_M, block_N) instance of the tensor-core forward,
+    through the factories that name it (``mha_fwd_kernel`` or
+    ``gqa_fwd_kernel``, and the GQA partial factory), launches once and
+    agrees with the plain version."""
+    B, Hq, Hkv, Sq, Sk = shape
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, *shape, d, dtype, causal)
+    mod, name, plain, partial_plain = _fwd_ops(Hq, Hkv)
+    before = dict(mod.launches)
+    if Hq == Hkv:
+        o = fa.mha_fwd_kernel(B, Hq, Sq, Sk, d, *tile, causal, sm,
+                              dtype)(q, k, v)
+        part = fa.mha_fwd_partial(q, k, v, causal, sm, tile=tile)
+    else:
+        o = gqa.gqa_fwd_kernel(B, Hq, Hkv, Sq, Sk, d, *tile, causal, sm,
+                               dtype)(q, k, v)
+        part = gqa.gqa_fwd_partial_kernel(B, Hq, Hkv, Sq, Sk, d, *tile,
+                                          causal, sm, dtype)(q, k, v)
+    torch.cuda.synchronize()
+    assert mod.launches[name] == before[name] + 1
+    assert mod.launches[name + "_partial"] == before[name + "_partial"] + 1
+    assert _normwise(o, plain(q, k, v, causal, sm)) <= ATTN_TOL[dtype]
+    assert _normwise(part, partial_plain(q, k, v, causal, sm)) \
+        <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_forward_default_tile_is_the_first_instance(cuda, dtype, d):
+    """No tile (``tl_mha_fwd``) launches FLASH_KERNEL_TILES[d][0]: the
+    same bits; a tile the kernel lacks is refused by the C entry."""
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, 1, 4, 2, 150, 270, d, dtype,
+                                        True)
+    first = FLASH_KERNEL_TILES[d][0]
+    assert torch.equal(gqa.gqa_fwd(q, k, v, True, sm),
+                       gqa.gqa_fwd(q, k, v, True, sm, tile=first))
+    for a, b in zip(fa.mha_fwd_partial(q[:, :2], k, v, True, sm),
+                    fa.mha_fwd_partial(q[:, :2], k, v, True, sm,
+                                       tile=first)):
+        assert torch.equal(a, b)
+    with pytest.raises(KernelLaunchError):
+        fa.mha_fwd(q[:, :2], k, v, True, sm, tile=(96, 48))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_kernels_are_deterministic(cuda, dtype, causal):
+    """Two calls give the same bits: O, and the partial's acc, m and l."""
+    q, k, v, _, _, _, sm = _attn_inputs(cuda, 1, 8, 2, 330, 200, 128,
+                                        dtype, causal)
+    first = (gqa.gqa_fwd(q, k, v, causal, sm),
+             *gqa.gqa_fwd_partial(q, k, v, causal, sm))
+    second = (gqa.gqa_fwd(q, k, v, causal, sm),
+              *gqa.gqa_fwd_partial(q, k, v, causal, sm))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

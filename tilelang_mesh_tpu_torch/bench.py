@@ -1,14 +1,22 @@
-"""The headline GEMM comparison on the card: the library's GEMMs against
-hand-written yardstick kernels, timed in interleaved A/B rounds.
+"""The headline comparison on the card: the library's GEMMs against
+hand-written yardstick kernels, and its attention forward against
+PyTorch's fused attention, timed in interleaved A/B rounds.
 
     python -m tilelang_mesh_tpu_torch.bench [--quick] [--config NAME ...]
 
-Counterpart of the GEMM part of ``bench.py``. Four configs:
+Counterpart of the GEMM and flash parts of ``bench.py``. Seven configs,
+in ``bench.py``'s order:
 
 * ``gemm_quickstart`` (1024^3) and ``gemm_large`` (8192 x 8192 x 4096;
   2048^3 with ``--quick``), bf16: ``ops/gemm.py``'s ``matmul_kernel``
   against the best of ``hand_matmul`` (``csrc/yardstick_gemm.cu``) over
   the carver's top two blocks;
+* ``flash_d64``, ``flash_d128`` (causal) and ``flash_d128_full`` (B 2,
+  H 16, S 2048; 512 with ``--quick``), bf16: ``ops/flash_attention.py``'s
+  ``mha_fwd_kernel`` at the best of the carver's top four tiles
+  (``FlashAttentionTemplate``), the record naming it, against
+  ``torch.nn.functional.scaled_dot_product_attention`` (``bench.py``
+  times JAX's Pallas-TPU flash attention there);
 * ``fp8_gemm`` (4096^3; 1024^3 quick): ``matmul_kernel`` in fp8 e4m3 ->
   f32 against the best of ``hand_matmul`` over the carver's top two
   blocks;
@@ -21,7 +29,7 @@ Counterpart of the GEMM part of ``bench.py``. Four configs:
 Prints one JSON line a config (``metric``, ``value`` TFLOP/s,
 ``vs_baseline`` = baseline ms / ours ms, ``latency_ms``,
 ``baseline_ms``, the p50/p90/p99/MAD digest, ``peak``, ``utilization``,
-``device``), then the headline line (``gemm_large``'s record with
+``device``; a flash record also its ``tile``), then the headline line (``gemm_large``'s record with
 ``geomean_vs_baseline`` over every config that ran). Exits 2 if a config
 failed.
 
@@ -58,11 +66,11 @@ import time
 import numpy as np
 import torch
 
-from .carver import MatmulTemplate, auto_arch
+from .carver import FlashAttentionTemplate, MatmulTemplate, auto_arch
 from .profiler import Timer, _stats_ms
 
-__all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_fp8_gemm",
-           "cfg_w4a16", "main"]
+__all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_flash",
+           "cfg_fp8_gemm", "cfg_w4a16", "main"]
 
 _TARGET_LOOP_S = 0.6   # in-loop work per timed call; >> fixed-cost noise
 _MAX_REP = 200_000
@@ -224,7 +232,7 @@ def _host_f32(x) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # configs — each returns dict(metric, flops, peak_class, ours, ref, args,
-#                             [ref_args], rel_tol, [checked])
+#                             [ref_args], rel_tol, [checked], [record])
 # ---------------------------------------------------------------------------
 
 def _draw(seed, device, dtype, *shapes):
@@ -267,6 +275,43 @@ def cfg_gemm(M, N, K, dtype="bfloat16", device="cuda", arch=None,
                        f"hand-written CUDA)",
                 flops=2.0 * M * N * K, peak_class=arch.peak_class(dtype),
                 ours=ours, ref=ref, args=(a, b), rel_tol=3e-2, checked=True)
+
+
+def cfg_flash(D, S=2048, B=2, H=16, causal=True, device="cuda", arch=None,
+              target_s=_TARGET_LOOP_S):
+    import torch.nn.functional as F
+    from .ops.flash_attention import mha_fwd_kernel
+    arch = arch or auto_arch()
+    rng = np.random.default_rng(1)
+    shp = (B, H, S, D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shp) * 0.3).to(device)
+               .to(torch.bfloat16) for _ in range(3))
+    sm = 1.0 / math.sqrt(D)
+
+    def ref(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=sm)
+
+    check = functools.partial(_check_close, ref=ref(q, k, v), rel_tol=3e-2)
+    # the carver's top four tiles, each checked before it may win
+    tiles = {f"({h.config['block_M']},{h.config['block_N']})":
+             (h.config["block_M"], h.config["block_N"]) for h in
+             FlashAttentionTemplate(S, S, D, batch_heads=B * H,
+                                    causal=causal, arch=arch).hints(4)}
+    name, ours, _ = _pick_best(
+        [(name, lambda bm=bm, bn=bn: mha_fwd_kernel(
+            B, H, S, S, D, block_M=bm, block_N=bn, causal=causal,
+            sm_scale=sm, dtype="bfloat16"), (q, k, v))
+         for name, (bm, bn) in tiles.items()],
+        check, f"flash d={D}", target_s=target_s)
+
+    # causal halves the realized flops
+    flops = 4.0 * B * H * S * S * D * (0.5 if causal else 1.0)
+    return dict(metric=f"flash-attn MHA fwd d={D} S={S} causal={causal} "
+                       f"tile {name} (mha_fwd_kernel vs torch SDPA)",
+                flops=flops, peak_class="bf16", ours=ours, ref=ref,
+                args=(q, k, v), rel_tol=3e-2, checked=True,
+                record={"tile": list(tiles[name])})
 
 
 def cfg_fp8_gemm(M=4096, N=4096, K=4096, device="cuda", arch=None,
@@ -408,6 +453,7 @@ def run_config(name, build, peaks, rounds=3, target_s=_TARGET_LOOP_S):
         "utilization": round(val / peak, 4) if peak else None,
         "config": name,
         "device": _device_name(args),
+        **spec.get("record", {}),
     }
 
 
@@ -421,6 +467,13 @@ def _config_builders(q: bool, device="cuda", arch=None,
         ("gemm_large", lambda: cfg_gemm(*(2048, 2048, 2048) if q
                                         else (8192, 8192, 4096),
                                         target_s=target_s, **kw)),
+        ("flash_d64", lambda: cfg_flash(64, S=512 if q else 2048,
+                                        target_s=target_s, **kw)),
+        ("flash_d128", lambda: cfg_flash(128, S=512 if q else 2048,
+                                         target_s=target_s, **kw)),
+        ("flash_d128_full", lambda: cfg_flash(
+            128, S=512 if q else 2048, causal=False, target_s=target_s,
+            **kw)),
         ("fp8_gemm", lambda: cfg_fp8_gemm(*(1024,) * 3 if q
                                           else (4096,) * 3,
                                           target_s=target_s, **kw)),
@@ -444,7 +497,7 @@ def headline(records):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tilelang_mesh_tpu_torch.bench",
-        description="the headline GEMM comparison on the card")
+        description="the headline comparison on the card")
     ap.add_argument("--quick", action="store_true",
                     help="small shapes (smoke test, not a benchmark)")
     ap.add_argument("--config", action="append", default=None,

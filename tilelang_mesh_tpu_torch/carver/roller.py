@@ -17,6 +17,12 @@ from 128 (a block's 8 warps as 2 x 4, each at least a 64 x 32 warp tile
 of 4 x 4 m16n8 products) to 256, bk from 32 (two k16 steps of a 16-bit
 mma, one k32 step of an fp8 one) to 64. ``KERNEL_BLOCKS`` is the set it
 can propose on the H100; ``ops/yardsticks.py`` refuses any other block.
+
+``FlashAttentionTemplate`` proposes (block_M, block_N) tiles of the
+tensor-core attention forward (``csrc/flash_attention.cu``'s
+``mha_fwd_mma``, bfloat16 and float16) from ``FLASH_KERNEL_TILES``, its
+instances by head_dim; ``ops/flash_attention.py`` takes any other tile
+hint as the kernel's default tile.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import Dict, FrozenSet, List, Optional, Tuple
 from .arch import H100_SXM, HopperArch, auto_arch, dtype_bytes
 
 __all__ = ["Hint", "Candidate", "DefaultPolicy", "MatmulTemplate",
-           "recommend_hints", "KERNEL_BLOCKS", "proposable_blocks"]
+           "FlashAttentionTemplate", "recommend_hints", "KERNEL_BLOCKS",
+           "FLASH_KERNEL_TILES", "proposable_blocks"]
 
 
 @dataclass
@@ -156,6 +163,68 @@ class MatmulTemplate:
     def hints(self, topk: int = 10) -> List[Hint]:
         arch = self.arch or auto_arch()
         return DefaultPolicy(arch, arch.peak_class(self.in_dtype)).rank(
+            self.candidates(), topk)
+
+
+# The tensor-core attention forward's (block_M, block_N) instances by
+# head_dim, the kernel's default tile first (csrc/flash_attention.cu's
+# fwd_tiles): a block is four warps of block_M / 4 query rows, block_N
+# keys a K / V stage. float32 runs one CUDA-core tile, (64, 32).
+FLASH_KERNEL_TILES: Dict[int, Tuple[Tuple[int, int], ...]] = {
+    16: ((64, 64),),
+    32: ((64, 64),),
+    64: ((128, 64), (64, 64), (64, 128), (128, 32)),
+    128: ((128, 64), (64, 64), (128, 32), (64, 32)),
+}
+
+
+@dataclass
+class FlashAttentionTemplate:
+    """Attention forward tiling over the kernel's instances: the JAX
+    package's roofline arithmetic (Q read once, K and V once per query
+    block, halved when causal; O written once), bounded by a block's
+    shared memory (the Q tile and two stages of K and V, rows padded by
+    8 elements) and its float32 O accumulator."""
+    seq_q: int
+    seq_k: int
+    head_dim: int
+    dtype: str = "bfloat16"
+    batch_heads: int = 1
+    causal: bool = False
+    arch: Optional[HopperArch] = None
+
+    def candidate(self, bm: int, bn: int) -> Candidate:
+        """The (bm, bn) tiling of this problem in roofline terms."""
+        arch = self.arch or auto_arch()
+        ib = dtype_bytes(self.dtype)
+        D = self.head_dim
+        frac = 0.5 if self.causal else 1.0
+        n_q = self.seq_q // bm
+        n_k = max(1, int(self.seq_k // bn * frac))
+        hbm = self.batch_heads * (
+            self.seq_q * D * ib                         # Q once
+            + 2 * self.seq_k * D * ib * n_q * frac      # K, V per q-block
+            + self.seq_q * D * ib)                      # out
+        mm, mn = arch.mma_shape
+        return Candidate(
+            {"block_M": bm, "block_N": bn},
+            4.0 * self.batch_heads * self.seq_q * self.seq_k * D * frac,
+            hbm, smem_bytes=(bm + 4 * bn) * (D + 8) * ib,
+            acc_bytes=bm * D * 4, n_tiles=self.batch_heads * n_q * n_k,
+            utilization=min(bm / mm, 1.0) * min(bn / mn, 1.0))
+
+    def candidates(self) -> List[Candidate]:
+        """Every instance of the kernel at this head_dim."""
+        if self.head_dim not in FLASH_KERNEL_TILES:
+            raise ValueError(f"the attention kernels have no head_dim="
+                             f"{self.head_dim} instance (built: "
+                             f"{sorted(FLASH_KERNEL_TILES)})")
+        return [self.candidate(bm, bn)
+                for bm, bn in FLASH_KERNEL_TILES[self.head_dim]]
+
+    def hints(self, topk: int = 8) -> List[Hint]:
+        arch = self.arch or auto_arch()
+        return DefaultPolicy(arch, arch.peak_class(self.dtype)).rank(
             self.candidates(), topk)
 
 

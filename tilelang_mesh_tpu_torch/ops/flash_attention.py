@@ -28,6 +28,11 @@ Each kernel's wrapper launches it on a CUDA tensor (a build or launch
 failure raises) and runs its plain PyTorch version (``*_plain``: dense
 softmax in the exp2 domain, rounded where the kernel rounds) on a CPU
 tensor. The tests and ``chip_smoke.py`` hold the kernels against them.
+float32 runs on the CUDA cores with one tile; bfloat16 and float16 run
+on the tensor cores, with the tiles of ``carver.FLASH_KERNEL_TILES``:
+``tile=(block_M, block_N)`` names one, ``None`` takes the kernel's
+default, and the factory ``mha_fwd_kernel`` passes its ``block_M``,
+``block_N`` when they name an instance for its type and head_dim.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..carver.roller import FLASH_KERNEL_TILES
 from ..resilience.errors import KernelLaunchError
 from ._factory import bind
 from .gemm import DTYPE_CODES, _as_dtype
@@ -45,7 +51,7 @@ from .gemm import DTYPE_CODES, _as_dtype
 __all__ = ["flash_attention", "flash_attention_partial", "mha_fwd",
            "mha_fwd_partial", "mha_fwd_plain", "mha_fwd_partial_plain",
            "mha_fwd_kernel", "launches", "reset_launches",
-           "KERNEL_HEAD_DIMS"]
+           "KERNEL_HEAD_DIMS", "kernel_tile"]
 
 _LOG2E = 1.44269504
 
@@ -138,11 +144,23 @@ def mha_fwd_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def launch_fwd(name, q, k, v, causal, sm_scale, partial):
+def kernel_tile(dtype, D, block_M, block_N):
+    """``(block_M, block_N)`` when it names a tensor-core instance for
+    ``dtype`` and head_dim ``D``, else None (the kernel's default tile;
+    float32 has one)."""
+    if _as_dtype(dtype) == torch.float32:
+        return None
+    tile = (int(block_M), int(block_N))
+    return tile if tile in FLASH_KERNEL_TILES.get(D, ()) else None
+
+
+def launch_fwd(name, q, k, v, causal, sm_scale, partial, tile=None):
     """One launch of ``csrc/flash_attention.cu`` on checked CUDA tensors:
-    the forward (``partial=False``) or the partial kernel; query head h
-    reads KV head ``h // (H // Hkv)``. The caller counts the launch under
-    its own wrapper's name, ``name``, which a refused launch carries."""
+    the forward (``partial=False``) or the partial kernel, at ``tile``
+    (an instance of ``FLASH_KERNEL_TILES``, bfloat16 / float16) or the
+    kernel's default; query head h reads KV head ``h // (H // Hkv)``. The
+    caller counts the launch under its own wrapper's name, ``name``,
+    which a refused launch carries."""
     from ._build import load
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, H, Sq, D = q.shape
@@ -155,9 +173,13 @@ def launch_fwd(name, q, k, v, causal, sm_scale, partial):
     else:
         o = torch.empty_like(q)
         m = l = None
-    fn = load("flash_attention").tl_mha_fwd
+    lib = load("flash_attention")
+    # tl_mha_fwd_tiled takes (block_M, block_N) before the stream
+    fn = lib.tl_mha_fwd if tile is None else lib.tl_mha_fwd_tiled
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float]
+                   + ([] if tile is None else [ctypes.c_int] * 2)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -165,31 +187,35 @@ def launch_fwd(name, q, k, v, causal, sm_scale, partial):
                   m.data_ptr() if partial else None,
                   l.data_ptr() if partial else None, B, H, Hkv, Sq, Sk, D,
                   DTYPE_CODES[q.dtype], int(bool(causal)),
-                  int(partial), float(sm_scale) * _LOG2E, stream)
+                  int(partial), float(sm_scale) * _LOG2E,
+                  *(() if tile is None else tile), stream)
     if code != 0:
         raise KernelLaunchError(name, code)
     return (o, m, l) if partial else o
 
 
-def mha_fwd(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+def mha_fwd(q, k, v, causal: bool, sm_scale: float, *,
+            tile=None) -> torch.Tensor:
     """Attention output ``(B, H, Sq, D)`` in q's type. CUDA tensors
-    launch the forward kernel; CPU tensors run the plain version."""
+    launch the forward kernel (at ``tile``, see ``launch_fwd``); CPU
+    tensors run the plain version."""
     check_attention_args(q, k, v)
     if q.is_cuda:
-        o = launch_fwd("mha_fwd", q, k, v, causal, sm_scale, partial=False)
+        o = launch_fwd("mha_fwd", q, k, v, causal, sm_scale, partial=False,
+                       tile=tile)
         launches["mha_fwd"] += 1
         return o
     return mha_fwd_plain(q, k, v, causal, sm_scale)
 
 
-def mha_fwd_partial(q, k, v, causal: bool, sm_scale: float):
+def mha_fwd_partial(q, k, v, causal: bool, sm_scale: float, *, tile=None):
     """Unnormalised ``(acc, m, l)`` in the exp2 domain, all float32.
-    CUDA tensors launch the partial kernel; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the partial kernel (at ``tile``, see
+    ``launch_fwd``); CPU tensors run the plain version."""
     check_attention_args(q, k, v)
     if q.is_cuda:
         out = launch_fwd("mha_fwd_partial", q, k, v, causal, sm_scale,
-                         partial=True)
+                         partial=True, tile=tile)
         launches["mha_fwd_partial"] += 1
         return out
     return mha_fwd_partial_plain(q, k, v, causal, sm_scale)
@@ -208,14 +234,17 @@ def mha_fwd_kernel(B, H, Sq, Sk, D, block_M=128, block_N=128, causal=False,
                    sm_scale=None, dtype="bfloat16", num_stages=2):
     """The forward kernel bound to one shape and type (the JAX factory's
     arguments, for benchmarking and inspection): returns ``fn(q, k, v) ->
-    o``. ``dtype`` is a torch dtype or its name; the tile hints are
-    accepted and the kernel picks its own tiles."""
+    o``. ``dtype`` is a torch dtype or its name; ``(block_M, block_N)``
+    picks the tensor-core tile when it names an instance (``kernel_tile``),
+    else the kernel takes its default; ``num_stages`` is the TPU's hint."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
+    tile = kernel_tile(dtype, D, block_M, block_N)
     return bind("mha_fwd_kernel", [((B, H, Sq, D), _as_dtype(dtype)),
                                    ((B, H, Sk, D), None),
                                    ((B, H, Sk, D), None)],
-                lambda q, k, v: mha_fwd(q, k, v, causal, sm_scale))
+                lambda q, k, v: mha_fwd(q, k, v, causal, sm_scale,
+                                        tile=tile))
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ import torch
 
 from ._factory import bind
 from .flash_attention import (_reference_attention, check_attention_args,
-                              differentiable, launch_fwd,
+                              differentiable, kernel_tile, launch_fwd,
                               mha_fwd_partial_plain, mha_fwd_plain)
 from .gemm import _as_dtype
 
@@ -85,54 +85,62 @@ def _reference_gqa(q, k, v, causal: bool, sm_scale: float):
 # ---------------------------------------------------------------------------
 
 
-def gqa_fwd(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+def gqa_fwd(q, k, v, causal: bool, sm_scale: float, *,
+            tile=None) -> torch.Tensor:
     """Attention output ``(B, Hq, Sq, D)`` in q's type. CUDA tensors
-    launch the forward kernel; CPU tensors run the plain version."""
+    launch the forward kernel (at ``tile``, see ``launch_fwd``); CPU
+    tensors run the plain version."""
     check_attention_args(q, k, v, group=True)
     if q.is_cuda:
-        o = launch_fwd("gqa_fwd", q, k, v, causal, sm_scale, partial=False)
+        o = launch_fwd("gqa_fwd", q, k, v, causal, sm_scale, partial=False,
+                       tile=tile)
         launches["gqa_fwd"] += 1
         return o
     return gqa_fwd_plain(q, k, v, causal, sm_scale)
 
 
-def gqa_fwd_partial(q, k, v, causal: bool, sm_scale: float):
+def gqa_fwd_partial(q, k, v, causal: bool, sm_scale: float, *, tile=None):
     """Unnormalised ``(acc, m, l)`` in the exp2 domain, all float32.
-    CUDA tensors launch the partial kernel; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the partial kernel (at ``tile``, see
+    ``launch_fwd``); CPU tensors run the plain version."""
     check_attention_args(q, k, v, group=True)
     if q.is_cuda:
         out = launch_fwd("gqa_fwd_partial", q, k, v, causal, sm_scale,
-                         partial=True)
+                         partial=True, tile=tile)
         launches["gqa_fwd_partial"] += 1
         return out
     return gqa_fwd_partial_plain(q, k, v, causal, sm_scale)
 
 
-def _bound(op, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale, dtype):
+def _bound(op, B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal, sm_scale,
+           dtype):
     """``op`` bound to one shape and type, with the JAX factories'
-    argument list; the tile sizes are the TPU's hints and the kernel
-    picks its own."""
+    argument list; ``(block_M, block_N)`` picks the tensor-core tile when
+    it names an instance (``kernel_tile``), else the kernel takes its
+    default."""
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not fit {Hkv} KV heads")
+    tile = kernel_tile(dtype, D, block_M, block_N)
     return bind(op.__name__ + "_kernel",
                 [((B, Hq, Sq, D), _as_dtype(dtype)), ((B, Hkv, Sk, D), None),
                  ((B, Hkv, Sk, D), None)],
-                lambda q, k, v: op(q, k, v, bool(causal), float(sm_scale)))
+                lambda q, k, v: op(q, k, v, bool(causal), float(sm_scale),
+                                   tile=tile))
 
 
 def gqa_fwd_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
                    sm_scale, dtype, num_stages=2):
     """The forward kernel bound to one shape: ``fn(q, k, v) -> o``."""
-    return _bound(gqa_fwd, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale, dtype)
+    return _bound(gqa_fwd, B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
+                  sm_scale, dtype)
 
 
 def gqa_fwd_partial_kernel(B, Hq, Hkv, Sq, Sk, D, block_M, block_N, causal,
                            sm_scale, dtype, num_stages=2):
     """The partial kernel bound to one shape: ``fn(q, k, v) -> (acc, m,
     l)``."""
-    return _bound(gqa_fwd_partial, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
-                  dtype)
+    return _bound(gqa_fwd_partial, B, Hq, Hkv, Sq, Sk, D, block_M, block_N,
+                  causal, sm_scale, dtype)
 
 
 def gqa_attention(q, k, v, causal: bool = False,
