@@ -154,11 +154,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               nsa_decode (B 8, 65536 keys) at the NSA paper's widths (see
               NSA: 64 query heads in 4 groups of 16, D 128, blocks of 64,
               16 selected), f32 and bf16. Each call one launch of its
-              kernel, read right after; each output against its plain
-              version on the card; a row that sees nothing exactly 0;
-              kernel, plain and library (SDPA over the dense bool masks;
-              for NSA decode over the gathered blocks) times and the
-              bound by the visible pairs.
+              kernel (decode: its split kernel and the splits' combine
+              nsa_decode_combine), read right after; each output against
+              its plain version on the card (decode also against the
+              plain version of its own split); a row that sees nothing
+              exactly 0; kernel, plain and library (SDPA over the dense
+              bool masks; for NSA decode over the blocks gathered
+              outside the timed call, and with the gather inside it)
+              times and the bound by the visible pairs.
 16. nsa_training — the thirteenth main path: NSA training at the NSA
               paper's widths (see NSA, window 0): nsa_attention(
               backward="kernel") forward and backward under autograd, T
@@ -3331,6 +3334,29 @@ def nsa_selections(rng, pos, H, S, BS):
     return sel.astype(np.int32)
 
 
+def nsa_documents():
+    """The lengths of NSA's packed documents: drawn from default_rng(13)
+    in [min_doc, max_doc], none a multiple of the block, summing to the
+    sequence length."""
+    import numpy as np
+    c = NSA
+    T, BS = c["seq"], c["block"]
+    lens = []
+    drng = np.random.default_rng(13)
+    while sum(lens) + c["max_doc"] < T:
+        n = int(drng.integers(c["min_doc"], c["max_doc"] + 1))
+        if n % BS:
+            lens.append(n)
+    rest = T - sum(lens)                 # the last document's length,
+    shift = next(x for x in range(BS)    # moved by a few tokens off a
+                 if (rest - x) % BS and (lens[-1] + x) % BS)   # multiple
+    lens[-1] += shift
+    lens.append(rest - shift)
+    check(sum(lens) == T and all(n % BS for n in lens),
+          f"varlen lengths {lens}")
+    return lens
+
+
 def selected_keys(torch, starts, bound, BS):
     """Keys each slot of ``starts`` (first keys, -1: none) contributes
     under the causal ``bound`` (broadcast against starts' leading dims),
@@ -3348,8 +3374,8 @@ def sparse_inference_phase(torch, mi, nsa):
     kernel); each output against the plain version on the card; a row
     that sees nothing exactly 0; kernel, plain and library times (SDPA
     over the dense bool masks, built outside the timed calls; for decode
-    over the gathered blocks, gathered outside) and the bound by the
-    visible pairs or the bytes."""
+    over the gathered blocks, gathered outside the timed call and
+    inside it) and the bound by the visible pairs or the bytes."""
     import numpy as np
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3606,19 +3632,7 @@ def sparse_inference_phase(torch, mi, nsa):
     torch.cuda.empty_cache()
 
     # -- packed documents ----------------------------------------------------
-    lens = []
-    drng = np.random.default_rng(13)
-    while sum(lens) + c["max_doc"] < T:
-        n = int(drng.integers(c["min_doc"], c["max_doc"] + 1))
-        if n % BS:
-            lens.append(n)
-    rest = T - sum(lens)                 # the last document's length,
-    shift = next(x for x in range(BS)    # moved by a few tokens off a
-                 if (rest - x) % BS and (lens[-1] + x) % BS)   # multiple
-    lens[-1] += shift
-    lens.append(rest - shift)
-    check(sum(lens) == T and all(n % BS for n in lens),
-          f"varlen lengths {lens}")
+    lens = nsa_documents()
     cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     pos = np.concatenate([np.arange(n) for n in lens])
     vbi = torch.from_numpy(nsa_selections(rng, pos, Hk, S, BS)).cuda()
@@ -3712,43 +3726,62 @@ def sparse_inference_phase(torch, mi, nsa):
         esize = torch.empty((), dtype=dtype).element_size()
         q, k, v = (t.cuda().to(dtype) for t in base)
         o = drive(f"nsa_decode {name}", lambda: nsa.nsa_decode(
-            q, k, v, dg, dbi, block_size=BS), {"nsa_decode": 1})
+            q, k, v, dg, dbi, block_size=BS),
+            {"nsa_decode": 1, "nsa_decode_combine": 1})
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)
         args = (q.reshape(Bd, Hk, G, D), kh, vh, dbi, dcnt,
                 dg.reshape(Bd, Hk, G), BS, sm)
         want = nsa.nsa_decode_fwd_plain(*args)
         err = within(f"nsa_decode {name}", o, want.reshape(o.shape), tol)
+        # the kernels' own split, emulated: the same runs of slots
+        splits = nsa.decode_splits(Bd, Hk, S, nsa.resident_blocks(
+            q.device, G, D, dtype))
+        split_err = within(f"nsa_decode {name} vs its split's plain "
+                           f"version", o, nsa.nsa_decode_split_plain(
+                               *args, splits).reshape(o.shape), tol)
         del o
         at = (torch.arange(Bd, device="cuda")[:, None, None],
               torch.arange(Hk, device="cuda")[None, :, None], keys)
         kg, vgath = kh[at], vh[at]
         qd = q[:, :, None]
         gd = dg[..., None, None].to(dtype)
+        backends = [SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
         lib = library(f"nsa_decode {name}",
                       lambda: F.scaled_dot_product_attention(
                           qd, kg, vgath, enable_gqa=True) * gd,
                       want.reshape(Bd, HQ, 1, D),
                       "SDPA with enable_gqa over the selected blocks, "
                       "gathered outside the timed call, weighted by g_slc",
-                      backends=[SDPBackend.FLASH_ATTENTION,
-                                SDPBackend.EFFICIENT_ATTENTION,
-                                SDPBackend.CUDNN_ATTENTION,
-                                SDPBackend.MATH])
-        del want, kg, vgath
+                      backends=backends)
+        del kg, vgath
+        # the whole function: the gather inside the timed call
+        lib_g = library(f"nsa_decode {name} with the gather",
+                        lambda: F.scaled_dot_product_attention(
+                            qd, kh[at], vh[at], enable_gqa=True) * gd,
+                        want.reshape(Bd, HQ, 1, D),
+                        "the gather of the selected blocks and SDPA with "
+                        "enable_gqa over them, weighted by g_slc",
+                        backends=backends)
+        del want
         o = drive(f"nsa_decode empty rows {name}", lambda: nsa.nsa_decode(
             q, k, v, dg, dbi, block_counts=0, block_size=BS),
-            {"nsa_decode": 1}, main=False)
+            {"nsa_decode": 1, "nsa_decode_combine": 1}, main=False)
         check(not o.any(), "nsa_decode: a step that selects nothing is not "
                            "exactly 0")
         del o
         res[f"nsa_decode_{name}"] = {
-            "shape": [Bd, Tk, HQ, Hk, D], "blocks": Bd * Hk,
+            "shape": [Bd, Tk, HQ, Hk, D], "splits": splits,
+            "blocks": Bd * Hk * splits,
             "max_abs_err": err[0], "normwise_err": err[1],
+            "split_plain_normwise_err": split_err[1],
             "tolerance": f"normwise {tol}",
             "ms": device_ms(torch, lambda: nsa.nsa_decode_fwd(*args), 20),
             "plain_ms": device_ms(torch, lambda: nsa.nsa_decode_fwd_plain(
                 *args), 3),
             "zero_check": "block_counts 0: exactly 0",
+            "library_gather_ms": lib_g["library_ms"],
             **lib, **bound(4 * D * G * d_keys,
                            2 * Bd * HQ * D * esize + 2 * d_keys * D * esize
                            + 4 * (dbi.numel() + dcnt.numel() + dg.numel()),
@@ -4970,7 +5003,17 @@ def main() -> int:
                 k: af["launches"][k] for k in ("gqa_fwd_partial",
                                                "gqa_bwd_dkdv", "gqa_bwd_dq")}
         kernels.append(entry)
-    kernels += kernel_entries(si, SPARSE_INFERENCE_KERNELS)
+    for entry in kernel_entries(si, SPARSE_INFERENCE_KERNELS):
+        if entry["name"] == "nsa_decode":      # the splits' combine
+            entry["fixup"] = {
+                "name": "nsa_decode_combine",
+                "launches": si["launches"]["nsa_decode_combine"]}
+            entry["library_gather_ms"] = {
+                k: si[f"nsa_decode_{k}"]["library_gather_ms"]
+                for k in ("float32", "bfloat16")}
+        kernels.append(entry)
+    check(si["launches"]["nsa_decode_combine"] > 0,
+          "sparse_inference: nsa_decode_combine was not launched")
     for entry in kernel_entries(nt, NSA_TRAINING_KERNELS):
         if entry["name"] == "nsa_bwd_dkdv":     # the chunk partials' sum
             entry["fixup"] = {"name": "nsa_bwd_dkdv_sum",

@@ -1972,10 +1972,15 @@ def _nsa_case(dev, B, T, G, H, D, S, BS, dtype, counts=None, seed=0):
                                    torch.float16])
 @pytest.mark.parametrize("T,BS,window", [(64, 16, 0), (40, 16, 24),
                                          (100, 32, 48), (96, 64, 300)])
-@pytest.mark.parametrize("G,H", [(2, 2), (4, 1), (16, 2), (24, 1)])
+@pytest.mark.parametrize("G,H", [(2, 2), (4, 1), (16, 2), (24, 1),
+                                 (64, 1)])
 def test_nsa_fwd_kernel_matches_plain(cuda, dtype, T, BS, window, G, H):
     """Ragged T (40, 100: the last block partial), groups padded to the
-    row tile (2, 4, 16, and 24 in the 64-row tile), a window past T."""
+    row tile (2, 4, 16, and 24 and 64 in the 64-row tile), a window past
+    T, T not a multiple of the 16-bit prefill kernel's four tokens a
+    block (100); a second call gives the same bits (the 16-bit kernels'
+    key streams merge in a fixed order); without a window the 16-bit
+    kernel walks the keys as its emulation does."""
     q, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 2, T, G, H, 32, 4, BS,
                                            dtype)
     before = nsa.launches["nsa_fwd"]
@@ -1984,17 +1989,50 @@ def test_nsa_fwd_kernel_matches_plain(cuda, dtype, T, BS, window, G, H):
     assert nsa.launches["nsa_fwd"] == before + 1
     want = nsa.nsa_fwd_plain(q, kh, vh, bi, cnt, gs, gw, BS, window, 0.2)
     assert _normwise(o, want) <= ATTN_TOL[dtype]
+    assert torch.equal(o, nsa.nsa_fwd(q, kh, vh, bi, cnt, gs, gw, BS,
+                                      window, 0.2))
+    if dtype != torch.float32 and G <= 16 and window == 0:
+        # a warp a token: one stream
+        streams = nsa.nsa_fwd_streams_plain(q, kh, vh, bi, cnt, gs, gw, BS,
+                                            window, 0.2, streams=1)
+        assert _normwise(o, streams) <= ATTN_TOL[dtype]
 
 
+def _unaligned(t):
+    """``t (B, H, Tk, D)`` as the (B, Tk, H, D) layout's view, 3
+    elements into a buffer: no row 16-byte aligned."""
+    x = t.transpose(1, 2)
+    buf = torch.empty(x.numel() + 3, dtype=t.dtype, device=t.device)
+    y = buf[3:].view(x.shape)
+    y.copy_(x)
+    return y.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("H", [2, 1])
+def test_nsa_kernels_take_unaligned_views(cuda, dtype, H):
+    """K and V whose rows are not 16-byte aligned: the 16-bit kernels'
+    wrappers copy them first, with the same result. One KV head makes
+    the (B, H, Tk, D) view contiguous with its base unaligned."""
+    q, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 1, 64, 4, H, 32, 3, 16,
+                                           dtype)
+    kh2, vh2 = _unaligned(kh), _unaligned(vh)
+    assert kh2.data_ptr() % 16 and torch.equal(kh2, kh)
+    assert torch.equal(nsa.nsa_fwd(q, kh2, vh2, bi, cnt, gs, gw, 16, 20, 0.2),
+                       nsa.nsa_fwd(q, kh, vh, bi, cnt, gs, gw, 16, 20, 0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_nsa_kernels_head_dims_and_counts(cuda, d):
+def test_nsa_kernels_head_dims_and_counts(cuda, d, dtype):
     """Each head_dim; block counts below S, 0 included: a token with no
     slot and no window gives exactly 0."""
     q, kh, vh, bi, cnt, gs, gw = _nsa_case(cuda, 1, 80, 4, 2, d, 3, 16,
-                                           torch.float32, counts=True)
+                                           dtype, counts=True)
     o = nsa.nsa_fwd(q, kh, vh, bi, cnt, gs, gw, 16, 0, d ** -0.5)
     want = nsa.nsa_fwd_plain(q, kh, vh, bi, cnt, gs, gw, 16, 0, d ** -0.5)
-    assert _normwise(o, want) <= 1e-5
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
     empty = cnt == 0
     assert bool(empty.any()) and not o[empty].any()
 
@@ -2024,16 +2062,50 @@ def test_nsa_varlen_kernel_matches_plain(cuda, dtype, G):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("Tk,BS,G", [(64, 16, 4), (1000, 64, 16),
-                                     (77, 32, 2)])
-def test_nsa_decode_kernel_matches_plain(cuda, dtype, Tk, BS, G):
+                                     (77, 32, 2), (200, 16, 64)])
+@pytest.mark.parametrize("splits", [None, 1, 2, 5, 8])
+def test_nsa_decode_kernel_matches_plain(cuda, dtype, Tk, BS, G, splits):
+    """The split decode: the card's own split count (None), one run,
+    runs of several slots, one slot a run (5) and more runs than slots
+    (8: runs that hold no slot); ragged Tk (1000 and 77: the last block
+    partial), G up to 64, counts below S (0 included: exactly 0). Each
+    launch counted under its name; the partials equal the split's plain
+    version, the output the unsplit one."""
     q, kh, vh, bi, cnt, gs, _ = _nsa_case(cuda, 3, Tk, G, 2, 128, 5, BS,
                                           dtype, counts=True)
     args = (q[:, -1], kh, vh, bi[:, -1], cnt[:, -1], gs[:, -1], BS, 0.09)
-    before = nsa.launches["nsa_decode"]
-    o = nsa.nsa_decode_fwd(*args)
+    before = dict(nsa.launches)
+    o = nsa.nsa_decode_fwd(*args) if splits is None else \
+        nsa.nsa_decode_combine(*nsa.nsa_decode_partials(
+            *args[:5], BS, 0.09, splits), args[5], dtype)
     torch.cuda.synchronize()
-    assert nsa.launches["nsa_decode"] == before + 1
-    assert _normwise(o, nsa.nsa_decode_fwd_plain(*args)) <= ATTN_TOL[dtype]
+    assert nsa.launches == {**before,
+                            "nsa_decode": before["nsa_decode"] + 1,
+                            "nsa_decode_combine":
+                                before["nsa_decode_combine"] + 1}
+    tol = ATTN_TOL[dtype]
+    assert _normwise(o, nsa.nsa_decode_fwd_plain(*args)) <= tol
+    assert not o[cnt[:, -1] == 0].any()
+    n = splits or nsa.decode_splits(3, 2, 5, nsa.resident_blocks(
+        q.device, G, 128, dtype))
+    assert _normwise(o, nsa.nsa_decode_split_plain(*args, n)) <= tol
+    parts = nsa.nsa_decode_partials(*args[:5], BS, 0.09, n)
+    want = nsa.nsa_decode_partials_plain(*args[:5], BS, 0.09, n)
+    assert _normwise(parts[0], want[0]) <= tol
+    assert _normwise(parts[2], want[2]) <= tol
+    seen = want[2] > 0
+    assert torch.equal(parts[1][~seen], want[1][~seen])   # -1e30
+    assert _normwise(parts[1][seen], want[1][seen]) <= tol
+    assert torch.equal(nsa.nsa_decode_combine(*parts, args[5], dtype), o)
+
+
+def test_nsa_decode_splits_the_card(cuda):
+    """At chip_smoke.py's widths (B 8, 4 KV heads of a group of 16, 16
+    slots) decode runs more than B H blocks."""
+    for dtype in (torch.float32, torch.bfloat16):
+        n = nsa.decode_splits(8, 4, 16, nsa.resident_blocks(
+            torch.device(cuda), 16, 128, dtype))
+        assert 8 * 4 * n > 8 * 4
 
 
 def _slice11_calls(dev):

@@ -277,3 +277,187 @@ def test_training_backward_is_a_later_slice():
     _close(got, port.nsa_attention(*map(torch.from_numpy, a),
                                    block_size=8).numpy())
     assert port_ops.nsa_attention is port.nsa_attention
+
+
+# ---------------------------------------------------------------------------
+# the 16-bit kernels' structure, emulated: decode's split over the slots
+# and its fixed-order combine, and the per-warp key streams' merge
+# ---------------------------------------------------------------------------
+
+# float32 is held at 1e-5 (the emulation and the JAX kernel in interpret
+# mode both compute in float32), bfloat16 at TOL
+_SPLIT_TOL = {"float32": 1e-5, "bfloat16": TOL}
+
+# (B, Tk, HQ, H, D, S, BS, splits): G 1, 4, 16, 64; splits below S, one
+# a slot, and more than S (runs that hold no slot at all)
+DECODE_SPLITS = {"g1": (2, 64, 2, 2, 16, 5, 16, 2),
+                 "g4": (2, 96, 8, 2, 32, 6, 16, 3),
+                 "g16": (1, 128, 16, 1, 32, 4, 32, 4),
+                 "g64": (1, 64, 64, 1, 16, 6, 8, 9)}
+
+
+def _decode_inputs(B, Tk, HQ, H, D, S, BS, seed):
+    """Decode inputs as numpy: ids in [-1, blocks) (runs of -1 slots),
+    counts in [0, S] with the first row's 0 (it selects nothing)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, HQ, D)).astype(np.float32)
+    k = rng.standard_normal((B, Tk, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, Tk, H, D)).astype(np.float32)
+    g = rng.uniform(0.2, 1.0, (B, HQ)).astype(np.float32)
+    bi = rng.integers(-1, -(-Tk // BS), (B, H, S)).astype(np.int32)
+    bi[..., 1:3] = -1
+    cnt = rng.integers(1, S + 1, (B, H)).astype(np.int32)
+    cnt[0, 0] = 0
+    return q, k, v, g, bi, cnt
+
+
+def _decode_split(case, dtype, seed=31, Tk=None):
+    B, Tk0, HQ, H, D, S, BS, splits = DECODE_SPLITS[case]
+    Tk = Tk0 if Tk is None else Tk
+    q, k, v, g, bi, cnt = _decode_inputs(B, Tk, HQ, H, D, S, BS, seed)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v, dtype)
+    G = HQ // H
+    args = (tq.reshape(B, H, G, D), tk.transpose(1, 2), tv.transpose(1, 2),
+            torch.from_numpy(bi), torch.from_numpy(cnt),
+            torch.from_numpy(g).reshape(B, H, G), BS, D ** -0.5)
+    got = port.nsa_decode_split_plain(*args, splits).reshape(B, HQ, D)
+    return (q, k, v, g, bi, cnt), (jq, jk, jv), args, got, splits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_SPLITS))
+def test_decode_split_emulation_matches_jax(case, dtype):
+    """Per-split partials, their fixed-order combine and the gate equal
+    the JAX decode kernel; a row with block_counts 0 is exactly 0, and
+    the split changes nothing beyond rounding (the unsplit plain
+    version, every split count)."""
+    (q, k, v, g, bi, cnt), (jq, jk, jv), args, got, splits = _decode_split(
+        case, dtype)
+    BS = args[6]
+    want = ref.nsa_decode(jq, jk, jv, jnp.asarray(g), jnp.asarray(bi),
+                          block_counts=jnp.asarray(cnt), block_size=BS)
+    _close(got, want, _SPLIT_TOL[dtype])
+    G = args[0].shape[2]
+    assert not got[0, :G].any()                  # counts 0: exactly 0
+    whole = port.nsa_decode_fwd_plain(*args)
+    S = bi.shape[-1]
+    for n in (1, splits, S, S + 3):
+        _close(port.nsa_decode_split_plain(*args, n), whole.float().numpy(),
+               _SPLIT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_emulation_ragged_length(dtype):
+    """Tk 77 with blocks of 16 (the last block partial): against the JAX
+    package's dense reference at the last token (the JAX kernel's block
+    copy reads past Tk there)."""
+    (q, k, v, g, bi, cnt), (jq, jk, jv), args, got, _ = _decode_split(
+        "g4", dtype, seed=32, Tk=77)
+    B, HQ, D = q.shape
+    Tk, H, S = k.shape[1], k.shape[2], bi.shape[-1]
+    g_full = np.zeros((B, Tk, HQ), np.float32)
+    g_full[:, -1] = g
+    counts = np.broadcast_to(cnt[:, None], (B, Tk, H)).copy()
+    want = ref.nsa_reference(
+        jnp.broadcast_to(jq[:, None], (B, Tk, HQ, D)), jk, jv,
+        jnp.asarray(g_full), jnp.zeros((B, Tk, HQ)),
+        jnp.asarray(np.broadcast_to(bi[:, None], (B, Tk, H, S)).copy()),
+        block_counts=jnp.asarray(counts), block_size=args[6])[:, -1]
+    _close(got, want, _SPLIT_TOL[dtype])
+
+
+def test_decode_splits_cover_the_card():
+    """decode_splits: every run holds at least one slot, the blocks of
+    all runs but one fit the resident count, and chip_smoke.py's widths
+    (B 8, 4 KV heads, 16 slots) give more blocks than B H."""
+    for B, H, S, resident in [(8, 4, 16, 264), (8, 4, 16, 660),
+                              (1, 1, 16, 264), (64, 8, 16, 264),
+                              (2, 3, 5, 1), (1, 2, 0, 264)]:
+        n = port.decode_splits(B, H, S, resident)
+        per = -(-S // n) if S else 1
+        assert n >= 1 and (S == 0 or (n - 1) * per < S)
+        assert n == 1 or B * H * (n - 1) < resident      # one wave
+    assert port.decode_splits(8, 4, 16, 264) == 8
+    assert 8 * 4 * port.decode_splits(8, 4, 16, 264) > 8 * 4
+
+
+def test_decode_partials_and_combine_on_the_cpu():
+    """The two launches' plain versions through the wrappers on CPU
+    tensors: partials of shape (B, H, splits, G[, D]), m floored at
+    -1e30 with l 0 in runs that select nothing, the combine launching
+    nothing; the decode entry itself runs the unsplit plain version."""
+    _, _, args, got, splits = _decode_split("g4", "float32")
+    q4, kh, vh, bi, cnt, g, BS, sm = args
+    before = dict(port.launches)
+    acc, m, l = port.nsa_decode_partials(q4, kh, vh, bi, cnt, BS, sm, splits)
+    B, H, G, D = q4.shape
+    assert acc.shape == (B, H, splits, G, D) and m.shape == l.shape \
+        == (B, H, splits, G)
+    dead = l == 0
+    assert bool(dead.any()) and bool((m[dead] == -1e30).all()) \
+        and not acc[dead].any()
+    o = port.nsa_decode_combine(acc, m, l, g, q4.dtype)
+    torch.testing.assert_close(o.reshape(got.shape), got)
+    assert port.launches == before
+    assert torch.equal(port.nsa_decode_fwd(*args),
+                       port.nsa_decode_fwd_plain(*args))
+    assert port.launches == before
+    with pytest.raises(ValueError, match="splits"):
+        port.nsa_decode_partials(q4, kh, vh, bi, cnt, BS, sm, 0)
+
+
+# (streams, chunk): four warps of 16 keys (a group of up to 16), chunks
+# smaller than a block, one stream (groups of 17 to 64)
+STREAMS = {"four_streams": (4, 16), "small_chunks": (4, 4),
+           "one_stream": (1, 16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("walk", sorted(STREAMS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stream_merge_emulation_matches_jax(case, walk, dtype):
+    """The 16-bit kernels' walk: each branch's keys in chunks dealt to
+    key streams, an online softmax each, merged in stream order, equals
+    the JAX fused forward."""
+    shape, window, seed = CASES[case]
+    B, T, HQ, H, D, S, BS = shape
+    G = HQ // H
+    q, k, v, gs, gw, bi = _inputs(*shape, seed=seed)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v, dtype)
+    want = ref.nsa_attention(jq, jk, jv, jnp.asarray(gs), jnp.asarray(gw),
+                             jnp.asarray(bi), block_size=BS,
+                             window_size=window)
+    streams, chunk = STREAMS[walk]
+    got = port.nsa_fwd_streams_plain(
+        tq.reshape(B, T, H, G, D), tk.transpose(1, 2), tv.transpose(1, 2),
+        torch.from_numpy(bi), torch.full((B, T, H), S, dtype=torch.int32),
+        torch.from_numpy(gs).reshape(B, T, H, G),
+        torch.from_numpy(gw).reshape(B, T, H, G), BS, window, D ** -0.5,
+        streams, chunk)
+    _close(got.reshape(B, T, HQ, D), want, _SPLIT_TOL[dtype])
+
+
+def test_merge_partials_fixed_order():
+    """merge_partials: a state that saw nothing (m -inf or -1e30, l 0)
+    weighs nothing, all empty gives 0, and any cut of one softmax's keys
+    merges back to it."""
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.standard_normal((3, 12)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((12, 4)).astype(np.float32))
+    m = s.amax(-1)
+    p = torch.exp2(s - m[:, None])
+    whole = (p @ v, m, p.sum(-1))
+    cuts = [slice(0, 5), slice(5, 5), slice(5, 12)]
+    parts = []
+    for c in cuts:
+        sc = s[:, c]
+        mc = sc.amax(-1) if sc.shape[1] else torch.full((3,), -np.inf)
+        pc = torch.exp2(sc - mc[:, None]) if sc.shape[1] else sc
+        parts.append((pc @ v[c], mc, pc.sum(-1)))
+    merged = port.merge_partials(*(torch.stack(x, 1) for x in zip(*parts)), 1)
+    for a, b in zip(merged, whole):
+        torch.testing.assert_close(a, b)
+    empty = port.merge_partials(torch.zeros(2, 3, 4),
+                                torch.full((2, 3), -1e30),
+                                torch.zeros(2, 3), 1)
+    assert not empty[0].any() and not empty[2].any()

@@ -1,8 +1,9 @@
 // Fragment helpers of the tensor-core attention kernels (gqa_bwd.cu's
-// backward pair, flash_attention.cu's forward): bfloat16 and float16
-// operands in shared memory, each row padded by kPad elements (an odd
-// count of 16-byte chunks, so the 8 rows of an ldmatrix hit 8 bank
-// groups), products on mma.sync m16n8k16 with float32 sums. In an m16n8
+// backward pair, flash_attention.cu's and nsa.cu's forwards): bfloat16
+// and float16 operands in shared memory, each row padded by kPad
+// elements (an odd count of 16-byte chunks, so the 8 rows of an ldmatrix
+// hit 8 bank groups), products on mma.sync m16n8k16 with float32 sums.
+// In an m16n8
 // accumulator lane (g, q2) = (lane / 4, 2 (lane % 4)) holds rows g and
 // g + 8, columns q2 and q2 + 1: two n8 tiles are the A fragment of the
 // next product's k16 step (to_frags), so a probability tile is rounded
@@ -45,6 +46,35 @@ __device__ __forceinline__ void issue_rows(E* dst, const E* src, int r0,
                         ok ? src + (long long)(r0 + r) * D + c * 8 : src,
                         ok);
   }
+}
+
+// rows [r0, r0 + R) of a row-strided matrix (row r at src + r * stride,
+// D contiguous elements) into dst[R][D + kPad] by cp.async, 16 bytes a
+// copy, zero at row r1 and past: a gather from a strided view, no copy;
+// issued by the n threads tid = 0 .. n - 1 (the block, or a warp's lanes)
+template <int R, int D, typename E>
+__device__ __forceinline__ void issue_rows_strided(E* dst, const E* src,
+                                                   long long stride, int r0,
+                                                   int r1, int tid, int n) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < R * CH; idx += n) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < r1;
+    tl_gemm::cp_async16(dst + r * (D + kPad) + c * 8,
+                        ok ? src + (long long)(r0 + r) * stride + c * 8 : src,
+                        ok);
+  }
+}
+
+// max / sum over the 4 lanes of an m16n8 accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 // c += A . B for the A fragments `af` of a 16 x K product (K / 16 k16

@@ -227,17 +227,6 @@ __device__ __forceinline__ unsigned scale2(unsigned x, float scale) {
   return pack2<E>(f.x * scale, f.y * scale);
 }
 
-// max / sum over the 4 lanes of an m16n8 accumulator row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
 template <int D, int TM, int TN>
 constexpr size_t fwd_mma_smem_bytes() {
   return 2 * (size_t)(TM + 4 * TN) * (D + kPad);  // Q, two stages of K, V

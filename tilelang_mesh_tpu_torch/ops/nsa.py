@@ -13,7 +13,11 @@ query heads that share a KV head are one group. One CUDA source
   over packed sequences, block ids turned into raw packed row offsets,
   for ``nsa_attention_varlen``;
 * ``nsa_decode_fwd`` — ``nsa_decode_kernel``: one token, the causal
-  bound the last key, for ``nsa_decode``;
+  bound the last key, for ``nsa_decode``, in two launches: the token's
+  selected slots cut into runs (``decode_splits``, one block a run) that
+  write float32 ``(acc, m, l)`` partials (``nsa_decode_partials``), then
+  their fixed-order combine with the gate (``nsa_decode_combine``,
+  counted as ``nsa_decode_combine``);
 * ``nsa_fwd_partial`` — ``nsa_fwd_partial_kernel``: the selected branch
   without gates, its unnormalised ``(acc, m, l)`` in the exp2 domain,
   for ``nsa_attention(backward="kernel")`` under autograd.
@@ -32,11 +36,19 @@ Each wrapper launches its kernel on CUDA tensors (a build or launch
 failure raises) and runs its plain version on CPU tensors: each token's
 keys gathered a chunk of tokens at a time (so no call holds all tokens'
 gathered keys at once), an exp2 softmax rounded where the kernel rounds.
+float32 runs on the CUDA cores; bfloat16 and float16 on the tensor
+cores, which walk a branch's keys in chunks of ``KERNEL_CHUNK``: at a
+group of up to 16 a warp takes a token (four tokens a block share the
+window's loads); decode's splits and larger groups deal one token's
+chunks out to ``KERNEL_STREAMS`` warps and merge their states in a fixed
+order. ``nsa_fwd_streams_plain`` emulates that walk (one stream: a
+warp's own), and ``nsa_decode_split_plain`` decode's split.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -51,18 +63,28 @@ from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["nsa_attention", "nsa_attention_varlen", "nsa_decode",
            "nsa_reference", "nsa_fwd", "nsa_fwd_plain", "nsa_fwd_kernel",
-           "nsa_varlen_fwd", "nsa_varlen_fwd_plain", "nsa_varlen_fwd_kernel",
-           "nsa_decode_fwd", "nsa_decode_fwd_plain", "nsa_decode_kernel",
+           "nsa_fwd_streams_plain", "nsa_varlen_fwd", "nsa_varlen_fwd_plain",
+           "nsa_varlen_fwd_kernel", "nsa_decode_fwd", "nsa_decode_fwd_plain",
+           "nsa_decode_kernel", "nsa_decode_partials",
+           "nsa_decode_partials_plain", "nsa_decode_combine",
+           "nsa_decode_combine_plain", "nsa_decode_split_plain",
+           "decode_splits", "resident_blocks", "merge_partials",
            "nsa_fwd_partial", "nsa_fwd_partial_plain",
-           "nsa_fwd_partial_kernel", "nsa_dense", "varlen_offsets",
-           "launches", "reset_launches", "KERNEL_MAX_GROUP"]
+           "nsa_fwd_partial_kernel", "nsa_dense",
+           "varlen_offsets", "launches", "reset_launches",
+           "KERNEL_MAX_GROUP", "KERNEL_CHUNK", "KERNEL_STREAMS"]
 
 # kernel name -> launches through its wrapper
 launches = {"nsa_fwd": 0, "nsa_varlen_fwd": 0, "nsa_decode": 0,
-            "nsa_fwd_partial": 0}
+            "nsa_decode_combine": 0, "nsa_fwd_partial": 0}
 
 # the largest group (query heads a KV head) the kernel's row tile holds
 KERNEL_MAX_GROUP = 64
+# the 16-bit kernels (csrc/nsa.cu): keys a chunk, and the warps that walk
+# one token's chunks side by side in decode's splits at a group of up to
+# 16 (nsa_fwd_mma; the prefill forwards take a warp a token)
+KERNEL_CHUNK = 16
+KERNEL_STREAMS = 4
 # tokens a plain-version step gathers keys for
 PLAIN_TOKENS = 256
 
@@ -155,6 +177,11 @@ def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
     exp2(s - m)``, ``acc = dtype(p) @ v``: returns the unnormalised
     ``(acc, m, l)`` float32, acc (N, H, G, D), m and l (N, H, G)."""
     at, ok = _key_index(kh, b, start, length, bound)
+    return _softmax(q, kh, vh, at, ok, sm_scale)
+
+
+def _softmax(q, kh, vh, at, ok, sm_scale: float):
+    """``_branch``'s online softmax over the keys ``kh[at]`` where ``ok``."""
     s = torch.einsum("nhgd,nhld->nhgl", q.float(), kh[at].float())
     s.mul_(float(sm_scale) * _LOG2E).masked_fill_(~ok[:, :, None, :],
                                                   -math.inf)
@@ -168,6 +195,40 @@ def _branch(q, kh, vh, b, start, length: int, bound, sm_scale: float):
 
 def _normalised(acc, l):
     return acc / l.clamp_min(1e-30)[..., None]
+
+
+def merge_partials(acc, m, l, dim: int):
+    """The fixed-order merge of exp2-domain states along ``dim`` of ``m``,
+    ``l`` (and of ``acc``, which has one more, last, dimension): the
+    merged max, each state weighed by ``exp2(m_x - max)`` (0 where
+    ``m_x`` is -inf: a state that saw nothing) and ``acc``, ``l`` summed
+    in index order, as the kernels merge. Returns ``(acc, m, l)``."""
+    mx = m.amax(dim=dim)
+    a = torch.zeros_like(acc.select(dim, 0))
+    s = torch.zeros_like(mx)
+    for mx_, a_, l_ in zip(m.unbind(dim), acc.unbind(dim), l.unbind(dim)):
+        w = torch.where(mx_ == -math.inf, 0.0, torch.exp2(mx_ - mx))
+        a = a + a_ * w[..., None]
+        s = s + l_ * w
+    return a, mx, s
+
+
+def _branch_streams(q, kh, vh, b, start, length: int, bound,
+                    sm_scale: float, streams: int, chunk: int):
+    """``_branch`` as the 16-bit kernels walk it: each slot's visible keys
+    (a prefix of its ``length``) cut into chunks of ``chunk`` in slot
+    order, chunk i to stream ``i % streams``, an online softmax each,
+    merged in stream order."""
+    at, ok = _key_index(kh, b, start, length, bound)
+    N, H, S = start.shape
+    seen = ok.reshape(N, H, S, length).sum(-1)
+    chunks = (seen + chunk - 1) // chunk
+    first = torch.cumsum(chunks, -1) - chunks
+    j = torch.arange(length, device=kh.device)
+    stream = ((first[..., None] + j // chunk) % streams).reshape(N, H, -1)
+    parts = [_softmax(q, kh, vh, at, ok & (stream == w), sm_scale)
+             for w in range(streams)]
+    return merge_partials(*(torch.stack(x, 2) for x in zip(*parts)), 2)
 
 
 def _token_chunks(q, starts, cnt, bound, tokens: int):
@@ -190,21 +251,22 @@ def _token_chunks(q, starts, cnt, bound, tokens: int):
 
 def _nsa_plain(q, kh, vh, starts, cnt, g_slc, g_swa, block_size: int,
                window: int, bound, sm_scale: float,
-               tokens: int = PLAIN_TOKENS) -> torch.Tensor:
+               tokens: int = PLAIN_TOKENS, branch=_branch) -> torch.Tensor:
     """The three kernels' plain version over ``q (B, T, H, G, D)``:
     ``starts (B, T, H, S)`` the selected blocks' first keys (-1: none),
-    ``bound (T,)`` each token's causal bound, ``tokens`` tokens a step."""
+    ``bound (T,)`` each token's causal bound, ``tokens`` tokens a step;
+    ``branch`` computes a branch's ``(acc, m, l)``."""
     B, T, H, G, D = q.shape
     out = torch.empty_like(q)
     for t0, t1, qc, b, bd, st in _token_chunks(q, starts, cnt, bound,
                                                tokens):
         n = qc.shape[0]
-        acc, _, l = _branch(qc, kh, vh, b, st, block_size, bd, sm_scale)
+        acc, _, l = branch(qc, kh, vh, b, st, block_size, bd, sm_scale)
         o = _normalised(acc, l) * g_slc[:, t0:t1].reshape(n, H, G, 1)
         if window > 0:
             w0 = (bd - window + 1)[:, None, None].expand(n, H, 1)
-            acc, _, l = _branch(qc, kh, vh, b, w0.clamp_min(0), window, bd,
-                                sm_scale)
+            acc, _, l = branch(qc, kh, vh, b, w0.clamp_min(0), window, bd,
+                               sm_scale)
             o += _normalised(acc, l) * g_swa[:, t0:t1].reshape(n, H, G, 1)
         out[:, t0:t1] = o.reshape(B, t1 - t0, H, G, D).to(q.dtype)
     return out
@@ -222,6 +284,23 @@ def nsa_fwd_plain(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int,
     return _nsa_plain(q, kh, vh, _block_starts(bi, block_size), cnt, g_slc,
                       g_swa, block_size, window,
                       torch.arange(T, device=q.device), sm_scale)
+
+
+def nsa_fwd_streams_plain(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int,
+                          window: int, sm_scale: float,
+                          streams: int = KERNEL_STREAMS,
+                          chunk: int = KERNEL_CHUNK) -> torch.Tensor:
+    """``nsa_fwd_plain`` with each branch walked as the 16-bit kernels walk
+    it (``_branch_streams``: ``chunk`` keys a chunk dealt to ``streams``
+    warps, merged in a fixed order). One stream is the prefill kernel's
+    selected branch (its window's chunks start at four tokens' common
+    window, here at the token's own); four, a decode split's."""
+    T = q.shape[1]
+    return _nsa_plain(q, kh, vh, _block_starts(bi, block_size), cnt, g_slc,
+                      g_swa, block_size, window,
+                      torch.arange(T, device=q.device), sm_scale,
+                      branch=functools.partial(_branch_streams,
+                                               streams=streams, chunk=chunk))
 
 
 def nsa_varlen_fwd_plain(q, kh, vh, offs, cnt, g_slc, block_size: int,
@@ -244,6 +323,58 @@ def nsa_decode_fwd_plain(q, kh, vh, bi, cnt, g_slc, block_size: int,
                       _block_starts(bi, block_size)[:, None], cnt[:, None],
                       g_slc[:, None], g_slc[:, None], block_size, 0, bound,
                       sm_scale)[:, 0]
+
+
+def decode_splits(B: int, H: int, S: int, resident: int) -> int:
+    """Runs the decode kernel cuts each row's S slots into: the most (of
+    ``ceil(S / splits)`` slots each) whose ``B H splits`` blocks the card
+    holds at once, ``resident`` blocks: ``per = max(1, ceil(B H S /
+    resident))``, ``splits = ceil(S / per)`` (at least 1)."""
+    per = max(1, -(-B * H * S // max(resident, 1)))
+    return max(1, -(-S // per))
+
+
+def nsa_decode_partials_plain(q, kh, vh, bi, cnt, block_size: int,
+                              sm_scale: float, splits: int):
+    """Plain version of decode's first launch: ``q (B, H, G, D)``, ``bi
+    (B, H, S)``; the selected branch of each run of ``ceil(S / splits)``
+    slots, unnormalised, ``(acc (B, H, splits, G, D), m, l (B, H, splits,
+    G))`` float32 in the exp2 domain (a run with no live slot: m -1e30,
+    l 0, acc 0)."""
+    B, H, G, D = q.shape
+    S = bi.shape[-1]
+    dev = q.device
+    per = max(1, -(-S // splits))
+    starts = torch.where(torch.arange(S, device=dev) < cnt[..., None],
+                         _block_starts(bi, block_size), -1)
+    starts = torch.cat([starts, starts.new_full((B, H, splits * per - S),
+                                                -1)], -1)
+    st = starts.reshape(B, H, splits, per).transpose(1, 2).reshape(
+        B * splits, H, per)
+    qn = q[:, None].expand(B, splits, H, G, D).reshape(B * splits, H, G, D)
+    b = torch.arange(B, device=dev).repeat_interleave(splits)
+    bound = torch.full((B * splits,), kh.shape[2] - 1, dtype=torch.long,
+                       device=dev)
+    acc, m, l = _branch(qn, kh, vh, b, st, block_size, bound, sm_scale)
+    return (acc.reshape(B, splits, H, G, D).transpose(1, 2).contiguous(),
+            m.reshape(B, splits, H, G).transpose(1, 2).contiguous(),
+            l.reshape(B, splits, H, G).transpose(1, 2).contiguous())
+
+
+def nsa_decode_combine_plain(acc, m, l, g_slc, dtype) -> torch.Tensor:
+    """Plain version of decode's combine: the partials' fixed-order merge
+    over the splits, normalised and gated by ``g_slc (B, H, G)``, in
+    ``dtype``."""
+    a, _, s = merge_partials(acc, m, l, 2)
+    return (_normalised(a, s) * g_slc[..., None]).to(dtype)
+
+
+def nsa_decode_split_plain(q, kh, vh, bi, cnt, g_slc, block_size: int,
+                           sm_scale: float, splits: int) -> torch.Tensor:
+    """The two decode launches' plain versions in turn."""
+    return nsa_decode_combine_plain(
+        *nsa_decode_partials_plain(q, kh, vh, bi, cnt, block_size, sm_scale,
+                                   splits), g_slc, q.dtype)
 
 
 def nsa_fwd_partial_plain(q, kh, vh, bi, cnt, block_size: int,
@@ -272,28 +403,53 @@ def nsa_fwd_partial_plain(q, kh, vh, bi, cnt, block_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale,
-            outs=None):
-    """One launch of ``csrc/nsa.cu``'s ``entry``: the pointers of q, k,
-    v, ``operands`` and the outputs (``outs``, by default a new o, which
-    is returned); then ``dims`` (ints), K's and V's ``strides``
-    (elements), the type code and the exp2 scale."""
-    from ._build import load, stream_call
+def _aligned(q, kh, vh):
+    """q contiguous; for the 16-bit kernels, which read rows 16 bytes a
+    copy, k and v copied into new contiguous tensors (16-byte aligned,
+    one layout for both) where a row or a base is not 16-byte aligned
+    (never for the wrappers' own views)."""
     q = q.contiguous()
-    o = (torch.empty_like(q),) if outs is None else outs
-    ptrs = [q, kh, vh, *(t.contiguous() for t in operands), *o]
+    if q.dtype == torch.float32:
+        return q, kh, vh
+    if q.data_ptr() % 16:
+        q = q.clone()
+    es = kh.element_size()
+    if any(t.data_ptr() % 16 or any(st * es % 16 for st in t.stride()[:3])
+           for t in (kh, vh)):
+        kh, vh = (t.clone(memory_format=torch.contiguous_format)
+                  for t in (kh, vh))
+    return q, kh, vh
+
+
+def _call(name, entry, dev, argtypes, *args):
+    """``entry`` of ``csrc/nsa.cu`` on ``dev``'s current stream; raises if
+    it refused, else counts a launch of ``name``."""
+    from ._build import load, stream_call
     fn = getattr(load("nsa"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                   + [ctypes.c_int] * len(dims)
-                   + [ctypes.c_longlong] * len(strides)
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = stream_call(fn, q.device, *(t.data_ptr() for t in ptrs), *dims,
-                       *strides, DTYPE_CODES[q.dtype],
-                       float(sm_scale) * _LOG2E)
+    code = stream_call(fn, dev, *args)
     if code != 0:
         raise KernelLaunchError(name, code)
     launches[name] += 1
+
+
+def _launch(name, entry, q, kh, vh, operands, dims, strides, sm_scale,
+            outs=None):
+    """One launch of ``csrc/nsa.cu``'s ``entry``: the pointers of q, k,
+    v (``_aligned``), ``operands`` and the outputs (``outs``, by default a
+    new o, which is returned); then ``dims`` (ints), K's and V's strides
+    (elements; ``strides`` selects them from ``kh.stride()``), the type
+    code and the exp2 scale."""
+    q, kh, vh = _aligned(q, kh, vh)
+    o = (torch.empty_like(q),) if outs is None else outs
+    ptrs = [q, kh, vh, *(t.contiguous() for t in operands), *o]
+    st = kh.stride()[strides]
+    _call(name, entry, q.device,
+          [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(dims)
+          + [ctypes.c_longlong] * len(st) + [ctypes.c_int, ctypes.c_float],
+          *(t.data_ptr() for t in ptrs), *dims, *st, DTYPE_CODES[q.dtype],
+          float(sm_scale) * _LOG2E)
     return o[0] if outs is None else o
 
 
@@ -312,7 +468,7 @@ def nsa_fwd(q, kh, vh, bi, cnt, g_slc, g_swa, block_size: int, window: int,
     return _launch("nsa_fwd", "tl_nsa_fwd", q, kh, vh,
                    (bi, cnt, g_slc, g_swa),
                    (B, T, H, G, kh.shape[2], D, bi.shape[-1], block_size,
-                    window), kh.stride()[:3], sm_scale)
+                    window), slice(0, 3), sm_scale)
 
 
 def nsa_varlen_fwd(q, kh, vh, offs, cnt, g_slc, block_size: int,
@@ -329,7 +485,64 @@ def nsa_varlen_fwd(q, kh, vh, offs, cnt, g_slc, block_size: int,
     return _launch("nsa_varlen_fwd", "tl_nsa_varlen_fwd", q, kh, vh,
                    (offs, cnt, g_slc),
                    (T, H, G, kh.shape[2], D, offs.shape[-1], block_size),
-                   kh.stride()[1:3], sm_scale)
+                   slice(1, 3), sm_scale)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(dev: torch.device, G: int, D: int, dtype) -> int:
+    """Decode blocks the card holds at once: its SMs times the decode
+    kernel's blocks an SM (CUDA's occupancy calculator)."""
+    from ._build import load
+    fn = load("nsa").tl_nsa_decode_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        code = fn(G, D, DTYPE_CODES[dtype], ctypes.byref(blocks))
+    if code != 0:
+        raise KernelLaunchError("nsa_decode", code)
+    return torch.cuda.get_device_properties(dev).multi_processor_count \
+        * max(1, blocks.value)
+
+
+def nsa_decode_partials(q, kh, vh, bi, cnt, block_size: int,
+                        sm_scale: float, splits: int):
+    """Decode's first launch: the selected branch of each run of
+    ``ceil(S / splits)`` slots of ``bi (B, H, S)``, unnormalised, ``(acc
+    (B, H, splits, G, D), m, l (B, H, splits, G))`` float32 (see
+    ``nsa_decode_partials_plain``). CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    _check(q, kh, vh, bi, cnt, None, "nsa_decode")
+    if splits < 1:
+        raise ValueError(f"nsa_decode: splits must be at least 1, got "
+                         f"{splits}")
+    if not q.is_cuda:
+        return nsa_decode_partials_plain(q, kh, vh, bi, cnt, block_size,
+                                         sm_scale, splits)
+    B, H, G, D = q.shape
+    acc = torch.empty((B, H, splits, G, D), dtype=torch.float32,
+                      device=q.device)
+    outs = (acc, torch.empty_like(acc[..., 0]), torch.empty_like(acc[..., 0]))
+    return _launch("nsa_decode", "tl_nsa_decode", q, kh, vh, (bi, cnt),
+                   (B, H, G, kh.shape[2], D, bi.shape[-1], block_size,
+                    splits), slice(0, 3), sm_scale, outs=outs)
+
+
+def nsa_decode_combine(acc, m, l, g_slc, dtype) -> torch.Tensor:
+    """Decode's second launch: the partials' fixed-order merge over the
+    splits, normalised, times ``g_slc (B, H, G)``, as ``(B, H, G, D)`` in
+    ``dtype``. CUDA tensors launch the kernel (counted as
+    ``nsa_decode_combine``); CPU tensors run the plain version."""
+    if not acc.is_cuda:
+        return nsa_decode_combine_plain(acc, m, l, g_slc, dtype)
+    B, H, splits, G, D = acc.shape
+    ops = [t.contiguous() for t in (acc, m, l, g_slc.float())]
+    o = torch.empty((B, H, G, D), dtype=dtype, device=acc.device)
+    _call("nsa_decode_combine", "tl_nsa_decode_combine", acc.device,
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+          *(t.data_ptr() for t in ops), o.data_ptr(), B * H, G, D, splits,
+          DTYPE_CODES[dtype])
+    return o
 
 
 def nsa_decode_fwd(q, kh, vh, bi, cnt, g_slc, block_size: int,
@@ -337,16 +550,20 @@ def nsa_decode_fwd(q, kh, vh, bi, cnt, g_slc, block_size: int,
     """One decode step ``(B, H, G, D)`` in q's type: ``q (B, H, G, D)``,
     ``kh, vh (B, H, Tk, D)``, ``bi (B, H, S)``, ``cnt (B, H)``, ``g_slc
     (B, H, G)``; every selected key up to the last is visible. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    tensors launch two kernels: ``nsa_decode_partials`` over
+    ``decode_splits`` runs of slots (sized by the card's resident
+    blocks) and ``nsa_decode_combine``; CPU tensors run the plain
+    version."""
     _check(q, kh, vh, bi, cnt, g_slc, "nsa_decode")
     if not q.is_cuda:
         return nsa_decode_fwd_plain(q, kh, vh, bi, cnt, g_slc, block_size,
                                     sm_scale)
     B, H, G, D = q.shape
-    return _launch("nsa_decode", "tl_nsa_decode", q, kh, vh,
-                   (bi, cnt, g_slc),
-                   (B, H, G, kh.shape[2], D, bi.shape[-1], block_size),
-                   kh.stride()[:3], sm_scale)
+    splits = decode_splits(B, H, bi.shape[-1],
+                           resident_blocks(q.device, G, D, q.dtype))
+    acc, m, l = nsa_decode_partials(q, kh, vh, bi, cnt, block_size,
+                                    sm_scale, splits)
+    return nsa_decode_combine(acc, m, l, g_slc, q.dtype)
 
 
 def nsa_fwd_partial(q, kh, vh, bi, cnt, block_size: int, sm_scale: float):
@@ -365,7 +582,7 @@ def nsa_fwd_partial(q, kh, vh, bi, cnt, block_size: int, sm_scale: float):
     outs = (acc, torch.empty_like(acc[..., 0]), torch.empty_like(acc[..., 0]))
     return _launch("nsa_fwd_partial", "tl_nsa_fwd_partial", q, kh, vh,
                    (bi, cnt), (B, T, H, G, kh.shape[2], D, bi.shape[-1],
-                               block_size), kh.stride()[:3], sm_scale,
+                               block_size), slice(0, 3), sm_scale,
                    outs=outs)
 
 
