@@ -67,8 +67,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               LLaMA-2-7B MLP decode step (M 16, K 4096, N 11008, group
               128); w4a8_matmul at 4096^3. Each call one launch of its
               kernel (two-pass: one unpack, one matmul), read right
-              after; its output against the plain version on the card;
-              kernel, plain and library times and the bound;
+              after: matmul's kernel is the one its stated rule
+              (ops/gemm.py::matmul_path) names, and every bf16, f16 and
+              fp8 shape takes the TMA path (fp8 with one fp8_widen, also
+              held bit-equal to its plain version and timed); its output
+              against the plain version on the card; kernel, plain and
+              library times and the bound;
 10. seqmix  — the seventh main path: the sequence-mixing entry points at
               bench.py's widths (see MAMBA2, GDN, LINATTN):
               mamba2_chunk_scan (Mamba2-2.7B's SSD widths, chunks 128 and
@@ -194,13 +198,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               bench): gemm_quickstart (1024^3), gemm_large (8192 x 8192 x
               4096), flash_d64, flash_d128 and flash_d128_full (bf16,
               B 2, H 16, S 2048; mha_fwd_kernel at the carver's best
-              tile against SDPA), fp8_gemm (4096^3) and w4a16_gemm
-              (4096^3, group 512) through run_config at a 0.1 s loop
-              target (bench's own is 0.6 s), each record printed, then
-              the headline geomean line and the four GEMM configs'
-              geomean; the two yardsticks' and mha_fwd's launches counted
-              over the seven configs (a CUDA graph's where it is
-              captured). Then the
+              tile against SDPA), fp8_gemm (4096^3), w4a8_gemm (4096^3)
+              and w4a16_gemm (4096^3, group 512) through run_config at a
+              0.1 s loop target (bench's own is 0.6 s), each record
+              printed, then the headline geomean line and the five GEMM
+              configs' geomean; the two yardsticks', mha_fwd's and
+              w4a8_gemm's launches counted over the eight configs (a CUDA
+              graph's where it is captured), every GEMM of them on #15's
+              TMA path. Then the
               GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
               x 4096 and fp8 -> f32 at 4096^3, and the w4a16 yardstick
               (hand_w4a16) at 4096^3, group 512, each at the carver's two
@@ -1566,7 +1571,8 @@ def gemm_ops_phase(torch, gm, dqg):
     bound."""
     import numpy as np
     from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
-    counted = {"matmul": 0, "dequant_gemm": 0, "dequant_int4": 0,
+    counted = {"matmul": 0, "matmul_tma": 0, "matmul_ffma": 0,
+               "fp8_widen": 0, "dequant_gemm": 0, "dequant_int4": 0,
                "w4a8_gemm": 0}
     res = {}
 
@@ -1648,7 +1654,17 @@ def gemm_ops_phase(torch, gm, dqg):
             M, N, K, in_dtype=dt, out_dtype=out_dt,
             accum_dtype=torch.int32 if dt == torch.int8 else torch.float32,
             trans_A=ta, trans_B=tb, relu=relu)
-        got = drive(f"matmul {label}", lambda: kern(a, b), {"matmul": 1})
+        path = "loop" if dt == torch.int8 else gm.matmul_path(
+            M, N, K, dt, ta, tb, a.data_ptr(), b.data_ptr(), out_dt,
+            gm.kernel_block(M, N, K, dt))
+        # every 16-bit and fp8 shape at the bench widths takes the TMA path
+        check(path == "tma" or dt not in gm.TMA_TYPES,
+              f"matmul {label}: took the {path} path")
+        kname = MATMUL_PATH_KERNELS[path]
+        want_launches = {kname: 1}
+        if dt == torch.float8_e4m3fn:
+            want_launches["fp8_widen"] = 1
+        got = drive(f"matmul {label}", lambda: kern(a, b), want_launches)
         want = gm.matmul_plain(a, b, ta, tb, out_dt, relu)
         name = str(out_dt).replace("torch.", "")
         r = hold(f"matmul {label}", got, want, GEMM_OPS_TOL[name])
@@ -1684,14 +1700,29 @@ def gemm_ops_phase(torch, gm, dqg):
         nbytes = (M * K + K * N) * esize + M * N * torch.empty(
             (), dtype=out_dt).element_size()
         bound, by = mm_bound(flops, nbytes, peak)
-        res[f"matmul_{label}"] = {
+        res[f"{kname}_{label}"] = {
             "shape": [M, N, K], "dtype": str(dt), "out": name,
-            "trans": [ta, tb], "relu": relu, **r,
+            "trans": [ta, tb], "relu": relu, "path": path, **r,
             **timed(lambda: kern(a, b),
                     lambda: gm.matmul_plain(a, b, ta, tb, out_dt, relu),
                     library),
             "library": lib_name, "bound_ms": bound, "bound_by": by,
             "flops": flops, "bytes": nbytes}
+        if dt == torch.float8_e4m3fn:     # the TMA path's fp8 pre-pass
+            got = drive("fp8_widen 4096", lambda: gm.fp8_widen(a, b),
+                        {"fp8_widen": 1})
+            want = gm.fp8_widen_plain(a, b)
+            check(all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                      for g, w in zip(got, want)),
+                  "fp8_widen is not bit-equal to its plain version")
+            nb = 3 * (a.numel() + b.numel())
+            wb, wby = mm_bound(0, nb, PEAK_BF16_FLOPS)
+            res["fp8_widen_4096"] = {
+                "shape": [list(a.shape), list(b.shape)], "max_abs_err": 0.0,
+                **timed(lambda: gm.fp8_widen(a, b),
+                        lambda: gm.fp8_widen_plain(a, b), None),
+                "bound_ms": wb, "bound_by": wby, "bytes": nb}
+            del got, want
         del a, b, lhs, rhs
         torch.cuda.empty_cache()
 
@@ -1734,7 +1765,7 @@ def gemm_ops_phase(torch, gm, dqg):
             two = drive(f"dequant_matmul_twopass {label}",
                         lambda: dqg.dequant_matmul_twopass(a, packed,
                                                            scales),
-                        {"dequant_int4": 1, "matmul": 1})
+                        {"dequant_int4": 1, "matmul_tma": 1})
             r2 = hold(f"dequant_matmul_twopass {label}", two,
                       gm.matmul_plain(a, bd), GEMM_OPS_TOL["bfloat16"])
             del two
@@ -1804,11 +1835,20 @@ def gemm_ops_phase(torch, gm, dqg):
     return res
 
 
+# matmul_path's answer -> the kernel (launch counter) of ops/gemm.py
+MATMUL_PATH_KERNELS = {"tma": "matmul_tma", "ffma": "matmul_ffma",
+                       "loop": "matmul"}
 # the gemm phase's kernels: (name, source, replaced TPU kernel, headline
-# case); the kernel's other cases are nested under "variants"
+# case); the kernel's other cases are nested under "variants". #15 is
+# three kernels of gemm.cu, one a path of matmul_path (int8 on the tile
+# loop's counter, gemm_s8.cu)
 GEMM_OPS_KERNELS = (
-    ("matmul", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
+    ("matmul_tma", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
      "bf16_8192x8192x4096"),
+    ("matmul_ffma", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
+     "f32_4096_00"),
+    ("matmul", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
+     "f32_4096_01"),
     ("dequant_gemm", "dequant_gemm.cu",
      "tilelang_mesh_tpu/ops/dequant_gemm.py:62", "4096_gs512"),
     ("dequant_int4", "dequant_gemm.cu",
@@ -4536,7 +4576,7 @@ DSA_KERNELS = (
      "float32"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): seven configs,
+# the headline phase's loop target (bench.py's is 0.6 s): eight configs,
 # each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
@@ -4544,12 +4584,13 @@ YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def headline_phase(torch, ys, gm, dqg, fa):
-    """The headline comparison (tilelang_mesh_tpu_torch.bench): the seven
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the eight
     configs at full size through ``run_config`` (counters zeroed before,
     read right after; a CUDA graph's launches are counted where they are
     captured, its replays not; the flash configs launch ``mha_fwd``),
     each record printed, then the headline geomean line, and the geomean
-    of the four GEMM configs alone. Then #42 (bf16 -> bf16 at 8192 x 8192
+    of the five GEMM configs alone; every GEMM of them on #15's TMA path
+    (no launch of its tile loop). Then #42 (bf16 -> bf16 at 8192 x 8192
     x 4096, fp8 -> f32 at 4096^3) and #43 (4096^3, group 512), each at the
     carver's two top blocks as bench sweeps them, against their plain
     versions on the same inputs; kernel, plain and library (torch.matmul;
@@ -4565,7 +4606,7 @@ def headline_phase(torch, ys, gm, dqg, fa):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's seven configs ---------------------------
+    # -- the main path: bench's eight configs ---------------------------
     torch.cuda.synchronize()
     for mod in (ys, gm, dqg, fa):
         mod.reset_launches()
@@ -4591,6 +4632,11 @@ def headline_phase(torch, ys, gm, dqg, fa):
           f"headline: a yardstick was not launched: {res['launches']}")
     check(fa.launches["mha_fwd"] > 0,
           "headline: the flash configs did not launch mha_fwd")
+    # every GEMM shape of the headline took #15's TMA path
+    check(gm.launches["matmul"] == 0 and gm.launches["matmul_tma"] > 0,
+          f"headline: matmul launches by path {dict(gm.launches)}")
+    check(dqg.launches["w4a8_gemm"] > 0,
+          "headline: the w4a8 config did not launch w4a8_gemm")
     head = tb.headline(records)
     print(json.dumps(head), flush=True)
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
@@ -4723,8 +4769,8 @@ def kernel_registers(log):
             "h": "u8", "a": "s8"}
     out, name, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'",
-                      line)
+        m = re.search(r"entry function '(?:_Z\w*?_cu_[0-9a-f]{8}|"
+                      r"_ZN7tl_sm90|_ZN7tl_ffma)(\d+)(\w+)'", line)
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
@@ -4977,7 +5023,18 @@ def main() -> int:
         "trans_b": {"float32": {k: gemm32["varlen_trans"][k] for k in keys},
                     "bfloat16": {k: gemm16["varlen_trans"][k]
                                  for k in keys}}})
-    kernels += kernel_entries(gops, GEMM_OPS_KERNELS)
+    for entry in kernel_entries(gops, GEMM_OPS_KERNELS):
+        if entry["name"] == "matmul_tma":     # its fp8 operands' pre-pass
+            entry["prepass"] = {
+                "name": "fp8_widen", "route": "cuda",
+                "source": csrc + "gemm.cu",
+                "launches": gops["launches"]["fp8_widen"],
+                **{k: gops["fp8_widen_4096"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+        kernels.append(entry)
+    check(gops["launches"]["fp8_widen"] > 0,
+          "gemm: the fp8 pre-pass fp8_widen was not launched")
     for entry in kernel_entries(seq, SEQMIX_KERNELS):
         entry["library"] = SEQMIX_LIBRARY
         if entry["name"] == "linear_attention":

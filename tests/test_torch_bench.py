@@ -1,5 +1,5 @@
 """The port's headline comparison (tilelang_mesh_tpu_torch/bench.py)
-on the CPU: the seven configs at tiny sizes through ``run_config`` with
+on the CPU: the eight configs at tiny sizes through ``run_config`` with
 loose peaks, as tests/test_bench_configs.py runs bench.py's (the ops run
 their plain versions; the numbers are host times and mean nothing), the
 cross-check equal to bench.py's, the candidate sweep skipping only a
@@ -35,6 +35,8 @@ _CONFIGS = {
     "fp8_gemm": lambda: port.cfg_fp8_gemm(256, 256, 256, device="cpu",
                                           arch=H100_SXM,
                                           target_s=_TARGET_S),
+    "w4a8_gemm": lambda: port.cfg_w4a8(256, 256, 256, device="cpu",
+                                       arch=H100_SXM, target_s=_TARGET_S),
     "w4a16_gemm": lambda: port.cfg_w4a16(256, 256, 256, gs=64, device="cpu",
                                          arch=H100_SXM, target_s=_TARGET_S),
     "flash_d64": lambda: port.cfg_flash(64, S=128, B=1, H=2, device="cpu",
@@ -63,6 +65,17 @@ def test_config_runs_on_cpu(name):
         assert tuple(rec["tile"]) in FLASH_KERNEL_TILES[D]
         assert f"tile ({rec['tile'][0]},{rec['tile'][1]})" in rec["metric"]
         assert f"causal={name != 'flash_d128_full'}" in rec["metric"]
+    if name in ("gemm_quickstart", "gemm_large", "fp8_gemm"):
+        # both sides' winning blocks, each one of the carver's top two
+        from tilelang_mesh_tpu_torch.carver import KERNEL_BLOCKS
+        top = port._top_blocks(*{"gemm_quickstart": (256,) * 3,
+                                 "gemm_large": (512, 256, 256),
+                                 "fp8_gemm": (256,) * 3}[name],
+                               "float8_e4m3fn" if name == "fp8_gemm"
+                               else "bfloat16", H100_SXM)
+        for key in ("block", "baseline_block"):
+            assert tuple(rec[key]) in top and tuple(rec[key]) in \
+                KERNEL_BLOCKS
 
 
 def test_config_names_and_headline_are_bench_py_s():
@@ -70,14 +83,15 @@ def test_config_names_and_headline_are_bench_py_s():
     names = [n for n, _ in port._config_builders(True)]
     assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
                      "flash_d128", "flash_d128_full", "fp8_gemm",
-                     "w4a16_gemm"]
+                     "w4a8_gemm", "w4a16_gemm"]
     ref_names = [n for n, _ in ref._config_builders(True)]
     assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
-            for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 0.8))]
+            for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 1.1,
+                                    0.8))]
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 7)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 8)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 
@@ -214,3 +228,15 @@ def test_main_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.main(["--quick"])
+
+
+def test_gemm_config_raises_when_the_library_kernel_disagrees(monkeypatch):
+    """Each block of matmul_kernel's sweep is checked before it is timed:
+    a library GEMM that disagrees fails the config."""
+    from tilelang_mesh_tpu_torch.ops import gemm as gm
+    plain = gm.matmul_plain
+    monkeypatch.setattr(gm, "matmul_plain",
+                        lambda *a, **kw: plain(*a, **kw) + 1.0)
+    with pytest.raises(port.BenchError, match="numeric mismatch"):
+        port.cfg_gemm(256, 256, 256, device="cpu", arch=H100_SXM,
+                      target_s=0.02)

@@ -711,6 +711,31 @@ def _operand(dev, shape, dtype, seed):
     return (_randn(dev, shape, torch.float32, seed) * scale).to(dtype)
 
 
+# matmul_path's answer -> the counters one float matmul call adds
+_PATH_LAUNCHES = {"tma": ("matmul_tma",), "ffma": ("matmul_ffma",),
+                  "loop": ("matmul",)}
+
+
+def _matmul_counted(a, b, trans_A, trans_B, out, relu, block=(None,) * 3):
+    """gm.matmul(...) and the path it took: exactly one launch of that
+    path's kernel (and one fp8 widening for fp8 operands on the TMA path),
+    none of the others."""
+    M, N, K = gm._shapes(a, b, trans_A, trans_B)
+    blk = gm.kernel_block(M, N, K, a.dtype, *block)
+    path = gm.matmul_path(M, N, K, a.dtype, trans_A, trans_B, a.data_ptr(),
+                          b.data_ptr(), out, blk)
+    before = dict(gm.launches)
+    got = gm.matmul(a, b, trans_A, trans_B, out_dtype=out, relu=relu,
+                    block_M=block[0], block_N=block[1], block_K=block[2])
+    torch.cuda.synchronize()
+    want = set(_PATH_LAUNCHES[path])
+    if path == "tma" and a.dtype == torch.float8_e4m3fn:
+        want.add("fp8_widen")
+    assert {k: gm.launches[k] - before[k] for k in before} == {
+        k: int(k in want) for k in before}
+    return got, path
+
+
 @pytest.mark.parametrize("pair", MM_PAIRS, ids=lambda p: "-".join(
     str(d).split(".")[1] for d in p))
 @pytest.mark.parametrize("trans_A,trans_B", [(False, False), (False, True),
@@ -720,15 +745,104 @@ def _operand(dev, shape, dtype, seed):
 @pytest.mark.parametrize("relu", [False, True])
 def test_matmul_matches_plain(cuda, pair, trans_A, trans_B, shape, relu):
     """Every dtype pair and transpose, ReLU or not; M, N, K off the tile
-    (K = 1000 and 19 take no 16-byte path for some types, 7 and 1 none)."""
+    (K = 1000 and 19 take no 16-byte path for some types, 7 and 1 none):
+    one launch of the path matmul_path names (the odd shapes take the
+    tile loop; 256 x 128 x 384 the TMA path, or for float32 the FFMA
+    tile when untransposed)."""
     (dt, out), (M, N, K) = pair, shape
     a = _operand(cuda, (K, M) if trans_A else (M, K), dt, 7)
     b = _operand(cuda, (N, K) if trans_B else (K, N), dt, 8)
-    before = gm.launches["matmul"]
-    got = gm.matmul(a, b, trans_A, trans_B, out_dtype=out, relu=relu)
-    torch.cuda.synchronize()
-    assert gm.launches["matmul"] == before + 1
+    got, _ = _matmul_counted(a, b, trans_A, trans_B, out, relu)
     _close(got, gm.matmul_plain(a, b, trans_A, trans_B, out, relu))
+
+
+# float inputs of the TMA path with each output they take
+TMA_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+             (torch.float16, torch.float16), (torch.float16, torch.float32),
+             (torch.float8_e4m3fn, torch.float32),
+             (torch.float8_e4m3fn, torch.float8_e4m3fn),
+             (torch.bfloat16, torch.float8_e4m3fn)]
+
+
+@pytest.mark.parametrize("pair", TMA_PAIRS, ids=lambda p: "-".join(
+    str(d).split(".")[1] for d in p))
+@pytest.mark.parametrize("trans_A,trans_B", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("shape", [(304, 272, 1008), (144, 400, 96)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_tma_path_matches_plain(cuda, pair, trans_A, trans_B, shape,
+                                       relu):
+    """The TMA path in every transpose: M ragged against every block, N
+    and K off the block with rows on 16 bytes; within the output type's
+    tolerance of the plain version."""
+    (dt, out), (M, N, K) = pair, shape
+    a = _operand(cuda, (K, M) if trans_A else (M, K), dt, 17)
+    b = _operand(cuda, (N, K) if trans_B else (K, N), dt, 18)
+    got, path = _matmul_counted(a, b, trans_A, trans_B, out, relu)
+    assert path == "tma"
+    _close(got, gm.matmul_plain(a, b, trans_A, trans_B, out, relu))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16,
+                                torch.float8_e4m3fn, torch.float32])
+@pytest.mark.parametrize("blk", sorted(ys.KERNEL_BLOCKS),
+                         ids=lambda b: "x".join(map(str, b)))
+def test_matmul_takes_each_block(cuda, dt, blk):
+    """matmul at each block of KERNEL_BLOCKS (a block_M / N / K hint of
+    the instances is kept): the TMA path with M ragged and K off bk, and
+    float32 on the FFMA tile at a shape the block divides; f32 outputs
+    within 1e-5 of the plain version."""
+    M, N, K = (384, 512, 336) if dt != torch.float32 else (512, 512, 256)
+    a = _operand(cuda, (M, K), dt, 19)
+    b = _operand(cuda, (K, N), dt, 20)
+    assert gm.kernel_block(M, N, K, dt, *blk) == blk
+    got, path = _matmul_counted(a, b, False, False, torch.float32, True, blk)
+    assert path == ("ffma" if dt == torch.float32 else "tma")
+    _close(got, gm.matmul_plain(a, b, out_dtype=torch.float32, relu=True))
+
+
+@pytest.mark.parametrize("trans_A,trans_B", [(False, False), (True, True)])
+def test_matmul_fp8_k4096_within_float32(cuda, trans_A, trans_B):
+    """fp8 -> float32 at K 4096 (#15 and #42): within 1e-5 normwise of the
+    exact-product float32 plain version; one fp8 widening a call, none
+    for bfloat16."""
+    M = N = 512
+    K = 4096
+    dt = torch.float8_e4m3fn
+    a = _operand(cuda, (K, M) if trans_A else (M, K), dt, 27)
+    b = _operand(cuda, (N, K) if trans_B else (K, N), dt, 28)
+    got, path = _matmul_counted(a, b, trans_A, trans_B, torch.float32,
+                                False)
+    assert path == "tma"
+    want = gm.matmul_plain(a, b, trans_A, trans_B, torch.float32)
+    assert _normwise(got, want) <= 1e-5
+    if not trans_A:
+        for blk in sorted(ys.KERNEL_BLOCKS):
+            before = dict(gm.launches)
+            got = ys.hand_matmul(M, N, K, *blk, dtype=dt,
+                                 out_dtype=torch.float32)(a, b)
+            torch.cuda.synchronize()
+            assert gm.launches["fp8_widen"] == before["fp8_widen"] + 1
+            assert _normwise(got, want) <= 1e-5
+    x = _operand(cuda, (256, 256), torch.bfloat16, 31)
+    before = gm.launches["fp8_widen"]
+    gm.matmul(x, x)
+    assert gm.launches["fp8_widen"] == before
+
+
+def test_matmul_path_rule_on_the_card(cuda):
+    """A bfloat16 operand whose base is off 16 bytes takes the tile loop;
+    the same values aligned take the TMA path; the two agree."""
+    x = _operand(cuda, (256, 256), torch.bfloat16, 29)
+    b = _operand(cuda, (256, 128), torch.bfloat16, 30)
+    flat = torch.empty(256 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    unaligned = flat[1:1 + 256 * 256].view(256, 256)
+    unaligned.copy_(x)
+    got_loop, p1 = _matmul_counted(unaligned, b, False, False,
+                                   torch.float32, False)
+    got_tma, p2 = _matmul_counted(x, b, False, False, torch.float32, False)
+    assert (p1, p2) == ("loop", "tma")
+    assert _normwise(got_tma, got_loop) <= 1e-5
 
 
 @pytest.mark.parametrize("trans_A,trans_B", [(False, False), (False, True),
@@ -904,11 +1018,13 @@ def test_dequant_kernels_match_plain(cuda, dtype, M, K2, N, gs):
     want = dqg.dequant_int4_plain(packed, scales, gs, dtype)
     assert torch.equal(bd.view(torch.uint8), want.view(torch.uint8))
 
-    mm = gm.launches["matmul"]
+    mm = sum(gm.launches[k] for k in ("matmul", "matmul_tma",
+                                      "matmul_ffma"))
     two = dqg.dequant_matmul_twopass(a, packed, scales, dq_block=gs)
     torch.cuda.synchronize()
     assert dqg.launches["dequant_int4"] == before["dequant_int4"] + 2
-    assert gm.launches["matmul"] == mm + 1
+    assert sum(gm.launches[k] for k in ("matmul", "matmul_tma",
+                                        "matmul_ffma")) == mm + 1
     _close(two, gm.matmul_plain(a, want))
 
 

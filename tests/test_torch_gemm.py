@@ -287,3 +287,124 @@ def test_plain_fp8_matches_float64():
     got = port.matmul(ta, tb, out_dtype="float32")
     want = a8.astype(np.float64) @ b8.astype(np.float64)
     assert _normwise(got.numpy(), want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the card's block choice and path rule (host functions)
+# ---------------------------------------------------------------------------
+
+# (block_M, block_N, block_K) hints of the JAX factory with M and N off
+# every block and K a multiple of block_K (the JAX kernel gives NaN
+# otherwise; ragged K is held against numpy above)
+HINT_CASES = [((64, 64, 32), (77, 150, 96)), ((128, 128, 64), (200, 136, 192)),
+              ((256, 128, 64), (130, 300, 256)),
+              ((128, 256, 128), (257, 129, 256))]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("hint,shape", HINT_CASES)
+def test_matmul_kernel_block_hints_match_jax(dtype, tol, hint, shape):
+    """The JAX factory with block hints (interpret mode) against the
+    port's factory with the same hints on CPU tensors: normwise, float32
+    1e-5 (float32 sums in another order), bfloat16 out 1e-2 (one bf16
+    ulp at a rounding boundary)."""
+    M, N, K = shape
+    rng = np.random.default_rng(7)
+    a, b = _operands(rng, M, N, K, False, False)
+    ja, jb = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
+    want = np.asarray(ref.matmul_kernel(M, N, K, *hint, in_dtype=dtype)(
+        ja, jb), np.float32)
+    ta = torch.from_numpy(np.array(ja, np.float32)).to(getattr(torch, dtype))
+    tb = torch.from_numpy(np.array(jb, np.float32)).to(getattr(torch, dtype))
+    got = port.matmul_kernel(M, N, K, *hint, in_dtype=dtype)(ta, tb)
+    assert got.dtype == getattr(torch, dtype)
+    assert _normwise(got.float().numpy(), want) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "float8_e4m3fn"])
+def test_kernel_block_is_the_carver_s(dtype):
+    """No hint: the carver's first hint for the shape (as the JAX factory
+    takes it); a hint in KERNEL_BLOCKS: kept; a hint outside: the
+    carver's top block; a shape no block divides: DEFAULT_BLOCK."""
+    from tilelang_mesh_tpu_torch.carver import (H100_SXM, KERNEL_BLOCKS,
+                                                MatmulTemplate)
+    for M, N, K in ((8192, 8192, 4096), (1024, 1024, 1024),
+                    (512, 11008, 4096)):
+        c = MatmulTemplate(M, N, K, dtype, arch=H100_SXM).hints(1)[0].config
+        top = (c["block_M"], c["block_N"], c["block_K"])
+        assert port.kernel_block(M, N, K, dtype, arch=H100_SXM) == top
+        for blk in KERNEL_BLOCKS:
+            assert port.kernel_block(M, N, K, dtype, *blk,
+                                     arch=H100_SXM) == blk
+        for hint in ((64, 64, 32), (256, 256, 64), (128, 128, 128),
+                     (128, 128, None)):
+            assert port.kernel_block(M, N, K, dtype, *hint,
+                                     arch=H100_SXM) == top
+    assert port.kernel_block(77, 150, 1000, dtype, arch=H100_SXM) == \
+        port.DEFAULT_BLOCK
+    assert port.DEFAULT_BLOCK in KERNEL_BLOCKS
+
+
+# (dtype, (M, N, K), (trans_A, trans_B), (a_ptr, b_ptr), out, block, path)
+PATH_CASES = [
+    ("bfloat16", (256, 128, 384), (False, False), (0, 0), None, None, "tma"),
+    ("bfloat16", (256, 128, 384), (True, True), (0, 256), None, None, "tma"),
+    ("float16", (77, 150, 1000), (False, False), (0, 0), None, None, "loop"),
+    ("float16", (77, 150, 1000), (False, True), (0, 0), None, None, "tma"),
+    ("float16", (256, 128, 384), (False, False), (8, 0), None, None, "loop"),
+    ("float16", (256, 128, 384), (False, False), (0, 2), None, None, "loop"),
+    ("float8_e4m3fn", (300, 272, 1008), (False, False), (0, 0), "float32",
+     None, "tma"),
+    ("float8_e4m3fn", (300, 272, 1008), (True, False), (0, 0), "float32",
+     None, "loop"),
+    ("float8_e4m3fn", (304, 272, 1000), (False, False), (0, 0), "float32",
+     None, "loop"),
+    ("float8_e4m3fn", (304, 272, 1000), (True, False), (0, 0), None, None,
+     "tma"),
+    ("float32", (512, 512, 256), (False, False), (0, 0), None,
+     (128, 128, 64), "ffma"),
+    ("float32", (512, 512, 256), (False, False), (0, 0), None,
+     (256, 128, 64), "ffma"),
+    ("float32", (384, 512, 256), (False, False), (0, 0), None,
+     (256, 128, 64), "loop"),
+    ("float32", (512, 512, 256), (False, False), (0, 0), "bfloat16",
+     (128, 128, 64), "loop"),
+    ("float32", (512, 512, 256), (True, False), (0, 0), None,
+     (128, 128, 64), "loop"),
+    ("float32", (512, 512, 256), (False, False), (4, 0), None,
+     (128, 128, 64), "loop"),
+    ("int8", (256, 128, 384), (False, False), (0, 0), "int32", None, "loop"),
+    ("bfloat16", (0, 128, 384), (False, False), (0, 0), None, None, "loop"),
+]
+
+
+@pytest.mark.parametrize("case", PATH_CASES, ids=lambda c: "-".join(
+    map(str, (c[0],) + c[1] + c[2] + c[3] + (c[4],))))
+def test_matmul_path_rule(case):
+    """The stated rule that picks gemm.cu's kernel on the card: the TMA
+    path for 16-bit and fp8 operands with 16-byte aligned bases and row
+    strides, the FFMA tile for untransposed aligned float32 -> float32
+    that the block divides, the tile loop for the rest."""
+    dtype, (M, N, K), (ta, tb), (pa, pb), out, block, want = case
+    kw = {} if block is None else {"block": block}
+    assert port.matmul_path(M, N, K, dtype, ta, tb, pa, pb, out,
+                            **kw) == want
+
+
+def test_fp8_widen_plain_matches_numpy():
+    """Every e4m3 code widened to float16 as ml_dtypes converts it (exact;
+    the two NaN codes NaN), in any shape."""
+    codes = np.arange(256, dtype=np.uint8)
+    q = codes.view(ml_dtypes.float8_e4m3fn)
+    want = q.astype(np.float16)
+    x = torch.from_numpy(codes.copy()).view(torch.float8_e4m3fn)
+    y = x.reshape(16, 16).t()
+    gx, gy = port.fp8_widen(x, y)
+    assert gx.dtype == gy.dtype == torch.float16
+    for got, w in ((gx.numpy(), want), (gy.numpy(), want.reshape(16, 16).T)):
+        assert np.array_equal(np.isnan(got), np.isnan(w))
+        assert np.array_equal(np.nan_to_num(got), np.nan_to_num(w))
+    assert int(np.isnan(want).sum()) == 2
+    with pytest.raises(TypeError):
+        port.fp8_widen(x.view(torch.uint8), y)

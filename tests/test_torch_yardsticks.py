@@ -164,12 +164,16 @@ def test_hand_w4a16_refuses_other_tiles_and_groups():
 
 def test_kernel_instances_are_the_carver_space():
     """The CUDA sources instantiate exactly KERNEL_BLOCKS (and their
-    (bm, bn) pairs for #43)."""
+    (bm, bn) pairs for #43): #42 and #15's TMA path at the blocks of
+    gemm_sm90.cuh's TL_SM90_BLOCKS."""
     csrc = ROOT / "tilelang_mesh_tpu_torch" / "csrc"
-    gemm = (csrc / "yardstick_gemm.cu").read_text()
+    sm90 = (csrc / "gemm_sm90.cuh").read_text()
     w4 = (csrc / "yardstick_w4a16.cu").read_text()
-    blocks = re.search(r"#define YARDSTICK_BLOCKS\(X\)(.*?)\n\n", gemm,
+    blocks = re.search(r"#define TL_SM90_BLOCKS\(X\)(.*?)\n\n", sm90,
                        re.S).group(1)
+    for src in ("yardstick_gemm.cu", "gemm.cu"):
+        assert "TL_SM90_BLOCKS(" in (csrc / src).read_text() or \
+            "dispatch_tma(" in (csrc / src).read_text()
     tiles = re.search(r"#define YARDSTICK_TILES\(X\)(.*?)\n\n", w4,
                       re.S).group(1)
     assert {tuple(map(int, m)) for m in re.findall(

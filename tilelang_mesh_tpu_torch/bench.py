@@ -4,13 +4,15 @@ PyTorch's fused attention, timed in interleaved A/B rounds.
 
     python -m tilelang_mesh_tpu_torch.bench [--quick] [--config NAME ...]
 
-Counterpart of the GEMM and flash parts of ``bench.py``. Seven configs,
+Counterpart of the GEMM and flash parts of ``bench.py``. Eight configs,
 in ``bench.py``'s order:
 
 * ``gemm_quickstart`` (1024^3) and ``gemm_large`` (8192 x 8192 x 4096;
-  2048^3 with ``--quick``), bf16: ``ops/gemm.py``'s ``matmul_kernel``
-  against the best of ``hand_matmul`` (``csrc/yardstick_gemm.cu``) over
-  the carver's top two blocks;
+  2048^3 with ``--quick``), bf16: the best of ``ops/gemm.py``'s
+  ``matmul_kernel`` over the carver's top two blocks (as ``bench.py``
+  sweeps its framework kernel) against the best of ``hand_matmul``
+  (``csrc/yardstick_gemm.cu``) over the same blocks, the record naming
+  both (``block``, ``baseline_block``);
 * ``flash_d64``, ``flash_d128`` (causal) and ``flash_d128_full`` (B 2,
   H 16, S 2048; 512 with ``--quick``), bf16: ``ops/flash_attention.py``'s
   ``mha_fwd_kernel`` at the best of the carver's top four tiles
@@ -18,8 +20,13 @@ in ``bench.py``'s order:
   ``torch.nn.functional.scaled_dot_product_attention`` (``bench.py``
   times JAX's Pallas-TPU flash attention there);
 * ``fp8_gemm`` (4096^3; 1024^3 quick): ``matmul_kernel`` in fp8 e4m3 ->
-  f32 against the best of ``hand_matmul`` over the carver's top two
+  f32 against ``hand_matmul``, each the best over the carver's top two
   blocks;
+* ``w4a8_gemm`` (4096^3; 1024^3 quick): ``ops/dequant_gemm.py``'s
+  ``w4a8_gemm_kernel`` (one tile) against the torch composition of
+  ``bench.py``'s XLA reference: unpack int4 -> int8, two int8 products
+  with an int32 sum (``torch._int_mm`` on the card, an int32 product on
+  the CPU), the float32 epilogue;
 * ``w4a16_gemm`` (4096^3, group 512; 1024^3 quick): the better of
   ``dequant_matmul_twopass`` and the fused ``dequant_gemm_kernel``
   against the strongest of ``hand_w4a16`` (``csrc/yardstick_w4a16.cu``)
@@ -29,7 +36,9 @@ in ``bench.py``'s order:
 Prints one JSON line a config (``metric``, ``value`` TFLOP/s,
 ``vs_baseline`` = baseline ms / ours ms, ``latency_ms``,
 ``baseline_ms``, the p50/p90/p99/MAD digest, ``peak``, ``utilization``,
-``device``; a flash record also its ``tile``), then the headline line (``gemm_large``'s record with
+``device``; a flash record also its ``tile``, a GEMM record its
+``block`` and ``baseline_block``), then the headline line
+(``gemm_large``'s record with
 ``geomean_vs_baseline`` over every config that ran). Exits 2 if a config
 failed.
 
@@ -70,7 +79,7 @@ from .carver import FlashAttentionTemplate, MatmulTemplate, auto_arch
 from .profiler import Timer, _stats_ms
 
 __all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_flash",
-           "cfg_fp8_gemm", "cfg_w4a16", "main"]
+           "cfg_fp8_gemm", "cfg_w4a8", "cfg_w4a16", "main"]
 
 _TARGET_LOOP_S = 0.6   # in-loop work per timed call; >> fixed-cost noise
 _MAX_REP = 200_000
@@ -255,26 +264,41 @@ def _top_blocks(M, N, K, dtype, arch):
     return blocks
 
 
-def cfg_gemm(M, N, K, dtype="bfloat16", device="cuda", arch=None,
-             target_s=_TARGET_LOOP_S):
+def _both_sides(M, N, K, dtype, arch, check, args, what, target_s,
+                out_dtype=None):
+    """The best ``matmul_kernel`` and the best ``hand_matmul`` on
+    ``args`` over the carver's top blocks, each checked before it is
+    timed: ((block, fn), (block, fn))."""
     from .ops.gemm import matmul_kernel
     from .ops.yardsticks import hand_matmul
+    blocks = _top_blocks(M, N, K, dtype, arch)
+    out = out_dtype or dtype
+    o_name, ours, _ = _pick_best(
+        [(str(blk), lambda blk=blk: matmul_kernel(
+            M, N, K, *blk, in_dtype=dtype, out_dtype=out), args)
+         for blk in blocks], check, f"framework {what}", target_s=target_s)
+    r_name, ref, _ = _pick_best(
+        [(str(blk), lambda blk=blk: hand_matmul(
+            M, N, K, *blk, dtype, out_dtype=out), args)
+         for blk in blocks], check, f"hand-written {what}",
+        target_s=target_s)
+    named = {str(blk): list(blk) for blk in blocks}
+    return (named[o_name], ours), (named[r_name], ref)
+
+
+def cfg_gemm(M, N, K, dtype="bfloat16", device="cuda", arch=None,
+             target_s=_TARGET_LOOP_S):
     arch = arch or auto_arch()
     a, b = _draw(0, device, getattr(torch, dtype), (M, K), (K, N))
     want = torch.matmul(a.float(), b.float())
     check = functools.partial(_check_close, ref=want, rel_tol=3e-2)
-
-    # the library's GEMM has one tile, so it is built and checked once
-    ours = matmul_kernel(M, N, K, in_dtype=dtype)
-    check(ours(a, b))
-    _, ref, _ = _pick_best(
-        [(str(blk), lambda blk=blk: hand_matmul(M, N, K, *blk, dtype),
-          (a, b)) for blk in _top_blocks(M, N, K, dtype, arch)],
-        check, "hand-written gemm", target_s=target_s)
+    (blk, ours), (rblk, ref) = _both_sides(M, N, K, dtype, arch, check,
+                                           (a, b), "gemm", target_s)
     return dict(metric=f"{dtype} GEMM {M}x{N}x{K} (matmul_kernel vs "
                        f"hand-written CUDA)",
                 flops=2.0 * M * N * K, peak_class=arch.peak_class(dtype),
-                ours=ours, ref=ref, args=(a, b), rel_tol=3e-2, checked=True)
+                ours=ours, ref=ref, args=(a, b), rel_tol=3e-2, checked=True,
+                record={"block": blk, "baseline_block": rblk})
 
 
 def cfg_flash(D, S=2048, B=2, H=16, causal=True, device="cuda", arch=None,
@@ -316,25 +340,59 @@ def cfg_flash(D, S=2048, B=2, H=16, causal=True, device="cuda", arch=None,
 
 def cfg_fp8_gemm(M=4096, N=4096, K=4096, device="cuda", arch=None,
                  target_s=_TARGET_LOOP_S):
-    from .ops.gemm import matmul_kernel
-    from .ops.yardsticks import hand_matmul
     arch = arch or auto_arch()
     a, b = _draw(2, device, torch.float8_e4m3fn, (M, K), (K, N))
     want = torch.matmul(a.float(), b.float())
     check = functools.partial(_check_close, ref=want, rel_tol=1e-1)
-
-    ours = matmul_kernel(M, N, K, in_dtype="float8_e4m3fn",
-                         out_dtype="float32")
-    check(ours(a, b))
-    _, ref, _ = _pick_best(
-        [(str(blk), lambda blk=blk: hand_matmul(
-            M, N, K, *blk, "float8_e4m3fn", out_dtype="float32"), (a, b))
-         for blk in _top_blocks(M, N, K, "float8_e4m3fn", arch)],
-        check, "hand-written fp8 gemm", target_s=target_s)
+    (blk, ours), (rblk, ref) = _both_sides(
+        M, N, K, "float8_e4m3fn", arch, check, (a, b), "fp8 gemm",
+        target_s, out_dtype="float32")
     return dict(metric=f"fp8(e4m3) GEMM {M}x{N}x{K} (matmul_kernel vs "
                        f"hand-written CUDA)",
                 flops=2.0 * M * N * K, peak_class="i8",
-                ours=ours, ref=ref, args=(a, b), rel_tol=1e-1, checked=True)
+                ours=ours, ref=ref, args=(a, b), rel_tol=1e-1, checked=True,
+                record={"block": blk, "baseline_block": rblk})
+
+
+def _int8_mm(a, b):
+    """int32 a @ b of int8 operands: ``torch._int_mm`` on the card (B
+    column-major, as cuBLASLt's int8 path takes it), an int32 product on
+    the CPU."""
+    if a.is_cuda:
+        return torch._int_mm(a.contiguous(), b.T.contiguous().T)
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+
+def cfg_w4a8(M=4096, N=4096, K=4096, device="cuda", arch=None,
+             target_s=_TARGET_LOOP_S):
+    """int4-weight x int8-activation GEMM (``bench.py`` ``cfg_w4a8``):
+    the port's ``w4a8_gemm_kernel`` against the torch composition of
+    bench.py's XLA reference over the same packed operands."""
+    from .ops.bitnet import quantize_activations
+    from .ops.dequant_gemm import quantize_w4_per_channel, w4a8_gemm_kernel
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+    packed_np, sw_np = quantize_w4_per_channel(w)
+    q, a_scale = quantize_activations(torch.from_numpy(x).to(device))
+    K2 = K // 2
+    qp = q.reshape(M, 2, K2)
+    packed = torch.from_numpy(packed_np).to(device)
+    sw = torch.from_numpy(sw_np).to(device).reshape(1, N)
+    sa = (1.0 / a_scale).float()
+
+    def ref(qp_, packed_, sw_, sa_):
+        p32 = packed_.to(torch.int32)
+        lo = ((p32 & 0xF) - 8).to(torch.int8)
+        hi = ((p32 >> 4) - 8).to(torch.int8)
+        acc = _int8_mm(qp_[:, 0, :], lo) + _int8_mm(qp_[:, 1, :], hi)
+        return acc.float() * sa_ * sw_
+
+    return dict(metric=f"w4a8 int4xint8 GEMM {M}x{N}x{K} (w4a8_gemm_kernel "
+                       f"vs torch int8 dequant+dot)",
+                flops=2.0 * M * N * K, peak_class="i8",
+                ours=w4a8_gemm_kernel(M, N, K), ref=ref,
+                args=(qp, packed, sw, sa), rel_tol=1e-3)
 
 
 def cfg_w4a16(M=4096, N=4096, K=4096, gs=512, device="cuda", arch=None,
@@ -477,6 +535,9 @@ def _config_builders(q: bool, device="cuda", arch=None,
         ("fp8_gemm", lambda: cfg_fp8_gemm(*(1024,) * 3 if q
                                           else (4096,) * 3,
                                           target_s=target_s, **kw)),
+        ("w4a8_gemm", lambda: cfg_w4a8(*(1024,) * 3 if q
+                                       else (4096,) * 3,
+                                       target_s=target_s, **kw)),
         ("w4a16_gemm", lambda: cfg_w4a16(*(1024,) * 3 if q
                                          else (4096,) * 3,
                                          target_s=target_s, **kw)),

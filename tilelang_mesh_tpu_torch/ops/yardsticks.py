@@ -12,7 +12,11 @@ Counterparts of the two hand-written Pallas kernels of ``bench.py``:
   package's cast gives it. ``csrc/yardstick_gemm.cu``: one block a (bm,
   bn) tile of C looping over K in steps of bk, instantiated for the
   blocks of ``carver.KERNEL_BLOCKS``; any other block, or M, N, K that
-  the block does not divide, raises ``ValueError``.
+  the block does not divide, raises ``ValueError``. bfloat16, float16
+  and fp8 run the TMA + wgmma body the library's GEMM shares
+  (``csrc/gemm_sm90.cuh``); fp8 operands are first widened exactly to
+  float16 once per call by ``ops/gemm.py::fp8_widen`` (counted there as
+  ``fp8_widen``).
 * ``hand_w4a16(M, N, K, gs, bm, bn)`` — ``cfg_w4a16.hand_pallas``: a
   callable ``fn(alo, ahi, packed, scales3) -> C (M, N)`` bfloat16 with
   the JAX kernel's operands: the two halves of A (M, K/2) bfloat16
@@ -38,7 +42,7 @@ import torch
 
 from ..carver import KERNEL_BLOCKS
 from ..resilience.errors import KernelLaunchError
-from .gemm import DTYPE_CODES, _as_dtype, to_out
+from .gemm import DTYPE_CODES, _as_dtype, fp8_widen, to_out
 
 __all__ = ["hand_matmul", "hand_matmul_plain", "hand_w4a16",
            "hand_w4a16_plain", "KERNEL_BLOCKS", "W4A16_TILES", "W4A16_BK",
@@ -91,13 +95,16 @@ def hand_matmul_plain(a, b, out_dtype=None) -> torch.Tensor:
 def _gemm_launch(a, b, M, N, K, blk, out):
     from ._build import load, stream_call
     a, b = _aligned(a), _aligned(b)
+    code_in = DTYPE_CODES[a.dtype]
+    if a.dtype == torch.float8_e4m3fn:   # the kernel reads float16
+        a, b = fp8_widen(a, b)
     c = torch.empty((M, N), dtype=out, device=a.device)
     fn = load("yardstick_gemm").tl_yardstick_gemm
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = stream_call(fn, a.device, a.data_ptr(), b.data_ptr(),
-                       c.data_ptr(), M, N, K, *blk, DTYPE_CODES[a.dtype],
+                       c.data_ptr(), M, N, K, *blk, code_in,
                        DTYPE_CODES[out])
     if code != 0:
         raise KernelLaunchError("yardstick_gemm", code)
