@@ -62,15 +62,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               1024^3 and 8192 x 8192 x 4096, in f32 and bf16 at 4096^3
               in every transpose, once with ReLU, fp8 e4m3 -> f32, f16
               and int8 -> int32 (accum_dtype int32) at 4096^3;
-              dequant_matmul and dequant_matmul_twopass (w4a16,
-              bf16, group size 512) at 4096^3 and dequant_matmul at a
+              dequant_matmul (w4a16) in bf16 and f16 at 4096^3 (group
+              size 512, with dequant_matmul_twopass in bf16) and at a
               LLaMA-2-7B MLP decode step (M 16, K 4096, N 11008, group
-              128); w4a8_matmul at 4096^3. Each call one launch of its
-              kernel (two-pass: one unpack, one matmul), read right
-              after: matmul's kernel is the one its stated rule
-              (ops/gemm.py::matmul_path) names, and every bf16, f16 and
-              fp8 shape takes the TMA path (fp8 with one fp8_widen, also
-              held bit-equal to its plain version and timed); its output
+              128), there in f32 too; w4a8_matmul at 4096^3. Each call
+              the launches its stated rule names, read right after:
+              matmul's kernel is the one ops/gemm.py::matmul_path names,
+              and every bf16, f16 and fp8 shape takes the TMA path (fp8
+              with one fp8_widen, also held bit-equal to its plain
+              version and timed); dequant_matmul's the kernel(s) of
+              ops/dequant_gemm.py::dequant_path (TMA + wgmma at 4096^3,
+              the split-K and its combine at the decode step, the tile
+              loop in f32); two-pass one unpack, one matmul; its output
               against the plain version on the card; kernel, plain and
               library times and the bound;
 10. seqmix  — the seventh main path: the sequence-mixing entry points at
@@ -100,17 +103,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               plain, library and matmul times and the bound.
 12. bitnet_gqa — the ninth main path: BitNet b1.58-2B-4T's FFN block and
               grouped-query attention (see BITNET): the BitFFN on a
-              4096-token prefill and a decode step (three bitnet_gemm
-              launches a call, equal to the module's reference mode on
+              4096-token prefill and a decode step (three launches a
+              call of the kernel ops/bitnet.py::bitnet_path names:
+              bitnet_gemm_wgmma at the prefill, bitnet_gemm_splitk at
+              the decode step; equal to the module's reference mode on
               the card, the forward's median time), quantize_act_int8 on
               the FFN's input and hidden activation (one launch each,
               the plain version's bytes, a zero row), gqa_attention at 20
               query over 5 KV heads, S 4096, causal, f32 and bf16 (one
               gqa_fwd launch without autograd; one partial, one dK/dV,
               one dQ with it; output and gradients against the plain
-              versions); then bitnet_gemm at the FFN's three products,
-              each kernel's time, its plain version's, a library call's
-              and the bound.
+              versions); then bitnet_gemm at the FFN's three products
+              and at the decode product on a misaligned copy of its
+              activations (the block tile loop, which the FFN's aligned
+              shapes no longer reach), each kernel's time, its plain
+              version's, a library call's and the bound.
 13. varlen  — the tenth main path: packed varlen attention at BitNet
               b1.58-2B-4T's attention widths (see VARLEN): a 16384-token
               pack of whole documents, causal, f32 and bf16 (one
@@ -1569,11 +1576,14 @@ def gemm_ops_phase(torch, gm, dqg):
     output against the plain version on the card, then the device times
     of the kernel, the plain version and a library yardstick, and the
     bound."""
+    import ctypes
+
     import numpy as np
+    from tilelang_mesh_tpu_torch.ops._build import load as _load_lib
+    from tilelang_mesh_tpu_torch.ops.gemm import DTYPE_CODES
     from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
-    counted = {"matmul": 0, "matmul_tma": 0, "matmul_ffma": 0,
-               "fp8_widen": 0, "dequant_gemm": 0, "dequant_int4": 0,
-               "w4a8_gemm": 0}
+    counted = {**dict.fromkeys(gm.launches, 0),
+               **dict.fromkeys(dqg.launches, 0)}
     res = {}
 
     def drive(label, call, want_launches):
@@ -1727,70 +1737,137 @@ def gemm_ops_phase(torch, gm, dqg):
         torch.cuda.empty_cache()
 
     # -- #22, #23, two-pass: w4a16 ---------------------------------------
-    for label, (M, K, N, gs), seed in (
-            ("4096_gs512", (4096, 4096, 4096, 512), 3),
+    # dequant_path's kernels a call: the TMA kernel at 4096^3, the split-K
+    # and its combine at the decode step, the block tile loop in f32
+    w4_launches = {"wgmma": {"dequant_gemm_wgmma": 1},
+                   "splitk": {"dequant_gemm_splitk": 1,
+                              "dequant_splitk_combine": 1},
+                   "loop": {"dequant_gemm": 1}}
+    for label, (M, K, N, gs), seed, dtypes in (
+            ("4096_gs512", (4096, 4096, 4096, 512), 3,
+             (torch.bfloat16, torch.float16)),
             ("decode_m16_k4096_n11008_gs128",
-             tuple(LLAMA2_MLP[k] for k in ("M", "K", "N", "gs")), 14)):
+             tuple(LLAMA2_MLP[k] for k in ("M", "K", "N", "gs")), 14,
+             (torch.bfloat16, torch.float16, torch.float32))):
         rng = np.random.default_rng(seed)      # as cfg_w4a16 draws them
         a_np = (rng.standard_normal((M, K)) * 0.1).astype(np.float32)
         w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
         packed_np, scales_np = quantize_int4_planar(w_np, group_size=gs)
         del w_np
-        a = torch.from_numpy(a_np).cuda().to(torch.bfloat16)
         packed = torch.from_numpy(packed_np).cuda()
         scales = torch.from_numpy(scales_np).cuda()
         K2 = K // 2
-        got = drive(f"dequant_matmul {label}", lambda: dqg.dequant_matmul(
-            a, packed, scales, group_size=gs, block_K2=gs),
-            {"dequant_gemm": 1})
-        want = dqg.dequant_matmul_plain(a, packed, scales, gs)
-        r = hold(f"dequant_matmul {label}", got, want,
-                 GEMM_OPS_TOL["bfloat16"])
-        del got, want
-        bd = dqg.dequant_int4_plain(packed, scales, gs, torch.bfloat16)
-        flops = 2 * M * N * K
-        nbytes = (M * K * 2 + K2 * N + scales.numel() * 4 + M * N * 2)
-        bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS)
-        res[f"dequant_gemm_{label}"] = {
-            "shape": [M, N, K], "group_size": gs, **r,
-            **timed(lambda: dqg.dequant_matmul(a, packed, scales,
-                                               group_size=gs, block_K2=gs),
+        for dt in dtypes:
+            a = torch.from_numpy(a_np).cuda().to(dt)
+            path = dqg.dequant_path(M, N, K2, gs, dt, a.data_ptr(),
+                                    packed.data_ptr(), scales.data_ptr())
+            want_path = ("loop" if dt == torch.float32 else
+                         "splitk" if M <= dqg.SPLITK_MAX_ROWS else "wgmma")
+            check(path == want_path, f"dequant_matmul {label} {dt}: path "
+                                     f"{path}, want {want_path}")
+            kname = {"wgmma": "dequant_gemm_wgmma",
+                     "splitk": "dequant_gemm_splitk",
+                     "loop": "dequant_gemm"}[path]
+            case = label + ("" if dt == torch.bfloat16 else
+                            "_" + str(dt)[6:])
+            got = drive(f"dequant_matmul {case}", lambda: dqg.dequant_matmul(
+                a, packed, scales, group_size=gs, block_K2=gs),
+                w4_launches[path])
+            want = dqg.dequant_matmul_plain(a, packed, scales, gs)
+            r = hold(f"dequant_matmul {case}", got, want,
+                     GEMM_OPS_TOL[str(dt)[6:]])
+            if path == "splitk":      # the combine's fixed order: two runs
+                again = dqg.dequant_matmul(a, packed, scales, group_size=gs,
+                                           block_K2=gs)
+                check(torch.equal(got.view(torch.uint8),
+                                  again.view(torch.uint8)),
+                      f"dequant_matmul {case}: two runs differ")
+                del again
+            del got, want
+            bd = dqg.dequant_int4_plain(packed, scales, gs, dt)
+            flops = 2 * M * N * K
+            esize = a.element_size()
+            nbytes = (M * K * esize + K2 * N + scales.numel() * 4
+                      + M * N * esize)
+            bound, by = mm_bound(flops, nbytes, PEAK_F32_FLOPS
+                                 if dt == torch.float32 else PEAK_BF16_FLOPS)
+            res[f"{kname}_{case}"] = {
+                "shape": [M, N, K], "group_size": gs, "dtype": str(dt)[6:],
+                "path": path, **r,
+                **timed(lambda: dqg.dequant_matmul(
+                    a, packed, scales, group_size=gs, block_K2=gs),
                     lambda: dqg.dequant_matmul_plain(a, packed, scales, gs),
                     lambda: torch.matmul(a, bd)),
-            "library": "torch.matmul on the dequantised bf16 weight "
-                       "(excludes the dequant)",
-            "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": nbytes}
-        if label.startswith("4096"):     # bench's w4a16: the two-pass path
-            two = drive(f"dequant_matmul_twopass {label}",
-                        lambda: dqg.dequant_matmul_twopass(a, packed,
-                                                           scales),
-                        {"dequant_int4": 1, "matmul_tma": 1})
-            r2 = hold(f"dequant_matmul_twopass {label}", two,
-                      gm.matmul_plain(a, bd), GEMM_OPS_TOL["bfloat16"])
-            del two
-            got = dqg.dequant_int4(packed, scales, gs, torch.bfloat16)
-            r3 = hold(f"dequant_int4 {label}", got, bd,
-                      GEMM_OPS_TOL["dequant_int4"])
-            check(torch.equal(got.view(torch.int16), bd.view(torch.int16)),
-                  "dequant_int4 is not bit-equal to its plain version")
-            del got
-            nb3 = K2 * N + scales.numel() * 4 + K * N * 2
-            b3, by3 = mm_bound(0, nb3, PEAK_BF16_FLOPS)
-            res[f"dequant_int4_{label}"] = {
-                "shape": [K2, N], "group_size": gs, **r3,
-                **timed(lambda: dqg.dequant_int4(packed, scales, gs,
-                                                 torch.bfloat16),
-                        lambda: dqg.dequant_int4_plain(packed, scales, gs,
-                                                       torch.bfloat16),
-                        None),
-                "bound_ms": b3, "bound_by": by3, "bytes": nb3}
-            res[f"twopass_{label}"] = {
-                **r2, **timed(lambda: dqg.dequant_matmul_twopass(
-                    a, packed, scales), lambda: gm.matmul_plain(
-                        a, dqg.dequant_int4_plain(packed, scales, gs,
-                                                  torch.bfloat16)), None)}
-        del a, packed, scales, bd
+                "library": f"torch.matmul on the dequantised {str(dt)[6:]} "
+                           f"weight (excludes the dequant)",
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": nbytes}
+            if path == "splitk":      # the combine alone, on the partials
+                _, splits, rows = dqg.dequant_splitk_plan(
+                    N, K2, torch.cuda.get_device_properties(
+                        0).multi_processor_count)
+                ws = torch.randn((splits, M, N), device="cuda")
+                lib = _load_lib("dequant_gemm")
+                comb = lib.tl_dequant_splitk_combine
+                comb.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+                    + [ctypes.c_void_p]
+                comb.restype = ctypes.c_int
+                c_out = torch.empty((M, N), dtype=dt, device="cuda")
+
+                def combine():
+                    code = comb(ws.data_ptr(), c_out.data_ptr(), M, N,
+                                splits, DTYPE_CODES[dt],
+                                torch.cuda.current_stream().cuda_stream)
+                    check(code == 0, f"tl_dequant_splitk_combine: {code}")
+                    return c_out
+
+                def combine_plain():
+                    return ws.sum(0).to(dt)
+
+                rc = hold(f"dequant_splitk_combine {case}", combine().clone(),
+                          combine_plain(), GEMM_OPS_TOL[str(dt)[6:]])
+                nb = ws.numel() * 4 + M * N * esize
+                cb, cby = mm_bound(0, nb, PEAK_BF16_FLOPS)
+                res[f"dequant_splitk_combine_{case}"] = {
+                    "shape": [splits, M, N], **rc,
+                    **timed(combine, combine_plain, None),
+                    "bound_ms": cb, "bound_by": cby, "bytes": nb}
+                del ws, c_out
+            if label.startswith("4096") and dt == torch.bfloat16:
+                # bench's w4a16: the two-pass path
+                two = drive(f"dequant_matmul_twopass {label}",
+                            lambda: dqg.dequant_matmul_twopass(a, packed,
+                                                               scales),
+                            {"dequant_int4": 1, "matmul_tma": 1})
+                r2 = hold(f"dequant_matmul_twopass {label}", two,
+                          gm.matmul_plain(a, bd), GEMM_OPS_TOL["bfloat16"])
+                del two
+                got = dqg.dequant_int4(packed, scales, gs, torch.bfloat16)
+                r3 = hold(f"dequant_int4 {label}", got, bd,
+                          GEMM_OPS_TOL["dequant_int4"])
+                check(torch.equal(got.view(torch.int16),
+                                  bd.view(torch.int16)),
+                      "dequant_int4 is not bit-equal to its plain version")
+                del got
+                nb3 = K2 * N + scales.numel() * 4 + K * N * 2
+                b3, by3 = mm_bound(0, nb3, PEAK_BF16_FLOPS)
+                res[f"dequant_int4_{label}"] = {
+                    "shape": [K2, N], "group_size": gs, **r3,
+                    **timed(lambda: dqg.dequant_int4(packed, scales, gs,
+                                                     torch.bfloat16),
+                            lambda: dqg.dequant_int4_plain(
+                                packed, scales, gs, torch.bfloat16),
+                            None),
+                    "bound_ms": b3, "bound_by": by3, "bytes": nb3}
+                res[f"twopass_{label}"] = {
+                    **r2, **timed(lambda: dqg.dequant_matmul_twopass(
+                        a, packed, scales), lambda: gm.matmul_plain(
+                            a, dqg.dequant_int4_plain(packed, scales, gs,
+                                                      torch.bfloat16)),
+                        None)}
+            del a, bd
+            torch.cuda.empty_cache()
+        del packed, scales
         torch.cuda.empty_cache()
 
     # -- #24 w4a8 ----------------------------------------------------------
@@ -1841,7 +1918,8 @@ MATMUL_PATH_KERNELS = {"tma": "matmul_tma", "ffma": "matmul_ffma",
 # the gemm phase's kernels: (name, source, replaced TPU kernel, headline
 # case); the kernel's other cases are nested under "variants". #15 is
 # three kernels of gemm.cu, one a path of matmul_path (int8 on the tile
-# loop's counter, gemm_s8.cu)
+# loop's counter, gemm_s8.cu); #22 three of dequant_gemm.cu and the
+# split-K's combine, by dequant_path
 GEMM_OPS_KERNELS = (
     ("matmul_tma", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
      "bf16_8192x8192x4096"),
@@ -1849,8 +1927,17 @@ GEMM_OPS_KERNELS = (
      "f32_4096_00"),
     ("matmul", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
      "f32_4096_01"),
-    ("dequant_gemm", "dequant_gemm.cu",
+    ("dequant_gemm_wgmma", "dequant_gemm.cu",
      "tilelang_mesh_tpu/ops/dequant_gemm.py:62", "4096_gs512"),
+    ("dequant_gemm_splitk", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:62",
+     "decode_m16_k4096_n11008_gs128"),
+    ("dequant_splitk_combine", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:62",
+     "decode_m16_k4096_n11008_gs128"),
+    ("dequant_gemm", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:62",
+     "decode_m16_k4096_n11008_gs128_float32"),
     ("dequant_int4", "dequant_gemm.cu",
      "tilelang_mesh_tpu/ops/dequant_gemm.py:127", "4096_gs512"),
     ("w4a8_gemm", "dequant_gemm.cu",
@@ -2383,14 +2470,16 @@ SEQMIX_LIBRARY = ("none: no single PyTorch call computes the SSD scan, "
 def bitnet_gqa_phase(torch, bn, qa, gq, gb):
     """BitNet b1.58-2B-4T's FFN block and grouped-query attention
     (BITNET): each main-path call with the counters zeroed before it and
-    read right after (the FFN three bitnet_gemm launches a call, prefill
-    and decode; quantize_act_int8 one; gqa_attention one gqa_fwd without
-    autograd, one gqa_fwd_partial, one dK/dV and one dQ with it); the FFN
-    equal to the same module's reference mode on the card (the plain
-    path: the exact product in float64, the same epilogue), its forward's
-    median time; each kernel against its plain version on the card at
-    the path's shapes, with kernel, plain and library times and the
-    bound."""
+    read right after (the FFN three launches a call of bitnet_path's
+    kernel, bitnet_gemm_wgmma at the prefill and bitnet_gemm_splitk at
+    decode; the tile loop bitnet_gemm once, on a misaligned copy of the
+    decode activations; quantize_act_int8 one; gqa_attention one gqa_fwd
+    without autograd, one gqa_fwd_partial, one dK/dV and one dQ with it);
+    the FFN equal to the same module's reference mode on the card (the
+    plain path: the exact product in float64, the same epilogue), its
+    forward's median time; each kernel against its plain version on the
+    card at the path's shapes, with kernel, plain and library times and
+    the bound."""
     import numpy as np
     import torch.nn.functional as F
     from tilelang_mesh_tpu_torch.models.bitnet import BitFFN
@@ -2437,8 +2526,10 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
         (1, c["seq"], hid), dtype=np.float32)).cuda()
     x1 = torch.from_numpy(rng.standard_normal(
         (1, 1, hid), dtype=np.float32)).cuda()
-    for label, xx in (("prefill", x), ("decode", x1)):
-        y = drive(f"BitFFN {label}", lambda: ffn(xx), {"bitnet_gemm": 3})
+    # bitnet_path's kernel: TMA + wgmma at the prefill, split-K at decode
+    for label, xx, kname in (("prefill", x, "bitnet_gemm_wgmma"),
+                             ("decode", x1, "bitnet_gemm_splitk")):
+        y = drive(f"BitFFN {label}", lambda: ffn(xx), {kname: 3})
         want = drive(f"BitFFN {label} reference", lambda: ffn(
             xx, reference=True), {}, main=False)
         check(tuple(y.shape) == tuple(xx.shape) and y.dtype == torch.float32
@@ -2465,15 +2556,27 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
     del g
     q_h, _ = bn.quantize_activations(h)
     q_dec, _ = bn.quantize_activations(x12)
-    for label, a, name in (("prefill_gate_up", q_in, "gate"),
-                           ("prefill_down", q_h, "down"),
-                           ("decode_gate_up", q_dec, "gate")):
+    # the decode activations 2 bytes past a 16-byte boundary: the block
+    # tile loop, which the FFN's aligned shapes no longer reach (a main
+    # path call, so that the loop's launches count)
+    q_odd = torch.empty(q_dec.numel() + 16, dtype=torch.int8,
+                        device="cuda")[2:2 + q_dec.numel()].view(q_dec.shape)
+    q_odd.copy_(q_dec)
+    for label, a, name, kname, main in (
+            ("prefill_gate_up", q_in, "gate", "bitnet_gemm_wgmma", False),
+            ("prefill_down", q_h, "down", "bitnet_gemm_wgmma", False),
+            ("decode_gate_up", q_dec, "gate", "bitnet_gemm_splitk", False),
+            ("decode_gate_up_unaligned", q_odd, "gate", "bitnet_gemm",
+             True)):
         packed = getattr(ffn, f"packed_{name}")
         w8 = getattr(ffn, f"ternary_{name}")
         M, K = a.shape
         N = packed.shape[1]
+        check(bn.PATH_KERNELS[bn.bitnet_path(
+            M, N, K, a.data_ptr(), packed.data_ptr())] == kname,
+            f"bitnet_gemm {label}: bitnet_path names another kernel")
         got = drive(f"bitnet_gemm {label}", lambda: bn.bitnet_gemm(
-            a, packed), {"bitnet_gemm": 1}, main=False)
+            a, packed), {kname: 1}, main=main)
         want = bn.bitnet_gemm_plain(a, packed)
         check(got.dtype == torch.int32 and torch.equal(got, want),
               f"bitnet_gemm {label} differs from its plain version")
@@ -2486,7 +2589,7 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
         check(torch.equal(torch._int_mm(a_lib, w_lib)[:M],
                           bn.bitnet_gemm_plain(a, packed)),
               f"the library yardstick disagrees at {label}")
-        res[f"bitnet_gemm_{label}"] = {
+        res[f"{kname}_{label}"] = {
             "shape": [M, N, K], "max_abs_err": 0, "tolerance": "equal",
             "ms": device_ms(torch, lambda: bn.bitnet_gemm(a, packed), 5),
             "plain_ms": device_ms(torch, lambda: bn.bitnet_gemm_plain(
@@ -2498,7 +2601,7 @@ def bitnet_gqa_phase(torch, bn, qa, gq, gb):
                                              f"_int_mm asks M > 16)"),
             **bound(2 * M * N * K, M * K + K // 4 * N + 4 * M * N,
                     PEAK_8BIT_OPS)}
-    del q_in, q_h, q_dec
+    del q_in, q_h, q_dec, q_odd
 
     # -- quantize_act_int8 on the FFN's input and hidden activation ------
     for label, t in (("ffn_input", x2), ("ffn_hidden", h)):
@@ -2647,8 +2750,12 @@ BITNET_GQA_KERNELS = (
      "tilelang_mesh_tpu/ops/gqa.py:63", "float32"),
     ("quantize_act_int8", "quantize_act.cu",
      "tilelang_mesh_tpu/quantize/quantization.py:72", "ffn_hidden"),
+    ("bitnet_gemm_wgmma", "bitnet_gemm.cu",
+     "tilelang_mesh_tpu/ops/bitnet.py:51", "prefill_gate_up"),
+    ("bitnet_gemm_splitk", "bitnet_gemm.cu",
+     "tilelang_mesh_tpu/ops/bitnet.py:51", "decode_gate_up"),
     ("bitnet_gemm", "bitnet_gemm.cu", "tilelang_mesh_tpu/ops/bitnet.py:51",
-     "prefill_gate_up"))
+     "decode_gate_up_unaligned"))
 
 
 def varlen_phase(torch, vl, fa, gq, gb):

@@ -105,7 +105,9 @@ def build(job):
 def sass(lib):
     """{function: its instruction lines} of ``cuobjdump -sass``; the
     anonymous namespace's name, which hashes the source's path, cut out
-    of the function names."""
+    of the function names, and each run of blanks made one (the dump pads
+    its columns to the library's longest instruction, so a kernel added
+    beside a function would change its every line)."""
     from tilelang_mesh_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -113,6 +115,7 @@ def sass(lib):
     funcs, cur = {}, None
     for ln in out.splitlines():
         ln = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "ANON", ln.strip())
+        ln = re.sub(r"\s+", " ", ln)
         if "Function :" in ln:
             cur = funcs.setdefault(ln.split("Function :")[1].strip(), [])
         elif cur is not None and re.search(r"/\*[0-9a-f]{4}\*/", ln):

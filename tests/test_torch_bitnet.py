@@ -41,10 +41,12 @@ def _operands(seed, M, N, K):
 
 
 # tests/test_bitnet.py:23's three shapes, then ragged M (100, 200) and N
-# (200); every K a multiple of the JAX kernel's 256-deep K tile
+# (200), and a 16-row step; every K a multiple of the JAX kernel's
+# 256-deep K tile
 @pytest.mark.parametrize("M,N,K", [(1, 128, 256), (64, 128, 256),
                                    (128, 256, 512), (100, 128, 512),
-                                   (200, 256, 512), (64, 200, 256)])
+                                   (200, 256, 512), (64, 200, 256),
+                                   (16, 256, 512)])
 def test_bitnet_gemm_matches_jax(M, N, K):
     a, w = _operands(1, M, N, K)
     packed = port.pack_ternary(w)
@@ -95,6 +97,68 @@ def test_bitnet_gemm_refusals():
                                                         dtype=torch.int8))
 
 
+# ---------------------------------------------------------------------------
+# the path rule and the split-K plan (host code; the kernels run on the card)
+# ---------------------------------------------------------------------------
+
+T = port.SPLITK_MAX_ROWS
+
+
+# (M, N, K, A's base, the packed base) -> the kernel: BitFFN b1.58-2B-4T's
+# decode and prefill products, the threshold and its neighbours, ragged N
+# and K, misaligned bases
+@pytest.mark.parametrize("M,N,K,a_ptr,p_ptr,path", [
+    (1, 6912, 2560, 0, 0, "splitk"),       # decode gate / up
+    (1, 2560, 6912, 0, 0, "splitk"),       # decode down
+    (4096, 6912, 2560, 0, 0, "wgmma"),     # prefill gate / up
+    (4096, 2560, 6912, 0, 0, "wgmma"),     # prefill down
+    (T - 1, 6912, 2560, 0, 0, "splitk"),
+    (T, 6912, 2560, 0, 0, "splitk"),
+    (T + 1, 6912, 2560, 0, 0, "wgmma"),
+    (16, 6912, 2560, 0, 0, "wgmma"),
+    (17, 6912, 2560, 0, 0, "wgmma"),
+    (1, 16, 4, 0, 0, "splitk"),            # one packed row
+    (1, 6912, 20, 0, 0, "splitk"),         # K off 16: split-K reads words
+    (128, 6912, 20, 0, 0, "loop"),         # ... TMA's strides need 16 B
+    (1, 150, 1000, 0, 0, "loop"),          # N off 16
+    (4096, 6920, 2560, 0, 0, "loop"),
+    (1, 6912, 2560, 4, 0, "splitk"),       # A on 4 bytes is enough
+    (1, 6912, 2560, 2, 0, "loop"),
+    (1, 6912, 2560, 0, 8, "loop"),
+    (4096, 6912, 2560, 4, 0, "loop"),
+    (4096, 6912, 2560, 0, 8, "loop"),
+    (0, 6912, 2560, 0, 0, "loop"),
+])
+def test_bitnet_path_rule(M, N, K, a_ptr, p_ptr, path):
+    assert port.bitnet_path(M, N, K, a_ptr, p_ptr) == path
+
+
+@pytest.mark.parametrize("N,K,sms,want", [
+    (6912, 2560, 132, (14, 10, 64)),       # decode gate / up: 140 blocks
+    (2560, 6912, 132, (5, 27, 64)),        # decode down: 135 blocks
+    (16, 4, 132, (1, 1, 64)),
+    (6912, 16384, 132, (14, 10, 448)),     # a long K: fewer, deeper blocks
+    (6912, 2564, 132, (14, 6, 128)),       # K/4 off the split
+    (6912, 2560, 1, (14, 1, 640)),
+])
+def test_bitnet_splitk_plan(N, K, sms, want):
+    assert port.bitnet_splitk_plan(N, K, sms) == want
+
+
+@pytest.mark.parametrize("N", [16, 512, 513, 2560, 6912, 6928])
+@pytest.mark.parametrize("K", [4, 256, 2560, 2564, 6912, 20000])
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_bitnet_splitk_plan_covers_k_once(N, K, sms):
+    """Every packed row in exactly one split, every column in one strip;
+    a block's rows a multiple of 64 (8 warps of 8-row loads)."""
+    strips, splits, rows = port.bitnet_splitk_plan(N, K, sms)
+    G = K // 4
+    assert rows % 64 == 0 and rows >= 64
+    assert (splits - 1) * rows < G <= splits * rows
+    assert (strips - 1) * 512 < N <= strips * 512
+    assert splits <= 65535
+
+
 @pytest.mark.parametrize("shape,w_scale", [((2, 8, 256), 3.0),
                                            ((5, 128), 0.7)])
 def test_bitnet_linear_matches_jax(shape, w_scale):
@@ -134,7 +198,7 @@ def test_bitffn_matches_jax(jax_ffn, reference):
                                       device="cpu")
     port.reset_launches()
     got = mine(torch.from_numpy(x), reference=reference)
-    assert port.launches["bitnet_gemm"] == 0    # CPU: the plain versions
+    assert not any(port.launches.values())      # CPU: the plain versions
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 

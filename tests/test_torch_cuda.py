@@ -998,6 +998,100 @@ def _w4_card(dev, K2, N, gs, seed):
 W4_CASES = [(77, 96, 150, 32), (1, 8, 3, 8), (130, 256, 128, 128),
             (16, 512, 300, 128), (3, 10, 5, 5)]
 
+# dequant_path's answer -> the launches of one fused w4a16 call
+W4_PATH_LAUNCHES = {
+    "splitk": {"dequant_gemm_splitk": 1, "dequant_splitk_combine": 1},
+    "wgmma": {"dequant_gemm_wgmma": 1}, "loop": {"dequant_gemm": 1}}
+
+
+def _w4_launches(a, packed, scales, gs):
+    """The launches dequant_path promises for this call."""
+    path = dqg.dequant_path(a.shape[0], packed.shape[1], packed.shape[0], gs,
+                            a.dtype, a.data_ptr(), packed.data_ptr(),
+                            scales.data_ptr())
+    return W4_PATH_LAUNCHES[path]
+
+
+def _moved(before, after, want):
+    """Each counter moved by want's count (0 where want names none)."""
+    assert {k: after[k] - before[k] for k in after} == {
+        k: want.get(k, 0) for k in after}
+
+
+def _offset(t, nbytes):
+    """A contiguous copy of t whose base lies nbytes past a 16-byte
+    boundary."""
+    e = t.element_size()
+    flat = torch.empty(t.numel() + 16 // e, dtype=t.dtype, device=t.device)
+    out = flat[nbytes // e:nbytes // e + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the fused w4a16's two new paths and the loop beside them, in bf16, f16
+# and f32: the split-K up to SPLITK_MAX_ROWS (16) rows, the TMA kernel
+# past it (and its wide tile past WGMMA_WIDE_ROWS); ragged N (a strip or
+# tile partly past N), K/2 off a block's rows, groups of 8 and 64, and a
+# misaligned base (the loop)
+W4_PATH_CASES = [
+    # (M, K/2, N, group size, A's base offset in bytes)
+    (1, 2048, 4096, 128, 0), (2, 2048, 4096, 128, 0),
+    (15, 2048, 4096, 128, 0), (16, 2048, 4096, 128, 0),
+    (17, 2048, 4096, 128, 0), (128, 2048, 4096, 128, 0),
+    (1, 1000, 4112, 8, 0), (16, 1000, 272, 8, 0), (9, 64, 4096, 64, 0),
+    (17, 512, 4112, 64, 0), (1100, 512, 272, 64, 0),
+    (4096, 2048, 4096, 512, 0), (16, 2048, 4096, 128, 2),
+    (4096, 512, 512, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("M,K2,N,gs,off", W4_PATH_CASES)
+def test_dequant_paths_match_plain(cuda, dtype, M, K2, N, gs, off):
+    """Each path within the type's bound of the plain version, with its
+    own launches; on one-hot rows of A each picks B's rows bit for bit
+    (the same float32 multiply and rounding as dequant_int4_plain); two
+    runs give the same bits (the split-K's combine adds in a fixed
+    order)."""
+    packed, scales = _w4_card(cuda, K2, N, gs, 31)
+    a = _offset(_randn(cuda, (M, 2 * K2), dtype, 32) * 0.1, off)
+    want_launches = _w4_launches(a, packed, scales, gs)
+    path = next(k for k, v in W4_PATH_LAUNCHES.items()
+                if v == want_launches)
+    assert (path == "loop") == (dtype == torch.float32 or off != 0)
+    before = dict(dqg.launches)
+    got = dqg.dequant_matmul(a, packed, scales, group_size=gs, block_K2=gs)
+    torch.cuda.synchronize()
+    _moved(before, dqg.launches, want_launches)
+    _close(got, dqg.dequant_matmul_plain(a, packed, scales, gs))
+    again = dqg.dequant_matmul(a, packed, scales, group_size=gs, block_K2=gs)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    rows = torch.arange(M, device=cuda) * 37 % (2 * K2)
+    onehot = torch.zeros((M, 2 * K2), dtype=dtype, device=cuda)
+    onehot[torch.arange(M, device=cuda), rows] = 1
+    onehot = _offset(onehot, off)
+    bd = dqg.dequant_int4_plain(packed, scales, gs, dtype)
+    pick = dqg.dequant_matmul(onehot, packed, scales, group_size=gs,
+                              block_K2=gs)
+    assert torch.equal(pick.view(torch.uint8), bd[rows].view(torch.uint8))
+
+
+def test_dequant_wgmma_tiles_agree(cuda):
+    """Both TMA tiles on one product: within the bf16 bound of each other
+    and of the plain version (M past WGMMA_WIDE_ROWS takes the wide one)."""
+    step = dqg.WGMMA_WIDE_ROWS
+    M, K2, N, gs = step + 128, 1024, 1024, 128
+    packed, scales = _w4_card(cuda, K2, N, gs, 33)
+    a = _randn(cuda, (M, 2 * K2), torch.bfloat16, 34) * 0.1
+    want = dqg.dequant_matmul_plain(a, packed, scales, gs)
+    wide = dqg.dequant_matmul(a, packed, scales, group_size=gs, block_K2=gs)
+    narrow = torch.cat([dqg.dequant_matmul(
+        a[i:i + step], packed, scales, group_size=gs, block_K2=gs)
+        for i in range(0, M, step)])
+    torch.cuda.synchronize()
+    _close(wide, want)
+    _close(narrow, want)
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K2,N,gs", W4_CASES)
@@ -1009,7 +1103,7 @@ def test_dequant_kernels_match_plain(cuda, dtype, M, K2, N, gs):
     before = dict(dqg.launches)
     got = dqg.dequant_matmul(a, packed, scales, group_size=gs, block_K2=gs)
     torch.cuda.synchronize()
-    assert dqg.launches["dequant_gemm"] == before["dequant_gemm"] + 1
+    _moved(before, dqg.launches, _w4_launches(a, packed, scales, gs))
     _close(got, dqg.dequant_matmul_plain(a, packed, scales, gs))
 
     bd = dqg.dequant_int4(packed, scales, gs, dtype)
@@ -1062,8 +1156,13 @@ def _gemm_calls(dev):
     x = torch.zeros((4, 8), device=dev)
     p = torch.zeros((4, 3), dtype=torch.uint8, device=dev)
     s = torch.ones((2, 3), device=dev)
+    x16 = torch.zeros((32, 128), dtype=torch.bfloat16, device=dev)
+    p16 = torch.zeros((64, 16), dtype=torch.uint8, device=dev)
+    s16 = torch.ones((2, 16), device=dev)
     return [lambda: gm.matmul(x, x.T.contiguous()),
             lambda: dqg.dequant_matmul(x, p, s),
+            lambda: dqg.dequant_matmul(x16[:1], p16, s16),     # split-K
+            lambda: dqg.dequant_matmul(x16, p16, s16),         # TMA
             lambda: dqg.dequant_int4(p, s, 4, torch.float32),
             lambda: dqg.dequant_matmul_twopass(x, p, s),
             lambda: dqg.w4a8_matmul(x, p, torch.ones(3, device=dev))]
@@ -1314,6 +1413,51 @@ def test_seqmix_kernels_name_the_chunks_they_take(cuda, op):
 # ---------------------------------------------------------------------------
 
 
+def _bitnet_launches(a, packed):
+    """The launch bitnet_path promises for this call."""
+    path = bitnet.bitnet_path(a.shape[0], packed.shape[1], a.shape[1],
+                              a.data_ptr(), packed.data_ptr())
+    return {bitnet.PATH_KERNELS[path]: 1}
+
+
+# the int8 x ternary GEMM's paths: the split-K up to SPLITK_MAX_ROWS (8)
+# rows and its neighbours, the TMA kernel past it, BitNet b1.58-2B-4T's
+# widths, ragged N and K (K off 16 takes the split-K but not TMA; a strip
+# or tile partly past N), misaligned bases (the loop)
+BITNET_PATH_CASES = [
+    # (M, N, K, A's base offset in bytes)
+    (1, 6912, 2560, 0), (2, 6912, 2560, 0), (7, 6912, 2560, 0),
+    (8, 6912, 2560, 0), (9, 6912, 2560, 0), (15, 2560, 6912, 0),
+    (16, 2560, 6912, 0), (17, 2560, 6912, 0), (128, 6912, 2560, 0),
+    (4096, 6912, 2560, 0), (4096, 2560, 6912, 0), (1, 4112, 1000, 0),
+    (3, 272, 20, 0), (300, 4112, 1008, 0), (33, 272, 2576, 0),
+    (1, 6912, 2560, 2), (8, 6912, 2560, 4), (128, 6912, 2560, 4)]
+
+
+@pytest.mark.parametrize("M,N,K,off", BITNET_PATH_CASES)
+def test_bitnet_paths_match_plain(cuda, M, N, K, off):
+    """Each path equal to the plain version (exact int32 sums), with its
+    own launch; two runs equal."""
+    rng = np.random.default_rng(M + N + K)
+    a = _offset(torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(
+        np.int8)).to(cuda), off)
+    w = rng.integers(-1, 2, (K, N)).astype(np.int8)
+    packed = torch.from_numpy(bitnet.pack_ternary(w)).to(cuda)
+    want = _bitnet_launches(a, packed)
+    name = next(iter(want))
+    if off % 4:
+        assert name == "bitnet_gemm"
+    elif off or N % 16:
+        assert name != "bitnet_gemm_wgmma"
+    before = dict(bitnet.launches)
+    got = bitnet.bitnet_gemm(a, packed)
+    torch.cuda.synchronize()
+    _moved(before, bitnet.launches, want)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, bitnet.bitnet_gemm_plain(a, packed))
+    assert torch.equal(got, bitnet.bitnet_gemm(a, packed))
+
+
 @pytest.mark.parametrize("M,N,K", [(77, 150, 1000), (1, 130, 256),
                                    (1, 3, 4), (200, 257, 644),
                                    (128, 128, 64), (5, 7, 20),
@@ -1326,10 +1470,10 @@ def test_bitnet_gemm_matches_plain(cuda, M, N, K):
         np.int8)).to(cuda)
     w = rng.integers(-1, 2, (K, N)).astype(np.int8)
     packed = torch.from_numpy(bitnet.pack_ternary(w)).to(cuda)
-    before = bitnet.launches["bitnet_gemm"]
+    before = dict(bitnet.launches)
     got = bitnet.bitnet_gemm(a, packed)
     torch.cuda.synchronize()
-    assert bitnet.launches["bitnet_gemm"] == before + 1
+    _moved(before, bitnet.launches, _bitnet_launches(a, packed))
     assert got.dtype == torch.int32 and got.shape == (M, N)
     assert torch.equal(got, bitnet.bitnet_gemm_plain(a, packed))
     assert torch.equal(got.cpu(), bitnet.bitnet_gemm_plain(
@@ -1362,10 +1506,14 @@ def test_bitffn_on_card_matches_reference_on_card(cuda):
     the same module on the CPU."""
     ffn = bitnet_model.BitFFN(256, 512, seed=3, device=cuda)
     x = _randn(cuda, (2, 33, 256), torch.float32, 22)
-    before = bitnet.launches["bitnet_gemm"]
+    before = dict(bitnet.launches)
     y = ffn(x)
     torch.cuda.synchronize()
-    assert bitnet.launches["bitnet_gemm"] == before + 3
+    _moved(before, bitnet.launches, {"bitnet_gemm_wgmma": 3})   # 66 rows
+    before = dict(bitnet.launches)
+    ffn(x[:1, :1])
+    torch.cuda.synchronize()
+    _moved(before, bitnet.launches, {"bitnet_gemm_splitk": 3})  # a token
     assert torch.equal(y, ffn(x, reference=True))
     cpu = bitnet_model.BitFFN(256, 512, seed=3, device="cpu")
     assert _normwise(y, cpu(x.cpu()).to(cuda)) <= 1e-6
@@ -1374,10 +1522,14 @@ def test_bitffn_on_card_matches_reference_on_card(cuda):
 def _bitnet_calls(dev):
     a = torch.zeros((4, 8), dtype=torch.int8, device=dev)
     p = torch.zeros((2, 3), dtype=torch.int8, device=dev)
+    p16 = torch.zeros((4, 16), dtype=torch.int8, device=dev)
+    a64 = torch.zeros((64, 16), dtype=torch.int8, device=dev)
     x = torch.zeros((4, 8), device=dev)
     q = torch.zeros((1, 4, 8, 16), device=dev)
     kv = torch.zeros((1, 2, 8, 16), device=dev)
     return [(bitnet.launches, lambda: bitnet.bitnet_gemm(a, p)),
+            (bitnet.launches, lambda: bitnet.bitnet_gemm(a64[:1], p16)),
+            (bitnet.launches, lambda: bitnet.bitnet_gemm(a64, p16)),
             (qa.launches, lambda: qa.quantize_act_int8(x)),
             (gqa.launches, lambda: gqa.gqa_fwd(q, kv, kv, True, 0.25)),
             (gqa.launches, lambda: gqa.gqa_fwd_partial(q, kv, kv, True,

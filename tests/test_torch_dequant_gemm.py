@@ -190,6 +190,106 @@ def test_dequant_matmul_matches_jax(dtype):
     assert port.launches == before          # CPU tensors launch nothing
 
 
+# decode rows: one token, and the 16 of the split-K kernel's two n8 tiles
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 16])
+def test_dequant_matmul_decode_rows_match_jax(M, dtype):
+    N, K, gs = 128, 512, 128
+    x, tx = _activations(25, M, K, dtype)
+    packed, scales = _w4(26, K, N, gs)
+    want = np.asarray(ref.dequant_matmul(x, jnp.asarray(packed),
+                                         jnp.asarray(scales), group_size=gs,
+                                         block_K2=gs), np.float32)
+    got = port.dequant_matmul(tx, torch.from_numpy(packed),
+                              torch.from_numpy(scales), group_size=gs,
+                              block_K2=gs)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (M, N)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-1)
+
+
+# ---------------------------------------------------------------------------
+# the path rule, the TMA tile and the split-K plan (host code)
+# ---------------------------------------------------------------------------
+
+_T = port.SPLITK_MAX_ROWS
+_BF, _F16, _F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+# (M, N, K2, gs, type, A's base) -> the kernel: bench's decode step and
+# 4096^3, the threshold and its neighbours, group sizes below, at and
+# above the TMA kernel's 64-row stage and the split-K's 8-row step, ragged
+# N, misaligned bases, float32
+@pytest.mark.parametrize("M,N,K2,gs,dtype,a_ptr,path", [
+    (16, 11008, 2048, 128, _BF, 0, "splitk"),     # bench's decode step
+    (16, 11008, 2048, 128, _F16, 0, "splitk"),
+    (16, 11008, 2048, 128, _F32, 0, "loop"),
+    (1, 11008, 2048, 128, _BF, 0, "splitk"),
+    (4096, 4096, 2048, 512, _BF, 0, "wgmma"),     # bench's w4a16
+    (4096, 4096, 2048, 512, _F16, 0, "wgmma"),
+    (4096, 4096, 2048, 512, _F32, 0, "loop"),
+    (_T - 1, 11008, 2048, 128, _BF, 0, "splitk"),
+    (_T, 11008, 2048, 128, _BF, 0, "splitk"),
+    (_T + 1, 11008, 2048, 128, _BF, 0, "wgmma"),
+    (17, 11008, 2048, 128, _BF, 0, "wgmma"),
+    (4096, 4096, 2048, 32, _BF, 0, "loop"),       # gs under the stage
+    (4096, 4096, 2048, 64, _BF, 0, "wgmma"),      # gs the stage
+    (4096, 4096, 2048, 128, _BF, 0, "wgmma"),     # gs above it
+    (16, 11008, 2048, 4, _BF, 0, "loop"),         # gs under the k-step
+    (16, 11008, 2048, 8, _BF, 0, "splitk"),
+    (16, 300, 2048, 128, _BF, 0, "loop"),         # N off 16
+    (4096, 4104, 2048, 512, _BF, 0, "loop"),
+    (16, 11008, 2048, 128, _BF, 8, "loop"),       # A off 16 bytes
+    (4096, 4096, 2048, 512, _BF, 2, "loop"),
+    (0, 11008, 2048, 128, _BF, 0, "loop"),
+])
+def test_dequant_path_rule(M, N, K2, gs, dtype, a_ptr, path):
+    assert port.dequant_path(M, N, K2, gs, dtype, a_ptr) == path
+    assert port.dequant_path(M, N, K2, gs, str(dtype)[6:], a_ptr) == path
+
+
+@pytest.mark.parametrize("ptrs", [(0, 4, 0), (0, 0, 4), (0, 8, 8)])
+def test_dequant_path_rule_wants_16_byte_bases(ptrs):
+    for M in (1, 4096):
+        assert port.dequant_path(M, 4096, 2048, 512, _BF, *ptrs) == "loop"
+
+
+@pytest.mark.parametrize("M,tile", [
+    (17, (128, 128, 64)), (128, (128, 128, 64)),
+    (port.WGMMA_WIDE_ROWS, (128, 128, 64)),
+    (port.WGMMA_WIDE_ROWS + 1, (256, 128, 32)), (4096, (256, 128, 32))])
+def test_dequant_wgmma_tile(M, tile):
+    """A tile's stage lies in one group for every gs the rule admits (a
+    multiple of 64)."""
+    assert port.dequant_wgmma_tile(M) == tile
+    assert 64 % tile[2] == 0
+
+
+@pytest.mark.parametrize("N,K2,sms,want", [
+    (11008, 2048, 132, (86, 3, 704)),    # bench's decode: 258 blocks
+    (4096, 2048, 132, (32, 8, 256)),
+    (11008, 1000, 132, (86, 3, 384)),    # K/2 off the split
+    (11008, 8192, 132, (86, 11, 768)),   # capped: A's pairs in 48 KB
+    (16, 8, 132, (1, 1, 64)),
+    (11008, 2048, 1, (86, 3, 768)),      # one SM: the cap
+])
+def test_dequant_splitk_plan(N, K2, sms, want):
+    assert port.dequant_splitk_plan(N, K2, sms) == want
+
+
+@pytest.mark.parametrize("N", [16, 128, 144, 4096, 11008])
+@pytest.mark.parametrize("K2", [8, 64, 1000, 2048, 5504, 8192])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dequant_splitk_plan_covers_k_once(N, K2, sms):
+    """Every packed row in one split (the combine adds splits 0, 1, ... in
+    order), every column in one strip; a block's rows a multiple of 64 (8
+    warps of 8-row steps), at most 768."""
+    strips, splits, rows = port.dequant_splitk_plan(N, K2, sms)
+    assert rows % 64 == 0 and 64 <= rows <= 768
+    assert (splits - 1) * rows < K2 <= splits * rows
+    assert (strips - 1) * 128 < N <= strips * 128
+
+
 def test_dequant_gemm_kernel_factory_matches_jax():
     M, N, K, gs = 64, 96, 256, 64
     x, tx = _activations(20, M, K, "float32")

@@ -7,14 +7,13 @@
 // with g = k2 / gs. One packed tile therefore feeds two products, the
 // low half of A's columns with the low nibbles and the high half with
 // the high ones.
-//   dequant_gemm_kernel (:62) -> tl_dequant_gemm (w4a16, fused)
+//   dequant_gemm_kernel (:62) -> tl_dequant_gemm, tl_dequant_gemm_splitk
+//     + tl_dequant_splitk_combine, tl_dequant_gemm_wgmma (w4a16, fused)
 //     C (M, N) = A (M, K) @ B, A float32, bfloat16 or float16, C in A's
-//     type. The
-//     k-tile of the block tile loop is BK/2 packed rows: its A tile is
-//     the two (128 x BK/2) windows at k0 and K/2 + k0, its B tile the
-//     low and the high nibbles of one packed (BK/2 x 128) tile, each
-//     ((b & 0xF) - 8) * s in float32 and rounded to A's type before the
-//     product, as the TPU kernel's B_lo / B_hi fragments of A's type are.
+//     type. Each B element is ((b & 0xF) - 8) * s in float32, rounded to
+//     A's type before the product, as the TPU kernel's B_lo / B_hi
+//     fragments of A's type are; float32 sums. ops/dequant_gemm.py::
+//     dequant_path picks the kernel by the shape, type and alignment.
 //   dequant_int4_kernel (:127) -> tl_dequant_int4
 //     Bd (K, N) in float32, bfloat16 or float16: rows [0, K/2) the low
 //     nibbles, [K/2, K) the high, with the same float32 multiply and
@@ -28,12 +27,56 @@
 // above the card's balance point: operations bound them, 0.139 ms in
 // bf16 and 0.069 ms in int8 (989 / 1979 T a second). At the decode shape
 // (M 16, K 4096, N 11008) w4a16 moves 24.4 MB of weights and scales for
-// 1.4 GFLOP: bytes bound it (7.3 us); a 128-row block tile leaves 112 of
-// its rows idle there and one block a column panel walks the whole of K,
-// which is correct but far from the bound (split-K is later work). The
-// unpack is bytes: K/2 N in, 2 K/2 N out and the scales.
+// 1.4 GFLOP: bytes bound it (7.3 us). The unpack is bytes: K/2 N in,
+// 2 K/2 N out and the scales.
+//
+// w4a16 at up to 16 rows (tl_dequant_gemm_splitk, bf16 / f16): the
+// weights are read once. A block owns 128 columns and rows_per_block
+// packed rows (the host's plan, ops/dequant_gemm.py::dequant_splitk_plan:
+// about two blocks an SM, as many as are resident at once); each warp
+// takes a contiguous eighth of them in 8-row k-steps, copied by cp.async
+// three steps ahead into its own ring in shared memory. The weights are
+// the A operand of mma.sync m16n8k16 and A's rows its B operand, so one
+// n8 tile covers up to 8 rows of A and two up to 16. The 16 k slots are
+// any 16 k of the tile so long as both operands agree, and so are the
+// 16 m slots: lane (q, g) = (lane % 4, lane / 4) holds 16 columns (16
+// bytes) of packed rows r + q and r + 4 + q; m slots g and g + 8 of tile
+// t are its columns 2t and 2t + 1, k slots 2q, 2q + 1, 2q + 8, 2q + 9
+// the low and high nibbles of its two rows. The nibbles unpack in
+// registers (a byte permute places a nibble under 0x4B000000, which is
+// 2^23 + nibble as a float; one subtract gives nibble - 8 exactly), times
+// the group's scales (32 registers, loaded again when the group changes),
+// rounded in pairs. A's matching pairs (A[m, r], A[m, K/2 + r]) sit in
+// shared memory as 32-bit words, bank-swizzled. The warps' sums meet in a
+// fixed tree in shared memory; each block writes its float32 partial (M
+// x 128) and tl_dequant_splitk_combine adds the splits in split order
+// and rounds: no floating-point atomics, so two runs give the same bits.
+// The unpack's instructions, not the bytes, set its pace (PERF.md).
+//
+// w4a16 at more rows (tl_dequant_gemm_wgmma, bf16 / f16, gs a multiple
+// of 64): lowbit_sm90.cuh's TMA + wgmma pipeline at a 128 x 128 tile
+// with 64 packed rows a stage, or 256 x 128 with 32 for many rows (the
+// host's ops/dequant_gemm.py::dequant_wgmma_tile). An A k-tile is two
+// TMA boxes of one map, at k0 and K/2 + k0 (the 128- or 64-byte swizzle
+// of their width); the packed rows arrive raw. The consumers unpack them
+// into two B tiles (the low and the high nibbles) MN-major, rows of 64
+// columns with the 128-byte swizzle, which bf16 / f16 wgmma reads
+// through its transpose bit; a thread unpacks 8 columns of a row at a
+// time, its 16 scales loaded once a group (a stage's rows lie in one
+// group). wgmma m64n128k16 on the low tiles, then the high ones. The
+// epilogue stages the float32 sums in shared memory and stores 8
+// elements a thread. The unpack runs once a TM-row tile, M / TM times in
+// all, which with the A tiles' L2 traffic holds it behind the two-pass
+// path at 4096^3 (PERF.md).
+//
+// The rest (tl_dequant_gemm: float32, misaligned operands, N off 16
+// bytes, groups the new paths do not take): the block tile loop of
+// gemm_tile.cuh, its k-tile BK/2 packed rows: the A tile the two (128 x
+// BK/2) windows at k0 and K/2 + k0, the B tile the low and the high
+// nibbles of one packed (BK/2 x 128) tile unpacked into shared memory.
 
 #include "gemm_tile.cuh"
+#include "lowbit_sm90.cuh"
 
 namespace {
 
@@ -300,6 +343,450 @@ dequant_int4(const uint8_t* __restrict__ packed,
   }
 }
 
+// ---------------------------------------------------------------------------
+// w4a16 at up to 16 rows: split K, the weights streamed once
+// ---------------------------------------------------------------------------
+
+constexpr int kSkCols = 128;                  // a block: 8 lane groups x 16
+constexpr int kSkStages = 4;                  // a warp's ring of k-steps
+// a block's dynamic shared memory at rpb packed rows
+constexpr int sk_smem_bytes(int rpb) {
+  return rpb * 64 + 8 * kSkStages * 1024;
+}
+
+// the pair of 16-bit T as one word, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo,
+                                                         float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The nibbles of a packed word x (bytes: four columns) as floats: lo
+// and hi hold each byte's low and high nibble in place; nib(v, j) is
+// nibble j of v minus 8, exactly (0x4B0000nn is 2^23 + nn as a float).
+struct Nibbles {
+  uint32_t lo, hi;
+  __device__ __forceinline__ explicit Nibbles(uint32_t x)
+      : lo(x & 0x0F0F0F0Fu), hi((x >> 4) & 0x0F0F0F0Fu) {}
+};
+__device__ __forceinline__ float nib(uint32_t v, int j) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 | j)) -
+         8388616.0f;
+}
+
+// A's pair word of row r (of the block), row m (< 16), bank-swizzled so
+// that lanes (q, g) reading rows r0 + q (or r0 + 4 + q) and rows g or
+// g + 8 hit 32 banks
+__device__ __forceinline__ int pair_at(int r, int m) {
+  return r * 16 + (m ^ (((r >> 1) & 1) << 3));
+}
+
+// grid (ceil(N / 128), splits); ws (splits, M, N) float32 partials. The
+// weights are the mma's A operand (16 columns x 16 k), A's rows its B
+// operand: NT n8 tiles cover the M <= 8 NT rows. Dynamic shared memory:
+// A's pairs (rpb x 16 words), then each warp's ring of kSkStages slots of
+// 1 KB (a lane's 2 x 16 bytes of a k-step), later the warps' partials.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+dequant_gemm_splitk(const T* __restrict__ a,
+                    const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scales, float* __restrict__ ws,
+                    int M, int N, int K2, int gs, int rpb) {
+  extern __shared__ __align__(16) char sk_smem[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(sk_smem);
+  char* rings = sk_smem + rpb * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane % 4, g = lane / 4;
+  const int col0 = blockIdx.x * kSkCols, n = col0 + 16 * g;
+  const int r0 = blockIdx.y * rpb;
+  const int rows = min(rpb, K2 - r0);            // a multiple of 8
+  // warp w: the k-steps (8 packed rows each) [s0, s1) of the block's
+  // rows, copied by cp.async kSkStages - 1 steps ahead into the warp's
+  // ring (a lane reads back only its own bytes: no barrier); every lane
+  // runs the mma loop, and a lane whose 16 columns lie past N reads zeros
+  const int per = rpb / 64;
+  const int s0 = warp * per, s1 = min(s0 + per, rows / 8);
+  const bool live = n < N;
+  const uint8_t* pq = packed + (long long)(r0 + q) * N + n;
+  char* mine = rings + warp * kSkStages * 1024 + lane * 32;
+  auto fetch = [&](int st) {
+    const bool ok = live && st < s1;
+    char* dst = mine + (st - s0) % kSkStages * 1024;
+    tl_gemm::cp_async16(dst, ok ? pq + 8LL * st * N : packed, ok);
+    tl_gemm::cp_async16(dst + 16, ok ? pq + (8LL * st + 4) * N : packed, ok);
+    tl_gemm::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kSkStages - 1; ++i) fetch(s0 + i);
+  // A's pairs (A[m, r0 + r], A[m, K2 + r0 + r]) of rows m < 8 NT (0 past M)
+  const long long K = 2LL * K2;
+  for (int i = threadIdx.x; i < rows / 8 * 8 * NT; i += kThreads) {
+    const int m = i % (8 * NT), r = (i / (8 * NT)) * 8;
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if (m < M) {
+      lo = __ldg(reinterpret_cast<const uint4*>(a + m * K + r0 + r));
+      hi = __ldg(reinterpret_cast<const uint4*>(a + m * K + K2 + r0 + r));
+    }
+    const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t h[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      as[pair_at(r + e, m)] = __byte_perm(l[e / 2], h[e / 2],
+                                          e % 2 ? 0x7632 : 0x5410);
+  }
+  __syncthreads();
+
+  // acc[t][nt]: columns 16 g + 2 t (c0, c1) and 16 g + 2 t + 1 (c2, c3)
+  // of A's rows 8 nt + 2 q, + 1
+  float acc[8][NT][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+  const int G2 = K2 / gs;
+  int grp = -1;
+  float sl[16], sh[16];
+  for (int st = s0; st < s1; ++st) {
+    const int r = 8 * st;
+    if ((r0 + r) / gs != grp) {
+      grp = (r0 + r) / gs;
+      const float4* lo4 = reinterpret_cast<const float4*>(
+          scales + (long long)grp * N + n);
+      const float4* hi4 = reinterpret_cast<const float4*>(
+          scales + (long long)(G2 + grp) * N + n);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 x = live ? __ldg(lo4 + v) : z;
+        const float4 y = live ? __ldg(hi4 + v) : z;
+        sl[4 * v] = x.x, sl[4 * v + 1] = x.y, sl[4 * v + 2] = x.z,
+        sl[4 * v + 3] = x.w;
+        sh[4 * v] = y.x, sh[4 * v + 1] = y.y, sh[4 * v + 2] = y.z,
+        sh[4 * v + 3] = y.w;
+      }
+    }
+    unsigned bf[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bf[nt][0] = as[pair_at(r + q, 8 * nt + g)];
+      bf[nt][1] = as[pair_at(r + 4 + q, 8 * nt + g)];
+    }
+    tl_gemm::cp_async_wait<kSkStages - 2>();    // this step's bytes
+    const char* got = mine + (st - s0) % kSkStages * 1024;
+    const uint4 v0 = *reinterpret_cast<const uint4*>(got);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(got + 16);
+    fetch(st + kSkStages - 1);    // into the slot read one step ago
+    const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
+    const uint32_t w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const Nibbles x0(w0[v]), x1(w1[v]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {          // tile t = 2 v + u
+        const int t = 2 * v + u, j0 = 2 * u, j1 = 2 * u + 1;
+        // slot g: column 16 g + 2 t (byte j0), slot g + 8: 2 t + 1
+        const unsigned af[4] = {
+            pack2<T>(nib(x0.lo, j0) * sl[2 * t], nib(x0.hi, j0) * sh[2 * t]),
+            pack2<T>(nib(x0.lo, j1) * sl[2 * t + 1],
+                     nib(x0.hi, j1) * sh[2 * t + 1]),
+            pack2<T>(nib(x1.lo, j0) * sl[2 * t], nib(x1.hi, j0) * sh[2 * t]),
+            pack2<T>(nib(x1.lo, j1) * sl[2 * t + 1],
+                     nib(x1.hi, j1) * sh[2 * t + 1])};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          bf16::mma<T>(acc[t][nt], af, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+
+  // the warps' sums in a fixed tree: (w, w + 4), (w, w + 2), (0, 1), in
+  // the rings' space
+  constexpr int kVals = 8 * NT * 4;
+  tl_gemm::cp_async_wait<0>();
+  float* red = reinterpret_cast<float*>(rings);
+  float* flat = &acc[0][0][0];
+  auto put = [&](int slot) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i)
+      red[(slot * kVals + i) * 32 + lane] = flat[i];
+  };
+  auto add = [&](int slot) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i)
+      flat[i] += red[(slot * kVals + i) * 32 + lane];
+  };
+  __syncthreads();
+  if (warp >= 4) put(warp - 4);
+  __syncthreads();
+  if (warp < 4) add(warp);
+  __syncthreads();
+  if (warp == 2 || warp == 3) put(warp - 2);
+  __syncthreads();
+  if (warp < 2) add(warp);
+  __syncthreads();
+  if (warp == 1) put(0);
+  __syncthreads();
+  if (warp != 0) return;
+  add(0);
+  if (!live) return;
+  // lane (q, g): A's rows 8 nt + 2 q + e, columns 16 g .. 16 g + 15
+  float* out = ws + (long long)blockIdx.y * M * N + n;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * nt + 2 * q + e;
+      if (m >= M) continue;
+      float4* o = reinterpret_cast<float4*>(out + (long long)m * N);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        o[v] = make_float4(acc[2 * v][nt][e], acc[2 * v][nt][2 + e],
+                           acc[2 * v + 1][nt][e], acc[2 * v + 1][nt][2 + e]);
+    }
+}
+
+template <typename T, int NT>
+int launch_splitk_nt(const T* a, const uint8_t* packed, const float* scales,
+                     float* ws, int M, int N, int K2, int gs, int rpb,
+                     int splits, cudaStream_t s) {
+  const int bytes = sk_smem_bytes(rpb);
+  const auto kern = dequant_gemm_splitk<T, NT>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<dim3((N + kSkCols - 1) / kSkCols, splits), kThreads, bytes, s>>>(
+      a, packed, scales, ws, M, N, K2, gs, rpb);
+  return (int)cudaGetLastError();
+}
+
+// NT n8 tiles of A's rows: one up to 8 rows, two up to 16
+template <typename T>
+int launch_splitk(const T* a, const uint8_t* packed, const float* scales,
+                  float* ws, int M, int N, int K2, int gs, int rpb,
+                  int splits, cudaStream_t s) {
+  if (M <= 8)
+    return launch_splitk_nt<T, 1>(a, packed, scales, ws, M, N, K2, gs, rpb,
+                                  splits, s);
+  return launch_splitk_nt<T, 2>(a, packed, scales, ws, M, N, K2, gs, rpb,
+                                splits, s);
+}
+
+// C (M, N) = the sum of ws's splits, split 0 first, rounded to T; four
+// elements a thread (N a multiple of 16)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequant_splitk_combine(const float* __restrict__ ws, T* __restrict__ c,
+                       long long quads, int splits) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= quads) return;
+  const float4* w = reinterpret_cast<const float4*>(ws);
+  float4 s = w[i];
+  for (int k = 1; k < splits; ++k) {
+    const float4 x = w[k * quads + i];
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  *reinterpret_cast<uint2*>(c + 4 * i) =
+      make_uint2(pack2<T>(s.x, s.y), pack2<T>(s.z, s.w));
+}
+
+// ---------------------------------------------------------------------------
+// w4a16 at more rows: TMA + wgmma with the unpack in the kernel
+// ---------------------------------------------------------------------------
+
+// TM x TN block tile, TK2 packed rows a stage (A boxes of TK2 elements:
+// the 128-byte swizzle at 64, the 64-byte one at 32); each consumer owns
+// TM / 2 rows, MI = TM / 128 m64 slices
+template <typename T, int TM, int TN, int TK2>
+struct W4Tma {
+  static constexpr int kTM = TM, kTN = TN, kTK2 = TK2;
+  static constexpr int MI = TM / 128;
+  static constexpr int kAh = TM * TK2 * 2;     // one half's A box
+  static constexpr int kRaw = 2 * kAh + TK2 * TN;
+  static constexpr int kBh = TK2 * TN * 2;     // one half's B tile
+  static constexpr int kCvt = 2 * kBh;
+  static constexpr int kLdC = TN + 8;          // staged C row, floats
+  static constexpr int kEpi = TM * kLdC * 4;
+  static constexpr int kC8 = TN / 8;           // 8-column groups
+  static constexpr int kRowStep = 256 / kC8;   // rows a pass of threads
+  static_assert(TK2 % kRowStep == 0, "a stage's rows split unevenly");
+  CUtensorMap ma, mp;
+  const float* scales;
+  T* c;
+  int M, N, K2, gs;
+
+  __device__ __forceinline__ int k_tiles() const { return K2 / TK2; }
+
+  __device__ __forceinline__ void issue(char* st, uint64_t* bar, int kt,
+                                        int m0, int n0) const {
+    tl_sm90::tma_load(st, &ma, bar, kt * TK2, m0);
+    tl_sm90::tma_load(st + kAh, &ma, bar, K2 + kt * TK2, m0);
+    tl_sm90::tma_load(st + 2 * kAh, &mp, bar, n0, kt * TK2);
+  }
+
+  struct Acc {
+    float d[MI][TN / 2];
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int i = 0; i < TN / 2; ++i) d[mi][i] = 0.f;
+    }
+    __device__ __forceinline__ void fence() {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) tl_sm90::fence_regs(d[mi]);
+    }
+  };
+
+  // thread t: columns 8 c8 .. 8 c8 + 7 (c8 = t % kC8), packed rows t /
+  // kC8 + kRowStep i; the 16 scales of its columns, loaded when the group
+  // changes
+  struct Conv {
+    const float* lo;
+    const float* hi;
+    int c8, r0, N, tiles_a_group, g;
+    bool live;
+    float sl[8], sh[8];
+    __device__ __forceinline__ Conv(const W4Tma& p, int n0, int t)
+        : c8(t % kC8), r0(t / kC8), N(p.N), tiles_a_group(p.gs / TK2),
+          g(-1) {
+      const int n = n0 + 8 * c8;
+      live = n < p.N;
+      lo = p.scales + n;
+      hi = p.scales + (long long)(p.K2 / p.gs) * p.N + n;
+    }
+    __device__ __forceinline__ void operator()(const char* st, char* cvt,
+                                               int kt) {
+      if (kt / tiles_a_group != g) {
+        g = kt / tiles_a_group;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 x = live ? __ldg(reinterpret_cast<const float4*>(
+                                      lo + (long long)g * N) + v) : z;
+          const float4 y = live ? __ldg(reinterpret_cast<const float4*>(
+                                      hi + (long long)g * N) + v) : z;
+          sl[4 * v] = x.x, sl[4 * v + 1] = x.y, sl[4 * v + 2] = x.z,
+          sl[4 * v + 3] = x.w;
+          sh[4 * v] = y.x, sh[4 * v + 1] = y.y, sh[4 * v + 2] = y.z,
+          sh[4 * v + 3] = y.w;
+        }
+      }
+      const char* pk = st + 2 * kAh;
+#pragma unroll
+      for (int i = 0; i < TK2 / kRowStep; ++i) {
+        const int r = r0 + kRowStep * i;
+        const uint2 w = *reinterpret_cast<const uint2*>(pk + r * TN +
+                                                        8 * c8);
+        const Nibbles x[2] = {Nibbles(w.x), Nibbles(w.y)};
+        uint32_t l[4], h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Nibbles& v = x[e / 2];
+          const int j = 2 * (e % 2);
+          l[e] = pack2<T>(nib(v.lo, j) * sl[2 * e],
+                          nib(v.lo, j + 1) * sl[2 * e + 1]);
+          h[e] = pack2<T>(nib(v.hi, j) * sh[2 * e],
+                          nib(v.hi, j + 1) * sh[2 * e + 1]);
+        }
+        // MN-major: 64-column slices of TK2 rows of 128 bytes, swizzled
+        const int at = (c8 >> 3) * (TK2 * 128) + r * 128 +
+                       (((c8 & 7) ^ (r & 7)) << 4);
+        *reinterpret_cast<uint4*>(cvt + at) = make_uint4(l[0], l[1], l[2],
+                                                         l[3]);
+        *reinterpret_cast<uint4*>(cvt + kBh + at) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+      }
+    }
+  };
+
+  __device__ __forceinline__ static void mma(Acc& acc, unsigned sa,
+                                             unsigned ca, int cw) {
+#pragma unroll
+    for (int kk = 0; kk < TK2 / 16; ++kk) {
+      const uint64_t bl = tl_sm90::mnmajor<TK2>(ca, 0, kk * 16);
+      const uint64_t bh = tl_sm90::mnmajor<TK2>(ca + kBh, 0, kk * 16);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = cw * (TM / 2) + mi * 64;
+        tl_sm90::wgmma16<T, TN, 0, 1>(
+            acc.d[mi], tl_sm90::kmajor<T, TK2>(sa, r, kk * 32), bl);
+        tl_sm90::wgmma16<T, TN, 0, 1>(
+            acc.d[mi], tl_sm90::kmajor<T, TK2>(sa + kAh, r, kk * 32), bh);
+      }
+    }
+  }
+
+  // the accumulator staged as float32 rows, then each consumer's TM / 2
+  // rows stored 8 elements (16 bytes) a thread (N a multiple of 16)
+  __device__ __forceinline__ void epilogue(Acc& acc, char* buf, int m0,
+                                           int n0, int cw) const {
+    float* cs = reinterpret_cast<float*>(buf);
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int row0 = cw * (TM / 2);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + mi * 64 + 16 * w + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(cs + r * kLdC + 8 * j +
+                                     2 * (lane % 4)) =
+              make_float2(acc.d[mi][4 * j + 2 * h],
+                          acc.d[mi][4 * j + 2 * h + 1]);
+        }
+    tl_sm90::named_sync(2 + cw, 128);
+    for (int i = t; i < (TM / 2) * kC8; i += 128) {
+      const int r = row0 + i / kC8, n = 8 * (i % kC8);
+      if (m0 + r >= M || n0 + n >= N) continue;
+      const float4 x = *reinterpret_cast<const float4*>(cs + r * kLdC + n);
+      const float4 y =
+          *reinterpret_cast<const float4*>(cs + r * kLdC + n + 4);
+      *reinterpret_cast<uint4*>(c + (long long)(m0 + r) * N + n0 + n) =
+          make_uint4(pack2<T>(x.x, x.y), pack2<T>(x.z, x.w),
+                     pack2<T>(y.x, y.y), pack2<T>(y.z, y.w));
+    }
+  }
+};
+
+template <typename T, int TM, int TN, int TK2>
+int launch_w4_tma(const void* a, const void* packed, const float* scales,
+                  void* c, int M, int N, int K2, int gs, int type,
+                  cudaStream_t s) {
+  using P = W4Tma<T, TM, TN, TK2>;
+  P p;
+  const bool ok =
+      tl_sm90::make_map(&p.ma, a, type, M, 2LL * K2, 2LL * K2, TK2, TM) &&
+      tl_lowbit::make_map_bytes(&p.mp, packed, K2, N, N, TN, TK2, false);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  p.scales = scales;
+  p.c = static_cast<T*>(c);
+  p.M = M;
+  p.N = N;
+  p.K2 = K2;
+  p.gs = gs;
+  return tl_lowbit::launch_cvt(p, s);
+}
+
+// the w4a16 TMA tiles (TM, TN, TK2) tl_dequant_gemm_wgmma takes
+// (ops/dequant_gemm.py::dequant_wgmma_tile chooses by M)
+#define TL_W4_TILES(X) \
+  X(128, 128, 64)      \
+  X(256, 128, 32)
+
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -386,4 +873,68 @@ extern "C" int tl_w4a8_gemm(const void* a, const void* packed,
       static_cast<const int8_t*>(a), static_cast<const uint8_t*>(packed), sw,
       sa, c, M, N, K2, vec_a, vec_p);
   return (int)cudaGetLastError();
+}
+
+// w4a16 at up to 16 rows: a (M, 2 K2), packed (K2, N), scales (2 K2 /
+// gs, N), all 16-byte aligned, N a multiple of 16, gs of 8, type kBF16
+// or kF16 -> ws (splits, M, N) float32 partials; grid (ceil(N / 128),
+// splits), rows_per_block packed rows a block (a multiple of 64, at most
+// 768; ops/dequant_gemm.py::dequant_splitk_plan)
+extern "C" int tl_dequant_gemm_splitk(const void* a, const void* packed,
+                                      const float* scales, float* ws, int M,
+                                      int N, int K2, int gs,
+                                      int rows_per_block, int splits,
+                                      int type, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const uint8_t*>(packed);
+  if (type == kBF16)
+    return launch_splitk(static_cast<const __nv_bfloat16*>(a), p, scales, ws,
+                         M, N, K2, gs, rows_per_block, splits, s);
+  if (type == kF16)
+    return launch_splitk(static_cast<const __half*>(a), p, scales, ws, M, N,
+                         K2, gs, rows_per_block, splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// c (M, N) of the type code `type` (kBF16 or kF16) = the sum of ws
+// (splits, M, N) float32 over its splits in order (N a multiple of 16)
+extern "C" int tl_dequant_splitk_combine(const float* ws, void* c, int M,
+                                         int N, int splits, int type,
+                                         void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long quads = (long long)M * N / 4;
+  const unsigned blocks = (unsigned)((quads + kThreads - 1) / kThreads);
+  if (type == kBF16)
+    dequant_splitk_combine<<<blocks, kThreads, 0, s>>>(
+        ws, static_cast<__nv_bfloat16*>(c), quads, splits);
+  else if (type == kF16)
+    dequant_splitk_combine<<<blocks, kThreads, 0, s>>>(
+        ws, static_cast<__half*>(c), quads, splits);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// w4a16 at more rows at the tile (tm, tn, tk2) of TL_W4_TILES: a (M, 2
+// K2), packed (K2, N), scales, c, all 16-byte aligned, N a multiple of
+// 16, gs a multiple of tk2, type kBF16 or kF16 -> c (M, N) in a's type.
+// cudaErrorInvalidValue for another tile or type, or when a tensor map is
+// refused.
+extern "C" int tl_dequant_gemm_wgmma(const void* a, const void* packed,
+                                     const float* scales, void* c, int M,
+                                     int N, int K2, int gs, int type, int tm,
+                                     int tn, int tk2, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define TL_W4_CASE(m, n, k)                                                \
+  if (tm == m && tn == n && tk2 == k) {                                    \
+    if (type == kBF16)                                                     \
+      return launch_w4_tma<__nv_bfloat16, m, n, k>(a, packed, scales, c, M, \
+                                                   N, K2, gs, type, s);    \
+    if (type == kF16)                                                      \
+      return launch_w4_tma<__half, m, n, k>(a, packed, scales, c, M, N, K2, \
+                                            gs, type, s);                  \
+  }
+  TL_W4_TILES(TL_W4_CASE)
+#undef TL_W4_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -526,8 +526,11 @@ int launch_tma(const void* a, const void* b, void* c, int M, int N, int K,
 }
 
 // launch_tma at the block (bm, bn, bk) of TL_SM90_BLOCKS for the DType
-// `type` (kBF16 or kF16); cudaErrorInvalidValue for another
-inline int dispatch_tma(const void* a, const void* b, void* c, int M, int N,
+// `type` (kBF16 or kF16); cudaErrorInvalidValue for another. A template,
+// so that a source including this header for its primitives alone
+// (lowbit_sm90.cuh's users) compiles none of the instances.
+template <int = 0>
+int dispatch_tma(const void* a, const void* b, void* c, int M, int N,
                         int K, long long lda, long long ldb, int type,
                         int a_mn, int b_mn, int out, int relu, int bm,
                         int bn, int bk, cudaStream_t s) {

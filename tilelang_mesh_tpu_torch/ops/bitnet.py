@@ -6,11 +6,16 @@ activations per-token absmax int8 (``quantize_activations``: plain torch,
 as it is plain ``jnp`` in the JAX package), and the GEMM runs int8 x
 ternary -> exact int32, dequantised by ``activation_scale * w_scale``.
 
-One CUDA kernel (``csrc/bitnet_gemm.cu``) replaces the TPU's:
+Three CUDA kernels (``csrc/bitnet_gemm.cu``) replace the TPU's:
 
 * ``bitnet_gemm`` — ``bitnet_gemm_kernel``: ``A (M, K) int8 x Wp (K/4, N)
   int8 -> C (M, N) int32``, the exact product with the weights unpacked
-  in the kernel, for any M, N and K a multiple of 4.
+  in the kernel, for any M, N and K a multiple of 4. ``bitnet_path``
+  picks the kernel: a split-K stream of the weights for up to
+  ``SPLITK_MAX_ROWS`` rows (``bitnet_gemm_splitk``, planned by
+  ``bitnet_splitk_plan``), TMA + ``wgmma`` for more
+  (``bitnet_gemm_wgmma``), and the block tile loop (``bitnet_gemm``) for
+  operands neither takes.
 
 ``bitnet_linear`` is the entry point (quantise, ``bitnet_gemm``, then
 ``acc / (scale * w_scale)``, the JAX order); ``bitnet_linear_reference``
@@ -23,6 +28,7 @@ on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,11 +38,20 @@ from .gemm import check_grid, matmul_plain
 
 __all__ = ["quantize_activations", "pack_ternary", "unpack_ternary",
            "bitnet_gemm", "bitnet_gemm_plain", "bitnet_gemm_kernel",
-           "bitnet_linear", "bitnet_linear_reference", "launches",
+           "bitnet_linear", "bitnet_linear_reference", "bitnet_path",
+           "bitnet_splitk_plan", "SPLITK_MAX_ROWS", "launches",
            "reset_launches"]
 
-# kernel name -> launches through its wrapper
-launches = {"bitnet_gemm": 0}
+# kernel name -> launches through its wrapper: one a path of bitnet_path
+# (the block tile loop keeps the kernel's first name)
+launches = {"bitnet_gemm": 0, "bitnet_gemm_splitk": 0,
+            "bitnet_gemm_wgmma": 0}
+PATH_KERNELS = {"loop": "bitnet_gemm", "splitk": "bitnet_gemm_splitk",
+                "wgmma": "bitnet_gemm_wgmma"}
+
+# A rows up to which bitnet_path takes the split-K kernel (PERF.md, PR 19:
+# at BitFFN's gate/up width the TMA kernel is faster from 10 rows on)
+SPLITK_MAX_ROWS = 8
 
 
 def reset_launches() -> None:
@@ -125,6 +140,49 @@ def _check_gemm(a, packed) -> None:
         raise ValueError(f"bitnet_gemm: unsupported device {a.device}")
 
 
+def bitnet_path(M: int, N: int, K: int, a_ptr: int = 0,
+                packed_ptr: int = 0) -> str:
+    """Which kernel of ``bitnet_gemm.cu`` computes the product on the card
+    (A (M, K) at ``a_ptr``, the packed (K/4, N) at ``packed_ptr``):
+
+    * ``"splitk"`` (``tl_bitnet_gemm_splitk``): M up to
+      ``SPLITK_MAX_ROWS``, N a multiple of 16, the packed rows on 16
+      bytes and A on 4;
+    * ``"wgmma"`` (``tl_bitnet_gemm_wgmma``): more rows, K and N multiples
+      of 16 and both bases on 16 bytes (TMA's strides and addresses);
+    * ``"loop"`` (``tl_bitnet_gemm``): everything else."""
+    if min(M, N, K) < 1:
+        return "loop"
+    packed_ok = N % 16 == 0 and packed_ptr % 16 == 0
+    if M <= SPLITK_MAX_ROWS:
+        return "splitk" if packed_ok and a_ptr % 4 == 0 else "loop"
+    return "wgmma" if packed_ok and K % 16 == 0 and a_ptr % 16 == 0 \
+        else "loop"
+
+
+def bitnet_splitk_plan(N: int, K: int, sms: int):
+    """The split-K kernel's grid: ``(strips, splits, rows_per_block)``. A
+    block owns 512 columns (``strips = ceil(N / 512)``) and
+    ``rows_per_block`` packed rows of K (a multiple of 64: 8 warps of 8),
+    as few as fill the card's ``sms`` SMs with about one block each:
+    ``rows_per_block = max(64, ceil(K/4 / ceil(sms / strips)) rounded up
+    to 64)``, ``splits = ceil(K/4 / rows_per_block)``."""
+    G = K // 4
+    strips = _cdiv(N, 512)
+    rows = max(64, _cdiv(_cdiv(G, _cdiv(sms, strips)), 64) * 64)
+    return strips, _cdiv(G, rows), rows
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    """The card's SM count (the split-K plans' parallelism)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch(a, packed):
     from ._build import load, stream_call
     M, K = a.shape
@@ -134,16 +192,28 @@ def _launch(a, packed):
         return c
     if K == 0:
         return c.zero_()
-    check_grid(M, N, "bitnet_gemm")
-    fn = load("bitnet_gemm").tl_bitnet_gemm
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    path = bitnet_path(M, N, K, a.data_ptr(), packed.data_ptr())
+    lib = load("bitnet_gemm")
+    ptrs = (a.data_ptr(), packed.data_ptr(), c.data_ptr())
+    if path == "splitk":
+        _, splits, rows = bitnet_splitk_plan(N, K, _sms(a.device))
+        fn = lib.tl_bitnet_gemm_splitk
+        args = (*ptrs, M, N, K, rows, splits)
+    elif path == "wgmma":
+        fn = lib.tl_bitnet_gemm_wgmma
+        args = (*ptrs, M, N, K)
+    else:
+        check_grid(M, N, "bitnet_gemm")
+        fn = lib.tl_bitnet_gemm
+        args = (*ptrs, M, N, K)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (len(args) - 3) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = stream_call(fn, a.device, a.data_ptr(), packed.data_ptr(),
-                       c.data_ptr(), M, N, K)
+    name = PATH_KERNELS[path]
+    code = stream_call(fn, a.device, *args)
     if code != 0:
-        raise KernelLaunchError("bitnet_gemm", code)
-    launches["bitnet_gemm"] += 1
+        raise KernelLaunchError(name, code)
+    launches[name] += 1
     return c
 
 

@@ -4,14 +4,19 @@ Counterpart of ``tilelang_mesh_tpu/ops/dequant_gemm.py``, with its weight
 layout: int4 weights in the *planar +8-bias* pack, ``packed[k2, n] =
 (q[K/2 + k2] + 8) << 4 | (q[k2] + 8)``, so the low nibbles are B's rows
 [0, K/2) and the high nibbles rows [K/2, K); group scales ``(2 G2, N)``
-float32, the low half's G2 rows first. Three CUDA kernels
-(``csrc/dequant_gemm.cu``, on the block tile loop of
-``csrc/gemm_tile.cuh``) replace the TPU's:
+float32, the low half's G2 rows first. CUDA kernels of
+``csrc/dequant_gemm.cu`` replace the TPU's three:
 
 * ``dequant_matmul`` — ``dequant_gemm_kernel``, fused w4a16: ``a (M,
   K)`` float32, bfloat16 or float16 times B unpacked in the kernel, each weight
   ``(nibble - 8) * scale`` in float32 rounded to a's type, float32
-  accumulation, returned in a's type.
+  accumulation, returned in a's type. ``dequant_path`` picks the kernel:
+  for bfloat16 / float16 a split-K stream of the weights up to
+  ``SPLITK_MAX_ROWS`` rows (``dequant_gemm_splitk``, planned by
+  ``dequant_splitk_plan``, then ``dequant_splitk_combine`` adds the
+  splits in order), TMA + ``wgmma`` with the unpack in the kernel for
+  more (``dequant_gemm_wgmma``); float32 and operands neither takes run
+  the block tile loop of ``csrc/gemm_tile.cuh`` (``dequant_gemm``).
 * ``dequant_int4`` — ``dequant_int4_kernel``: the unpacked ``B (K, N)``
   in float32, bfloat16 or float16, the same values. ``dequant_matmul_twopass``
   runs it, then ``ops/gemm.py``'s ``matmul``.
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from ..resilience.errors import KernelLaunchError
-from .bitnet import quantize_activations
+from .bitnet import _cdiv, _sms, quantize_activations
 from .gemm import DTYPE_CODES, _as_dtype, check_grid, matmul
 from ._factory import bind
 
@@ -53,13 +58,28 @@ __all__ = ["dequant_matmul", "dequant_matmul_plain", "dequant_gemm_kernel",
            "w4a8_matmul", "w4a8_gemm", "w4a8_gemm_plain",
            "quantize_w4_per_channel", "pack_planar", "unpack_planar",
            "pack_reference", "repack_from_reference", "launches",
-           "reset_launches", "dequant_int4_kernel", "w4a8_gemm_kernel"]
+           "reset_launches", "dequant_int4_kernel", "w4a8_gemm_kernel",
+           "dequant_path", "dequant_splitk_plan", "dequant_wgmma_tile",
+           "SPLITK_MAX_ROWS", "WGMMA_WIDE_ROWS"]
 
 _A_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
-# reads these around each call to prove the path used the kernels)
-launches = {"dequant_gemm": 0, "dequant_int4": 0, "w4a8_gemm": 0}
+# reads these around each call to prove the path used the kernels); the
+# fused w4a16's block tile loop keeps the kernel's first name
+launches = {"dequant_gemm": 0, "dequant_gemm_splitk": 0,
+            "dequant_splitk_combine": 0, "dequant_gemm_wgmma": 0,
+            "dequant_int4": 0, "w4a8_gemm": 0}
+
+# A rows up to which dequant_path takes the split-K kernel: two n8 tiles
+# of mma.sync (PERF.md, PR 19: timed against the TMA kernel)
+SPLITK_MAX_ROWS = 16
+# A rows up to which the TMA kernel takes its 128-row tile (PERF.md, PR
+# 19: the 256-row tile is ahead from 1024 rows on, behind at 512)
+WGMMA_WIDE_ROWS = 512
+# packed rows a split-K block at most: A's pairs take 64 bytes a row of
+# shared memory (48 KB), beside the warps' 48 KB of weight rings
+_SPLITK_MAX_BLOCK_ROWS = 768
 
 
 def reset_launches() -> None:
@@ -172,8 +192,66 @@ def dequant_matmul_plain(a, packed, scales, group_size: int) -> torch.Tensor:
     return torch.matmul(a.float(), bd.float()).to(a.dtype)
 
 
+def dequant_path(M: int, N: int, K2: int, gs: int, dtype, a_ptr: int = 0,
+                 packed_ptr: int = 0, scales_ptr: int = 0) -> str:
+    """Which kernel of ``dequant_gemm.cu`` computes the fused w4a16 on
+    the card (a (M, 2 K2) of ``dtype`` at ``a_ptr``, packed (K2, N) at
+    ``packed_ptr``, scales at ``scales_ptr``, group size ``gs``):
+
+    * ``"splitk"`` (``tl_dequant_gemm_splitk``, then
+      ``tl_dequant_splitk_combine``): bfloat16 or float16, M up to
+      ``SPLITK_MAX_ROWS``, gs a multiple of 8;
+    * ``"wgmma"`` (``tl_dequant_gemm_wgmma``): bfloat16 or float16, more
+      rows, gs a multiple of 64 (a 64-row k tile lies in one group);
+    * both need N a multiple of 16 and the three bases on 16 bytes;
+    * ``"loop"`` (``tl_dequant_gemm``): everything else, float32
+      included."""
+    dtype = _as_dtype(dtype)
+    if dtype not in (torch.bfloat16, torch.float16) \
+            or min(M, N, K2, gs) < 1 or N % 16 \
+            or (a_ptr | packed_ptr | scales_ptr) % 16:
+        return "loop"
+    if M <= SPLITK_MAX_ROWS:
+        return "splitk" if gs % 8 == 0 else "loop"
+    return "wgmma" if gs % 64 == 0 else "loop"
+
+
+def dequant_wgmma_tile(M: int):
+    """The TMA kernel's tile ``(TM, TN, TK2)``: 128 x 128 with 64 packed
+    rows a stage up to ``WGMMA_WIDE_ROWS`` rows (more blocks in flight),
+    256 x 128 with 32 past it (the unpack and the A traffic of a tile
+    spread over twice the rows; PERF.md, PR 19)."""
+    return (128, 128, 64) if M <= WGMMA_WIDE_ROWS else (256, 128, 32)
+
+
+def dequant_splitk_plan(N: int, K2: int, sms: int):
+    """The split-K kernel's grid: ``(strips, splits, rows_per_block)``. A
+    block owns 128 columns (``strips = ceil(N / 128)``) and
+    ``rows_per_block`` packed rows (a multiple of 64: 8 warps of 8-row
+    steps; at most 768, A's pairs in 48 KB), about two blocks an SM in
+    all: ``rows_per_block = ceil(K2 / max(1, 2 sms // strips))`` rounded
+    up to 64 and clamped to [64, 768], ``splits = ceil(K2 /
+    rows_per_block)``. The combine adds the splits in split order."""
+    strips = _cdiv(N, 128)
+    rows = _cdiv(K2, max(1, 2 * sms // strips))
+    rows = min(_SPLITK_MAX_BLOCK_ROWS, max(64, _cdiv(rows, 64) * 64))
+    return strips, _cdiv(K2, rows), rows
+
+
+def _call(fn, name, dev, ptrs, ints):
+    """``fn(*ptrs, *ints, stream)``; raises KernelLaunchError(name) on a
+    refusal."""
+    from ._build import stream_call
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(
+        ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = stream_call(fn, dev, *ptrs, *ints)
+    if code != 0:
+        raise KernelLaunchError(name, code)
+
+
 def _dequant_gemm_launch(a, packed, scales, gs):
-    from ._build import load, stream_call
+    from ._build import load
     M, K = a.shape
     K2, N = packed.shape
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
@@ -181,16 +259,31 @@ def _dequant_gemm_launch(a, packed, scales, gs):
         return c
     if K2 == 0:
         return c.zero_()
+    lib = load("dequant_gemm")
+    code = DTYPE_CODES[a.dtype]
+    path = dequant_path(M, N, K2, gs, a.dtype, a.data_ptr(),
+                        packed.data_ptr(), scales.data_ptr())
+    if path == "splitk":
+        _, splits, rows = dequant_splitk_plan(N, K2, _sms(a.device))
+        ws = torch.empty((splits, M, N), dtype=torch.float32,
+                         device=a.device)
+        _call(lib.tl_dequant_gemm_splitk, "dequant_gemm_splitk", a.device,
+              (a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+               ws.data_ptr()), (M, N, K2, gs, rows, splits, code))
+        launches["dequant_gemm_splitk"] += 1
+        _call(lib.tl_dequant_splitk_combine, "dequant_splitk_combine",
+              a.device, (ws.data_ptr(), c.data_ptr()), (M, N, splits, code))
+        launches["dequant_splitk_combine"] += 1
+        return c
+    ptrs = (a.data_ptr(), packed.data_ptr(), scales.data_ptr(), c.data_ptr())
+    if path == "wgmma":
+        _call(lib.tl_dequant_gemm_wgmma, "dequant_gemm_wgmma", a.device,
+              ptrs, (M, N, K2, gs, code, *dequant_wgmma_tile(M)))
+        launches["dequant_gemm_wgmma"] += 1
+        return c
     check_grid(M, N, "dequant_matmul")
-    fn = load("dequant_gemm").tl_dequant_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = stream_call(fn, a.device, a.data_ptr(), packed.data_ptr(),
-                       scales.data_ptr(), c.data_ptr(), M, N, K2, gs,
-                       DTYPE_CODES[a.dtype])
-    if code != 0:
-        raise KernelLaunchError("dequant_gemm", code)
+    _call(lib.tl_dequant_gemm, "dequant_gemm", a.device, ptrs,
+          (M, N, K2, gs, code))
     launches["dequant_gemm"] += 1
     return c
 
