@@ -92,7 +92,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. gemm_variants — the eighth main path: the GEMM scheduling variants at
               LLaMA-2-7B's MLP and head widths (see LLAMA2): split-K at a
               16-token decode step's gate/up (bf16 and f32) and down
-              products, stream-K at a 512-token prefill chunk's gate/up
+              products (the few-row path splitk_stream and its combine,
+              two calls bit-equal) and past its rows at a 128-token
+              chunk's gate/up (the tile loop splitk_gemm and
+              splitk_reduce), stream-K at a 512-token prefill chunk's gate/up
               with one program a block the card holds at once, GEMV at a
               single token's gate/up (bf16, f32) and LM head, block-sparse
               at a 4096-token prefill's gate/up under a random half-dense
@@ -133,10 +136,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               the documents' visible pairs.
 14. attention_family — the eleventh main path: attention with sinks at
               gpt-oss-20b's attention widths (see GPT_OSS: 64 query over 8
-              KV heads of 64, S 4096, f32 and bf16): attention_sink at
-              full causal and at the 128-token window (one attention_sink
-              launch each; the windowed time printed beside the full one
-              and gated under a fifth of it), and its training step
+              KV heads of 64, S 4096, f32, bf16 and f16; f32 on CUDA
+              cores, bf16 and f16 on the tensor-core kernel at its tile):
+              attention_sink at full causal and at the 128-token window
+              (one attention_sink launch each; the windowed time printed
+              beside the full one and gated under a fifth of it; two
+              calls bit-equal; the key tiles a block visits counted at
+              each type's tile), and (f32, bf16) its training step
               (backward="kernel": one GQA partial, one dK/dV, one dQ; the
               output and dQ, dK, dV, dSinks against the plain versions
               and against autograd through the dense reference);
@@ -205,12 +211,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               bench): gemm_quickstart (1024^3), gemm_large (8192 x 8192 x
               4096), flash_d64, flash_d128 and flash_d128_full (bf16,
               B 2, H 16, S 2048; mha_fwd_kernel at the carver's best
-              tile against SDPA), fp8_gemm (4096^3), w4a8_gemm (4096^3)
-              and w4a16_gemm (4096^3, group 512) through run_config at a
-              0.1 s loop target (bench's own is 0.6 s), each record
-              printed, then the headline geomean line and the five GEMM
-              configs' geomean; the two yardsticks', mha_fwd's and
-              w4a8_gemm's launches counted over the eight configs (a CUDA
+              tile against SDPA), fp8_gemm (4096^3), mla_decode (B 4, H
+              128, S 4096, dc 512, dr 64: the best of four split
+              candidates against the torch reference), paged_decode (B
+              4, H 32, S 8192, D 128, pages of 128: the page walk and
+              the gather each timed, the faster against the torch
+              gather + softmax, KV GB/s), w4a8_gemm (4096^3) and
+              w4a16_gemm (4096^3, group 512) through run_config at a 0.1
+              s loop target (bench's own is 0.6 s), each record printed,
+              then the headline geomean line, the eight earlier configs'
+              and the five GEMM configs' geomeans; the two yardsticks',
+              mha_fwd's, mla_decode's, both decode strategies' and
+              w4a8_gemm's launches counted over the ten configs (a CUDA
               graph's where it is captured), every GEMM of them on #15's
               TMA path. Then the
               GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
@@ -2034,30 +2046,50 @@ def gemm_variants_phase(torch, gv, gm):
         return {"bound_ms": t, "bound_by": by, "flops": flops,
                 "bytes": nbytes}
 
-    # -- #16 split-K: a 16-token decode step's MLP products ---------------
-    M = LLAMA2["decode"]
-    for label, (K, N), dt, seed in (
-            ("decode_gate_up_bf16", (hid, inter), torch.bfloat16, 30),
-            ("decode_down_bf16", (inter, hid), torch.bfloat16, 31),
-            ("decode_gate_up_f32", (hid, inter), torch.float32, 30)):
+    # -- #16 split-K: a 16-token decode step's MLP products (the few-row
+    # path, splitk_stream), and past its rows a 128-token chunk (the tile
+    # loop, splitk_gemm) ---------------------------------------------------
+    for label, (M, K, N), dt, seed in (
+            ("decode_gate_up_bf16", (LLAMA2["decode"], hid, inter),
+             torch.bfloat16, 30),
+            ("decode_down_bf16", (LLAMA2["decode"], inter, hid),
+             torch.bfloat16, 31),
+            ("decode_gate_up_f32", (LLAMA2["decode"], hid, inter),
+             torch.float32, 30),
+            ("m128_gate_up_bf16", (128, hid, inter), torch.bfloat16, 35)):
         a, b = operands(seed, (M, K), (K, N), dtype=dt)
         n_ask = LLAMA2["n_split"]
         n_split, split_len, _ = gv.splitk_plan(K, n_ask)
+        path = gv.splitk_path(M, N, K, dt, a.data_ptr(), b.data_ptr())
+        check(path == ("stream" if M <= gv.SPLITK_STREAM_MAX_ROWS
+                       else "tile"), f"split-K {label}: path {path}")
+        kname, fix = {"stream": ("splitk_stream", "splitk_stream_combine"),
+                      "tile": ("splitk_gemm", "splitk_reduce")}[path]
+        parts = n_split
+        if path == "stream":
+            parts *= gv.splitk_stream_plan(
+                N, n_split, split_len, gv.stream_slots(a.device, M, dt))[1]
         print(f"split-K {label}: {n_ask} splits asked, {n_split} taken "
-              f"(chunks of {split_len})", flush=True)
+              f"(chunks of {split_len}), {kname}, {parts} partials",
+              flush=True)
         got = drive(f"matmul_splitk {label}", lambda: gv.matmul_splitk(
-            a, b, n_split=n_ask), {"splitk_gemm": 1, "splitk_reduce": 1})
+            a, b, n_split=n_ask), {kname: 1, fix: 1})
         r = hold(f"matmul_splitk {label}", got,
                  gv.matmul_splitk_plain(a, b, n_split=n_ask))
+        if path == "stream":    # the fixed order of sums: the same bits
+            check(torch.equal(got, gv.matmul_splitk(a, b, n_split=n_ask)),
+                  f"matmul_splitk {label}: two calls differ")
         del got
-        res[f"splitk_gemm_{label}"] = {
+        res[f"{kname}_{label}"] = {
             "shape": [M, N, K], "dtype": str(dt), "n_split_asked": n_ask,
-            "n_split": n_split, "launches_a_call": 2, **r,
+            "n_split": n_split, "path": path, "partials": parts,
+            "launches_a_call": 2, **r,
             **timed(lambda: gv.matmul_splitk(a, b, n_split=n_ask),
                     lambda: gv.matmul_splitk_plain(a, b, n_split=n_ask),
-                    lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
+                    lambda: torch.matmul(a, b), lambda: gm.matmul(a, b),
+                    iters=20 if M <= 16 else 5),
             "library": "torch.matmul in " + str(dt).replace("torch.", ""),
-            "workspace_bytes": n_split * M * N * 4,
+            "workspace_bytes": parts * M * N * 4,
             **bound(dt, 2 * M * N * K,
                     (M * K + K * N + M * N) * a.element_size())}
         del a, b
@@ -2149,15 +2181,18 @@ def gemm_variants_phase(torch, gv, gm):
 # headline case), and the kernels that sum split-K's and stream-K's
 # partials, named under "fixup"
 VARIANT_KERNELS = (
-    ("splitk_gemm", "gemm_variants.cu",
+    ("splitk_stream", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:36", "decode_gate_up_bf16"),
+    ("splitk_gemm", "gemm_variants.cu",
+     "tilelang_mesh_tpu/ops/gemm_variants.py:36", "m128_gate_up_bf16"),
     ("streamk_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_bf16"),
     ("gemv", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
      "decode_gate_up_bf16"),
     ("blocksparse_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:206", "prefill_gate_up_bf16"))
-VARIANT_FIXUPS = {"splitk_gemm": "splitk_reduce",
+VARIANT_FIXUPS = {"splitk_stream": "splitk_stream_combine",
+                  "splitk_gemm": "splitk_reduce",
                   "streamk_gemm": "streamk_fixup"}
 
 
@@ -3067,6 +3102,55 @@ VARLEN_KERNELS = (
      "tilelang_mesh_tpu/ops/flash_attention_varlen.py:274", "float32"))
 
 
+def sink_sdpa(torch, sk, q, k, v, sinks, window, want):
+    """SDPA computing attention with sinks, timed: K and V expanded
+    by the group, then per head one key and value row of zeros (the
+    sink) and 15 pad rows, 16-aligned; an additive mask (1, Hq, S, S
+    + 16) in q's type, 0 where the causal / window mask keeps a pair,
+    the head's sink logit in the zero key's column, -inf elsewhere.
+    softmax([scores, sink]) @ [V; 0] is then the sink kernel's
+    function. The operands are built outside the timed calls. float32
+    on the memory-efficient kernel; bfloat16 and float16 on cuDNN where
+    it takes the mask, else memory-efficient. Held within 2e-2 normwise of the
+    plain version's ``want`` (``sk`` is ops/attention_sink.py)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Hq, S, D = q.shape[1], q.shape[2], q.shape[3]
+    pad = torch.zeros((1, Hq, 16, D), dtype=q.dtype, device=q.device)
+    kx, vx = (torch.cat([t.repeat_interleave(Hq // k.shape[1], 1), pad],
+                        2) for t in (k, v))
+    bias = torch.full((1, Hq, S, S + 16), -math.inf, dtype=q.dtype,
+                      device=q.device)
+    bias[..., :S].masked_fill_(sk.visible(S, S, True, window, q.device),
+                               0.0)
+    bias[..., S] = sinks.to(q.dtype).view(Hq, 1)
+    backends = ([SDPBackend.EFFICIENT_ATTENTION] if q.dtype ==
+                torch.float32 else [SDPBackend.CUDNN_ATTENTION,
+                                    SDPBackend.EFFICIENT_ATTENTION])
+
+    def call():
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=bias)
+
+    for backend in backends:
+        try:
+            with sdpa_kernel([backend]):
+                rel = normwise_err(call(), want)[1]
+        except RuntimeError:             # this backend refuses the call
+            continue
+        check(rel < 2e-2, f"the library yardstick (SDPA with a zero "
+                          f"sink key, {backend.name}) disagrees with "
+                          f"the plain version: {rel:.3e}")
+        with sdpa_kernel([backend]):
+            ms = device_ms(torch, call, 3)
+        return {"library_ms": ms, "library_normwise_err": rel,
+                "library": f"SDPA ({backend.name}), K and V expanded by "
+                           f"the group with a zero sink key, the sink "
+                           f"logits in an additive mask (1, Hq, S, "
+                           f"S + 16)"}
+    check(False, f"no SDPA backend of {backends} takes the sink "
+                 f"yardstick's float mask")
+
+
 def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
     """Sink attention at gpt-oss-20b's attention widths (GPT_OSS), the
     row softmax at its vocabulary row and the MoE router's width, and
@@ -3124,50 +3208,7 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
         return str(dtype).replace("torch.", "")
 
     def sink_library(q, k, v, sinks, window, want):
-        """SDPA computing attention with sinks, timed: K and V expanded
-        by the group, then per head one key and value row of zeros (the
-        sink) and 15 pad rows, 16-aligned; an additive mask (1, Hq, S, S
-        + 16) in q's type, 0 where the causal / window mask keeps a pair,
-        the head's sink logit in the zero key's column, -inf elsewhere.
-        softmax([scores, sink]) @ [V; 0] is then the sink kernel's
-        function. The operands are built outside the timed calls. float32
-        on the memory-efficient kernel; bfloat16 on cuDNN where it takes
-        the mask, else memory-efficient. Held within 2e-2 normwise of the
-        plain version's ``want``."""
-        Hq, S, D = q.shape[1], q.shape[2], q.shape[3]
-        pad = torch.zeros((1, Hq, 16, D), dtype=q.dtype, device=q.device)
-        kx, vx = (torch.cat([t.repeat_interleave(Hq // k.shape[1], 1), pad],
-                            2) for t in (k, v))
-        bias = torch.full((1, Hq, S, S + 16), -math.inf, dtype=q.dtype,
-                          device=q.device)
-        bias[..., :S].masked_fill_(sk.visible(S, S, True, window, q.device),
-                                   0.0)
-        bias[..., S] = sinks.to(q.dtype).view(Hq, 1)
-        backends = ([SDPBackend.EFFICIENT_ATTENTION] if q.dtype ==
-                    torch.float32 else [SDPBackend.CUDNN_ATTENTION,
-                                        SDPBackend.EFFICIENT_ATTENTION])
-
-        def call():
-            return F.scaled_dot_product_attention(q, kx, vx, attn_mask=bias)
-
-        for backend in backends:
-            try:
-                with sdpa_kernel([backend]):
-                    rel = normwise_err(call(), want)[1]
-            except RuntimeError:             # this backend refuses the call
-                continue
-            check(rel < 2e-2, f"the library yardstick (SDPA with a zero "
-                              f"sink key, {backend.name}) disagrees with "
-                              f"the plain version: {rel:.3e}")
-            with sdpa_kernel([backend]):
-                ms = device_ms(torch, call, 3)
-            return {"library_ms": ms, "library_normwise_err": rel,
-                    "library": f"SDPA ({backend.name}), K and V expanded by "
-                               f"the group with a zero sink key, the sink "
-                               f"logits in an additive mask (1, Hq, S, "
-                               f"S + 16)"}
-        check(False, f"no SDPA backend of {backends} takes the sink "
-                     f"yardstick's float mask")
+        return sink_sdpa(torch, sk, q, k, v, sinks, window, want)
 
     # -- attention with sinks at gpt-oss-20b's widths ----------------------
     c = GPT_OSS
@@ -3180,15 +3221,25 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
                           (1, Hq, S, D), (Hq,))]
     full_pairs = causal_pairs(S, S)
     win_pairs = sum(min(i + 1, W) for i in range(S))
-    # the key tiles (32 keys) a 64-row block visits, by the kernel's loop
-    # bounds (csrc/attention_sink.cu kv_span)
-    tiles = {"full": [(q0 + 63) // 32 + 1 for q0 in range(0, S, 64)],
-             "window": [(q0 + 63) // 32 - max(0, q0 - W + 1) // 32 + 1
-                        for q0 in range(0, S, 64)]}
-    res["sink_tiles_per_block"] = {
-        k: {"max": max(v), "mean": sum(v) / len(v)} for k, v in tiles.items()}
+    # the key tiles a block visits, by the kernel's loop bounds
+    # (csrc/attention_sink.cu kv_span) at each type's tile: float32's 64 x
+    # 32, the tensor-core kernel's sink_tile (its warps skip more)
+    def span_tiles(tm, tn, window):
+        return [min((S - 1) // tn, (q0 + tm - 1) // tn)
+                - (max(0, q0 - window + 1) // tn if window else 0) + 1
+                for q0 in range(0, S, tm)]
+
+    res["sink_tiles_per_block"] = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for case, window in (("full", 0), ("window", W)):
+            tm, tn = ((64, 32) if dtype == torch.float32
+                      else sk.sink_tile(D, window))
+            v = span_tiles(tm, tn, window)
+            res["sink_tiles_per_block"][f"{case}_{tname(dtype)}"] = {
+                "tile": [tm, tn], "blocks": len(v), "max": max(v),
+                "mean": sum(v) / len(v)}
     sinks = base[4].cuda()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = tname(dtype)
         tol = ATTN_TOL[name]
         esize = torch.empty((), dtype=dtype).element_size()
@@ -3234,6 +3285,16 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
         check(windowed < full / 5, f"attention_sink {name}: the window-{W} "
               f"call takes {windowed:.4f} ms, not under a fifth of full "
               f"causal's {full:.4f}: tiles outside the window are visited")
+        # two calls give the same bits (float32: sink_fwd; the 16-bit
+        # types: sink_fwd_mma); no atomics
+        with torch.no_grad():
+            check(torch.equal(sk.attention_sink(q, k, v, sinks),
+                              sk.attention_sink(q, k, v, sinks)),
+                  f"attention_sink {name}: two calls differ")
+        if dtype == torch.float16:      # the training step: f32 and bf16
+            del q, k, v, g
+            torch.cuda.empty_cache()
+            continue
 
         # the training step: the GQA partial + the fold, dK/dV, dQ
         acc, m, l = gq.gqa_fwd_partial_plain(q, k, v, True, sm)
@@ -3428,6 +3489,8 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
 # the attention_family phase's kernels: (name, source, replaced TPU kernel,
 # headline case)
 ATTN_FAMILY_KERNELS = (
+    # sink_fwd (float32) and the tensor-core sink_fwd_mma (bfloat16,
+    # float16): one counter, "attention_sink"; cases under "variants"
     ("attention_sink", "attention_sink.cu",
      "tilelang_mesh_tpu/ops/attention_sink.py:30", "causal_float32"),
     ("softmax", "softmax.cu", "tilelang_mesh_tpu/ops/softmax.py:29",
@@ -4683,19 +4746,22 @@ DSA_KERNELS = (
      "float32"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): eight configs,
+# the headline phase's loop target (bench.py's is 0.6 s): ten configs,
 # each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
 YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def headline_phase(torch, ys, gm, dqg, fa):
-    """The headline comparison (tilelang_mesh_tpu_torch.bench): the eight
+def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the ten
     configs at full size through ``run_config`` (counters zeroed before,
     read right after; a CUDA graph's launches are counted where they are
-    captured, its replays not; the flash configs launch ``mha_fwd``),
-    each record printed, then the headline geomean line, and the geomean
+    captured, its replays not; the flash configs launch ``mha_fwd``,
+    ``mla_decode`` the MLA kernel, ``paged_decode`` both the page walk
+    and the gather's contiguous kernel, each strategy with its time),
+    each record printed, then the headline geomean line, the geomean of
+    the eight configs without the two decode ones (for comparison) and
     of the five GEMM configs alone; every GEMM of them on #15's TMA path
     (no launch of its tile loop). Then #42 (bf16 -> bf16 at 8192 x 8192
     x 4096, fp8 -> f32 at 4096^3) and #43 (4096^3, group 512), each at the
@@ -4713,9 +4779,9 @@ def headline_phase(torch, ys, gm, dqg, fa):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's eight configs ---------------------------
+    # -- the main path: bench's ten configs -----------------------------
     torch.cuda.synchronize()
-    for mod in (ys, gm, dqg, fa):
+    for mod in (ys, gm, dqg, fa, mla, fd):
         mod.reset_launches()
     t0 = time.perf_counter()
     records = []
@@ -4732,7 +4798,8 @@ def headline_phase(torch, ys, gm, dqg, fa):
     torch.cuda.synchronize()
     res["launches"] = dict(ys.launches)
     res["library_launches"] = {**gm.launches, **dqg.launches,
-                               "mha_fwd": fa.launches["mha_fwd"]}
+                               "mha_fwd": fa.launches["mha_fwd"],
+                               **mla.launches, **fd.launches}
     res["records"] = records
     res["seconds"] = time.perf_counter() - t0
     check(all(n > 0 for n in res["launches"].values()),
@@ -4744,11 +4811,22 @@ def headline_phase(torch, ys, gm, dqg, fa):
           f"headline: matmul launches by path {dict(gm.launches)}")
     check(dqg.launches["w4a8_gemm"] > 0,
           "headline: the w4a8 config did not launch w4a8_gemm")
+    check(mla.launches["mla_decode"] > 0,
+          "headline: the mla_decode config did not launch mla_decode")
+    paged = next(r for r in records if r["config"] == "paged_decode")
+    check(fd.launches["paged_decode"] > 0 and fd.launches["decode"] > 0
+          and paged["walk_ms"] > 0 and paged["gather_ms"] > 0,
+          f"headline: paged_decode's strategies {fd.launches}, {paged}")
     head = tb.headline(records)
     print(json.dumps(head), flush=True)
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
+    res["geomean_vs_baseline_eight"] = tb.headline(
+        [r for r in records if r["config"] not in ("mla_decode",
+                                                   "paged_decode")])[
+            "geomean_vs_baseline"]
     res["geomean_vs_baseline_gemm"] = tb.headline(
-        [r for r in records if not r["config"].startswith("flash")])[
+        [r for r in records if not r["config"].startswith(
+            ("flash", "mla", "paged"))])[
             "geomean_vs_baseline"]
 
     def hold(label, got, want):
@@ -5043,7 +5121,7 @@ def main() -> int:
     ds = dsa_phase(torch, dsa)
 
     phase("headline")
-    hl = headline_phase(torch, ys, gm, dqg, fa)
+    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -5159,8 +5237,12 @@ def main() -> int:
         if entry["name"] == "attention_sink":
             entry["sdpa_without_sinks"] = {
                 k: af[f"attention_sink_causal_{k}"]["sdpa_without_sinks_ms"]
-                for k in ("float32", "bfloat16")}
+                for k in ("float32", "bfloat16", "float16")}
             entry["tiles_per_block"] = af["sink_tiles_per_block"]
+            # one counter for both kernels of the source, by type
+            entry["kernels"] = {"float32": "sink_fwd (CUDA cores)",
+                                "bfloat16": "sink_fwd_mma (mma.sync)",
+                                "float16": "sink_fwd_mma (mma.sync)"}
             entry["training_step"] = {
                 k: af[f"sink_train_{k}"] for k in ("float32", "bfloat16")}
             entry["training_launches"] = {

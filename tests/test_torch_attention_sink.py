@@ -33,7 +33,8 @@ gb = importlib.import_module("tilelang_mesh_tpu_torch.ops.gqa_bwd")
 TOL = 2e-2
 GRAD_TOL = 3e-2
 _DTYPES = {"float32": (jnp.float32, torch.float32),
-           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+           "bfloat16": (jnp.bfloat16, torch.bfloat16),
+           "float16": (jnp.float16, torch.float16)}
 
 
 def _inputs(B, Hq, Hkv, Sq, Sk, D, seed=0):
@@ -87,6 +88,37 @@ def test_forward_bfloat16_matches_jax(window):
                               window_size=window, block_M=64, block_N=64)
     assert got.dtype == torch.bfloat16
     _close(got, want, TOL)
+
+
+@pytest.mark.parametrize("window", [None, 128])
+def test_forward_float16_matches_jax(window):
+    """float16 (the card's tensor-core kernel's other type) through the
+    JAX kernel in interpret mode and the port's plain version."""
+    q, k, v, _, sinks = _inputs(1, 8, 2, 256, 256, 64, seed=3)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "float16")
+    want = ref.attention_sink(jq, jk, jv, jnp.asarray(sinks),
+                              window_size=window, block_M=64, block_N=64)
+    got = port.attention_sink(tq, tk, tv, torch.from_numpy(sinks),
+                              window_size=window, block_M=64, block_N=64)
+    assert got.dtype == torch.float16
+    _close(got, want, TOL)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [0, 1, 128, 512, 513, 4096])
+def test_sink_tile_rule(D, window):
+    """The tensor-core kernel's tile: one of flash_attention.cu's tiles
+    for the head_dim (carver.FLASH_KERNEL_TILES), the window's tile for
+    0 < window <= 512, the full tile otherwise; no instance past the
+    four head_dims."""
+    from tilelang_mesh_tpu_torch.carver import FLASH_KERNEL_TILES
+    tile = port.sink_tile(D, window)
+    full, windowed = port.SINK_TILES[D]
+    assert tile == (windowed if 0 < window <= 512 else full)
+    assert tile in FLASH_KERNEL_TILES.get(D, ((64, 64),))
+    if D == 64:         # gpt-oss: 128 x 64 at full causal, 64 x 64 under
+        assert (full, windowed) == ((128, 64), (64, 64))  # its window
+    assert port.sink_tile(96, window) is None
 
 
 def test_bfloat16_sinks_are_taken_as_float32():

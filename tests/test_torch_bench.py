@@ -46,6 +46,12 @@ _CONFIGS = {
     "flash_d128_full": lambda: port.cfg_flash(
         128, S=128, B=1, H=2, causal=False, device="cpu", arch=H100_SXM,
         target_s=_TARGET_S),
+    "mla_decode": lambda: port.cfg_mla_decode(
+        B=2, H=8, S=1024, dc=64, dr=16, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
+    "paged_decode": lambda: port.cfg_paged_decode(
+        B=2, H=4, S=2048, D=64, page=128, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
 }
 
 
@@ -54,7 +60,8 @@ def test_config_runs_on_cpu(name):
     rec = port.run_config(name, _CONFIGS[name], _PEAKS, rounds=1,
                           target_s=_TARGET_S)
     assert _FIELDS <= set(rec)
-    assert rec["config"] == name and rec["unit"] == "TFLOPS"
+    assert rec["config"] == name
+    assert rec["unit"] == ("GB/s" if name == "paged_decode" else "TFLOPS")
     assert rec["device"] == "cpu"
     assert rec["latency_ms"] > 0 and rec["baseline_ms"] > 0
     assert rec["vs_baseline"] > 0 and rec["reps"] > 0
@@ -65,6 +72,13 @@ def test_config_runs_on_cpu(name):
         assert tuple(rec["tile"]) in FLASH_KERNEL_TILES[D]
         assert f"tile ({rec['tile'][0]},{rec['tile'][1]})" in rec["metric"]
         assert f"causal={name != 'flash_d128_full'}" in rec["metric"]
+    if name == "mla_decode":        # one of bench.py's four candidates
+        assert rec["candidate"] in ("ns=1 bn=1024", "ns=2 bn=512",
+                                    "ns=4 bn=256", "ns=8 bn=128")
+    if name == "paged_decode":      # both strategies checked and timed
+        assert rec["walk_ms"] > 0 and rec["gather_ms"] > 0
+        assert rec["strategy"] in ("inkernel-walk", "gather")
+        assert rec["kv_bytes"] == 2 * 2 * 2048 * 4 * 64 * 2
     if name in ("gemm_quickstart", "gemm_large", "fp8_gemm"):
         # both sides' winning blocks, each one of the carver's top two
         from tilelang_mesh_tpu_torch.carver import KERNEL_BLOCKS
@@ -83,15 +97,16 @@ def test_config_names_and_headline_are_bench_py_s():
     names = [n for n, _ in port._config_builders(True)]
     assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
                      "flash_d128", "flash_d128_full", "fp8_gemm",
-                     "w4a8_gemm", "w4a16_gemm"]
+                     "mla_decode", "paged_decode", "w4a8_gemm",
+                     "w4a16_gemm"]
     ref_names = [n for n, _ in ref._config_builders(True)]
     assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
-            for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 1.1,
-                                    0.8))]
+            for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 3.0,
+                                    2.5, 1.1, 0.8))]
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 8)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 10)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 

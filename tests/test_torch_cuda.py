@@ -889,23 +889,42 @@ def _variant_close(got, want, dtype):
 @pytest.mark.parametrize("M,N,K,n_split,taken", [
     (100, 77, 200, 4, 1),           # no 128-multiple chunk: one split
     (16, 300, 1024, 8, 8), (130, 257, 768, 4, 3), (3, 5, 384, 5, 3),
-    (64, 136, 4104, 2, 1)])
+    (64, 136, 4104, 2, 1),
+    # the few-row path: 1, 8 and 16 rows, the down product's two splits
+    # of 5504, ragged strips, the threshold (64) - 1, + 0, + 1, and 128
+    (1, 512, 1024, 8, 8), (8, 520, 2048, 4, 4), (16, 1024, 11008, 8, 2),
+    (63, 264, 768, 4, 3), (64, 264, 768, 4, 3), (65, 264, 768, 4, 3),
+    (128, 256, 1024, 4, 4)])
 def test_splitk_matches_plain(cuda, dtype, M, N, K, n_split, taken):
-    """Two launches a call (the partials, their sum); the split the
-    plan takes; ragged M, N and a single-split fallback."""
+    """Two launches a call (the partials, their sum) of the kernels
+    ``splitk_path`` names; the split the plan takes; ragged M, N and a
+    single-split fallback. The few-row path gives the same bits twice
+    (a fixed order of sums), and the factory's partials equal the plain
+    version's split by split."""
     assert gv.splitk_plan(K, n_split)[0] == taken
     a = _randn(cuda, (M, K), dtype, 20)
     b = _randn(cuda, (K, N), dtype, 21)
+    path = gv.splitk_path(M, N, K, dtype, a.data_ptr(), b.data_ptr())
+    v = 16 // a.element_size()
+    assert path == ("stream" if M <= gv.SPLITK_STREAM_MAX_ROWS
+                    and K % v == 0 and N % v == 0 else "tile")
+    kern, fix = {"stream": ("splitk_stream", "splitk_stream_combine"),
+                 "tile": ("splitk_gemm", "splitk_reduce")}[path]
     before = dict(gv.launches)
     got = gv.matmul_splitk(a, b, n_split=n_split)
     torch.cuda.synchronize()
-    assert gv.launches["splitk_gemm"] == before["splitk_gemm"] + 1
-    assert gv.launches["splitk_reduce"] == before["splitk_reduce"] + 1
+    assert gv.launches == {**before, kern: before[kern] + 1,
+                           fix: before[fix] + 1}
     _variant_close(got, gv.matmul_splitk_plain(a, b, n_split=n_split), dtype)
+    if path == "stream":
+        assert torch.equal(got, gv.matmul_splitk(a, b, n_split=n_split))
     parts = gv.splitk_kernel(M, N, K, taken, 128, 128, K // taken, dtype)(
         a, b)
     torch.cuda.synchronize()
     assert tuple(parts.shape) == (taken, M, N)
+    want = gv._splitk_partials_plain(a, b, taken)
+    for s in range(taken):      # float32 sums of exact products
+        assert _normwise(parts[s], want[s]) <= 1e-5
     assert _normwise(parts.sum(0), got.float()) <= VARIANT_TOL[dtype]
 
 
@@ -1866,7 +1885,8 @@ def _sink_inputs(dev, B, Hq, Hkv, Sq, Sk, D, dtype, seed=0):
             rnd(B, Hkv, Sk, D).to(dtype), rnd(Hq))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 1, 48, 128])
 @pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 1)])
@@ -1876,7 +1896,8 @@ def test_sink_kernel_matches_plain(cuda, dtype, causal, window, Hq, Hkv,
                                    Sq, Sk):
     """The window's edges (1: the key itself only; 48 inside a tile; 128),
     causal and not (the window bounds keys from below only), ragged S,
-    Sq > Sk (rows whose window lies past Sk see no key: O = 0)."""
+    Sq > Sk (rows whose window lies past Sk see no key: O = 0); bfloat16
+    and float16 on the tensor-core kernel, float32 on CUDA cores."""
     q, k, v, s = _sink_inputs(cuda, 1, Hq, Hkv, Sq, Sk, 64, dtype)
     sm = 0.125
     before = sink.launches["attention_sink"]
@@ -1886,6 +1907,29 @@ def test_sink_kernel_matches_plain(cuda, dtype, causal, window, Hq, Hkv,
     assert o.dtype == dtype
     assert _normwise(o, sink.sink_fwd_plain(q, k, v, s, causal, window,
                                             sm)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("Sq,Sk", [(300, 300), (300, 200)])
+def test_sink_kernel_tile_edges(cuda, dtype, d, causal, edge, Sq, Sk):
+    """Windows of the tensor-core tile's block_N - 1, block_N and block_N
+    + 1 keys (a window's lower edge on, before and past a tile's first
+    key), Sq not a multiple of block_M, and Sq > Sk."""
+    window = sink.sink_tile(d, 128)[1] + edge
+    assert sink.sink_tile(d, window) == sink.sink_tile(d, 128)
+    q, k, v, s = _sink_inputs(cuda, 1, 8, 2, Sq, Sk, d, dtype, seed=1)
+    before = sink.launches["attention_sink"]
+    o = sink.sink_fwd(q, k, v, s, causal, window, d ** -0.5)
+    torch.cuda.synchronize()
+    assert sink.launches["attention_sink"] == before + 1
+    want = sink.sink_fwd_plain(q, k, v, s, causal, window, d ** -0.5)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
+    full = sink.sink_fwd(q, k, v, s, causal, 0, d ** -0.5)
+    assert _normwise(full, sink.sink_fwd_plain(
+        q, k, v, s, causal, 0, d ** -0.5)) <= ATTN_TOL[dtype]
 
 
 @pytest.mark.parametrize("d", [16, 32, 128])

@@ -56,9 +56,13 @@ def _no_launches():
 
 @pytest.mark.parametrize("dtype", list(_DTYPES))
 @pytest.mark.parametrize("M,N,K,n_split", [(256, 256, 1024, 4),
-                                           (128, 128, 384, 5)])
+                                           (128, 128, 384, 5),
+                                           (1, 256, 1024, 8),
+                                           (16, 192, 2816, 8)])
 def test_splitk_matches_jax(dtype, M, N, K, n_split):
-    """The JAX tests' shapes; K 384 with 5 asked splits takes 3."""
+    """The JAX tests' shapes; K 384 with 5 asked splits takes 3; decode
+    rows (1 and 16: the card's few-row path), K 2816 taking 2 of 8
+    splits as the down product's K does."""
     ja, ta = _pair((M, K), 0, dtype)
     jb, tb = _pair((K, N), 1, dtype)
     want = ref.matmul_splitk(ja, jb, n_split=n_split)
@@ -167,8 +171,9 @@ def test_split_plan_equals_jax(monkeypatch, K, n_split, block_K):
     assert seen == [(n, bk)] and n * split_len == K
 
 
-def test_splitk_kernel_partials_match_jax():
-    M, N, K, n = 128, 128, 512, 4
+@pytest.mark.parametrize("M,N,K,n", [(128, 128, 512, 4), (1, 256, 1024, 8),
+                                     (16, 192, 2816, 2)])
+def test_splitk_kernel_partials_match_jax(M, N, K, n):
     ja, ta = _pair((M, K), 11, "float32")
     jb, tb = _pair((K, N), 12, "float32")
     want = ref.splitk_kernel(M, N, K, n, 128, 128, 128, "float32")(ja, jb)
@@ -294,3 +299,103 @@ def test_variants_take_matmul_output_types():
     assert bool((c16 == 512).all())
     with pytest.raises(TypeError):
         port.matmul_splitk(a, b, out_dtype=torch.int32)
+
+
+# -- the card's few-row path: its rule and its plan, on the CPU ----------
+
+_THRESHOLD = port.SPLITK_STREAM_MAX_ROWS
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("M", [1, 16, 17, _THRESHOLD - 1, _THRESHOLD,
+                               _THRESHOLD + 1, 128])
+def test_splitk_path_by_rows(dtype, M):
+    """Up to the threshold the weights are streamed once, past it the
+    tile loop runs; at LLaMA-2-7B's decode widths every type is
+    aligned."""
+    want = "stream" if M <= _THRESHOLD else "tile"
+    for K, N in ((4096, 11008), (11008, 4096)):
+        assert port.splitk_path(M, N, K, dtype) == want
+        assert port.splitk_path(M, N, K, _DTYPES[dtype][1], 256, 512) == want
+
+
+@pytest.mark.parametrize("M,N,K,dtype,ptrs,want", [
+    (16, 300, 1024, "bfloat16", (0, 0), "tile"),    # N off 16 bytes
+    (16, 300, 1024, "float32", (0, 0), "stream"),   # 300 floats: 16 B
+    (16, 512, 4100, "float16", (0, 0), "tile"),     # K off 16 bytes
+    (16, 512, 4104, "float16", (0, 0), "stream"),
+    (16, 512, 1024, "bfloat16", (8, 0), "tile"),    # a's base off
+    (16, 512, 1024, "bfloat16", (0, 4), "tile"),    # b's base off
+    (0, 512, 1024, "bfloat16", (0, 0), "tile"),
+    (16, 512, 1024, "int8", (0, 0), "tile")])
+def test_splitk_path_needs_16_byte_copies(M, N, K, dtype, ptrs, want):
+    assert port.splitk_path(M, N, K, dtype, *ptrs) == want
+
+
+def _ranges(K, n_ask, N, slots):
+    """The K range of each block row p (split p // n_sub, sub-range p %
+    n_sub) of the few-row plan, in the order the combine sums them."""
+    n, L, _ = port.splitk_plan(K, n_ask)
+    strips, n_sub, sub = port.splitk_stream_plan(N, n, L, slots)
+    return n, L, strips, n_sub, sub, [
+        (s * L + j * sub, min(s * L + (j + 1) * sub, (s + 1) * L))
+        for s in range(n) for j in range(n_sub)]
+
+
+@pytest.mark.parametrize("K,n_ask,taken", [(11008, 8, 2), (4096, 8, 8),
+                                           (4096, 1, 1), (200, 4, 1),
+                                           (384, 5, 3), (2816, 8, 2)])
+@pytest.mark.parametrize("N", [4096, 11008, 300, 64, 8])
+@pytest.mark.parametrize("slots", [528, 396, 132, 1])
+def test_stream_plan_cuts_each_split_in_order(K, n_ask, taken, N, slots):
+    """Every split cut into whole 64-row multiples, the sub-ranges in
+    split-major order tiling [0, K) with none empty or across a split's
+    end; at most one wave of ``slots`` blocks unless each split is one
+    sub-range."""
+    n, L, strips, n_sub, sub, ranges = _ranges(K, n_ask, N, slots)
+    assert n == taken and strips == -(-N // 64)
+    assert sub % 64 == 0 and n_sub == -(-L // sub)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    for p, (lo, hi) in enumerate(ranges):
+        s = p // n_sub
+        assert s * L <= lo and hi <= (s + 1) * L
+    assert strips * n * n_sub <= slots or n_sub == 1
+    assert n * n_sub <= 65535
+
+
+def test_stream_plan_at_the_decode_products():
+    """On an H100 (132 SMs, four blocks an SM at 16 rows): the down
+    product's 2 splits of 5504 cut into 4 sub-ranges of 1408 (512 blocks);
+    the gate/up product's 8 splits of 512 kept whole (1376 blocks)."""
+    assert port.splitk_stream_plan(4096, 2, 5504, 528) == (64, 4, 1408)
+    assert port.splitk_stream_plan(11008, 8, 512, 528) == (172, 1, 512)
+
+
+@pytest.mark.parametrize("M,N,K,n_ask,slots", [(16, 192, 2816, 8, 24),
+                                               (1, 256, 1024, 8, 64),
+                                               (3, 64, 704, 2, 40)])
+def test_stream_sum_order_matches_the_plain_version(M, N, K, n_ask, slots):
+    """The plan's partials (float32, one a block row) summed in (split,
+    sub-range) order give the plain version's C, and each split's run of
+    sub-ranges its partial Cp[s]: the orders the combine keeps for
+    ``matmul_splitk`` and for the factory."""
+    n, L, _, n_sub, _, ranges = _ranges(K, n_ask, N, slots)
+    assert n_sub > 1
+    _, ta = _pair((M, K), 15, "float32")
+    _, tb = _pair((K, N), 16, "float32")
+    parts = [ta[:, lo:hi] @ tb[lo:hi] for lo, hi in ranges]
+    total = parts[0].clone()
+    for x in parts[1:]:
+        total += x
+    np.testing.assert_allclose(
+        total.numpy(), port.matmul_splitk(ta, tb, n_split=n_ask).numpy(),
+        rtol=1e-5, atol=1e-5)
+    want = port._splitk_partials_plain(ta, tb, n)
+    for s in range(n):
+        cp = parts[s * n_sub].clone()
+        for x in parts[s * n_sub + 1:(s + 1) * n_sub]:
+            cp += x
+        np.testing.assert_allclose(cp.numpy(), want[s].numpy(), rtol=1e-5,
+                                   atol=1e-5)

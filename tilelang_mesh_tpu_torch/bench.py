@@ -4,8 +4,8 @@ PyTorch's fused attention, timed in interleaved A/B rounds.
 
     python -m tilelang_mesh_tpu_torch.bench [--quick] [--config NAME ...]
 
-Counterpart of the GEMM and flash parts of ``bench.py``. Eight configs,
-in ``bench.py``'s order:
+Counterpart of the GEMM, flash and decode parts of ``bench.py``. Ten
+configs, in ``bench.py``'s order:
 
 * ``gemm_quickstart`` (1024^3) and ``gemm_large`` (8192 x 8192 x 4096;
   2048^3 with ``--quick``), bf16: the best of ``ops/gemm.py``'s
@@ -22,6 +22,19 @@ in ``bench.py``'s order:
 * ``fp8_gemm`` (4096^3; 1024^3 quick): ``matmul_kernel`` in fp8 e4m3 ->
   f32 against ``hand_matmul``, each the best over the carver's top two
   blocks;
+* ``mla_decode`` (B 4, H 128, S 4096, dc 512, dr 64, bf16; S 1024
+  quick): ``ops/mla.py``'s ``mla_decode`` at the best of bench.py's four
+  (n_split, block_N) candidates against the torch composition of
+  ``mla_decode_reference`` (bench.py's XLA reference: float32 scores and
+  softmax);
+* ``paged_decode`` (B 4, H 32, S 8192, D 128, pages of 128, bf16; S 2048
+  quick): the faster of the page walk (``flash_decode_paged_pool`` on the
+  H-major pool, built outside the timed loop, 2 splits) and the gather
+  (``flash_decode_paged``, block_N 1024, 2 splits), each checked and
+  timed (``walk_ms``, ``gather_ms``; a failed candidate's key is left
+  out, as bench.py does), against the torch gather + float32 softmax
+  reference; its ``value`` is the KV cache's bytes a second (GB/s, the
+  record's ``bytes``);
 * ``w4a8_gemm`` (4096^3; 1024^3 quick): ``ops/dequant_gemm.py``'s
   ``w4a8_gemm_kernel`` (one tile) against the torch composition of
   ``bench.py``'s XLA reference: unpack int4 -> int8, two int8 products
@@ -33,7 +46,8 @@ in ``bench.py``'s order:
   at the carver's top two tiles and a plain torch unpack +
   ``torch.matmul``.
 
-Prints one JSON line a config (``metric``, ``value`` TFLOP/s,
+Prints one JSON line a config (``metric``, ``value`` TFLOP/s (GB/s for
+``paged_decode``),
 ``vs_baseline`` = baseline ms / ours ms, ``latency_ms``,
 ``baseline_ms``, the p50/p90/p99/MAD digest, ``peak``, ``utilization``,
 ``device``; a flash record also its ``tile``, a GEMM record its
@@ -79,7 +93,8 @@ from .carver import FlashAttentionTemplate, MatmulTemplate, auto_arch
 from .profiler import Timer, _stats_ms
 
 __all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_flash",
-           "cfg_fp8_gemm", "cfg_w4a8", "cfg_w4a16", "main"]
+           "cfg_fp8_gemm", "cfg_mla_decode", "cfg_paged_decode", "cfg_w4a8",
+           "cfg_w4a16", "main"]
 
 _TARGET_LOOP_S = 0.6   # in-loop work per timed call; >> fixed-cost noise
 _MAX_REP = 200_000
@@ -354,6 +369,108 @@ def cfg_fp8_gemm(M=4096, N=4096, K=4096, device="cuda", arch=None,
                 record={"block": blk, "baseline_block": rblk})
 
 
+def cfg_mla_decode(B=4, H=128, S=4096, dc=512, dr=64, device="cuda",
+                   arch=None, target_s=_TARGET_LOOP_S):
+    """MLA decode (``bench.py`` ``cfg_mla_decode``): the best of the four
+    (n_split, block_N) candidates, each checked before it is timed,
+    against the torch composition of ``mla_decode_reference``."""
+    from .ops.mla import mla_decode, mla_decode_reference
+    qc, qr, ckv, kpe = _draw(4, device, torch.bfloat16, (B, H, dc),
+                             (B, H, dr), (B, S, dc), (B, S, dr))
+
+    def ref(qc, qr, ckv, kpe):
+        return mla_decode_reference(qc, qr, ckv, kpe)
+
+    check = functools.partial(_check_close, ref=ref(qc, qr, ckv, kpe),
+                              rel_tol=4e-2)
+    name, ours, _ = _pick_best(
+        [(f"ns={ns} bn={bn}",
+          lambda ns=ns, bn=bn: (lambda a, b, c, d: mla_decode(
+              a, b, c, d, n_split=ns, block_N=bn)),
+          (qc, qr, ckv, kpe))
+         for ns, bn in ((1, min(4096, S)), (2, min(2048, S // 2)),
+                        (4, min(1024, S // 4)), (8, min(512, S // 8)))],
+        check, "mla decode", target_s=target_s)
+    flops = 2.0 * B * H * S * (dc + dr) + 2.0 * B * H * S * dc
+    return dict(metric=f"MLA decode B={B} H={H} S={S} dc={dc} dr={dr} "
+                       f"[{name}] (mla_decode vs torch reference)",
+                flops=flops, peak_class="bf16", ours=ours, ref=ref,
+                args=(qc, qr, ckv, kpe), rel_tol=4e-2, checked=True,
+                record={"candidate": name})
+
+
+def cfg_paged_decode(B=4, H=32, S=8192, D=128, page=128, device="cuda",
+                     arch=None, target_s=_TARGET_LOOP_S):
+    """Paged flash decode (``bench.py`` ``cfg_paged_decode``): the page
+    walk and the gather, each checked and timed, the faster against the
+    torch gather + float32 softmax reference; the KV bytes a second."""
+    from .ops.flash_decoding import (flash_decode_paged,
+                                     flash_decode_paged_pool,
+                                     pages_to_hmajor)
+    rng = np.random.default_rng(5)
+    n_pages = B * S // page
+
+    def draw(shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
+            np.float32)).to(device).to(torch.bfloat16)
+
+    kv_pages = draw((n_pages, page, H, D))
+    v_pages = draw((n_pages, page, H, D))
+    table = torch.from_numpy(rng.permutation(n_pages).reshape(
+        B, S // page).astype(np.int32)).to(device)
+    q = draw((B, H, 1, D))
+    sm = 1.0 / math.sqrt(D)
+    # the serving engine keeps the pool H-major; built outside the loop
+    kp, vp = pages_to_hmajor(kv_pages), pages_to_hmajor(v_pages)
+
+    def walk(q, kp, vp, tab):
+        return flash_decode_paged_pool(q, kp, vp, tab, page, sm_scale=sm,
+                                       n_split=2)
+
+    def gather(q, kpages, vpages, tab):
+        return flash_decode_paged(q, kpages, vpages, tab, sm_scale=sm,
+                                  block_N=1024, n_split=2)
+
+    def ref(q, kpages, vpages, tab):
+        idx = tab.long()
+        k = kpages[idx].reshape(B, S, H, D).transpose(1, 2)
+        v = vpages[idx].reshape(B, S, H, D).transpose(1, 2)
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm
+        p = torch.softmax(s, dim=-1)
+        return torch.matmul(p, v.float()).to(q.dtype)
+
+    check = functools.partial(_check_close,
+                              ref=ref(q, kv_pages, v_pages, table),
+                              rel_tol=4e-2)
+    cands = {}
+    for name, fn, fa in (("inkernel-walk", walk, (q, kp, vp, table)),
+                         ("gather", gather, (q, kv_pages, v_pages, table))):
+        try:    # one failing strategy does not void the other, as in
+            check(fn(*fa))          # bench.py; its key is left out
+            cands[name] = (_time_fn(fn, fa, rounds=2, target_s=target_s),
+                           fn, fa)
+        except Exception as e:      # noqa: BLE001 — reported, then skipped
+            print(f"# paged decode '{name}' failed: {str(e)[:200]}",
+                  file=sys.stderr)
+    if not cands:
+        raise BenchError("no paged decode candidate ran")
+    o_name = min(cands, key=lambda n: cands[n][0])
+    _, ours, args = cands[o_name]
+    extra = {}
+    if "inkernel-walk" in cands:
+        extra["walk_ms"] = round(cands["inkernel-walk"][0] * 1e3, 4)
+    if "gather" in cands:
+        extra["gather_ms"] = round(cands["gather"][0] * 1e3, 4)
+    kv_bytes = 2.0 * B * S * H * D * 2
+    return dict(metric=f"paged flash-decode B={B} H={H} S={S} D={D} "
+                       f"({o_name} vs torch gather+attention, KV GB/s)",
+                flops=4.0 * B * H * S * D, bytes=kv_bytes,
+                peak_class="bf16", ours=ours, ref=ref, args=args,
+                ref_args=(q, kv_pages, v_pages, table), rel_tol=4e-2,
+                checked=True, record={"strategy": o_name,
+                                      "kv_bytes": kv_bytes, **extra})
+
+
 def _int8_mm(a, b):
     """int32 a @ b of int8 operands: ``torch._int_mm`` on the card (B
     column-major, as cuBLASLt's int8 path takes it), an int32 product on
@@ -483,18 +600,25 @@ def run_config(name, build, peaks, rounds=3, target_s=_TARGET_LOOP_S):
     dt_o, dt_r, vs, st_o, st_r = _compare(spec["ours"], spec["ref"], args,
                                           rounds=rounds, ref_args=ref_args,
                                           target_s=target_s)
-    val = spec["flops"] / dt_o / 1e12
-    ref_val = spec["flops"] / dt_r / 1e12
-    cap = peaks[spec["peak_class"]] * 1.1
+    if spec.get("bytes"):
+        # a bandwidth-bound config (decode): the mandatory traffic's GB/s,
+        # capped against the card's HBM rate
+        val = spec["bytes"] / dt_o / 1e9
+        ref_val = spec["bytes"] / dt_r / 1e9
+        unit, cap = "GB/s", peaks["hbm_gbs"] * 1.1
+    else:
+        val = spec["flops"] / dt_o / 1e12
+        ref_val = spec["flops"] / dt_r / 1e12
+        unit, cap = "TFLOPS", peaks[spec["peak_class"]] * 1.1
     if val > cap or ref_val > cap:
         raise BenchError(
-            f"{val:.1f} / {ref_val:.1f} (baseline) TFLOPS exceeds "
+            f"{val:.1f} / {ref_val:.1f} (baseline) {unit} exceeds "
             f"physical peak {cap:.0f}: measurement broken")
     peak = cap / 1.1
     return {
         "metric": spec["metric"],
         "value": round(val, 2),
-        "unit": "TFLOPS",
+        "unit": unit,
         "vs_baseline": round(vs, 4),
         "latency_ms": round(dt_o * 1e3, 4),
         "baseline_ms": round(dt_r * 1e3, 4),
@@ -535,6 +659,10 @@ def _config_builders(q: bool, device="cuda", arch=None,
         ("fp8_gemm", lambda: cfg_fp8_gemm(*(1024,) * 3 if q
                                           else (4096,) * 3,
                                           target_s=target_s, **kw)),
+        ("mla_decode", lambda: cfg_mla_decode(S=1024 if q else 4096,
+                                              target_s=target_s, **kw)),
+        ("paged_decode", lambda: cfg_paged_decode(S=2048 if q else 8192,
+                                                  target_s=target_s, **kw)),
         ("w4a8_gemm", lambda: cfg_w4a8(*(1024,) * 3 if q
                                        else (4096,) * 3,
                                        target_s=target_s, **kw)),

@@ -2,11 +2,13 @@
 // block-sparse GEMM, on the block tile loop of gemm_tile.cuh.
 //
 // Replaces three TPU kernels of tilelang_mesh_tpu/ops/gemm_variants.py:
-//   splitk_kernel (:36) -> tl_splitk_gemm (+ tl_splitk_reduce)
+//   splitk_kernel (:36) -> tl_splitk_stream (+ tl_splitk_stream_combine)
+//     at few rows, tl_splitk_gemm (+ tl_splitk_reduce) past them
 //     Cp (n_split, M, N) f32: Cp[s] = A[:, s L:(s+1) L] @ B[s L:(s+1) L]
-//     with L = split_len, one block a (tile, split); the reduce sums Cp
-//     over s in split order and rounds once to C's type (the JAX wrapper's
-//     jnp.sum + astype, :83).
+//     with L = split_len; C is the sum of Cp over s in split order,
+//     rounded once to C's type (the JAX wrapper's jnp.sum + astype, :83).
+//     ops/gemm_variants.py::splitk_path picks the kernel by the rows, the
+//     type and the alignment.
 //   streamk_kernel (:104) -> tl_streamk_gemm (+ tl_streamk_fixup)
 //     Part (n_seg, bm, bn) f32: segment s is the K range [k0, k0 + kl)
 //     (in block_K units, host-planned) of output tile (tm, tn). One
@@ -32,9 +34,39 @@
 //
 // Bounds. Split-K is for the skinny decode products: at M 16, K 4096, N
 // 11008 in bf16 it moves 90.7 MB (B dominates) for 1.4 GFLOP, so bytes
-// bound it (27 us); one block a column panel would leave 46 of 132 SMs
-// idle and walk all of K alone, n_split blocks a panel fill the card.
-// The workspace costs n_split M N 4 bytes each way (5.6 MB here). Stream-
+// bound it (27 us; the down product, K 11008 -> N 4096, 26.9 us).
+//
+// Split-K at few rows (tl_splitk_stream, up to 64 rows; float32,
+// bfloat16, float16): the weights B are read once, 16 bytes a thread.
+// The grid is the host's plan (ops/gemm_variants.py::
+// splitk_stream_plan), not the split count: a block owns a strip of 64
+// columns of B and a sub-range of one split's K, as many sub-ranges as
+// one wave of resident blocks takes (the down product's plan keeps 2
+// splits of 5504 and cuts each into 4: 512 blocks for 528 slots; the
+// gate/up product's 8 splits of 512 need no cut). Each of its four warps
+// takes a contiguous run of the sub-range's 16-row k-steps and copies
+// them by cp.async three steps ahead (two in float32) into its own ring:
+// B's 16 x 64 tile (2 KB in 16 bits, 4 KB in float32, through L2 only)
+// and A's rows of those 16 k (A is small: through L1, which the other
+// strips' blocks on the SM share). HBM3 at 3.35 TB/s with about a
+// microsecond of latency wants 3.35e12 x 1e-6 / 132 = 25 KB in flight
+// an SM; four blocks of four warps with three 2 KB steps in flight hold
+// 96 KB (float32 at 16 rows: three blocks, two 4 KB steps, 96 KB).
+// 16-bit: mma.sync m16n8k16, A's rows the m16 operand (ldmatrix), B
+// through ldmatrix.trans, R / 16 m16 tiles of rows. float32: FFMA, a
+// lane owns two columns, A's four k of a row read as one float4. The
+// warps' sums meet in a fixed order in shared memory (((w0 + w1) + w2) +
+// w3), the block writes its float32 partial (M x 64) of the workspace
+// (n_split x n_sub, M, N), and tl_splitk_stream_combine adds the
+// partials in (split, sub-range) order: all of them, rounded once to C's
+// type, for matmul_splitk; each split's own, in float32, for the factory's
+// Cp. No floating-point atomics: two runs give the same bits. A's rows
+// are read again by each of the 172 strips of the gate/up product, which
+// makes 16 rows slower than one (PERF.md has both times).
+//
+// Past the rows (tl_splitk_gemm): one block a (128 x 128 tile, split) on
+// gemm_tile.cuh's loop. The workspace costs n_split M N 4 bytes each way
+// (5.6 MB at the gate/up shape, 8 splits). Stream-
 // K at a 512-token prefill (M 512, K 4096, N 11008: 344 tiles, 2.6 waves
 // of 132) is operations-bound (46 GFLOP, 47 us in bf16); with one
 // program a block the card holds at once, every block does the same K
@@ -97,6 +129,261 @@ splitk_reduce(const float* __restrict__ ws, void* __restrict__ c,
     for (int s = 1; s < n_split; ++s) v += ws[s * MN + i];
     store_as(c, i, out, v);
   }
+}
+
+// ---------------------------------------------------------------------------
+// split-K at few rows: the weights streamed once
+// ---------------------------------------------------------------------------
+
+constexpr int kStWarps = 4;                  // warps a block
+constexpr int kStThreads = 32 * kStWarps;
+constexpr int kStCols = 64;                  // B's columns a block (a strip)
+constexpr int kStK = 16;                     // k rows a step, 16 a multiple
+constexpr int kStStages16 = 4;               // a warp's ring: 16-bit types
+constexpr int kStStages32 = 3;               //               float32
+
+// gemm_tile.cuh's cp_async16 through L1 (.ca): A's rows, which the
+// blocks of the other strips on the SM read too
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
+                                              bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// A stage of a warp's ring: B's rows [k, k + kStK) x the strip's
+// columns, then A's R rows x those k; each row padded by one 16-byte
+// chunk to an odd count of chunks (ldmatrix and the float2 / float4
+// reads hit distinct banks).
+template <typename T, int R>
+struct Stream {
+  static constexpr int V = 16 / sizeof(T);    // elements a 16-byte chunk
+  static constexpr int kLdB = kStCols + V;
+  static constexpr int kLdA = kStK + V;
+  static constexpr int kStages = sizeof(T) == 4 ? kStStages32 : kStStages16;
+  static constexpr int kStage = kStK * kLdB + R * kLdA;  // elements
+  // a lane's sums: float32 R rows x its two columns; 16-bit the m16n8
+  // tiles' (R / 16 x kStCols / 8 of them) four
+  static constexpr int kVals = sizeof(T) == 4 ? 2 * R
+                                              : R / 16 * kStCols / 8 * 4;
+  static constexpr size_t kRing = (size_t)kStWarps * kStages * kStage *
+                                  sizeof(T);
+  static constexpr size_t kRed = (size_t)(kStWarps - 1) * kVals * 32 * 4;
+  static constexpr size_t kSmem = kRing > kRed ? kRing : kRed;
+};
+
+// grid (ceil(N / kStCols), n_split * n_sub); block p is sub-range p %
+// n_sub of split p / n_sub: K rows [k0, k1) with k0 = split L + sub
+// sub_len, k1 = min(k0 + sub_len, (split + 1) L); it writes ws[p] (M x
+// N) on its strip. Needs K, N and the split / sub-range starts on 16
+// bytes of T, and the bases on 16 bytes (ops/gemm_variants.py::
+// splitk_path).
+template <typename T, int R>
+__global__ void __launch_bounds__(kStThreads)
+splitk_stream(const T* __restrict__ a, const T* __restrict__ b,
+              float* __restrict__ ws, int M, int N, int K, int split_len,
+              int n_sub, int sub_len) {
+  using S = Stream<T, R>;
+  constexpr int V = S::V, CB = kStCols / V, CA = kStK / V;
+  extern __shared__ __align__(16) char st_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kStCols;
+  const int split = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
+  const int k0 = split * split_len + sub * sub_len;
+  const int k1 = min(k0 + sub_len, (split + 1) * split_len);
+  const int steps = (k1 - k0 + kStK - 1) / kStK;
+  const int per = (steps + kStWarps - 1) / kStWarps;
+  const int s0 = min(warp * per, steps), s1 = min(s0 + per, steps);
+  T* ring = reinterpret_cast<T*>(st_smem) + warp * S::kStages * S::kStage;
+
+  // step st into its slot: B's rows k.. of the strip, A's R rows of
+  // those k; zeros past k1, past N and past M (an empty group past s1)
+  auto fetch = [&](int st) {
+    T* dst = ring + (st - s0) % S::kStages * S::kStage;
+    const int k = k0 + st * kStK;
+    if (st < s1) {
+#pragma unroll
+      for (int c = lane; c < kStK * CB; c += 32) {
+        const int r = c / CB, col = n0 + (c % CB) * V;
+        const bool ok = k + r < k1 && col < N;
+        tl_gemm::cp_async16(dst + r * S::kLdB + (c % CB) * V,
+                            ok ? b + (long long)(k + r) * N + col : b, ok);
+      }
+      T* As = dst + kStK * S::kLdB;
+#pragma unroll
+      for (int c = lane; c < R * CA; c += 32) {
+        const int m = c / CA, kc = k + (c % CA) * V;
+        const bool ok = m < M && kc < k1;
+        cp_async16_ca(As + m * S::kLdA + (c % CA) * V,
+                      ok ? a + (long long)m * K + kc : a, ok);
+      }
+    }
+    tl_gemm::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < S::kStages - 1; ++i) fetch(s0 + i);
+
+  constexpr int MT = R / 16, NT = kStCols / 8;
+  static_assert(kStCols == 64, "float32: a lane owns two of 64 columns");
+  float acc[S::kVals];
+#pragma unroll
+  for (int i = 0; i < S::kVals; ++i) acc[i] = 0.f;
+  for (int st = s0; st < s1; ++st) {
+    tl_gemm::cp_async_wait<S::kStages - 2>();   // this lane's copies of st
+    __syncwarp();   // the warp's copies of st; everyone done with st - 1
+    fetch(st + S::kStages - 1);                 // into st - 1's slot
+    const T* Bs = ring + (st - s0) % S::kStages * S::kStage;
+    const T* As = Bs + kStK * S::kLdB;
+    if constexpr (sizeof(T) == 4) {
+      // lane: columns 2 lane, 2 lane + 1; acc[2 r + j] row r, column j
+#pragma unroll
+      for (int kq = 0; kq < kStK / 4; ++kq) {
+        float2 bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          bv[i] = *reinterpret_cast<const float2*>(
+              Bs + (4 * kq + i) * S::kLdB + 2 * lane);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 av = *reinterpret_cast<const float4*>(
+              As + r * S::kLdA + 4 * kq);
+          float x = acc[2 * r], y = acc[2 * r + 1];
+          x = fmaf(av.x, bv[0].x, x);
+          y = fmaf(av.x, bv[0].y, y);
+          x = fmaf(av.y, bv[1].x, x);
+          y = fmaf(av.y, bv[1].y, y);
+          x = fmaf(av.z, bv[2].x, x);
+          y = fmaf(av.z, bv[2].y, y);
+          x = fmaf(av.w, bv[3].x, x);
+          y = fmaf(av.w, bv[3].y, y);
+          acc[2 * r] = x;
+          acc[2 * r + 1] = y;
+        }
+      }
+    } else {
+      // acc[(mt NT + nt) 4 + e]: the m16n8 tile (mt, nt) of rows 16 mt
+      // and columns 8 nt of the strip
+      const int mat = lane / 8, mr = lane % 8;
+#pragma unroll
+      for (int kk = 0; kk < kStK / 16; ++kk) {
+        unsigned af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          bf16::ldmatrix_x4(af[mt], As + (16 * mt + mr + 8 * (mat % 2)) *
+                                             S::kLdA + 16 * kk +
+                                             8 * (mat / 2));
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned r[4];
+          bf16::ldmatrix_x4_trans(
+              r, Bs + (16 * kk + mr + 8 * (mat % 2)) * S::kLdB + 16 * np +
+                     8 * (mat / 2));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float(&c0)[4] =
+                *reinterpret_cast<float(*)[4]>(acc + (mt * NT + 2 * np) * 4);
+            float(&c1)[4] = *reinterpret_cast<float(*)[4]>(
+                acc + (mt * NT + 2 * np + 1) * 4);
+            bf16::mma<T>(c0, af[mt], r[0], r[1]);
+            bf16::mma<T>(c1, af[mt], r[2], r[3]);
+          }
+        }
+      }
+    }
+  }
+  tl_gemm::cp_async_wait<0>();
+
+  // the warps' sums in a fixed order, ((w0 + w1) + w2) + w3, in the
+  // rings' space
+  float* red = reinterpret_cast<float*>(st_smem);
+  __syncthreads();
+  if (warp > 0)
+#pragma unroll
+    for (int i = 0; i < S::kVals; ++i)
+      red[((warp - 1) * S::kVals + i) * 32 + lane] = acc[i];
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int w = 0; w < kStWarps - 1; ++w)
+#pragma unroll
+    for (int i = 0; i < S::kVals; ++i)
+      acc[i] += red[(w * S::kVals + i) * 32 + lane];
+
+  float* out = ws + (long long)blockIdx.y * M * N;
+  if constexpr (sizeof(T) == 4) {
+    const int n = n0 + 2 * lane;     // N even: n < N holds n + 1 too
+    if (n >= N) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < M)
+        *reinterpret_cast<float2*>(out + (long long)r * N + n) =
+            make_float2(acc[2 * r], acc[2 * r + 1]);
+  } else {
+    const int g = lane / 4, q2 = (lane % 4) * 2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + 8 * nt + q2;  // N a multiple of 8
+        if (n >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * mt + g + 8 * h;
+          if (m < M)
+            *reinterpret_cast<float2*>(out + (long long)m * N + n) =
+                make_float2(acc[(mt * NT + nt) * 4 + 2 * h],
+                            acc[(mt * NT + nt) * 4 + 2 * h + 1]);
+        }
+      }
+  }
+}
+
+// c[g][i] = the sum of ws[g per + j][i] over j = 0 .. per - 1 in order,
+// as `out`, for the `groups` outputs of MN elements each; four elements
+// a thread (MN a multiple of 4: N is, on the few-row path)
+__global__ void __launch_bounds__(kThreads)
+splitk_stream_combine(const float* __restrict__ ws, void* __restrict__ c,
+                      long long MN, int groups, int per, int out) {
+  const long long quads = MN / 4 * groups;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+       i < quads; i += (long long)gridDim.x * kThreads) {
+    const long long e = 4 * i, g = e / MN;
+    const float4* w =
+        reinterpret_cast<const float4*>(ws + g * per * MN + e % MN);
+    float4 v = w[0];
+    for (int k = 1; k < per; ++k) {
+      const float4 x = w[k * MN / 4];
+      v.x += x.x;
+      v.y += x.y;
+      v.z += x.z;
+      v.w += x.w;
+    }
+    store_as(c, e, out, v.x);
+    store_as(c, e + 1, out, v.y);
+    store_as(c, e + 2, out, v.z);
+    store_as(c, e + 3, out, v.w);
+  }
+}
+
+// f(the instance whose R, a power of two from the first up to 64, holds
+// M, its shared bytes, a null pointer of its element type);
+// cudaErrorInvalidValue past 64 rows
+template <typename T, int R, class F>
+int stream_rows(int M, F f) {
+  if (M <= R)
+    return f(splitk_stream<T, R>, Stream<T, R>::kSmem,
+             static_cast<const T*>(nullptr));
+  if constexpr (R < 64) return stream_rows<T, 2 * R>(M, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class F>
+int stream_instance(int M, int in_type, F f) {
+  if (M < 1) return (int)cudaErrorInvalidValue;
+  if (in_type == kF32) return stream_rows<float, 4>(M, f);
+  if (in_type == kBF16) return stream_rows<__nv_bfloat16, 16>(M, f);
+  if (in_type == kF16) return stream_rows<__half, 16>(M, f);
+  return (int)cudaErrorInvalidValue;
 }
 
 // tables: tile_m, tile_n, k_start, k_len (k in block_K units), n_seg
@@ -219,6 +506,54 @@ extern "C" int tl_splitk_reduce(const float* ws, void* c, long long MN,
   const auto s = static_cast<cudaStream_t>(stream);
   splitk_reduce<<<elementwise_blocks(MN), kThreads, 0, s>>>(ws, c, MN,
                                                             n_split, out_type);
+  return (int)cudaGetLastError();
+}
+
+// a (M, K), b (K, N) -> ws (n_split n_sub, M, N) f32, 1 <= M <= 64; K,
+// N, split_len and sub_len multiples of 16 bytes of the type, the bases
+// on 16 bytes (ops/gemm_variants.py::splitk_path and splitk_stream_plan)
+extern "C" int tl_splitk_stream(const void* a, const void* b, float* ws,
+                                int M, int N, int K, int n_split,
+                                int split_len, int n_sub, int sub_len,
+                                int in_type, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int parts = n_split * n_sub;
+  if (parts < 1 || parts > 65535) return (int)cudaErrorInvalidValue;
+  return stream_instance(M, in_type, [&](auto kern, size_t bytes, auto t) {
+    using P = decltype(t);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3((N + kStCols - 1) / kStCols, parts), kStThreads, bytes, s>>>(
+        static_cast<P>(a), static_cast<P>(b), ws, M, N, K, split_len, n_sub,
+        sub_len);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Blocks of the few-row split-K kernel for M rows of in_type an SM holds
+// at once (its plan fills SMs x this many); returns the CUDA error.
+extern "C" int tl_splitk_stream_blocks_per_sm(int M, int in_type,
+                                              int* blocks) {
+  return stream_instance(M, in_type, [&](auto kern, size_t bytes, auto) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                        kStThreads, bytes);
+    return (int)e;
+  });
+}
+
+// ws (groups per, MN) f32 -> c (groups, MN) in out_type: each group the
+// sum of its `per` partials in order; MN a multiple of 4
+extern "C" int tl_splitk_stream_combine(const float* ws, void* c,
+                                        long long MN, int groups, int per,
+                                        int out_type, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (MN % 4) return (int)cudaErrorInvalidValue;
+  splitk_stream_combine<<<elementwise_blocks(MN / 4 * groups), kThreads, 0,
+                          s>>>(ws, c, MN, groups, per, out_type);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ kernel (``csrc/attention_sink.cu``) replaces the TPU's:
   ``l += exp2(sink * log2(e) - m)`` with ``m`` the scores' running max,
   ``O = acc / max(l, 1e-30)``. An optional sliding window (key j visible
   to query i when ``j > i - window``) makes the kernel skip the key
-  tiles outside it.
+  tiles outside it. bfloat16 and float16 run on the tensor cores at the
+  tile ``sink_tile(D, window)``; float32 on CUDA cores at one tile.
 
 ``attention_sink`` is the entry, as in the JAX package. With
 ``backward=None`` it runs the fused kernel. With ``backward="kernel"``
@@ -43,13 +44,22 @@ from .gqa import _expand_kv, gqa_fwd_partial
 
 __all__ = ["attention_sink", "attention_sink_reference", "sink_fwd",
            "sink_fwd_plain", "sink_fwd_kernel", "sink_stats", "sink_grad",
-           "launches", "reset_launches"]
+           "sink_tile", "SINK_TILES", "launches", "reset_launches"]
 
 # the JAX kernel's float32 log2(e)
 _LOG2E = 1.44269504
 
-# kernel name -> launches through its wrapper
+# kernel name -> launches through its wrapper (both kernels of the
+# source: sink_fwd for float32, sink_fwd_mma for bfloat16 and float16)
 launches = {"attention_sink": 0}
+
+# the tensor-core kernel's (block_M, block_N) by head_dim: (full, window),
+# the tile without a window (or past SINK_WINDOW_TILE_MAX) and the one
+# under it, each of csrc/flash_attention.cu's set for that head_dim
+# (carver.FLASH_KERNEL_TILES), chosen by timing each (PERF.md, #13)
+SINK_TILES = {16: ((64, 64), (64, 64)), 32: ((64, 64), (64, 64)),
+              64: ((128, 64), (64, 64)), 128: ((128, 64), (64, 64))}
+SINK_WINDOW_TILE_MAX = 512
 
 
 def reset_launches() -> None:
@@ -111,6 +121,18 @@ def sink_fwd_plain(q, k, v, sinks, causal: bool, window: int,
 # ---------------------------------------------------------------------------
 
 
+def sink_tile(D: int, window: int):
+    """The tensor-core kernel's tile ``(block_M, block_N)`` for head_dim
+    ``D``: ``SINK_TILES[D]``'s window tile when ``0 < window <=
+    SINK_WINDOW_TILE_MAX`` (a block then visits a few tiles near its
+    diagonal, where fewer wasted keys count for more), else its full
+    tile. ``None`` for a head_dim without an instance."""
+    tiles = SINK_TILES.get(int(D))
+    if tiles is None:
+        return None
+    return tiles[1] if 0 < window <= SINK_WINDOW_TILE_MAX else tiles[0]
+
+
 def _launch(q, k, v, sinks, causal, window, sm_scale):
     from ._build import load, stream_call
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -118,15 +140,19 @@ def _launch(q, k, v, sinks, causal, window, sm_scale):
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    fn = load("attention_sink").tl_sink_fwd
+    tile = (0, 0)
+    if q.dtype != torch.float32:
+        tile = sink_tile(D, window) or (0, 0)
+    fn = load("attention_sink").tl_sink_fwd_tiled
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     code = stream_call(fn, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), sinks.data_ptr(), o.data_ptr(), B, Hq,
                        Hkv, Sq, Sk, D, DTYPE_CODES[q.dtype],
                        int(bool(causal)), int(window),
-                       float(sm_scale) * _LOG2E)
+                       float(sm_scale) * _LOG2E, *tile)
     if code != 0:
         raise KernelLaunchError("attention_sink", code)
     launches["attention_sink"] += 1

@@ -12,8 +12,13 @@ block tile loop of ``csrc/gemm_tile.cuh``) and ``csrc/gemv.cu``.
   split is the JAX wrapper's (``splitk_plan``): only where the chunk is a
   multiple of 128, else fewer splits, down to one full-K chunk. That rule
   is the TPU's (Mosaic's lane rule), kept so that both packages sum the
-  same partials in the same order. Two launches: the partials
-  (``splitk_gemm``) and their sum (``splitk_reduce``).
+  same partials in the same order. Two launches, by ``splitk_path``: up
+  to ``SPLITK_STREAM_MAX_ROWS`` rows (aligned operands) the weights are
+  streamed once over ``splitk_stream_plan``'s grid, each split cut into
+  sub-ranges (``splitk_stream``), then every partial summed in (split,
+  sub-range) order (``splitk_stream_combine``); past them one block a
+  (128 x 128 tile, split) (``splitk_gemm``) and the splits' sum
+  (``splitk_reduce``).
 * ``matmul_streamk(a, b, n_programs, ...)`` — the same product over
   host-planned segments ``(tile, k0, k_len)`` (``_streamk_segments``, the
   JAX planner's copy) that split the (tile, K-block) work evenly over
@@ -54,6 +59,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..resilience.errors import KernelLaunchError
+from .bitnet import _cdiv
 from .gemm import DTYPE_CODES, _as_dtype, _check, _out_dtype, check_grid, \
     to_out
 
@@ -62,16 +68,25 @@ __all__ = ["matmul_splitk", "matmul_splitk_plain", "splitk_plan",
            "streamk_kernel", "streamk_programs", "gemv", "gemv_plain",
            "gemv_kernel", "blocksparse_matmul", "blocksparse_matmul_plain",
            "blocksparse_gemm_kernel", "launches", "reset_launches",
-           "IN_TYPES"]
+           "IN_TYPES", "splitk_path", "splitk_stream_plan",
+           "stream_slots", "SPLITK_STREAM_MAX_ROWS"]
 
 # the input types the variants' kernels take
 IN_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 _KERNEL_TILE = 128              # csrc/gemm_tile.cuh BM = BN
 _GRID_Y_MAX = 65535
+# the few-row split-K path (csrc/gemm_variants.cu splitk_stream): rows up
+# to which it runs (its largest instance; PERF.md, #16, has the sweep),
+# the columns of a block's strip (kStCols) and the rows a sub-range is a
+# multiple of (four warps of 16-row steps)
+SPLITK_STREAM_MAX_ROWS = 64
+_STREAM_COLS = 64
+_STREAM_K_UNIT = 64
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads these around each call to prove the path used the kernels)
-launches = {"splitk_gemm": 0, "splitk_reduce": 0, "streamk_gemm": 0,
+launches = {"splitk_gemm": 0, "splitk_reduce": 0, "splitk_stream": 0,
+            "splitk_stream_combine": 0, "streamk_gemm": 0,
             "streamk_fixup": 0, "gemv": 0, "blocksparse_gemm": 0}
 
 
@@ -164,16 +179,119 @@ def matmul_splitk_plain(a, b, n_split: int = 4, block_M=128, block_N=128,
     return to_out(_sum_in_order(_splitk_partials_plain(a, b, n)), out)
 
 
+def splitk_path(M: int, N: int, K: int, dtype, a_ptr: int = 0,
+                b_ptr: int = 0) -> str:
+    """Which kernel of ``gemm_variants.cu`` computes a split-K product
+    of a (M, K) at ``a_ptr`` and b (K, N) at ``b_ptr`` on the card:
+
+    * ``"stream"`` (``tl_splitk_stream``, then
+      ``tl_splitk_stream_combine``): 1 to ``SPLITK_STREAM_MAX_ROWS`` rows
+      of float32, bfloat16 or float16, K and N multiples of 16 bytes of
+      the type and both bases on 16 bytes (every copy is 16 bytes);
+    * ``"tile"`` (``tl_splitk_gemm``, then ``tl_splitk_reduce``):
+      everything else."""
+    dtype = _as_dtype(dtype)
+    if dtype not in IN_TYPES or not 1 <= M <= SPLITK_STREAM_MAX_ROWS \
+            or min(N, K) < 1:
+        return "tile"
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    if K % v or N % v or (a_ptr | b_ptr) % 16:
+        return "tile"
+    return "stream"
+
+
+def splitk_stream_plan(N: int, n_split: int, split_len: int, slots: int):
+    """The few-row kernel's grid: ``(strips, n_sub, sub_len)``. A block
+    owns ``_STREAM_COLS`` columns (``strips = ceil(N / 64)``) and a
+    sub-range of ``sub_len`` rows (a multiple of 64) of one split's
+    ``split_len``. Each split is cut into ``n_sub = ceil(split_len /
+    sub_len)`` sub-ranges (the last may be shorter), as many as one wave
+    of the ``slots`` blocks the card holds at once takes: ``sub_len =
+    ceil(split_len / want)`` rounded up to 64 with ``want = max(1, slots
+    // (strips n_split))`` (a grid past one wave by a fraction would
+    leave its last wave mostly idle). Block p of the grid's ``n_split
+    n_sub`` runs sub-range ``p % n_sub`` of split ``p // n_sub``; the
+    partials are summed in that order."""
+    strips = _cdiv(N, _STREAM_COLS)
+    want = max(1, slots // (strips * n_split))
+    sub_len = max(_STREAM_K_UNIT, _cdiv(_cdiv(split_len, want),
+                                        _STREAM_K_UNIT) * _STREAM_K_UNIT)
+    return strips, _cdiv(split_len, sub_len), sub_len
+
+
+@functools.lru_cache(maxsize=None)
+def stream_slots(device, M: int, dtype) -> int:
+    """The few-row kernel's blocks the card holds at once for M rows of
+    ``dtype``: its SMs times the kernel's blocks an SM (CUDA's occupancy
+    calculator)."""
+    from ._build import load
+    fn = load("gemm_variants").tl_splitk_stream_blocks_per_sm
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = fn(M, DTYPE_CODES[dtype], ctypes.byref(blocks))
+    if code != 0:
+        raise KernelLaunchError("splitk_stream", code)
+    return torch.cuda.get_device_properties(device).multi_processor_count \
+        * blocks.value
+
+
+def _stream_launch(a, b, n_split: int) -> Tuple[torch.Tensor, int]:
+    """The few-row kernel's partials ``(n_split n_sub, M, N)`` float32
+    (split-major) and ``n_sub``."""
+    M, N, K = _mk(a, b, "matmul_splitk")
+    split_len = K // n_split
+    _, n_sub, sub_len = splitk_stream_plan(
+        N, n_split, split_len, stream_slots(a.device, M, a.dtype))
+    if n_split * n_sub > _GRID_Y_MAX:
+        raise ValueError(f"matmul_splitk: {n_split} x {n_sub} partials "
+                         f"are past the kernel grid's range")
+    ws = torch.empty((n_split * n_sub, M, N), dtype=torch.float32,
+                     device=a.device)
+    _call("gemm_variants", "tl_splitk_stream", "splitk_stream", a.device,
+          [_P, _P, _P] + [_I] * 8, a.data_ptr(), b.data_ptr(),
+          ws.data_ptr(), M, N, K, n_split, split_len, n_sub, sub_len,
+          DTYPE_CODES[a.dtype])
+    return ws, n_sub
+
+
+def _stream_combine_launch(ws, groups: int, out: torch.dtype):
+    """``(groups, M, N)`` in ``out``: each group the sum of its
+    ``len(ws) // groups`` consecutive partials, in order."""
+    parts, M, N = ws.shape
+    c = torch.empty((groups, M, N), dtype=out, device=ws.device)
+    _call("gemm_variants", "tl_splitk_stream_combine",
+          "splitk_stream_combine", ws.device, [_P, _P, _L, _I, _I, _I],
+          ws.data_ptr(), c.data_ptr(), M * N, groups, parts // groups,
+          DTYPE_CODES[out])
+    return c
+
+
 def _splitk_partials_launch(a, b, n_split: int) -> torch.Tensor:
+    """Cp (n_split, M, N) float32 by ``splitk_path``'s kernel: the
+    stream path's sub-ranges of each split summed in order (no second
+    launch when each split is one sub-range)."""
+    M, N, K = _mk(a, b, "matmul_splitk")
+    a, b = a.contiguous(), b.contiguous()
+    if M * N == 0 or K == 0:
+        return torch.zeros((n_split, M, N), dtype=torch.float32,
+                           device=a.device)
+    if splitk_path(M, N, K, a.dtype, a.data_ptr(),
+                   b.data_ptr()) == "stream":
+        ws, n_sub = _stream_launch(a, b, n_split)
+        return ws if n_sub == 1 else _stream_combine_launch(
+            ws, n_split, torch.float32)
+    return _tile_partials_launch(a, b, n_split)
+
+
+def _tile_partials_launch(a, b, n_split: int) -> torch.Tensor:
     M, N, K = _mk(a, b, "matmul_splitk")
     check_grid(M, N, "matmul_splitk")
     if n_split > _GRID_Y_MAX:
         raise ValueError(f"matmul_splitk: n_split {n_split} is past the "
                          f"kernel grid's range")
-    a, b = a.contiguous(), b.contiguous()
     ws = torch.empty((n_split, M, N), dtype=torch.float32, device=a.device)
-    if ws.numel() == 0 or K == 0:
-        return ws.zero_()
     _call("gemm_variants", "tl_splitk_gemm", "splitk_gemm", a.device,
           [_P, _P, _P] + [_I] * 6, a.data_ptr(), b.data_ptr(),
           ws.data_ptr(), M, N, K, n_split, K // n_split,
@@ -184,8 +302,6 @@ def _splitk_partials_launch(a, b, n_split: int) -> torch.Tensor:
 def _splitk_reduce_launch(ws, out: torch.dtype) -> torch.Tensor:
     n_split, M, N = ws.shape
     c = torch.empty((M, N), dtype=out, device=ws.device)
-    if c.numel() == 0:
-        return c
     _call("gemm_variants", "tl_splitk_reduce", "splitk_reduce", ws.device,
           [_P, _P, _L, _I, _I], ws.data_ptr(), c.data_ptr(), M * N, n_split,
           DTYPE_CODES[out])
@@ -196,14 +312,24 @@ def matmul_splitk(a, b, n_split: int = 4, block_M=128, block_N=128,
                   block_K=128, out_dtype=None) -> torch.Tensor:
     """C = A @ B over ``splitk_plan``'s K chunks, the float32 partials
     summed in split order, in ``out_dtype`` (default: a's type). CUDA
-    tensors launch the kernels; CPU tensors run the plain version."""
+    tensors launch the kernels (``splitk_path`` picks them); CPU tensors
+    run the plain version."""
     out = _types(a, b, out_dtype, "matmul_splitk")
     M, N, K = _mk(a, b, "matmul_splitk")
     if not a.is_cuda:
         return matmul_splitk_plain(a, b, n_split, block_K=block_K,
                                    out_dtype=out)
     n, _, _ = splitk_plan(K, n_split, block_K)
-    return _splitk_reduce_launch(_splitk_partials_launch(a, b, n), out)
+    a, b = a.contiguous(), b.contiguous()
+    if M * N == 0:
+        return torch.empty((M, N), dtype=out, device=a.device)
+    if K == 0:
+        return to_out(torch.zeros((M, N), device=a.device), out)
+    if splitk_path(M, N, K, a.dtype, a.data_ptr(),
+                   b.data_ptr()) == "stream":
+        ws, _ = _stream_launch(a, b, n)
+        return _stream_combine_launch(ws, 1, out)[0]
+    return _splitk_reduce_launch(_tile_partials_launch(a, b, n), out)
 
 
 def splitk_kernel(M, N, K, n_split, block_M, block_N, block_K, in_dtype,
