@@ -25,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               more at D=16 on a ragged S=1000; the dense grouped GEMM at
               the MoE layer's two expert products (Mixtral-8x7B widths,
               see MOE_FULL) and the token-sorted one on that batch's
-              routed per-expert counts, both layouts of B;
+              routed per-expert counts, both layouts of B, in float32
+              (3xTF32), bfloat16 and float16 (TMA + wgmma), each call's
+              path and block reported, and both once more at K = d - 1
+              on the block tile loop (rows off 16 bytes);
 4. model    — the first main path, the flagship transformer at the
               published widths of Ouro-2.6B (see FULL): the entry's
               forward on 2 x 4096 tokens without autograd (the forward
@@ -49,10 +52,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               two waves and the same gates, on the MLA kernel;
 7. moe      — the fourth main path: the expert-parallel MoE layer
               (make_moe_layer, one rank) at Mixtral-8x7B's expert widths
-              (see MOE_FULL) on 4096 tokens: two grouped-GEMM launches a
-              call, the output and the kept-token count against the same
-              layer with the plain grouped GEMM, the forward's median
-              time, peak memory, and one call under torch.profiler;
+              (see MOE_FULL) on 4096 tokens: two launches of the 3xTF32
+              grouped GEMM a call, the output and the kept-token count
+              against the same layer with the plain grouped GEMM, the
+              forward's median time, peak memory, and one call under
+              torch.profiler; then the layer in bfloat16 (two launches of
+              the TMA grouped GEMM a call) against the same layer on the
+              plain GEMMs in bfloat16, and its median time;
 8. ring     — the fifth main path: ring attention (make_ring_attention,
               one rank) at the model's attention shapes (B=2, H=16,
               S=4096, D=128), causal and not: one partial-kernel launch a
@@ -213,18 +219,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               B 2, H 16, S 2048; mha_fwd_kernel at the carver's best
               tile against SDPA), fp8_gemm (4096^3), mla_decode (B 4, H
               128, S 4096, dc 512, dr 64: the best of four split
-              candidates against the torch reference), paged_decode (B
+              candidates against the torch reference), moe_grouped (E 8,
+              512 x 2048 x 2048, bf16: grouped_matmul at the best of the
+              carver's top three blocks and the Hopper set, against
+              torch.bmm), paged_decode (B
               4, H 32, S 8192, D 128, pages of 128: the page walk and
               the gather each timed, the faster against the torch
               gather + softmax, KV GB/s), w4a8_gemm (4096^3) and
               w4a16_gemm (4096^3, group 512) through run_config at a 0.1
               s loop target (bench's own is 0.6 s), each record printed,
-              then the headline geomean line, the eight earlier configs'
-              and the five GEMM configs' geomeans; the two yardsticks',
-              mha_fwd's, mla_decode's, both decode strategies' and
-              w4a8_gemm's launches counted over the ten configs (a CUDA
-              graph's where it is captured), every GEMM of them on #15's
-              TMA path. Then the
+              then the headline geomean line, the geomeans of the eight
+              configs without the decode ones and moe_grouped, of the
+              ten without moe_grouped and of the five GEMM configs; the
+              two yardsticks', mha_fwd's, mla_decode's, both decode
+              strategies', the TMA grouped GEMM's and w4a8_gemm's
+              launches counted over the eleven configs (a CUDA graph's
+              where it is captured), every GEMM of them on #15's TMA
+              path (moe_grouped's on the TMA grouped kernel). Then the
               GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
               x 4096 and fp8 -> f32 at 4096^3, and the w4a16 yardstick
               (hand_w4a16) at 4096^3, group 512, each at the carver's two
@@ -262,6 +273,7 @@ N_PAGES = 1024
 PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12               # H100 SXM, f32 outside tensor cores
 PEAK_BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12             # H100 SXM, tf32 tensor cores, dense
 PEAK_8BIT_OPS = 1979e12              # H100 SXM, fp8 / int8 tensor cores
 # kernel vs plain: the same f32 arithmetic in another order
 RTOL = ATOL = 1e-4
@@ -320,7 +332,8 @@ MODEL_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
 # hidden_size 4096, intermediate_size 14336, num_local_experts 8,
 # num_experts_per_tok 2) on one 4096-token prefill chunk, capacity factor
 # 1.25 (make_moe_layer's default: C = ceil(4096 * 2 * 1.25 / 8) = 1280),
-# float32 as dryrun_multichip runs the layer. Departures, so this is not
+# float32 as dryrun_multichip runs the layer, then again in bfloat16, as
+# Mixtral serves (the float32 draws cast). Departures, so this is not
 # Mixtral: the repo's expert is silu(x W1) W2, not SwiGLU with W3; the
 # router is a softmax over all 8 experts, then top-2 without
 # renormalising; capacity drops tokens; one layer of 32, no attention.
@@ -329,9 +342,13 @@ MODEL_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
 MOE_FULL = dict(tokens=4096, d=4096, f=14336, experts=8, top_k=2,
                 capacity_factor=1.25)
 # grouped GEMM vs plain, normwise: float32 the same sums in another
-# order; bfloat16 an output rounded to bf16 may flip one ulp (2**-8)
-GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# order (or three TF32 passes); bfloat16 / float16 an output rounded to
+# 16 bits may flip one ulp (2**-8 in bf16)
+GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
 MOE_TOL = 1e-5          # the layer on the kernel vs on the plain GEMM
+# the same in bfloat16: both round the expert products' outputs (and the
+# hidden activation) to bf16, where a flipped ulp is 2**-8
+MOE_BF16_TOL = 1e-2
 
 # The library's GEMM entry points at bench.py's shapes (_config_builders,
 # bench.py:2102-2134): gemm_quickstart 1024^3 and gemm_large 8192 x 8192
@@ -980,7 +997,9 @@ def device_breakdown(torch, fn):
         spans.append((t0, t1))
         kind = ("attention_kernels_ms" if any(
             k in e.name for k in ("mha_fwd", "gqa_bwd", "decode")) else
-                "grouped_gemm_ms" if "grouped_gemm" in e.name else
+                "grouped_gemm_ms" if any(
+                    k in e.name for k in ("grouped_gemm", "grouped_tma",
+                                          "grouped_tf32x3")) else
                 "gemm_ms" if "gemm" in e.name else "other_ms")
         kinds[kind] += (t1 - t0) / 1e3
     busy, end = 0.0, -math.inf
@@ -1332,17 +1351,33 @@ def moe_capacity():
 
 
 def gemm_bound(torch, dtype, flops, nbytes):
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    """The grouped GEMM's bound: bytes over HBM's rate or operations over
+    the type's peak. float32 products run as three TF32 passes on the
+    tensor cores (the 3xTF32 kernel) or as FFMA: their operations take
+    the lesser time, 3 flops / 495 TFLOP/s or 1 / 67 ("operations
+    (3xTF32)")."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    ops = "operations"
+    if dtype == torch.float32:
+        t_ops = min(flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS) * 1e3
+        ops = "operations (3xTF32)"
+    else:
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else ops
 
 
 def gemm_phase(torch, gg, dtype):
     """The dense grouped GEMM at the MoE layer's two expert products, and
     the token-sorted one on the MOE_FULL batch's routed per-expert
     counts (K = d, N = f, B in both layouts), against their plain
-    versions; times, bounds and a torch.bmm yardstick."""
+    versions; times, bounds and a torch.bmm yardstick. Each call's path
+    (``grouped_path``) and block are reported, and each takes exactly one
+    launch of its path's kernel (counters zeroed before, read right
+    after). The block tile loop is driven the same way at K = d - 1,
+    whose rows are off 16 bytes in every type (the dense w1 product, and
+    the token-sorted one with B in both layouts); the token-sorted
+    product is on no main path, so its driven launches here are its entry
+    point's."""
     from tilelang_mesh_tpu_torch.parallel import moe
     name = str(dtype).replace("torch.", "")
     tol = GEMM_TOL[name]
@@ -1357,6 +1392,9 @@ def gemm_phase(torch, gg, dtype):
     xe = torch.einsum("td,tec->ecd", x, dispatch)
     del dispatch
     g = torch.Generator(device="cuda").manual_seed(4)
+    kernel = {"loop": "", "tma": "_tma", "tf32x3": "_tf32x3"}
+    entry = {f"{k}{p}": 0 for k in ("grouped_gemm", "varlen_grouped_gemm")
+             for p in kernel.values()}
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device="cuda")
@@ -1371,9 +1409,29 @@ def gemm_phase(torch, gg, dtype):
                           f"version: {rel:.3e} of max |plain| > {tol}")
         return err, rel
 
+    def driven(label, base, path, kern):
+        """One call of the entry point, its counters zeroed before and
+        read right after: exactly one launch, of its path's kernel."""
+        want = base + kernel[path]
+        torch.cuda.synchronize()
+        gg.reset_launches()
+        kern()
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in gg.launches.items() if v}
+        check(moved == {want: 1}, f"{label} ({name}, path {path}): "
+                                  f"launches {moved}, want one {want}")
+        entry[want] += 1
+
     res = {"dtype": name, "tolerance": f"normwise {tol}", "sizes": sizes}
-    for label, (M, K, N) in (("w1", (C, d, f)), ("w2", (C, f, d))):
+    for label, (M, K, N) in (("w1", (C, d, f)), ("w2", (C, f, d)),
+                             ("w1_loop", (C, d - 1, f))):
         a, b = rnd(E, M, K), rnd(E, K, N, scale=K ** -0.5)
+        path = gg.grouped_path(dtype, M, N, K, a.data_ptr(), b.data_ptr())
+        check((path == "loop") == label.endswith("loop"),
+              f"grouped_gemm {label} ({name}) takes the {path} path")
+        block = gg.grouped_block(path, M, N, K, dtype)
+        driven(f"grouped_gemm {label}", "grouped_gemm", path,
+               lambda: gg.grouped_matmul(a, b))
         err, rel = compare(f"grouped_gemm {label}",
                            lambda: gg.grouped_matmul(a, b),
                            lambda: gg.grouped_matmul_plain(a, b))
@@ -1381,7 +1439,8 @@ def gemm_phase(torch, gg, dtype):
         nbytes = (E * M * K + E * K * N + E * M * N) * esize
         bound, by = gemm_bound(torch, dtype, flops, nbytes)
         res[label] = {
-            "shape": [E, M, K, N], "max_abs_err": err, "normwise_err": rel,
+            "shape": [E, M, K, N], "path": path, "block": list(block),
+            "max_abs_err": err, "normwise_err": rel,
             "ms": cuda_ms(torch, lambda: gg.grouped_matmul(a, b), 5),
             "plain_ms": cuda_ms(torch, lambda: gg.grouped_matmul_plain(a, b),
                                 3),
@@ -1391,92 +1450,128 @@ def gemm_phase(torch, gg, dtype):
         del a, b
         torch.cuda.empty_cache()
 
-    a = torch.cat([xe[e, :s] for e, s in enumerate(sizes)]).to(dtype)
     xpad = xe.to(dtype)                  # the capacity-padded layout
-    del xe
-    b = rnd(E, d, f, scale=d ** -0.5)
     rows = sum(sizes)
     live = sum(1 for s in sizes if s)
-    flops = 2 * rows * d * f
-    nbytes = (rows * d + live * d * f) * esize + rows * f * 4 \
-        + 4 * (2 * len(gg._varlen_meta(sizes, gg.KERNEL_BLOCK_M)[0]) + E)
-    bound, by = gemm_bound(torch, dtype, flops, nbytes)
-    # cuBLAS on the padded layout does C·E rows against the routed rows
-    padded_ms = cuda_ms(torch, lambda: torch.bmm(xpad, b), 5)
     starts = [sum(sizes[:e]) for e in range(E)]
-    res["varlen_entry_launches"] = 0
-    for trans_b in (False, True):
-        bb = b.transpose(1, 2).contiguous() if trans_b else b
+    for K in (d, d - 1):
+        a = torch.cat([xe[e, :s, :K] for e, s in enumerate(sizes)]).to(dtype)
+        b = rnd(E, K, f, scale=K ** -0.5)
+        flops = 2 * rows * K * f
+        for trans_b in (False, True):
+            bb = b.transpose(1, 2).contiguous() if trans_b else b
+            path = gg.grouped_path(dtype, max(sizes), f, K, a.data_ptr(),
+                                   bb.data_ptr(), trans_b)
+            block = gg.grouped_block(path, gg.varlen_rows(sizes), f, K,
+                                     dtype)
+            TB = len(gg._varlen_meta(sizes, block[0])[0])
+            nbytes = (rows * K + live * K * f) * esize + rows * f * 4 \
+                + 4 * (2 * TB + 2 * E + 1)
+            bound, by = gemm_bound(torch, dtype, flops, nbytes)
 
-        def kern():
-            return gg.varlen_grouped_matmul(a, bb, sizes, trans_b=trans_b)
+            def kern():
+                return gg.varlen_grouped_matmul(a, bb, sizes,
+                                                trans_b=trans_b)
 
-        def plain():
-            return gg.varlen_grouped_matmul_plain(a, bb, sizes, trans_b)
+            def plain():
+                return gg.varlen_grouped_matmul_plain(a, bb, sizes, trans_b)
 
-        def library():                   # the same work: the routed rows
-            return [a[s0:s0 + n] @ (bb[e].t() if trans_b else bb[e])
-                    for e, (s0, n) in enumerate(zip(starts, sizes)) if n]
+            def library():               # the same work: the routed rows
+                return [a[s0:s0 + n] @ (bb[e].t() if trans_b else bb[e])
+                        for e, (s0, n) in enumerate(zip(starts, sizes))
+                        if n]
 
-        # the entry point's own path (the MoE layer does not call it): one
-        # call at the routed counts, its counters zeroed before and read
-        # right after; the comparison's launches below do not count
-        torch.cuda.synchronize()
-        gg.reset_launches()
-        kern()
-        torch.cuda.synchronize()
-        check(gg.launches == {"grouped_gemm": 0, "varlen_grouped_gemm": 1},
-              f"varlen_grouped_matmul trans_b={trans_b}: launches "
-              f"{gg.launches}, want one varlen_grouped_gemm")
-        res["varlen_entry_launches"] += 1
-        err, rel = compare(f"varlen_grouped_gemm trans_b={trans_b}", kern,
-                           plain)
-        res["varlen_trans" if trans_b else "varlen"] = {
-            "rows": rows, "max_abs_err": err, "normwise_err": rel,
-            "ms": cuda_ms(torch, kern, 5), "plain_ms": cuda_ms(torch, plain,
-                                                               3),
-            "library_ms": cuda_ms(torch, library, 5),
-            "library": "torch.matmul per group on the routed rows",
-            "bmm_padded_ms": padded_ms,
-            "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": nbytes}
-        del bb
-    del a, b, xpad
+            key = ("varlen_trans" if trans_b else "varlen") + (
+                "" if K == d else "_loop")
+            check((path == "loop") == key.endswith("loop"),
+                  f"varlen_grouped_gemm {key} ({name}) takes the {path} "
+                  f"path")
+            # the entry point's own path (the MoE layer does not call it):
+            # one call at the routed counts; the comparison's launches
+            # below do not count
+            driven(f"varlen_grouped_matmul {key}", "varlen_grouped_gemm",
+                   path, kern)
+            err, rel = compare(f"varlen_grouped_gemm {key}", kern, plain)
+            res[key] = {
+                "rows": rows, "K": K, "path": path, "block": list(block),
+                "max_abs_err": err, "normwise_err": rel,
+                "ms": cuda_ms(torch, kern, 5),
+                "plain_ms": cuda_ms(torch, plain, 3),
+                "library_ms": cuda_ms(torch, library, 5),
+                "library": "torch.matmul per group on the routed rows",
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": nbytes}
+            if K == d and not trans_b:
+                # cuBLAS on the padded layout does C·E rows
+                res[key]["bmm_padded_ms"] = cuda_ms(
+                    torch, lambda: torch.bmm(xpad, b), 5)
+            del bb
+        del a, b
+    del xe, xpad
     torch.cuda.empty_cache()
+    res["entry_launches"] = entry
     print(json.dumps({"grouped_gemm": name, **res}), flush=True)
     return res
 
 
 def moe_phase(torch, gg):
     """The MoE layer at MOE_FULL on one card: the main path's call with
-    its launch count, then the same layer on the plain grouped GEMM, the
-    forward's median time, and one call under torch.profiler."""
+    its launch count (two of the 3xTF32 grouped kernel), then the same
+    layer on the plain grouped GEMM, the forward's median time, and one
+    call under torch.profiler; then the layer again in bfloat16, as
+    Mixtral serves (two launches of the TMA grouped kernel), against the
+    same layer on the plain GEMMs in bfloat16, and its median time."""
     from tilelang_mesh_tpu_torch.parallel import moe
     c = MOE_FULL
     x, wr, w1, w2 = moe_inputs(torch)
     layer = moe.make_moe_layer(None, top_k=c["top_k"],
                                capacity_factor=c["capacity_factor"])
+
+    def main_path(args, kernel):
+        """One call, counters zeroed before and read right after: two
+        launches of ``kernel`` and no other grouped launch."""
+        torch.cuda.synchronize()
+        gg.reset_launches()
+        t0 = time.perf_counter()
+        out = layer(*args)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: v for k, v in gg.launches.items() if v}
+        check(launches == {kernel: 2},
+              f"grouped launches {launches} in one layer call, want two "
+              f"{kernel}")
+        check(tuple(out.shape) == (c["tokens"], c["d"])
+              and bool(torch.isfinite(out).all()), "bad MoE output")
+        return out, first_s, dict(gg.launches)
+
+    def plain_layer(args):
+        kernel_gemm = moe.grouped_matmul     # the same layer, plain GEMMs
+        moe.grouped_matmul = lambda a, b, **_: gg.grouped_matmul_plain(a, b)
+        try:
+            return layer(*args)
+        finally:
+            moe.grouped_matmul = kernel_gemm
+
+    def median_ms(args, kernel):
+        layer(*args)                         # warm-up
+        gg.reset_launches()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layer(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(gg.launches[kernel] == 10,
+              f"{gg.launches[kernel]} {kernel} launches in 5 calls")
+        return times, sorted(times)[len(times) // 2]
+
+    args = (x, wr, w1, w2)
     torch.cuda.synchronize()
     reset_peak(torch)
-    gg.reset_launches()                  # the main path starts here
-    t0 = time.perf_counter()
-    out = layer(x, wr, w1, w2)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = dict(gg.launches)                   # read right after
+    out, first_s, launches = main_path(args, "grouped_gemm_tf32x3")
     call_peak = torch.cuda.max_memory_allocated()
-    check(launches["grouped_gemm"] == 2,
-          f"grouped_gemm launched {launches['grouped_gemm']} times in one "
-          f"layer call, want 2")
-    check(tuple(out.shape) == (c["tokens"], c["d"])
-          and bool(torch.isfinite(out).all()), "bad MoE output")
-
-    kernel_gemm = moe.grouped_matmul     # the same layer, plain GEMMs
-    moe.grouped_matmul = lambda a, b, **_: gg.grouped_matmul_plain(a, b)
-    try:
-        want = layer(x, wr, w1, w2)
-    finally:
-        moe.grouped_matmul = kernel_gemm
+    want = plain_layer(args)
     # the (token, slot) pairs the dispatch keeps, against what the
     # capacity allows: expert e's takers fill places 0, 1, ... in slot
     # order, so it keeps min(takers, C) of them
@@ -1492,20 +1587,8 @@ def moe_phase(torch, gg):
     check(rel <= MOE_TOL, f"MoE layer disagrees with the plain path: "
                           f"{rel:.3e} of max |plain| > {MOE_TOL}")
     del out, want
-
-    layer(x, wr, w1, w2)                 # warm-up
-    gg.reset_launches()
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        layer(x, wr, w1, w2)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    check(gg.launches["grouped_gemm"] == 10,
-          f"{gg.launches['grouped_gemm']} grouped launches in 5 calls")
-    profile = device_breakdown(torch, lambda: layer(x, wr, w1, w2))
-    med = sorted(times)[len(times) // 2]
+    times, med = median_ms(args, "grouped_gemm_tf32x3")
+    profile = device_breakdown(torch, lambda: layer(*args))
     res = {"config": {**c, "capacity": moe_capacity()},
            "first_call_ms": first_s * 1e3, "forward_ms": times,
            "forward_ms_median": med,
@@ -1521,8 +1604,26 @@ def moe_phase(torch, gg):
            "phase_max_memory_allocated_bytes":
                torch.cuda.max_memory_allocated(),
            "profile": profile}
-    print(json.dumps(res), flush=True)
+
+    # -- the layer in bfloat16 ---------------------------------------------
+    args = tuple(t.bfloat16() for t in args)
     del x, wr, w1, w2
+    torch.cuda.empty_cache()
+    out, first_s, launches = main_path(args, "grouped_gemm_tma")
+    err, rel = normwise_err(out, plain_layer(args))
+    check(rel <= MOE_BF16_TOL, f"MoE layer in bfloat16 disagrees with the "
+                               f"plain path: {rel:.3e} of max |plain| > "
+                               f"{MOE_BF16_TOL}")
+    del out
+    times, med = median_ms(args, "grouped_gemm_tma")
+    res["bfloat16"] = {"first_call_ms": first_s * 1e3, "forward_ms": times,
+                       "forward_ms_median": med,
+                       "tokens_per_s": c["tokens"] / (med / 1e3),
+                       "launches": launches, "max_abs_err": err,
+                       "normwise_err": rel,
+                       "tolerance": f"normwise {MOE_BF16_TOL}"}
+    print(json.dumps(res), flush=True)
+    del args
     torch.cuda.empty_cache()
     return res
 
@@ -4746,20 +4847,21 @@ DSA_KERNELS = (
      "float32"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): ten configs,
+# the headline phase's loop target (bench.py's is 0.6 s): eleven configs,
 # each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
 YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
-    """The headline comparison (tilelang_mesh_tpu_torch.bench): the ten
+def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the eleven
     configs at full size through ``run_config`` (counters zeroed before,
     read right after; a CUDA graph's launches are counted where they are
     captured, its replays not; the flash configs launch ``mha_fwd``,
     ``mla_decode`` the MLA kernel, ``paged_decode`` both the page walk
-    and the gather's contiguous kernel, each strategy with its time),
+    and the gather's contiguous kernel, each strategy with its time,
+    ``moe_grouped`` the TMA grouped kernel),
     each record printed, then the headline geomean line, the geomean of
     the eight configs without the two decode ones (for comparison) and
     of the five GEMM configs alone; every GEMM of them on #15's TMA path
@@ -4779,9 +4881,9 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's ten configs -----------------------------
+    # -- the main path: bench's eleven configs --------------------------
     torch.cuda.synchronize()
-    for mod in (ys, gm, dqg, fa, mla, fd):
+    for mod in (ys, gm, dqg, fa, mla, fd, gg):
         mod.reset_launches()
     t0 = time.perf_counter()
     records = []
@@ -4799,7 +4901,8 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
     res["launches"] = dict(ys.launches)
     res["library_launches"] = {**gm.launches, **dqg.launches,
                                "mha_fwd": fa.launches["mha_fwd"],
-                               **mla.launches, **fd.launches}
+                               **mla.launches, **fd.launches,
+                               **gg.launches}
     res["records"] = records
     res["seconds"] = time.perf_counter() - t0
     check(all(n > 0 for n in res["launches"].values()),
@@ -4813,6 +4916,9 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
           "headline: the w4a8 config did not launch w4a8_gemm")
     check(mla.launches["mla_decode"] > 0,
           "headline: the mla_decode config did not launch mla_decode")
+    check(gg.launches["grouped_gemm_tma"] > 0
+          and gg.launches["grouped_gemm"] == 0,
+          f"headline: moe_grouped's grouped launches {dict(gg.launches)}")
     paged = next(r for r in records if r["config"] == "paged_decode")
     check(fd.launches["paged_decode"] > 0 and fd.launches["decode"] > 0
           and paged["walk_ms"] > 0 and paged["gather_ms"] > 0,
@@ -4822,11 +4928,15 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd):
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
     res["geomean_vs_baseline_eight"] = tb.headline(
         [r for r in records if r["config"] not in ("mla_decode",
-                                                   "paged_decode")])[
+                                                   "paged_decode",
+                                                   "moe_grouped")])[
+            "geomean_vs_baseline"]
+    res["geomean_vs_baseline_ten"] = tb.headline(
+        [r for r in records if r["config"] != "moe_grouped"])[
             "geomean_vs_baseline"]
     res["geomean_vs_baseline_gemm"] = tb.headline(
         [r for r in records if not r["config"].startswith(
-            ("flash", "mla", "paged"))])[
+            ("flash", "mla", "paged", "moe"))])[
             "geomean_vs_baseline"]
 
     def hold(label, got, want):
@@ -5076,6 +5186,7 @@ def main() -> int:
     attn16 = attention_phase(torch, fa, gb, torch.bfloat16)
     gemm32 = gemm_phase(torch, gg, torch.float32)
     gemm16 = gemm_phase(torch, gg, torch.bfloat16)
+    gemmh = gemm_phase(torch, gg, torch.float16)
 
     phase("model")
     mdl = model_phase(torch, fa, gb)
@@ -5121,7 +5232,7 @@ def main() -> int:
     ds = dsa_phase(torch, dsa)
 
     phase("headline")
-    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd)
+    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -5184,30 +5295,49 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "mha_fwd_partial")[
         "ring_launches"] = ring["causal"]["launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
-    # the layer's first expert product; the second in "w2"
-    kernels.append({
-        "name": "grouped_gemm", "route": "cuda",
-        "source": csrc + "grouped_gemm.cu",
-        "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:17",
-        "launches": moe_res["launches"]["grouped_gemm"],
-        **{k: gemm32["w1"][k] for k in keys + ("bound_by",)},
-        "bf16": {k: gemm16["w1"][k] for k in keys},
-        "w2": {"float32": {k: gemm32["w2"][k] for k in keys},
-               "bfloat16": {k: gemm16["w2"][k] for k in keys}}})
-    # not on the MoE path: its entry point driven at the MoE batch's
-    # routed counts (the kernels phase)
-    kernels.append({
-        "name": "varlen_grouped_gemm", "route": "cuda",
-        "source": csrc + "grouped_gemm.cu",
-        "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:58",
-        "launches": moe_res["launches"]["varlen_grouped_gemm"]
-        + gemm32["varlen_entry_launches"] + gemm16["varlen_entry_launches"],
-        **{k: gemm32["varlen"][k] for k in keys + ("bound_by",)},
-        "bmm_padded_ms": gemm32["varlen"]["bmm_padded_ms"],
-        "bf16": {k: gemm16["varlen"][k] for k in keys},
-        "trans_b": {"float32": {k: gemm32["varlen_trans"][k] for k in keys},
-                    "bfloat16": {k: gemm16["varlen_trans"][k]
-                                 for k in keys}}})
+    # #20 and #21 by path: the layer's first expert product (the second
+    # in "w2"), the routed rows (B transposed in "varlen_trans", and in
+    # "varlen_trans_loop" on the loop); the loop at K d - 1. The MoE layer
+    # launches the TMA kernel in bfloat16 and the 3xTF32 one in float32;
+    # the token-sorted entry point and the loop are on no main path: their
+    # launches are those driven in the kernels phase (the MoE path's
+    # count, 0, is added and kept apart).
+    gemms = {"float32": gemm32, "bfloat16": gemm16, "float16": gemmh}
+    entry = {k: sum(r["entry_launches"][k] for r in gemms.values())
+             for k in gemm32["entry_launches"]}
+    for kname, head, types, case, launches in (
+            ("grouped_gemm_tma", "bfloat16", ("float16",), "w1",
+             moe_res["bfloat16"]["launches"]["grouped_gemm_tma"]),
+            ("grouped_gemm_tf32x3", "float32", (), "w1",
+             moe_res["launches"]["grouped_gemm_tf32x3"]),
+            ("grouped_gemm", "float32", ("bfloat16", "float16"), "w1_loop",
+             entry["grouped_gemm"]),
+            ("varlen_grouped_gemm_tma", "bfloat16", ("float16",), "varlen",
+             entry["varlen_grouped_gemm_tma"]),
+            ("varlen_grouped_gemm_tf32x3", "float32", (), "varlen",
+             entry["varlen_grouped_gemm_tf32x3"]),
+            ("varlen_grouped_gemm", "float32", ("bfloat16", "float16"),
+             "varlen_loop", entry["varlen_grouped_gemm"])):
+        top = gemms[head][case]
+        e = {"name": kname, "route": "cuda",
+             "source": csrc + "grouped_gemm.cu",
+             "replaces": "tilelang_mesh_tpu/ops/grouped_gemm.py:" + (
+                 "58" if kname.startswith("varlen") else "17"),
+             "launches": launches, "dtype": head, "case": case,
+             "path": top["path"], "block": top["block"],
+             **{k: top[k] for k in keys + ("bound_by",)},
+             **{t: {k: gemms[t][case][k] for k in keys} for t in types}}
+        second = {"w1": "w2", "varlen": "varlen_trans",
+                  "varlen_loop": "varlen_trans_loop"}.get(case)
+        if second:
+            e[second] = {t: {k: gemms[t][second][k] for k in keys}
+                         for t in (head,) + types}
+        if kname.startswith("varlen"):
+            e["moe_path_launches"] = \
+                moe_res["launches"]["varlen_grouped_gemm" + kname[19:]]
+        if case == "varlen":
+            e["bmm_padded_ms"] = top["bmm_padded_ms"]
+        kernels.append(e)
     for entry in kernel_entries(gops, GEMM_OPS_KERNELS):
         if entry["name"] == "matmul_tma":     # its fp8 operands' pre-pass
             entry["prepass"] = {

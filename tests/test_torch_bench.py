@@ -1,5 +1,5 @@
 """The port's headline comparison (tilelang_mesh_tpu_torch/bench.py)
-on the CPU: the eight configs at tiny sizes through ``run_config`` with
+on the CPU: the eleven configs at tiny sizes through ``run_config`` with
 loose peaks, as tests/test_bench_configs.py runs bench.py's (the ops run
 their plain versions; the numbers are host times and mean nothing), the
 cross-check equal to bench.py's, the candidate sweep skipping only a
@@ -52,6 +52,9 @@ _CONFIGS = {
     "paged_decode": lambda: port.cfg_paged_decode(
         B=2, H=4, S=2048, D=64, page=128, device="cpu", arch=H100_SXM,
         target_s=_TARGET_S),
+    "moe_grouped": lambda: port.cfg_moe_grouped(
+        E=2, M=128, K=128, N=256, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
 }
 
 
@@ -75,6 +78,10 @@ def test_config_runs_on_cpu(name):
     if name == "mla_decode":        # one of bench.py's four candidates
         assert rec["candidate"] in ("ns=1 bn=1024", "ns=2 bn=512",
                                     "ns=4 bn=256", "ns=8 bn=128")
+    if name == "moe_grouped":       # a block the kernel has an instance of
+        from tilelang_mesh_tpu_torch.carver import KERNEL_BLOCKS
+        assert tuple(rec["block"]) in KERNEL_BLOCKS
+        assert "E=2 128x256x128" in rec["metric"]
     if name == "paged_decode":      # both strategies checked and timed
         assert rec["walk_ms"] > 0 and rec["gather_ms"] > 0
         assert rec["strategy"] in ("inkernel-walk", "gather")
@@ -92,21 +99,40 @@ def test_config_runs_on_cpu(name):
                 KERNEL_BLOCKS
 
 
+def test_moe_grouped_times_each_block_that_runs_once(monkeypatch):
+    """moe_grouped's candidates are the blocks the kernel runs at (each
+    hint resolved by grouped_block, so one that is no instance runs as
+    the carver's first), each once, and the record names the winner."""
+    from tilelang_mesh_tpu_torch.carver import KERNEL_BLOCKS
+    seen = []
+    pick = port._pick_best
+
+    def spy(cands, *args, **kwargs):
+        seen.extend(name for name, _, _ in cands)
+        return pick(cands, *args, **kwargs)
+
+    monkeypatch.setattr(port, "_pick_best", spy)
+    rec = _CONFIGS["moe_grouped"]()["record"]
+    assert len(seen) == len(set(seen)) == len(KERNEL_BLOCKS)
+    assert {str(b) for b in KERNEL_BLOCKS} == set(seen)
+    assert str(tuple(rec["block"])) in seen
+
+
 def test_config_names_and_headline_are_bench_py_s():
     import bench as ref
     names = [n for n, _ in port._config_builders(True)]
     assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
                      "flash_d128", "flash_d128_full", "fp8_gemm",
-                     "mla_decode", "paged_decode", "w4a8_gemm",
-                     "w4a16_gemm"]
+                     "mla_decode", "paged_decode", "moe_grouped",
+                     "w4a8_gemm", "w4a16_gemm"]
     ref_names = [n for n, _ in ref._config_builders(True)]
     assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
             for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 3.0,
-                                    2.5, 1.1, 0.8))]
+                                    2.5, 0.9, 1.1, 0.8))]
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 10)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 11)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 

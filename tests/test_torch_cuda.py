@@ -585,13 +585,42 @@ def test_model_on_card_matches_model_on_cpu(cuda):
     assert _normwise(dense, forward(card, tok[:2, :-1].cuda())) <= 1e-4
 
 
-GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 
 def _randn(dev, shape, dtype, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev).to(dtype)
+
+
+def _path_counted(kernel, path, call):
+    """call() on the card; exactly one launch, of the kernel the path
+    rule named (``kernel``, ``kernel_tma`` or ``kernel_tf32x3``)."""
+    name = kernel + {"loop": "", "tma": "_tma", "tf32x3": "_tf32x3"}[path]
+    before = dict(gg.launches)
+    got = call()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in gg.launches.items() if v != before[k]
+            } == {name: 1}
+    return got
+
+
+def _grouped_counted(x, w, block=(None,) * 3):
+    E, M, K = x.shape
+    path = gg.grouped_path(x.dtype, M, w.shape[2], K, x.data_ptr(),
+                           w.data_ptr())
+    return _path_counted("grouped_gemm", path,
+                         lambda: gg.grouped_matmul(x, w, *block))
+
+
+def _varlen_counted(a, b, sizes, trans_b, block=(None,) * 3):
+    N = b.shape[1] if trans_b else b.shape[2]
+    path = gg.grouped_path(a.dtype, max(sizes), N, a.shape[1], a.data_ptr(),
+                           b.data_ptr(), trans_b)
+    return _path_counted("varlen_grouped_gemm", path,
+                         lambda: gg.varlen_grouped_matmul(
+                             a, b, sizes, *block, trans_b=trans_b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -604,10 +633,7 @@ def test_grouped_gemm_matches_plain(cuda, dtype, shape):
     E, M, K, N = shape
     x = _randn(cuda, (E, M, K), dtype, 0)
     w = _randn(cuda, (E, K, N), dtype, 1)
-    before = gg.launches["grouped_gemm"]
-    got = gg.grouped_matmul(x, w)
-    torch.cuda.synchronize()
-    assert gg.launches["grouped_gemm"] == before + 1
+    got = _grouped_counted(x, w)
     assert _normwise(got, gg.grouped_matmul_plain(x, w)) <= GEMM_TOL[dtype]
 
 
@@ -623,12 +649,159 @@ def test_varlen_grouped_gemm_matches_plain(cuda, dtype, trans_b, sizes, K,
     a = _randn(cuda, (sum(sizes), K), dtype, 2)
     b = _randn(cuda, (len(sizes), N, K) if trans_b else (len(sizes), K, N),
                dtype, 3)
-    before = gg.launches["varlen_grouped_gemm"]
-    got = gg.varlen_grouped_matmul(a, b, sizes, trans_b=trans_b)
-    torch.cuda.synchronize()
-    assert gg.launches["varlen_grouped_gemm"] == before + 1
+    got = _varlen_counted(a, b, sizes, trans_b)
     want = gg.varlen_grouped_matmul_plain(a, b, sizes, trans_b)
     assert _normwise(got, want) <= GEMM_TOL[dtype]
+
+
+GROUPED_BLOCKS = sorted(ys.KERNEL_BLOCKS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("blk", [(None,) * 3] + GROUPED_BLOCKS,
+                         ids=lambda b: "x".join(map(str, b)))
+def test_grouped_gemm_new_paths_match_plain(cuda, dtype, blk):
+    """Aligned operands on the "tma" (bf16, f16) and "tf32x3" (f32)
+    kernels at each block hint: E 3, M 77 (a ragged last M tile), K 1000
+    (a K tail inside each expert's plane of the 3-D map), N 264 (a
+    ragged N panel)."""
+    E, M, K, N = 3, 77, 1000, 264
+    x = _randn(cuda, (E, M, K), dtype, 40)
+    w = _randn(cuda, (E, K, N), dtype, 41)
+    assert gg.grouped_path(dtype, M, N, K, x.data_ptr(), w.data_ptr()) == (
+        "tf32x3" if dtype == torch.float32 else "tma")
+    got = _grouped_counted(x, w, blk)
+    assert _normwise(got, gg.grouped_matmul_plain(x, w)) <= GEMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_grouped_gemm_next_expert_never_leaks(cuda, dtype, bad):
+    """NaN or Inf in X[e + 1]'s first rows and W[e + 1]'s first K rows:
+    expert e's output stays finite and right (K 1000 is no multiple of
+    any K tile, so e's last K tile runs past its plane)."""
+    E, M, K, N = 3, 77, 1000, 264
+    x = _randn(cuda, (E, M, K), dtype, 42)
+    w = _randn(cuda, (E, K, N), dtype, 43)
+    x[1:, :8] = bad
+    w[1:, :40] = bad
+    got = _grouped_counted(x, w)
+    want = gg.grouped_matmul_plain(x, w)
+    assert _normwise(got[0], want[0]) <= GEMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("block_M", [128, 256])
+@pytest.mark.parametrize("bad", [None, float("nan"), float("inf")])
+def test_varlen_new_paths_match_plain(cuda, dtype, trans_b, block_M, bad):
+    """Aligned token-sorted products on "tma" / "tf32x3" at 128 and 256
+    rows a block (the f32 kernel has 128): groups ending mid-tile, one
+    empty, K 1000; with ``bad``, NaN or Inf in the next group's rows of A
+    and in the next expert's first rows of B, which group 0's tiles load
+    (A) or must not (B): group 0's rows stay finite and right."""
+    sizes, K, N = (300, 0, 77, 130), 1000, 264
+    a = _randn(cuda, (sum(sizes), K), dtype, 44)
+    b = _randn(cuda, (len(sizes), N, K) if trans_b else (len(sizes), K, N),
+               dtype, 45)
+    if bad is not None:
+        a[sizes[0]:] = bad
+        b[1:, :40] = bad
+    got = _varlen_counted(a, b, sizes, trans_b, (block_M, 128, 64))
+    want = gg.varlen_grouped_matmul_plain(a, b, sizes, trans_b)
+    rows = sizes[0] if bad is not None else sum(sizes)
+    assert _normwise(got[:rows], want[:rows]) <= GEMM_TOL[dtype]
+
+
+def _plant_own_infinities(x, w, trans_b=False):
+    """inf and -inf in expert 0's own rows of X (or the token-sorted A)
+    and of W: x[5, 17] = inf; w's -inf at (K 300, N 40) and inf at (K
+    600, N 7); x[9, 300] = -inf and x[9, 600] = inf, which meet w's 1 at
+    (300, 7) and its inf at (600, 7): NaN at (9, 7). In float32 also
+    x[20, 3] = FLT_MAX, whose TF32 big part would round to inf, with w's
+    K row 3 scaled by 0.25 so that row 20 stays inside float32."""
+    w0 = w[0].t() if trans_b else w[0]          # (K, N) view of expert 0
+    x[5, 17] = float("inf")
+    x[9, 300] = float("-inf")
+    x[9, 600] = float("inf")
+    w0[300, 40] = float("-inf")
+    w0[300, 7] = 1.0
+    w0[600, 7] = float("inf")
+    if x.dtype == torch.float32:
+        x[20, 3] = torch.finfo(torch.float32).max
+        w0[3] *= 0.25
+
+
+def _same_infinities(got, want, tol):
+    """NaN and inf where the plain version has them, with its signs; the
+    finite rest within ``tol`` normwise, row 20's (FLT_MAX's) within its
+    own row."""
+    got, want = got.float(), want.float()
+    nan, inf = torch.isnan(want), torch.isinf(want)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    assert inf.any() and torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    rest = torch.isfinite(want)
+    row = rest[20].clone()
+    assert _normwise(got[20][row], want[20][row]) <= tol
+    rest[20] = False
+    assert _normwise(got[rest], want[rest]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_grouped_gemm_own_infinities_match_plain(cuda, dtype):
+    """inf in expert 0's own X and W on "tf32x3" / "tma": inf and NaN come
+    out where torch.bmm gives them (the 3xTF32 split keeps an infinity
+    from meeting another operand's small part), and the rest, expert 1
+    included, within GEMM_TOL."""
+    E, M, K, N = 2, 77, 1000, 264
+    x = _randn(cuda, (E, M, K), dtype, 48)
+    w = _randn(cuda, (E, K, N), dtype, 49)
+    _plant_own_infinities(x[0], w)
+    got = _grouped_counted(x, w)
+    want = gg.grouped_matmul_plain(x, w)
+    _same_infinities(got[0], want[0], GEMM_TOL[dtype])
+    assert _normwise(got[1], want[1]) <= GEMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_varlen_own_infinities_match_plain(cuda, dtype, trans_b):
+    """The same in group 0's own rows of the token-sorted A and in B[0],
+    in both layouts."""
+    sizes, K, N = (77, 0, 130), 1000, 264
+    a = _randn(cuda, (sum(sizes), K), dtype, 50)
+    b = _randn(cuda, (len(sizes), N, K) if trans_b else (len(sizes), K, N),
+               dtype, 51)
+    _plant_own_infinities(a, b, trans_b)
+    got = _varlen_counted(a, b, sizes, trans_b)
+    want = gg.varlen_grouped_matmul_plain(a, b, sizes, trans_b)
+    _same_infinities(got[:sizes[0]], want[:sizes[0]], GEMM_TOL[dtype])
+    assert _normwise(got[sizes[0]:], want[sizes[0]:]) <= GEMM_TOL[dtype]
+
+
+def test_grouped_path_rule_on_the_card(cuda):
+    """A bf16 or f32 operand whose base is off 16 bytes takes the tile
+    loop; the same values aligned take the TMA or 3xTF32 kernel; each
+    pair agrees."""
+    for dtype, fast in ((torch.bfloat16, "tma"), (torch.float32, "tf32x3")):
+        x = _randn(cuda, (2, 96, 256), dtype, 46)
+        w = _randn(cuda, (2, 256, 128), dtype, 47)
+        flat = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+        unaligned = flat[1:1 + x.numel()].view(x.shape)
+        unaligned.copy_(x)
+        assert gg.grouped_path(dtype, 96, 128, 256, unaligned.data_ptr(),
+                               w.data_ptr()) == "loop"
+        assert gg.grouped_path(dtype, 96, 128, 256, x.data_ptr(),
+                               w.data_ptr()) == fast
+        got_loop = _grouped_counted(unaligned, w)
+        got_fast = _grouped_counted(x, w)
+        assert _normwise(got_fast.float(), got_loop.float()) <= \
+            GEMM_TOL[dtype]
 
 
 def test_grouped_gemm_refuses_mixed_devices(cuda):
@@ -654,14 +827,38 @@ def test_moe_layer_on_card_matches_cpu(cuda):
     cpu = [torch.from_numpy(a) for a in arrays]
     card = [t.to(cuda) for t in cpu]
     want = layer(*cpu)
-    before = gg.launches["grouped_gemm"]
+    before = gg.launches["grouped_gemm_tf32x3"]
     got = layer(*card)
     torch.cuda.synchronize()
-    assert gg.launches["grouped_gemm"] == before + 2
+    assert gg.launches["grouped_gemm_tf32x3"] == before + 2
     kept = [int(moe.route(x, wr, 2, 48)[1].count_nonzero())
             for x, wr, _, _ in (cpu, card)]
     assert kept[0] == kept[1] < 512
     assert _normwise(got, want.to(cuda)) <= 1e-4
+
+
+def test_moe_layer_bf16_on_card_matches_plain_gemms(cuda):
+    """The layer in bfloat16 on the card: two launches of the TMA grouped
+    kernel a call, within 1e-2 normwise of the same layer on the plain
+    grouped GEMM (the widths of test_moe_layer_on_card_matches_cpu)."""
+    from tilelang_mesh_tpu_torch.parallel import moe
+    rng = np.random.default_rng(2)
+    card = [torch.from_numpy((rng.standard_normal(s) * sc).astype(
+        np.float32)).to(cuda).bfloat16()
+        for s, sc in (((256, 64), 0.5), ((64, 8), 0.5),
+                      ((8, 64, 128), 0.2), ((8, 128, 64), 0.2))]
+    layer = moe.make_moe_layer(None, top_k=2, capacity_factor=0.75)
+    before = gg.launches["grouped_gemm_tma"]
+    got = layer(*card)
+    torch.cuda.synchronize()
+    assert gg.launches["grouped_gemm_tma"] == before + 2
+    kernel_gemm = moe.grouped_matmul
+    moe.grouped_matmul = lambda a, b, **_: gg.grouped_matmul_plain(a, b)
+    try:
+        want = layer(*card)
+    finally:
+        moe.grouped_matmul = kernel_gemm
+    assert _normwise(got, want) <= 1e-2
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -4,8 +4,8 @@ PyTorch's fused attention, timed in interleaved A/B rounds.
 
     python -m tilelang_mesh_tpu_torch.bench [--quick] [--config NAME ...]
 
-Counterpart of the GEMM, flash and decode parts of ``bench.py``. Ten
-configs, in ``bench.py``'s order:
+Counterpart of the GEMM, flash, decode and MoE parts of ``bench.py``.
+Eleven configs, in ``bench.py``'s order:
 
 * ``gemm_quickstart`` (1024^3) and ``gemm_large`` (8192 x 8192 x 4096;
   2048^3 with ``--quick``), bf16: the best of ``ops/gemm.py``'s
@@ -35,6 +35,14 @@ configs, in ``bench.py``'s order:
   out, as bench.py does), against the torch gather + float32 softmax
   reference; its ``value`` is the KV cache's bytes a second (GB/s, the
   record's ``bytes``);
+* ``moe_grouped`` (E 8, 512 x 2048 x 2048, bf16; M 256 with
+  ``--quick``): ``ops/grouped_gemm.py``'s ``grouped_matmul`` at the best
+  of the carver's top three blocks and the kernel's Hopper set
+  (``carver.KERNEL_BLOCKS``, in place of bench.py's TPU tiles), the
+  record naming it (``block``), against ``torch.bmm`` of the bf16
+  operands (float32 sums in cuBLAS, cast to bf16: the torch form of
+  bench.py's einsum with ``preferred_element_type=float32``), each
+  candidate checked against the float32 product first;
 * ``w4a8_gemm`` (4096^3; 1024^3 quick): ``ops/dequant_gemm.py``'s
   ``w4a8_gemm_kernel`` (one tile) against the torch composition of
   ``bench.py``'s XLA reference: unpack int4 -> int8, two int8 products
@@ -89,12 +97,13 @@ import time
 import numpy as np
 import torch
 
-from .carver import FlashAttentionTemplate, MatmulTemplate, auto_arch
+from .carver import (KERNEL_BLOCKS, FlashAttentionTemplate, MatmulTemplate,
+                     auto_arch)
 from .profiler import Timer, _stats_ms
 
 __all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_flash",
-           "cfg_fp8_gemm", "cfg_mla_decode", "cfg_paged_decode", "cfg_w4a8",
-           "cfg_w4a16", "main"]
+           "cfg_fp8_gemm", "cfg_mla_decode", "cfg_paged_decode",
+           "cfg_moe_grouped", "cfg_w4a8", "cfg_w4a16", "main"]
 
 _TARGET_LOOP_S = 0.6   # in-loop work per timed call; >> fixed-cost noise
 _MAX_REP = 200_000
@@ -471,6 +480,43 @@ def cfg_paged_decode(B=4, H=32, S=8192, D=128, page=128, device="cuda",
                                       "kv_bytes": kv_bytes, **extra})
 
 
+def cfg_moe_grouped(E=8, M=512, K=2048, N=2048, device="cuda", arch=None,
+                    target_s=_TARGET_LOOP_S):
+    """The MoE layer's grouped GEMM (``bench.py`` ``cfg_moe_grouped``):
+    ``grouped_matmul`` at the best of the carver's top three blocks and
+    the kernel's Hopper set, each checked before it is timed, against
+    ``torch.bmm`` of the same bf16 operands."""
+    from .ops.grouped_gemm import grouped_block, grouped_matmul
+    arch = arch or auto_arch()
+    x, w = _draw(6, device, torch.bfloat16, (E, M, K), (E, K, N))
+
+    def ref(x, w):
+        return torch.bmm(x, w)
+
+    check = functools.partial(
+        _check_close, ref=torch.bmm(x.float(), w.float()).to(x.dtype),
+        rel_tol=3e-2)
+    # each hint as the block the kernel runs at (a hint that is no
+    # instance runs the carver's first), each block once
+    blocks = list(dict.fromkeys(
+        grouped_block("tma", M, N, K, torch.bfloat16, *blk, arch=arch)
+        for blk in [(h.config["block_M"], h.config["block_N"],
+                     h.config["block_K"])
+                    for h in MatmulTemplate(M, N, K, "bfloat16",
+                                            arch=arch).hints(3)]
+        + sorted(KERNEL_BLOCKS)))
+    name, ours, _ = _pick_best(
+        [(str(blk), lambda blk=blk: (lambda x_, w_: grouped_matmul(
+            x_, w_, *blk)), (x, w)) for blk in blocks],
+        check, "moe grouped", target_s=target_s)
+    named = {str(blk): list(blk) for blk in blocks}
+    return dict(metric=f"fusedmoe grouped GEMM E={E} {M}x{N}x{K} "
+                       f"(grouped_matmul vs torch.bmm)",
+                flops=2.0 * E * M * N * K, peak_class="bf16",
+                ours=ours, ref=ref, args=(x, w), rel_tol=3e-2, checked=True,
+                record={"block": named[name]})
+
+
 def _int8_mm(a, b):
     """int32 a @ b of int8 operands: ``torch._int_mm`` on the card (B
     column-major, as cuBLASLt's int8 path takes it), an int32 product on
@@ -663,6 +709,8 @@ def _config_builders(q: bool, device="cuda", arch=None,
                                               target_s=target_s, **kw)),
         ("paged_decode", lambda: cfg_paged_decode(S=2048 if q else 8192,
                                                   target_s=target_s, **kw)),
+        ("moe_grouped", lambda: cfg_moe_grouped(M=256 if q else 512,
+                                                target_s=target_s, **kw)),
         ("w4a8_gemm", lambda: cfg_w4a8(*(1024,) * 3 if q
                                        else (4096,) * 3,
                                        target_s=target_s, **kw)),

@@ -143,6 +143,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at (c0 inner, c1, c2 outer) of a 3-D `map` into dst,
+// completing on bar
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -249,6 +262,23 @@ __device__ __forceinline__ void wgmma16(float (&d)[N / 2], uint64_t a,
 }
 
 #undef TL_WGMMA16
+
+// d (m64n128, float32) = (scale_d ? d : 0) + A B of TF32 operands, B
+// K-major in shared memory (the only layout wgmma takes for TF32), A
+// (m64k8) from registers: a[0..3] hold rows g, g + 8 at columns t and
+// t + 4 of the warp's 16 rows (g = lane / 4, t = lane % 4), as
+// mma.sync's m16n8k8 A fragment
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TL_D64
+               ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+               : TL_F64
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                 "r"(scale_d));
+}
+
 #undef TL_F128
 #undef TL_F64
 #undef TL_F8
@@ -470,30 +500,63 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (rows x cols) row-major matrix at `base` (row stride ld elements
-// of the DType `type`, kBF16 or kF16) as a map of (box_cols x box_rows)
-// boxes with the swizzle of box_cols' bytes (128 or 64); false when the
-// map is refused
-inline bool make_map(CUtensorMap* map, const void* base, int type,
-                     long long rows, long long cols, long long ld,
-                     int box_cols, int box_rows) {
+// bytes of an element of the DType `type` (kF32, or kBF16 / kF16)
+inline int map_esize(int type) { return type == tl_gemm::kF32 ? 4 : 2; }
+
+// A map of `rank` dimensions (dims inner first, the outer ones' strides
+// in bytes) over elements of the DType `type` (kBF16, kF16 or kF32),
+// boxes of box[0] x box[1] (x 1) with the swizzle of box[0]'s bytes:
+// 128, else 64 for 16-bit elements, else none for float32; false when
+// the map is refused
+inline bool encode_map(CUtensorMap* map, const void* base, int type,
+                       int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const CUtensorMapDataType dt = type == tl_gemm::kBF16
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : type == tl_gemm::kF32
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  const int esize = 2;
-  const CUtensorMapSwizzle swz = box_cols * esize == 128
-                                     ? CU_TENSOR_MAP_SWIZZLE_128B
+  const int bytes = (int)box[0] * map_esize(type);
+  const CUtensorMapSwizzle swz = bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : type == tl_gemm::kF32
+                                     ? CU_TENSOR_MAP_SWIZZLE_NONE
                                      : CU_TENSOR_MAP_SWIZZLE_64B;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(ld * esize)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, dt, 2, const_cast<void*>(base), dims, strides, box,
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, dt, rank, const_cast<void*>(base), dims, strides, box,
                 step, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The (rows x cols) row-major matrix at `base` (row stride ld elements
+// of the DType `type`, kBF16, kF16 or kF32) as a map of (box_cols x
+// box_rows) boxes with encode_map's swizzle; false when the map is
+// refused
+inline bool make_map(CUtensorMap* map, const void* base, int type,
+                     long long rows, long long cols, long long ld,
+                     int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * map_esize(type))};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map, base, type, 2, dims, strides, box);
+}
+
+// The same for `planes` such matrices, plane p at base + p * pld
+// elements, as a 3-D map of (box_cols x box_rows x 1) boxes: a box past
+// a plane's rows or columns is zero-filled and never reads the next
+// plane
+inline bool make_map3(CUtensorMap* map, const void* base, int type,
+                      long long planes, long long rows, long long cols,
+                      long long ld, long long pld, int box_cols,
+                      int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)(ld * map_esize(type)),
+                                 (cuuint64_t)(pld * map_esize(type))};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return encode_map(map, base, type, 3, dims, strides, box);
 }
 
 // Launches gemm_tma<T, TM, TN, TK> on `s`: A (M, K) with row stride lda,
