@@ -71,7 +71,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               dequant_matmul (w4a16) in bf16 and f16 at 4096^3 (group
               size 512, with dequant_matmul_twopass in bf16) and at a
               LLaMA-2-7B MLP decode step (M 16, K 4096, N 11008, group
-              128), there in f32 too; w4a8_matmul at 4096^3. Each call
+              128), there in f32 too; w4a8_matmul at 4096^3 and at a
+              16-token decode step (the TMA kernel of ops/dequant_gemm.py
+              ::w4a8_path) and at N 4104 (off 16 bytes: the tile loop).
+              Each call
               the launches its stated rule names, read right after:
               matmul's kernel is the one ops/gemm.py::matmul_path names,
               and every bf16, f16 and fp8 shape takes the TMA path (fp8
@@ -101,8 +104,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               products (the few-row path splitk_stream and its combine,
               two calls bit-equal) and past its rows at a 128-token
               chunk's gate/up (the tile loop splitk_gemm and
-              splitk_reduce), stream-K at a 512-token prefill chunk's gate/up
-              with one program a block the card holds at once, GEMV at a
+              splitk_reduce), stream-K at a 512-token prefill chunk's
+              gate/up at streamk_phase_programs' count (the tile rows in
+              phase, up to the blocks the card holds at once): bf16 at
+              128 x 128 and 128 x 256 on the TMA kernel streamk_tma, f32
+              and bf16 with A's base off 16 bytes on the tile loop
+              streamk_gemm, as ops/gemm_variants.py::streamk_path names,
+              each with its programs, segments and partial bytes; GEMV at a
               single token's gate/up (bf16, f32) and LM head, block-sparse
               at a 4096-token prefill's gate/up under a random half-dense
               128 x 128 cell mask. Each call's launches (the split-K and
@@ -225,15 +233,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               torch.bmm), paged_decode (B
               4, H 32, S 8192, D 128, pages of 128: the page walk and
               the gather each timed, the faster against the torch
-              gather + softmax, KV GB/s), w4a8_gemm (4096^3) and
-              w4a16_gemm (4096^3, group 512) through run_config at a 0.1
-              s loop target (bench's own is 0.6 s), each record printed,
-              then the headline geomean line, the geomeans of the eight
-              configs without the decode ones and moe_grouped, of the
-              ten without moe_grouped and of the five GEMM configs; the
-              two yardsticks', mha_fwd's, mla_decode's, both decode
-              strategies', the TMA grouped GEMM's and w4a8_gemm's
-              launches counted over the eleven configs (a CUDA graph's
+              gather + softmax, KV GB/s), mamba2_chunk (B 8, S 4096, H
+              80, P 64, N 128: mamba2_chunk_scan at chunks 128 and 256
+              against the eager chunk-parallel port), w4a8_gemm (4096^3)
+              and w4a16_gemm (4096^3, group 512) through run_config at a
+              0.1 s loop target (bench's own is 0.6 s), each record
+              printed, then the headline geomean line, the geomeans of
+              the eight configs without the decode ones, moe_grouped and
+              mamba2_chunk, of the ten without the last two, of the
+              eleven without mamba2_chunk and of the five GEMM configs;
+              the two yardsticks', mha_fwd's, mla_decode's, both decode
+              strategies', the TMA grouped GEMM's, mamba2_chunk_scan's
+              and the TMA w4a8 kernel's launches counted over the twelve
+              configs (a CUDA graph's
               where it is captured), every GEMM of them on #15's TMA
               path (moe_grouped's on the TMA grouped kernel). Then the
               GEMM yardstick (hand_matmul) in bf16 -> bf16 at 8192 x 8192
@@ -1983,43 +1995,54 @@ def gemm_ops_phase(torch, gm, dqg):
         del packed, scales
         torch.cuda.empty_cache()
 
-    # -- #24 w4a8 ----------------------------------------------------------
-    M = N = K = 4096
-    rng = np.random.default_rng(9)              # as cfg_w4a8 draws them
-    x_np = rng.standard_normal((M, K)).astype(np.float32)
-    w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
-    packed_np, sw_np = dqg.quantize_w4_per_channel(w_np)
-    del w_np
-    x = torch.from_numpy(x_np).cuda()
-    packed = torch.from_numpy(packed_np).cuda()
-    sw = torch.from_numpy(sw_np).cuda()
-    got = drive("w4a8_matmul 4096", lambda: dqg.w4a8_matmul(x, packed, sw),
-                {"w4a8_gemm": 1})
-    q, s = dqg.quantize_activations(x)
-    sa = (1.0 / s).float()
-    want = dqg.w4a8_gemm_plain(q, packed, sw, sa)
-    r = hold("w4a8_matmul 4096", got, want, GEMM_OPS_TOL["w4a8"])
-    del got, want
-    p32 = packed.to(torch.int32)
-    # the unpacked weight, column-major as cuBLASLt's int8 path takes it
-    wd8 = torch.cat([(p32 & 0xF) - 8, (p32 >> 4) - 8]).to(
-        torch.int8).T.contiguous().T
-    del p32
-    flops = 2 * M * N * K
-    nbytes = M * K + K * N // 2 + 4 * (N + M) + 4 * M * N
-    bound, by = mm_bound(flops, nbytes, PEAK_8BIT_OPS)
-    res["w4a8_gemm_4096"] = {
-        "shape": [M, N, K], **r,
-        **timed(lambda: dqg.w4a8_gemm(q, packed, sw, sa),
-                lambda: dqg.w4a8_gemm_plain(q, packed, sw, sa),
-                lambda: torch._int_mm(q, wd8)),
-        "library": "torch._int_mm on the unpacked int8 weight (excludes "
-                   "the epilogue)",
-        "entry_ms": device_ms(torch, lambda: dqg.w4a8_matmul(x, packed, sw),
-                              5),
-        "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes}
-    del x, packed, sw, q, s, sa, wd8
-    torch.cuda.empty_cache()
+    # -- #24 w4a8: bench's 4096^3 and a 16-token decode step (the TMA
+    # kernel) and N 4104 (off 16 bytes: the tile loop) ------------------
+    for label, (M, N, K), want_path in (
+            ("4096", (4096, 4096, 4096), "tma"),
+            ("decode_m16", (16, 4096, 4096), "tma"),
+            ("m4096_n4104", (4096, 4104, 4096), "loop")):
+        rng = np.random.default_rng(9)          # as cfg_w4a8 draws them
+        x_np = rng.standard_normal((M, K)).astype(np.float32)
+        w_np = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+        packed_np, sw_np = dqg.quantize_w4_per_channel(w_np)
+        del w_np
+        x = torch.from_numpy(x_np).cuda()
+        packed = torch.from_numpy(packed_np).cuda()
+        sw = torch.from_numpy(sw_np).cuda()
+        path = dqg.w4a8_path(M, N, K // 2)
+        check(path == want_path,
+              f"w4a8 {label}: w4a8_path {path}, want {want_path}")
+        kname = {"tma": "w4a8_gemm_tma", "loop": "w4a8_gemm"}[path]
+        got = drive(f"w4a8_matmul {label}", lambda: dqg.w4a8_matmul(
+            x, packed, sw), {kname: 1})
+        q, s = dqg.quantize_activations(x)
+        sa = (1.0 / s).float()
+        want = dqg.w4a8_gemm_plain(q, packed, sw, sa)
+        r = hold(f"w4a8_matmul {label}", got, want, GEMM_OPS_TOL["w4a8"])
+        del got, want
+        p32 = packed.to(torch.int32)
+        # the unpacked weight, column-major as cuBLASLt's int8 path takes
+        # it (which wants more than 16 rows: none at the decode step)
+        wd8 = torch.cat([(p32 & 0xF) - 8, (p32 >> 4) - 8]).to(
+            torch.int8).T.contiguous().T
+        del p32
+        flops = 2 * M * N * K
+        nbytes = M * K + K * N // 2 + 4 * (N + M) + 4 * M * N
+        bound, by = mm_bound(flops, nbytes, PEAK_8BIT_OPS)
+        res[f"{kname}_{label}"] = {
+            "shape": [M, N, K], "path": path, **r,
+            **timed(lambda: dqg.w4a8_gemm(q, packed, sw, sa),
+                    lambda: dqg.w4a8_gemm_plain(q, packed, sw, sa),
+                    None if M <= 16 else lambda: torch._int_mm(q, wd8)),
+            "library": "torch._int_mm on the unpacked int8 weight "
+                       "(excludes the epilogue)" if M > 16 else None,
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+        if label == "4096":
+            res[f"{kname}_{label}"]["entry_ms"] = device_ms(
+                torch, lambda: dqg.w4a8_matmul(x, packed, sw), 5)
+        del x, packed, sw, q, s, sa, wd8
+        torch.cuda.empty_cache()
     res["launches"] = counted
     print(json.dumps({"gemm": res}), flush=True)
     return res
@@ -2032,7 +2055,7 @@ MATMUL_PATH_KERNELS = {"tma": "matmul_tma", "ffma": "matmul_ffma",
 # case); the kernel's other cases are nested under "variants". #15 is
 # three kernels of gemm.cu, one a path of matmul_path (int8 on the tile
 # loop's counter, gemm_s8.cu); #22 three of dequant_gemm.cu and the
-# split-K's combine, by dequant_path
+# split-K's combine, by dequant_path; #24 two, by w4a8_path
 GEMM_OPS_KERNELS = (
     ("matmul_tma", "gemm.cu", "tilelang_mesh_tpu/ops/gemm.py:18",
      "bf16_8192x8192x4096"),
@@ -2053,8 +2076,10 @@ GEMM_OPS_KERNELS = (
      "decode_m16_k4096_n11008_gs128_float32"),
     ("dequant_int4", "dequant_gemm.cu",
      "tilelang_mesh_tpu/ops/dequant_gemm.py:127", "4096_gs512"),
+    ("w4a8_gemm_tma", "dequant_gemm.cu",
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:204", "4096"),
     ("w4a8_gemm", "dequant_gemm.cu",
-     "tilelang_mesh_tpu/ops/dequant_gemm.py:204", "4096"))
+     "tilelang_mesh_tpu/ops/dequant_gemm.py:204", "m4096_n4104"))
 
 
 def kernel_entries(res, kernels):
@@ -2195,28 +2220,57 @@ def gemm_variants_phase(torch, gv, gm):
                     (M * K + K * N + M * N) * a.element_size())}
         del a, b
 
-    # -- #17 stream-K: a 512-token prefill chunk's gate/up ----------------
+    # -- #17 stream-K: a 512-token prefill chunk's gate/up, bf16 at the
+    # default 128 x 128 blocks and at 128 x 256 (the TMA kernel); f32 at
+    # 128 x 128, and bf16 with A's base 4 bytes off 16 (the tile loop) ---
     M, K, N = LLAMA2["prefill_chunk"], hid, inter
-    a, b = operands(32, (M, K), (K, N))
-    n_prog = gv.streamk_programs()
-    n_seg = len(gv._streamk_segments((M // 128) * (N // 128), K // 128,
-                                     n_prog))
-    print(f"stream-K: {n_prog} programs (SMs x blocks an SM), {n_seg} "
-          f"segments over {(M // 128) * (N // 128)} tiles", flush=True)
-    got = drive("matmul_streamk prefill", lambda: gv.matmul_streamk(
-        a, b, n_programs=n_prog), {"streamk_gemm": 1, "streamk_fixup": 1})
-    r = hold("matmul_streamk prefill", got,
-             gv.matmul_streamk_plain(a, b, n_programs=n_prog))
-    del got
-    res["streamk_gemm_prefill_gate_up_bf16"] = {
-        "shape": [M, N, K], "n_programs": n_prog, "n_segments": n_seg,
-        "launches_a_call": 2, **r,
-        **timed(lambda: gv.matmul_streamk(a, b, n_programs=n_prog),
-                lambda: gv.matmul_streamk_plain(a, b, n_programs=n_prog),
-                lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
-        "library": "torch.matmul in bf16",
-        **bound(torch.bfloat16, 2 * M * N * K, (M * K + K * N + M * N) * 2)}
-    del a, b
+    for label, dt, (bm, bn), off, want_path in (
+            ("prefill_gate_up_bf16", torch.bfloat16, (128, 128), 0, "tma"),
+            ("prefill_gate_up_bf16_128x256", torch.bfloat16, (128, 256), 0,
+             "tma"),
+            ("prefill_gate_up_f32", torch.float32, (128, 128), 0, "loop"),
+            ("prefill_gate_up_bf16_misaligned", torch.bfloat16, (128, 128),
+             2, "loop")):
+        a, b = operands(32, (M, K), (K, N), dtype=dt)
+        if off:      # the same values, ``off`` elements into their storage
+            buf = torch.empty(M * K + off, dtype=dt, device=a.device)
+            a = buf[off:].view(M, K).copy_(a)
+            del buf
+        blocks = dict(block_M=bm, block_N=bn, block_K=128)
+        path = gv.streamk_path(M, N, K, dt, bm, bn, 128, a.data_ptr(),
+                               b.data_ptr())
+        check(path == want_path, f"stream-K {label}: path {path}")
+        kname = {"tma": "streamk_tma", "loop": "streamk_gemm"}[path]
+        slots = gv.streamk_programs(a.device, dt, **blocks,
+                                    a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
+        n_prog = gv.streamk_phase_programs(M, N, K, bm, bn, 128, slots)
+        n_tiles = (M // bm) * (N // bn)
+        n_seg = len(gv._streamk_segments(n_tiles, K // 128, n_prog))
+        part_bytes = n_seg * bm * bn * 4
+        print(f"stream-K {label}: {kname}, {n_prog} programs (the tile "
+              f"rows in phase; {slots} co-resident blocks), {n_seg} "
+              f"segments over {n_tiles} tiles, {part_bytes} partial bytes",
+              flush=True)
+        got = drive(f"matmul_streamk {label}", lambda: gv.matmul_streamk(
+            a, b, n_programs=n_prog, **blocks),
+            {kname: 1, "streamk_fixup": 1})
+        r = hold(f"matmul_streamk {label}", got,
+                 gv.matmul_streamk_plain(a, b, n_programs=n_prog, **blocks))
+        del got
+        res[f"{kname}_{label}"] = {
+            "shape": [M, N, K], "dtype": str(dt), "block": [bm, bn, 128],
+            "path": path, "a_offset_bytes": off * a.element_size(),
+            "slots": slots, "n_programs": n_prog, "n_segments": n_seg,
+            "partial_bytes": part_bytes, "launches_a_call": 2, **r,
+            **timed(lambda: gv.matmul_streamk(a, b, n_programs=n_prog,
+                                              **blocks),
+                    lambda: gv.matmul_streamk_plain(a, b, n_programs=n_prog,
+                                                    **blocks),
+                    lambda: torch.matmul(a, b), lambda: gm.matmul(a, b)),
+            "library": "torch.matmul in " + str(dt).replace("torch.", ""),
+            **bound(dt, 2 * M * N * K, (M * K + K * N + M * N)
+                    * a.element_size())}
+        del a, b
 
     # -- #18 GEMV: one token's gate/up and LM head ------------------------
     for label, N, dt, seed in (
@@ -2286,14 +2340,17 @@ VARIANT_KERNELS = (
      "tilelang_mesh_tpu/ops/gemm_variants.py:36", "decode_gate_up_bf16"),
     ("splitk_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:36", "m128_gate_up_bf16"),
-    ("streamk_gemm", "gemm_variants.cu",
+    ("streamk_tma", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_bf16"),
+    ("streamk_gemm", "gemm_variants.cu",
+     "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_f32"),
     ("gemv", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
      "decode_gate_up_bf16"),
     ("blocksparse_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:206", "prefill_gate_up_bf16"))
 VARIANT_FIXUPS = {"splitk_stream": "splitk_stream_combine",
                   "splitk_gemm": "splitk_reduce",
+                  "streamk_tma": "streamk_fixup",
                   "streamk_gemm": "streamk_fixup"}
 
 
@@ -4847,21 +4904,22 @@ DSA_KERNELS = (
      "float32"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): eleven configs,
+# the headline phase's loop target (bench.py's is 0.6 s): twelve configs,
 # each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
 YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
-    """The headline comparison (tilelang_mesh_tpu_torch.bench): the eleven
+def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the twelve
     configs at full size through ``run_config`` (counters zeroed before,
     read right after; a CUDA graph's launches are counted where they are
     captured, its replays not; the flash configs launch ``mha_fwd``,
     ``mla_decode`` the MLA kernel, ``paged_decode`` both the page walk
     and the gather's contiguous kernel, each strategy with its time,
-    ``moe_grouped`` the TMA grouped kernel),
+    ``moe_grouped`` the TMA grouped kernel, ``mamba2_chunk`` the SSD
+    kernel, ``w4a8_gemm`` the TMA w4a8 kernel),
     each record printed, then the headline geomean line, the geomean of
     the eight configs without the two decode ones (for comparison) and
     of the five GEMM configs alone; every GEMM of them on #15's TMA path
@@ -4881,9 +4939,9 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's eleven configs --------------------------
+    # -- the main path: bench's twelve configs --------------------------
     torch.cuda.synchronize()
-    for mod in (ys, gm, dqg, fa, mla, fd, gg):
+    for mod in (ys, gm, dqg, fa, mla, fd, gg, m2):
         mod.reset_launches()
     t0 = time.perf_counter()
     records = []
@@ -4902,7 +4960,7 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
     res["library_launches"] = {**gm.launches, **dqg.launches,
                                "mha_fwd": fa.launches["mha_fwd"],
                                **mla.launches, **fd.launches,
-                               **gg.launches}
+                               **gg.launches, **m2.launches}
     res["records"] = records
     res["seconds"] = time.perf_counter() - t0
     check(all(n > 0 for n in res["launches"].values()),
@@ -4912,8 +4970,12 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
     # every GEMM shape of the headline took #15's TMA path
     check(gm.launches["matmul"] == 0 and gm.launches["matmul_tma"] > 0,
           f"headline: matmul launches by path {dict(gm.launches)}")
-    check(dqg.launches["w4a8_gemm"] > 0,
-          "headline: the w4a8 config did not launch w4a8_gemm")
+    check(dqg.launches["w4a8_gemm_tma"] > 0
+          and dqg.launches["w4a8_gemm"] == 0,
+          f"headline: the w4a8 config's launches {dict(dqg.launches)}")
+    check(m2.launches["mamba2_chunk_scan"] > 0,
+          "headline: the mamba2_chunk config did not launch "
+          "mamba2_chunk_scan")
     check(mla.launches["mla_decode"] > 0,
           "headline: the mla_decode config did not launch mla_decode")
     check(gg.launches["grouped_gemm_tma"] > 0
@@ -4926,17 +4988,23 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg):
     head = tb.headline(records)
     print(json.dumps(head), flush=True)
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
+    # the earlier PRs' sets, for comparison: the eleven configs before
+    # mamba2_chunk, the ten before moe_grouped, the eight without the
+    # decode ones
+    res["geomean_vs_baseline_eleven"] = tb.headline(
+        [r for r in records if r["config"] != "mamba2_chunk"])[
+            "geomean_vs_baseline"]
     res["geomean_vs_baseline_eight"] = tb.headline(
-        [r for r in records if r["config"] not in ("mla_decode",
-                                                   "paged_decode",
-                                                   "moe_grouped")])[
+        [r for r in records if r["config"] not in (
+            "mla_decode", "paged_decode", "moe_grouped", "mamba2_chunk")])[
             "geomean_vs_baseline"]
     res["geomean_vs_baseline_ten"] = tb.headline(
-        [r for r in records if r["config"] != "moe_grouped"])[
+        [r for r in records if r["config"] not in ("moe_grouped",
+                                                   "mamba2_chunk")])[
             "geomean_vs_baseline"]
     res["geomean_vs_baseline_gemm"] = tb.headline(
         [r for r in records if not r["config"].startswith(
-            ("flash", "mla", "paged", "moe"))])[
+            ("flash", "mla", "paged", "moe", "mamba2"))])[
             "geomean_vs_baseline"]
 
     def hold(label, got, want):
@@ -5232,7 +5300,7 @@ def main() -> int:
     ds = dsa_phase(torch, dsa)
 
     phase("headline")
-    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg)
+    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",

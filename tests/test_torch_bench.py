@@ -1,5 +1,5 @@
 """The port's headline comparison (tilelang_mesh_tpu_torch/bench.py)
-on the CPU: the eleven configs at tiny sizes through ``run_config`` with
+on the CPU: the twelve configs at tiny sizes through ``run_config`` with
 loose peaks, as tests/test_bench_configs.py runs bench.py's (the ops run
 their plain versions; the numbers are host times and mean nothing), the
 cross-check equal to bench.py's, the candidate sweep skipping only a
@@ -55,6 +55,9 @@ _CONFIGS = {
     "moe_grouped": lambda: port.cfg_moe_grouped(
         E=2, M=128, K=128, N=256, device="cpu", arch=H100_SXM,
         target_s=_TARGET_S),
+    "mamba2_chunk": lambda: port.cfg_mamba2_chunk(
+        B=1, S=256, H=2, P=16, N=16, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
 }
 
 
@@ -82,6 +85,9 @@ def test_config_runs_on_cpu(name):
         from tilelang_mesh_tpu_torch.carver import KERNEL_BLOCKS
         assert tuple(rec["block"]) in KERNEL_BLOCKS
         assert "E=2 128x256x128" in rec["metric"]
+    if name == "mamba2_chunk":      # one of bench.py's two chunks
+        assert rec["chunk"] in (128, 256)
+        assert f"[chunk={rec['chunk']}]" in rec["metric"]
     if name == "paged_decode":      # both strategies checked and timed
         assert rec["walk_ms"] > 0 and rec["gather_ms"] > 0
         assert rec["strategy"] in ("inkernel-walk", "gather")
@@ -123,16 +129,17 @@ def test_config_names_and_headline_are_bench_py_s():
     names = [n for n, _ in port._config_builders(True)]
     assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
                      "flash_d128", "flash_d128_full", "fp8_gemm",
-                     "mla_decode", "paged_decode", "moe_grouped",
-                     "w4a8_gemm", "w4a16_gemm"]
+                     "mla_decode", "mamba2_chunk", "paged_decode",
+                     "moe_grouped", "w4a8_gemm", "w4a16_gemm"]
     ref_names = [n for n, _ in ref._config_builders(True)]
     assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
             for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 3.0,
-                                    2.5, 0.9, 1.1, 0.8))]
+                                    1.6, 2.5, 0.9, 1.1, 0.8))]
+    assert len(recs) == 12
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 11)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 12)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 

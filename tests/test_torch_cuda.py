@@ -1125,31 +1125,87 @@ def test_splitk_matches_plain(cuda, dtype, M, N, K, n_split, taken):
     assert _normwise(parts.sum(0), got.float()) <= VARIANT_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
-@pytest.mark.parametrize("M,N,K,n_programs,block", [
-    (256, 384, 512, 6, 128),        # the JAX test's shape
-    (256, 384, 640, 4, 128),        # 7.5 k-blocks a program: mid-tile cuts
-    (192, 320, 448, 5, 64),         # 64-cells: a 128-tile holds 4 of them
-    (128, 128, 128, 300, 128),      # more programs than work
-    (96, 32, 96, 7, 32)])
-def test_streamk_matches_plain(cuda, dtype, M, N, K, n_programs, block):
-    a = _randn(cuda, (M, K), dtype, 22)
+# (M, N, K, n_programs, (block_M, block_N, block_K), offset): every
+# type; bfloat16 / float16 at a tile of STREAMK_TMA_TILES take the TMA
+# kernel, the rest the tile loop
+_STREAMK_ANY_TYPE = [
+    (256, 384, 512, 6, (128, 128, 128), 0),     # the JAX test's shape
+    (256, 384, 640, 4, (128, 128, 128), 0),     # mid-tile cuts
+    (192, 320, 448, 5, (64, 64, 64), 0),        # 64-cells on the loop
+    (128, 128, 128, 300, (128, 128, 128), 0),   # more programs than work
+    (96, 32, 96, 7, (32, 32, 32), 0),
+    (96, 30, 96, 7, (32, 6, 32), 0),            # the fixup element-wise
+    (256, 384, 512, 6, (128, 128, 128), 2)]     # a's base off 16 bytes
+# bfloat16 / float16 on the TMA kernel: 128 x 256 and 256 x 128, mid-tile
+# cuts, more programs than work, block_K 64, 192 and 32 (TK 32)
+_STREAMK_TMA = [
+    (256, 512, 512, 6, (128, 256, 128), 0),
+    (512, 256, 640, 4, (256, 128, 128), 0),
+    (256, 512, 384, 300, (128, 256, 64), 0),
+    (256, 384, 640, 4, (128, 128, 64), 0),
+    (256, 384, 576, 5, (128, 128, 192), 0),
+    (512, 256, 448, 7, (256, 128, 32), 0)]
+
+
+def _offset_operand(dev, shape, dtype, seed, offset):
+    """_randn's values in a contiguous tensor ``offset`` elements into
+    its storage (a base off 16 bytes when offset * itemsize is)."""
+    x = _randn(dev, shape, dtype, seed)
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+    out = buf[offset:].view(shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype,M,N,K,n_programs,blocks,offset", [
+    (dt, *case) for case in _STREAMK_ANY_TYPE for dt in VARIANT_DTYPES] + [
+    (dt, *case) for case in _STREAMK_TMA
+    for dt in (torch.bfloat16, torch.float16)])
+def test_streamk_matches_plain(cuda, dtype, M, N, K, n_programs, blocks,
+                               offset):
+    """Two launches a call: the partials, on the kernel streamk_path
+    names (bfloat16 / float16 at a TMA tile on aligned operands:
+    streamk_tma), and the fixup."""
+    bm, bn, bk = blocks
+    a = _offset_operand(cuda, (M, K), dtype, 22, offset)
     b = _randn(cuda, (K, N), dtype, 23)
+    path = gv.streamk_path(M, N, K, dtype, bm, bn, bk, a.data_ptr(),
+                           b.data_ptr())
+    tma = dtype != torch.float32 and (bm, bn) in gv.STREAMK_TMA_TILES \
+        and offset * a.element_size() % 16 == 0
+    assert path == ("tma" if tma else "loop")
+    kern = {"tma": "streamk_tma", "loop": "streamk_gemm"}[path]
     before = dict(gv.launches)
-    got = gv.matmul_streamk(a, b, n_programs=n_programs, block_M=block,
-                            block_N=block, block_K=block)
+    got = gv.matmul_streamk(a, b, n_programs=n_programs, block_M=bm,
+                            block_N=bn, block_K=bk)
     torch.cuda.synchronize()
-    assert gv.launches["streamk_gemm"] == before["streamk_gemm"] + 1
-    assert gv.launches["streamk_fixup"] == before["streamk_fixup"] + 1
-    want = gv.matmul_streamk_plain(a, b, n_programs, block, block, block)
+    assert gv.launches == {**before, kern: before[kern] + 1,
+                           "streamk_fixup": before["streamk_fixup"] + 1}
+    want = gv.matmul_streamk_plain(a, b, n_programs, bm, bn, bk)
     _variant_close(got, want, dtype)
 
 
-def test_streamk_refuses_tiles_past_the_card(cuda):
-    a = _randn(cuda, (256, 256), torch.bfloat16, 24)
+@pytest.mark.parametrize("dtype,bm,bn,computes", [
+    (torch.bfloat16, 256, 128, True), (torch.float16, 128, 256, True),
+    (torch.bfloat16, 256, 256, False), (torch.bfloat16, 512, 128, False),
+    (torch.float16, 128, 512, False), (torch.float32, 256, 128, False)])
+def test_streamk_refuses_tiles_past_the_card(cuda, dtype, bm, bn, computes):
+    """The TMA kernel's 128 x 256 and 256 x 128 compute (bfloat16 /
+    float16); any other tile past 128 raises ValueError naming the
+    card's tiles, and launches nothing."""
+    a = _randn(cuda, (512, 512), dtype, 24)
     before = dict(gv.launches)
-    with pytest.raises(ValueError, match="128 x 128"):
-        gv.matmul_streamk(a, a, block_M=256)
+    if computes:
+        got = gv.matmul_streamk(a, a, n_programs=7, block_M=bm, block_N=bn)
+        torch.cuda.synchronize()
+        assert gv.launches["streamk_tma"] == before["streamk_tma"] + 1
+        _variant_close(got, gv.matmul_streamk_plain(a, a, 7, bm, bn, 128),
+                       dtype)
+        return
+    with pytest.raises(ValueError, match="128 x 128, 128 x 256, 256 x 128"):
+        gv.matmul_streamk(a, a, block_M=bm, block_N=bn)
     assert gv.launches == before
 
 
@@ -1338,19 +1394,29 @@ def test_dequant_kernels_match_plain(cuda, dtype, M, K2, N, gs):
     _close(two, gm.matmul_plain(a, want))
 
 
-@pytest.mark.parametrize("M,K,N", [(77, 192, 150), (1, 16, 3),
-                                   (130, 512, 256), (5, 20, 7)])
-def test_w4a8_kernel_matches_plain(cuda, M, K, N):
+@pytest.mark.parametrize("M,K,N,path", [
+    (77, 192, 150, "loop"), (1, 16, 3, "loop"), (130, 512, 256, "tma"),
+    (5, 20, 7, "loop"),
+    # the TMA kernel: bench's shape, a last tile of 77 rows, a last tile
+    # of 16 columns, K 8192, K/2 no multiple of the 64-row k tile
+    (4096, 4096, 4096, "tma"), (333, 4096, 4096, "tma"),
+    (4096, 4096, 4112, "tma"), (512, 8192, 4096, "tma"),
+    (512, 4128, 1024, "tma"), (1, 4096, 4096, "tma"),
+    (4096, 4096, 4104, "loop")])                 # N off 16 bytes
+def test_w4a8_kernel_matches_plain(cuda, M, K, N, path):
     """Exact int32 sums and the same epilogue: equal to the plain
-    version up to 1e-6 normwise; K/2 = 10 takes no 16-byte path."""
+    version up to 1e-6 normwise, on the kernel w4a8_path names; K/2 = 10
+    takes no 16-byte path."""
     rng = np.random.default_rng(11)
     w = rng.standard_normal((K, N)).astype(np.float32)
     packed, sw = dqg.quantize_w4_per_channel(w)
     x = _randn(cuda, (M, K), torch.float32, 12)
-    before = dqg.launches["w4a8_gemm"]
+    assert dqg.w4a8_path(M, N, K // 2) == path
+    kern = {"tma": "w4a8_gemm_tma", "loop": "w4a8_gemm"}[path]
+    before = dict(dqg.launches)
     got = dqg.w4a8_matmul(x, packed, sw)
     torch.cuda.synchronize()
-    assert dqg.launches["w4a8_gemm"] == before + 1
+    assert dqg.launches == {**before, kern: before[kern] + 1}
     q, s = dqg.quantize_activations(x)
     want = dqg.w4a8_gemm_plain(q, torch.from_numpy(packed).to(cuda),
                                torch.from_numpy(sw).to(cuda),
@@ -1381,7 +1447,10 @@ def _gemm_calls(dev):
             lambda: dqg.dequant_matmul(x16, p16, s16),         # TMA
             lambda: dqg.dequant_int4(p, s, 4, torch.float32),
             lambda: dqg.dequant_matmul_twopass(x, p, s),
-            lambda: dqg.w4a8_matmul(x, p, torch.ones(3, device=dev))]
+            lambda: dqg.w4a8_matmul(x, p, torch.ones(3, device=dev)),
+            lambda: dqg.w4a8_gemm(                         # TMA
+                torch.zeros((4096, 128), dtype=torch.int8, device=dev), p16,
+                torch.ones(16, device=dev), torch.ones(4096, device=dev))]
 
 
 def test_gemm_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):

@@ -454,6 +454,95 @@ def test_w4a8_gemm_takes_the_planar_view_and_raises_as_jax():
         port.w4a8_matmul(torch.from_numpy(x), packed, sw[:-1])
 
 
+@pytest.mark.parametrize("M,N,K2,ptrs,want", [
+    (4096, 4096, 2048, (0, 0, 0), "tma"),
+    (128, 256, 256, (0, 0, 0), "tma"),
+    (1, 4096, 2048, (0, 0, 0), "tma"),           # every row count
+    (77, 16, 16, (0, 0, 0), "tma"),
+    (4096, 4104, 2048, (0, 0, 0), "loop"),       # N off 16 bytes
+    (4096, 4096, 2056, (0, 0, 0), "loop"),       # K/2 off 16 bytes
+    (4096, 4096, 10, (0, 0, 0), "loop"),
+    (4096, 4096, 2048, (8, 0, 0), "loop"),       # q's base off
+    (4096, 4096, 2048, (0, 4, 0), "loop"),       # packed's base off
+    (4096, 4096, 2048, (0, 0, 4), "loop"),       # the scales' base off
+    (4096, 4096, 2048, (256, 512, 1024), "tma"),
+    (0, 4096, 2048, (0, 0, 0), "loop"), (4096, 0, 2048, (0, 0, 0), "loop"),
+    (4096, 4096, 0, (0, 0, 0), "loop")])
+def test_w4a8_path_rule(M, N, K2, ptrs, want):
+    """K/2 and N multiples of 16 and the bases on 16 bytes take the TMA
+    kernel at any row count (no row threshold: it led at every M of the
+    card's sweep); the rest the tile loop."""
+    assert port.w4a8_path(M, N, K2, *ptrs) == want
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4 i) & 7
+    of the 8 bytes y:x."""
+    b = int(x).to_bytes(4, "little") + int(y).to_bytes(4, "little")
+    return int.from_bytes(bytes(b[(sel >> 4 * i) & 7] for i in range(4)),
+                          "little")
+
+
+def _w4a8_unpack_stage(stage):
+    """dequant_gemm.cu's W4A8Tma::Conv on one stage of 64 packed rows x
+    256 columns (bytes), thread by thread: (B_lo, B_hi) as the 16 KB
+    tiles it writes (n-major, 64 bytes of K a column, the 64-byte swizzle),
+    and for each warp and store the 16-byte bank groups its 8-lane phases
+    hit."""
+    words = stage.view(np.uint32)               # (64, 64): 4 columns a word
+    tiles = [np.zeros(256 * 64, np.uint8), np.zeros(256 * 64, np.uint8)]
+    groups = {}
+    for t in range(256):
+        q, c = t % 64, t // 64
+        r = (q >> 1) & 3
+        rot = r | ((r + 1) & 3) << 4 | ((r + 2) & 3) << 8 | ((r + 3) & 3) << 12
+        lo = [[0] * 4 for _ in range(4)]
+        hi = [[0] * 4 for _ in range(4)]
+        for j in range(4):
+            w = [_byte_perm(words[16 * c + 4 * j + i, q], 0, rot)
+                 for i in range(4)]
+            t0, t1 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[0], w[1],
+                                                                0x7362)
+            t2, t3 = _byte_perm(w[2], w[3], 0x5140), _byte_perm(w[2], w[3],
+                                                                0x7362)
+            col = [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+                   _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+            for s in range(4):
+                lo[s][j] = (((col[s] & 0x0F0F0F0F) + 0x78787878)
+                            ^ 0x80808080) & 0xFFFFFFFF
+                hi[s][j] = ((((col[s] >> 4) & 0x0F0F0F0F) + 0x78787878)
+                            ^ 0x80808080) & 0xFFFFFFFF
+        for s in range(4):
+            n = 4 * q + ((s + r) & 3)
+            at = n * 64 + ((c ^ ((n >> 1) & 3)) << 4)
+            for tile, v in zip(tiles, (lo[s], hi[s])):
+                tile[at:at + 16] = np.array(v, np.uint32).view(np.uint8)
+            groups.setdefault((t // 32, s, (t % 32) // 8), []).append(
+                (at // 16) % 8)
+    return tiles, groups
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_w4a8_unpack_layout_equals_unpack_planar(seed):
+    """The TMA kernel's unpack, emulated on the CPU: read back through the
+    64-byte swizzle (16-byte chunk c of column n at chunk c ^ ((n >> 1) &
+    3)), B_lo holds the stage's low nibbles less 8 and B_hi the high
+    ones, K-major, equal to unpack_planar's rows; every 8-lane phase of a
+    16-byte store hits 8 different bank groups."""
+    stage = np.random.default_rng(seed).integers(0, 256, (64, 256),
+                                                 dtype=np.uint8)
+    tiles, groups = _w4a8_unpack_stage(stage)
+    want = port.unpack_planar(stage)                      # (128, 256)
+    n = np.arange(256)[:, None]
+    k = np.arange(64)[None, :]
+    at = n * 64 + (((k // 16) ^ ((n >> 1) & 3)) << 4) + k % 16
+    for h, tile in enumerate(tiles):
+        got = tile.view(np.int8)[at].astype(np.int32)      # (n, k)
+        np.testing.assert_array_equal(got.T, want[64 * h:64 * h + 64])
+    assert want.min() >= -8 and want.max() <= 7
+    assert all(sorted(g) == list(range(8)) for g in groups.values())
+
+
 def test_ops_package_exports_the_jax_names():
     import tilelang_mesh_tpu.ops as ref_ops
     import tilelang_mesh_tpu_torch.ops as port_ops

@@ -76,12 +76,16 @@ def test_splitk_matches_jax(dtype, M, N, K, n_split):
 
 
 @pytest.mark.parametrize("dtype", list(_DTYPES))
-def test_streamk_matches_jax(dtype):
-    M, N, K = 256, 384, 512
+@pytest.mark.parametrize("M,N,K,block_M,block_N,block_K", [
+    (256, 384, 512, 128, 128, 128),
+    # the card's TMA tiles past 128 (any block on the plain version)
+    (256, 512, 512, 128, 256, 128), (512, 256, 384, 256, 128, 64)])
+def test_streamk_matches_jax(dtype, M, N, K, block_M, block_N, block_K):
     ja, ta = _pair((M, K), 4, dtype)
     jb, tb = _pair((K, N), 5, dtype)
-    want = ref.matmul_streamk(ja, jb, n_programs=6)
-    _close(port.matmul_streamk(ta, tb, n_programs=6), want, dtype)
+    blocks = dict(block_M=block_M, block_N=block_N, block_K=block_K)
+    want = ref.matmul_streamk(ja, jb, n_programs=6, **blocks)
+    _close(port.matmul_streamk(ta, tb, n_programs=6, **blocks), want, dtype)
 
 
 @pytest.mark.parametrize("dtype", list(_DTYPES))
@@ -399,3 +403,140 @@ def test_stream_sum_order_matches_the_plain_version(M, N, K, n_ask, slots):
             cp += x
         np.testing.assert_allclose(cp.numpy(), want[s].numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+# -- stream-K's path rule and its programs, on the CPU --------------------
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("blocks", [(128, 128, 128), (128, 256, 64),
+                                    (256, 128, 32), (128, 128, 192),
+                                    (128, 128, 96), (128, 64, 128),
+                                    (64, 64, 64), (256, 256, 64),
+                                    (128, 128, 16), (128, 128, 48)])
+def test_streamk_path_by_type_and_block(dtype, blocks):
+    """bfloat16 / float16 at a TMA tile with block_K a multiple of 32 take
+    the TMA kernel; float32, the other tiles and depths the loop."""
+    bm, bn, bk = blocks
+    tma = dtype != "float32" and (bm, bn) in port.STREAMK_TMA_TILES \
+        and bk % 32 == 0
+    for dt in (dtype, _DTYPES[dtype][1]):
+        assert port.streamk_path(512, 11008, 4096, dt, *blocks) == \
+            ("tma" if tma else "loop")
+
+
+@pytest.mark.parametrize("M,N,K,ptrs,want", [
+    (512, 11008, 4096, (0, 0), "tma"),
+    (512, 11008, 4096, (256, 1024), "tma"),
+    (512, 11008, 4096, (8, 0), "loop"),          # a's base off 16 bytes
+    (512, 11008, 4096, (0, 2), "loop"),          # b's base off
+    (512, 11008, 4100, (0, 0), "loop"),          # K: rows off 16 bytes
+    (512, 11004, 4096, (0, 0), "loop"),          # N: rows off 16 bytes
+    (0, 11008, 4096, (0, 0), "loop"), (512, 0, 4096, (0, 0), "loop"),
+    (512, 11008, 0, (0, 0), "loop")])
+def test_streamk_path_needs_aligned_operands(M, N, K, ptrs, want):
+    assert port.streamk_path(M, N, K, torch.bfloat16, 128, 128, 128,
+                             *ptrs) == want
+
+
+class _OccupancyLib:
+    """``gemm_variants``' occupancy entry of the tile loop: records its
+    arguments and answers ``blocks``."""
+
+    def __init__(self, blocks):
+        self.calls = []
+        outer = self
+
+        class Fn:
+            def __call__(self, *args):
+                outer.calls.append(args[:-1])
+                args[-1]._obj.value = blocks
+                return 0
+
+        self.tl_streamk_blocks_per_sm = Fn()
+
+
+@pytest.mark.parametrize("dtype,blocks,a_ptr,want,want_calls", [
+    (torch.bfloat16, (128, 128, 128), 0, 132, []),
+    (torch.float16, (128, 256, 64), 0, 132, []),
+    (torch.bfloat16, (256, 128, 96), 0, 132, []),
+    (torch.bfloat16, (128, 128, 128), 4, 264, [(1,)]),
+    (torch.float32, (128, 128, 128), 0, 264, [(0,)]),
+    (torch.bfloat16, (64, 64, 64), 0, 264, [(1,)]),
+    (torch.float16, (256, 256, 64), 0, 264, [(3,)])])
+def test_streamk_programs_ask_the_kernel_of_the_call(monkeypatch, dtype,
+                                                     blocks, a_ptr, want,
+                                                     want_calls):
+    """The co-resident blocks of the kernel the call will run: the TMA
+    kernel's one an SM without asking, or the loop's occupancy entry
+    with the type (a misaligned base included); times the card's SMs
+    (the occupancy call and the card stubbed)."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+
+    from tilelang_mesh_tpu_torch.ops import _build
+    lib = _OccupancyLib(2)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(
+                            multi_processor_count=132))
+    bm, bn, bk = blocks
+    got = port.streamk_programs("cuda", dtype, block_M=bm, block_N=bn,
+                                block_K=bk, a_ptr=a_ptr)
+    assert got == want
+    assert lib.calls == want_calls
+
+
+@pytest.mark.parametrize("blocks,slots,want", [
+    ((128, 128, 128), 132, 128), ((128, 256, 128), 132, 128),
+    ((256, 128, 128), 132, 128), ((128, 128, 128), 264, 256)])
+def test_streamk_phase_programs_at_the_prefill(blocks, slots, want):
+    """LLaMA-2-7B's 512-token gate/up (M 512, K 4096 -> N 11008): 128 of
+    the TMA kernel's 132 slots at each of its tiles, 256 of the loop's
+    264 (float32 at 128 x 128)."""
+    assert port.streamk_phase_programs(512, 11008, 4096, *blocks,
+                                       slots) == want
+
+
+@pytest.mark.parametrize("M,N,K,bm,bn,bk,slots", [
+    (512, 11008, 4096, 128, 128, 128, 132), (512, 11008, 4096, 256, 128,
+                                             64, 132),
+    (1024, 4096, 4096, 128, 256, 64, 132), (384, 640, 512, 128, 128, 128,
+                                            7),
+    (4096, 4096, 4096, 128, 128, 128, 264), (768, 11008, 4096, 128, 128,
+                                             128, 132),
+    (2176, 11008, 4096, 128, 128, 128, 132)])
+def test_streamk_phase_programs_run_the_tile_rows_in_phase(M, N, K, bm, bn,
+                                                           bk, slots):
+    """At the count it gives (at most ``slots``, more than half of them)
+    the plan's program p + j R / per runs tile row tm + j's copy of
+    program p's segments: the same tile columns and k ranges, in the same
+    order (R a tile row's iterations, per a program's share)."""
+    n = port.streamk_phase_programs(M, N, K, bm, bn, bk, slots)
+    nM, nN, k_it = M // bm, N // bn, K // bk
+    total = nM * nN * k_it
+    assert 2 * n > min(slots, total) and n <= slots
+    per = -(-total // n)
+    row = nN * k_it
+    assert row % per == 0
+    segs = port._streamk_segments(nM * nN, k_it, n)
+    by_prog = {}
+    for tile, k0, kl in segs:
+        by_prog.setdefault(((tile * k_it + k0) // per), []).append(
+            (tile, k0, kl))
+    shift = row // per
+    for p, runs in by_prog.items():
+        if p + shift in by_prog:
+            assert by_prog[p + shift] == [(t + nN, k0, kl)
+                                          for t, k0, kl in runs]
+
+
+@pytest.mark.parametrize("M,N,K,slots", [
+    (128, 11008, 4096, 132),       # one tile row: nothing to align
+    (512, 128, 128 * 43, 132),     # in phase: 4 programs of 132
+    (256, 384, 640, 4),            # in phase: 2 programs of 4
+    (32768, 11008, 4096, 132)])    # 256 tile rows on 132 slots
+def test_streamk_phase_programs_keep_the_slots_otherwise(M, N, K, slots):
+    assert port.streamk_phase_programs(M, N, K, 128, 128, 128, slots) == \
+        slots

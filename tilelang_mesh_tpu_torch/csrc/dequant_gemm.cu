@@ -18,10 +18,15 @@
 //     Bd (K, N) in float32, bfloat16 or float16: rows [0, K/2) the low
 //     nibbles, [K/2, K) the high, with the same float32 multiply and
 //     rounding.
-//   w4a8_gemm_kernel (:204) -> tl_w4a8_gemm
+//   w4a8_gemm_kernel (:204) -> tl_w4a8_gemm_wgmma, tl_w4a8_gemm
 //     C (M, N) f32 = (A (M, K) int8 @ B int4, exact int32 sums) * Sa[m]
-//     * Sw[n], on mma.sync m16n8k32 s8; the unpack writes B n-major into
-//     shared memory (ldmatrix `.trans` moves 16-bit elements only).
+//     * Sw[n]. ops/dequant_gemm.py::w4a8_path picks the kernel: aligned
+//     operands (at any row count) run lowbit_sm90.cuh's TMA + 8-bit
+//     wgmma pipeline with the nibble unpack in the kernel (W4A8Tma,
+//     below); the rest mma.sync m16n8k32 s8 on the tile loop,
+//     the unpack writing B n-major into shared memory (ldmatrix `.trans`
+//     moves 16-bit elements only). Both give the same bits: exact sums,
+//     the same two float32 multiplies in the same order.
 //
 // Bounds. At 4096^3 the fused GEMMs do 137 GFLOP (GOP) on 25-67 MB,
 // above the card's balance point: operations bound them, 0.139 ms in
@@ -787,6 +792,158 @@ int launch_w4_tma(const void* a, const void* packed, const float* scales,
   X(128, 128, 64)      \
   X(256, 128, 32)
 
+// ---------------------------------------------------------------------------
+// w4a8 at more rows: TMA + 8-bit wgmma with the unpack in the kernel
+// ---------------------------------------------------------------------------
+
+// A 128 x 256 tile, 64 packed rows (64 bytes of K of each half) a stage.
+// q is a 3-D byte map (K2 columns, 2 halves, M rows): a k tile loads the
+// low half's (64 x 128) box and the high half's, each with the 64-byte
+// swizzle, and a box past K2 is zero-filled inside its half (a 2-D map
+// over (M, 2 K2) would read the high half's first columns as the low
+// half's tail). The packed rows arrive raw. The consumers unpack them
+// into B_lo and B_hi, n-major (K-major: the only layout 8-bit wgmma
+// reads), 64 bytes of K a column with the 64-byte swizzle, q = nibble -
+// 8, and run wgmma m64n256k32 s8 x s8 -> s32 on (A_lo, B_lo), then (A_hi,
+// B_hi), into one accumulator: the int32 sums are exact in any order.
+// The epilogue stages the sums as int32 rows (in the idle ring) and
+// stores (float)acc * Sa[m] * Sw[n], the loop's products in its order,
+// 16 bytes a thread: a thread's four Sw once a tile, Sa once a row.
+struct W4A8Tma {
+  static constexpr int kTM = 128, kTN = 256;
+  static constexpr int kTK2 = 64;              // packed rows a stage
+  static constexpr int kAh = kTM * kTK2;       // one half's A box (8 KB)
+  static constexpr int kRaw = 2 * kAh + kTK2 * kTN;
+  static constexpr int kBh = kTN * kTK2;       // one half's B tile
+  static constexpr int kCvt = 2 * kBh;
+  static constexpr int kLdC = kTN + 8;         // staged C row, ints
+  static constexpr int kEpi = kTM * kLdC * 4;
+  CUtensorMap ma, mp;
+  const float* sw;
+  const float* sa;
+  float* c;
+  int M, N, K2;
+
+  __device__ __forceinline__ int k_tiles() const {
+    return (K2 + kTK2 - 1) / kTK2;
+  }
+
+  __device__ __forceinline__ void issue(char* st, uint64_t* bar, int kt,
+                                        int m0, int n0) const {
+    tl_sm90::tma_load3(st, &ma, bar, kt * kTK2, 0, m0);
+    tl_sm90::tma_load3(st + kAh, &ma, bar, kt * kTK2, 1, m0);
+    tl_sm90::tma_load(st + 2 * kAh, &mp, bar, n0, kt * kTK2);
+  }
+
+  struct Acc {
+    int d[128];
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0;
+    }
+    __device__ __forceinline__ void fence() {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+    }
+  };
+
+  // thread t: column quad q = t % 64 (columns 4q .. 4q + 3) and chunk c =
+  // t / 64 (packed rows 16c .. 16c + 15: 16 bytes of K of each half). Each
+  // group of 4 rows is 4 words of 4 columns, byte-transposed into one word
+  // a column, then split into its low and high nibbles less 8 bytewise
+  // ((x + 0x78) ^ 0x80 never carries). The loaded words are rotated by
+  // (q >> 1) & 3 bytes, so that the 8 lanes of each 16-byte store phase
+  // hit 8 different 16-byte bank groups.
+  struct Conv {
+    int q, c;
+    uint32_t rot;
+    __device__ __forceinline__ Conv(const W4A8Tma&, int, int t)
+        : q(t % 64), c(t / 64) {
+      const uint32_t r = (q >> 1) & 3;   // byte s of a rotated word:
+      rot = r | ((r + 1) & 3) << 4 |     // column (s + r) & 3
+            ((r + 2) & 3) << 8 | ((r + 3) & 3) << 12;
+    }
+    __device__ __forceinline__ void operator()(const char* st, char* cvt,
+                                               int) const {
+      const char* pk = st + 2 * kAh + (16 * c) * kTN + 4 * q;
+      uint32_t lo[4][4], hi[4][4];       // [column s][rows 4j .. 4j + 3]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = __byte_perm(*reinterpret_cast<const uint32_t*>(
+                                 pk + (4 * j + i) * kTN),
+                             0, rot);
+        const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+        const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+        const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+        const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+        const uint32_t col[4] = {
+            __byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+            __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          lo[s][j] = ((col[s] & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
+          hi[s][j] =
+              (((col[s] >> 4) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
+        }
+      }
+      const uint32_t r = (q >> 1) & 3;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int n = 4 * q + ((s + r) & 3);
+        const int at = n * kTK2 + ((c ^ ((n >> 1) & 3)) << 4);
+        *reinterpret_cast<uint4*>(cvt + at) =
+            make_uint4(lo[s][0], lo[s][1], lo[s][2], lo[s][3]);
+        *reinterpret_cast<uint4*>(cvt + kBh + at) =
+            make_uint4(hi[s][0], hi[s][1], hi[s][2], hi[s][3]);
+      }
+    }
+  };
+
+  __device__ __forceinline__ static void mma(Acc& acc, unsigned sa_,
+                                             unsigned ca, int cw) {
+#pragma unroll
+    for (int kk = 0; kk < kTK2 / 32; ++kk) {
+      tl_lowbit::wgmma_s8_n256(
+          acc.d, tl_sm90::kmajor<int8_t, kTK2>(sa_, cw * 64, kk * 32),
+          tl_sm90::kmajor<int8_t, kTK2>(ca, 0, kk * 32));
+      tl_lowbit::wgmma_s8_n256(
+          acc.d, tl_sm90::kmajor<int8_t, kTK2>(sa_ + kAh, cw * 64, kk * 32),
+          tl_sm90::kmajor<int8_t, kTK2>(ca + kBh, 0, kk * 32));
+    }
+  }
+
+  // the sums staged as int32 rows, then each consumer's 64 rows: thread t
+  // the columns 4 (t % 64) .. + 3 of every other row, as float32
+  __device__ __forceinline__ void epilogue(Acc& acc, char* buf, int m0,
+                                           int n0, int cw) const {
+    int* cs = reinterpret_cast<int*>(buf);
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int row0 = cw * 64;
+#pragma unroll
+    for (int j = 0; j < kTN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * w + lane / 4 + 8 * h;
+        *reinterpret_cast<int2*>(cs + r * kLdC + 8 * j + 2 * (lane % 4)) =
+            make_int2(acc.d[4 * j + 2 * h], acc.d[4 * j + 2 * h + 1]);
+      }
+    tl_sm90::named_sync(2 + cw, 128);
+    const int n = 4 * (t % 64);
+    if (n0 + n >= N) return;             // N a multiple of 16
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(sw + n0 + n));
+    for (int r = row0 + t / 64; r < row0 + 64 && m0 + r < M; r += 2) {
+      const float a = __ldg(sa + m0 + r);
+      const int4 v = *reinterpret_cast<const int4*>(cs + r * kLdC + n);
+      *reinterpret_cast<float4*>(c + (long long)(m0 + r) * N + n0 + n) =
+          make_float4((float)v.x * a * s4.x, (float)v.y * a * s4.y,
+                      (float)v.z * a * s4.z, (float)v.w * a * s4.w);
+    }
+  }
+};
+
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -873,6 +1030,29 @@ extern "C" int tl_w4a8_gemm(const void* a, const void* packed,
       static_cast<const int8_t*>(a), static_cast<const uint8_t*>(packed), sw,
       sa, c, M, N, K2, vec_a, vec_p);
   return (int)cudaGetLastError();
+}
+
+// w4a8 at more rows (ops/dequant_gemm.py::w4a8_path): a (M, 2 K2) int8,
+// packed (K2, N) u8, sw (N,) f32, all 16-byte aligned, K2 and N
+// multiples of 16, sa (M,) f32 -> c (M, N) f32 (16-byte aligned).
+// cudaErrorInvalidValue when a tensor map is refused.
+extern "C" int tl_w4a8_gemm_wgmma(const void* a, const void* packed,
+                                  const float* sw, const float* sa, float* c,
+                                  int M, int N, int K2, void* stream) {
+  W4A8Tma p;
+  const bool ok =
+      tl_lowbit::make_map_planes(&p.ma, a, M, 2, K2, 2LL * K2, K2,
+                                 W4A8Tma::kTK2, W4A8Tma::kTM) &&
+      tl_lowbit::make_map_bytes(&p.mp, packed, K2, N, N, W4A8Tma::kTN,
+                                W4A8Tma::kTK2, false);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  p.sw = sw;
+  p.sa = sa;
+  p.c = c;
+  p.M = M;
+  p.N = N;
+  p.K2 = K2;
+  return tl_lowbit::launch_cvt(p, static_cast<cudaStream_t>(stream));
 }
 
 // w4a16 at up to 16 rows: a (M, 2 K2), packed (K2, N), scales (2 K2 /

@@ -307,18 +307,23 @@ __device__ __forceinline__ uint64_t mnmajor(unsigned base, int slice,
 }
 
 // 16-bit operands: the consumer's MI m64 slices from `row0`, all TN
-// columns; A MN-major when TA, B MN-major when TB
-template <typename T, int TM, int TN, int TK, int TA, int TB>
+// columns; A MN-major when TA, B MN-major when TB. A persistent caller
+// that runs the ring again passes g0, the ring's running count of k
+// tiles at this call's first one (stage and parity follow it), and
+// kDrain, which also releases the last stage once its products are done.
+template <typename T, int TM, int TN, int TK, int TA, int TB,
+          bool kDrain = false>
 __device__ __forceinline__ void mainloop16(float (&acc)[TM / 128][TN / 2],
                                            char* buf, uint64_t* full,
                                            uint64_t* empty, int nk,
-                                           int row0) {
+                                           int row0, int g0 = 0) {
   using C = Cfg<T, TM, TN, TK>;
   constexpr int MI = TM / 128;
   const bool lead = threadIdx.x % 32 == 0;
   for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % C::kStages;
-    mbar_wait(&full[s], (kt / C::kStages) & 1);
+    const int g = g0 + kt;
+    const int s = g % C::kStages;
+    mbar_wait(&full[s], (g / C::kStages) & 1);
     const unsigned a_base = smem_addr(buf + s * C::kStage);
     const unsigned b_base = a_base + C::kStageA;
     wg_fence();
@@ -336,9 +341,11 @@ __device__ __forceinline__ void mainloop16(float (&acc)[TM / 128][TN / 2],
     }
     wg_commit();
     wg_wait<1>();            // the previous stage's products are done
-    if (kt > 0 && lead) mbar_arrive(&empty[(kt - 1) % C::kStages]);
+    if (kt > 0 && lead) mbar_arrive(&empty[(g - 1) % C::kStages]);
   }
   wg_wait<0>();
+  if (kDrain && nk > 0 && lead)
+    mbar_arrive(&empty[(g0 + nk - 1) % C::kStages]);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
 }

@@ -1,5 +1,6 @@
 // GEMM scheduling variants for Hopper (sm_90a): split-K, stream-K and the
-// block-sparse GEMM, on the block tile loop of gemm_tile.cuh.
+// block-sparse GEMM, on the block tile loop of gemm_tile.cuh, and
+// stream-K in bfloat16 / float16 on gemm_sm90.cuh's TMA + wgmma body.
 //
 // Replaces three TPU kernels of tilelang_mesh_tpu/ops/gemm_variants.py:
 //   splitk_kernel (:36) -> tl_splitk_stream (+ tl_splitk_stream_combine)
@@ -9,7 +10,8 @@
 //     rounded once to C's type (the JAX wrapper's jnp.sum + astype, :83).
 //     ops/gemm_variants.py::splitk_path picks the kernel by the rows, the
 //     type and the alignment.
-//   streamk_kernel (:104) -> tl_streamk_gemm (+ tl_streamk_fixup)
+//   streamk_kernel (:104) -> tl_streamk_tma or tl_streamk_gemm (+
+//     tl_streamk_fixup)
 //     Part (n_seg, bm, bn) f32: segment s is the K range [k0, k0 + kl)
 //     (in block_K units, host-planned) of output tile (tm, tn). One
 //     block a stream-K program: it runs the program's segments (`prog`
@@ -18,7 +20,10 @@
 //     leave the card ~2 blocks a program of unequal length. The fixup
 //     sums each tile's segments in segment order (contiguous too: `first`
 //     (n_tiles + 1)) and rounds once (the JAX wrapper's segment_sum,
-//     :159).
+//     :159). ops/gemm_variants.py::streamk_path picks the kernel:
+//     tl_streamk_tma (streamk_tma, below) for bfloat16 / float16 at the
+//     tiles of TL_SM90_BLOCKS on 16-byte aligned operands, one block an
+//     SM; tl_streamk_gemm (the tile loop, up to 128 x 128) for the rest.
 //   blocksparse_gemm_kernel (:206) -> tl_blocksparse_gemm
 //     C (M, N) = A @ B where the (M / bm, N / bn) mask cell is nonzero,
 //     exactly 0 elsewhere. One block a 128 x 128 tile of C: a tile none
@@ -29,8 +34,8 @@
 // The TPU kernels write partials and leave the sums to XLA because the
 // TPU has no global atomics; here a second small kernel sums them, in
 // the same order, so the result does not depend on the blocks' timing.
-// Float32 runs FFMA, bfloat16 and float16 mma.sync m16n8k16 (f32
-// accumulate); a 128 x 128 block tile for every variant.
+// On the tile loop float32 runs FFMA, bfloat16 and float16 mma.sync
+// m16n8k16 (f32 accumulate); a 128 x 128 block tile for every variant.
 //
 // Bounds. Split-K is for the skinny decode products: at M 16, K 4096, N
 // 11008 in bf16 it moves 90.7 MB (B dominates) for 1.4 GFLOP, so bytes
@@ -70,14 +75,19 @@
 // K at a 512-token prefill (M 512, K 4096, N 11008: 344 tiles, 2.6 waves
 // of 132) is operations-bound (46 GFLOP, 47 us in bf16); with one
 // program a block the card holds at once, every block does the same K
-// work in one wave, with no partial last wave. Block-sparse
+// work in one wave, with no partial last wave. On the TMA path that is
+// 132 programs (one block an SM) and about 476 segments of 64 KB at the
+// 128 x 128 tile: 31 MB of partials written and read back by the fixup,
+// some 20 us of HBM time beside the 47 us of products. Block-sparse
 // at a 4096-token prefill is operations-bound on its live tiles.
 
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
 
 using namespace tl_gemm;
+namespace sm90 = tl_sm90;
 
 // The block's product of A rows at `a` (rows of them, row stride lda)
 // and B at `b` (row stride N, columns n0 .. n0 + BN, cut at N) over
@@ -408,6 +418,120 @@ streamk_gemm(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// stream-K on TMA + wgmma: one persistent block a program
+// ---------------------------------------------------------------------------
+
+// Block p runs segments prog[p] .. prog[p + 1] through one ring of
+// gemm_sm90.cuh's stages (tile TM x TN: the plan's block, TK steps of
+// K, bk / TK of them a k-block). Thread 0, the producer, loads every TK
+// step of every segment in turn: A's (TK x TM) box K-major, B's TN / 64
+// boxes of (64 x TK) MN-major; the ring's running count g gives each
+// step its stage and parity, and the ring is never drained between
+// segments. The consumers run a segment's wgmmas (mainloop16 from its
+// first g, its last stage released too), store its float32 partial
+// straight from their fragments (the ring is busy with the next
+// segment's loads; a quad writes 32 contiguous bytes of a row) and zero
+// the accumulator for the next segment.
+template <typename T, int TM, int TN, int TK>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+streamk_tma(const __grid_constant__ CUtensorMap ma,
+            const __grid_constant__ CUtensorMap mb,
+            const int* __restrict__ tile_m, const int* __restrict__ tile_n,
+            const int* __restrict__ k_start, const int* __restrict__ k_len,
+            const int* __restrict__ prog, float* __restrict__ part,
+            int bk) {
+  using C = sm90::Cfg<T, TM, TN, TK>;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* buf = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + C::kBuf);
+  uint64_t* empty = full + C::kStages;
+  const int s0 = prog[blockIdx.x], s1 = prog[blockIdx.x + 1];
+  const int steps = bk / TK;                 // TK steps a k-block
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);       // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {                           // producer
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int s = s0; s < s1; ++s) {
+        const int m0 = tile_m[s] * TM, n0 = tile_n[s] * TN;
+        const int k0 = k_start[s] * bk, nk = k_len[s] * steps;
+        for (int kt = 0; kt < nk; ++kt, ++g) {
+          const int st = g % C::kStages;
+          sm90::mbar_wait(&empty[st], ((g / C::kStages) & 1) ^ 1);
+          char* sa = buf + st * C::kStage;
+          char* sb = sa + C::kStageA;
+          sm90::mbar_expect_tx(&full[st], C::kStage);
+          const int k = k0 + kt * TK;
+          sm90::tma_load(sa, &ma, &full[st], k, m0);
+          for (int j = 0; j < TN / 64; ++j)
+            sm90::tma_load(sb + j * TK * 128, &mb, &full[st], n0 + 64 * j,
+                           k);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();             // consumers
+  constexpr int MI = TM / 128;
+  const int row0 = (wg - 1) * (TM / 2);
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  float acc[MI][TN / 2];
+  int g = 0;
+  for (int s = s0; s < s1; ++s) {
+    const int nk = k_len[s] * steps;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) acc[mi][e] = 0.f;
+    sm90::mainloop16<T, TM, TN, TK, 0, 1, true>(acc, buf, full, empty, nk,
+                                                row0, g);
+    g += nk;
+    float* p = part + (long long)s * TM * TN;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + mi * 64 + 16 * w + lane / 4 + 8 * h;
+          *reinterpret_cast<float2*>(p + r * TN + 8 * j + 2 * (lane % 4)) =
+              make_float2(acc[mi][4 * j + 2 * h], acc[mi][4 * j + 2 * h + 1]);
+        }
+  }
+}
+
+// f(the streamk_tma instance of the tile (bm, bn) of TL_SM90_BLOCKS, TK
+// 64 when bk is a multiple of 64, else 32, for in_type kBF16 or kF16; its
+// shared bytes; TK); cudaErrorInvalidValue for another tile, bk or type
+template <class F>
+int streamk_tma_instance(int bm, int bn, int bk, int in_type, F f) {
+  if (bk < 32 || bk % 32) return (int)cudaErrorInvalidValue;
+  const int tk = bk % 64 == 0 ? 64 : 32;
+#define TL_STREAMK_CASE(m, n, k)                                            \
+  if (bm == m && bn == n && tk == k) {                                      \
+    if (in_type == kBF16)                                                   \
+      return f(streamk_tma<__nv_bfloat16, m, n, k>,                         \
+               sm90::Cfg<__nv_bfloat16, m, n, k>::kSmem, k);                \
+    if (in_type == kF16)                                                    \
+      return f(streamk_tma<__half, m, n, k>,                                \
+               sm90::Cfg<__half, m, n, k>::kSmem, k);                       \
+  }
+  TL_SM90_BLOCKS(TL_STREAMK_CASE)
+#undef TL_STREAMK_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 // c[m, n] = the sum of tile (m / bm, n / bn)'s segments, in order
 __global__ void __launch_bounds__(kThreads)
 streamk_fixup(const float* __restrict__ part, const int* __restrict__ first,
@@ -423,6 +547,37 @@ streamk_fixup(const float* __restrict__ part, const int* __restrict__ first,
     float v = part[first[t] * tile + at];
     for (int s = first[t] + 1; s < first[t + 1]; ++s) v += part[s * tile + at];
     store_as(c, i, out, v);
+  }
+}
+
+// The same sums four columns a thread (bn and N multiples of 4): one
+// 16-byte load a segment, the tile's index and offset computed once for
+// the four
+__global__ void __launch_bounds__(kThreads)
+streamk_fixup4(const float* __restrict__ part, const int* __restrict__ first,
+               void* __restrict__ c, int M, int N, int bm, int bn,
+               int out) {
+  const int nq = N / 4, n_tn = N / bn;
+  const long long quads = (long long)M * nq;
+  const long long tile = (long long)bm * bn;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+       i < quads; i += (long long)gridDim.x * kThreads) {
+    const int m = (int)(i / nq), n = (int)(i - (long long)m * nq) * 4;
+    const int t = (m / bm) * n_tn + n / bn;
+    const long long at = (long long)(m % bm) * bn + n % bn;
+    float4 v = *reinterpret_cast<const float4*>(part + first[t] * tile + at);
+    for (int s = first[t] + 1; s < first[t + 1]; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(part + s * tile + at);
+      v.x += x.x;
+      v.y += x.y;
+      v.z += x.z;
+      v.w += x.w;
+    }
+    const long long e = (long long)m * N + n;
+    store_as(c, e, out, v.x);
+    store_as(c, e + 1, out, v.y);
+    store_as(c, e + 2, out, v.z);
+    store_as(c, e + 3, out, v.w);
   }
 }
 
@@ -583,13 +738,46 @@ extern "C" int tl_streamk_gemm(const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
-// part (n_seg, bm, bn) f32, first (M / bm * N / bn + 1) int32 -> c (M, N)
+// The TMA path: a (M, K), b (K, N) of in_type kBF16 or kF16, both bases
+// on 16 bytes, (bm, bn) a tile of TL_SM90_BLOCKS and bk a multiple of 32
+// (ops/gemm_variants.py::streamk_path), the tables as tl_streamk_gemm's
+// -> part (n_seg, bm, bn) f32. cudaErrorInvalidValue for another tile,
+// bk or type, or when a tensor map is refused.
+extern "C" int tl_streamk_tma(const void* a, const void* b,
+                              const int* tile_m, const int* tile_n,
+                              const int* k_start, const int* k_len,
+                              const int* prog, float* part, int n_prog,
+                              int M, int N, int K, int bm, int bn, int bk,
+                              int in_type, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return streamk_tma_instance(bm, bn, bk, in_type, [&](auto kern, int smem,
+                                                       int tk) {
+    CUtensorMap ma, mb;
+    if (!sm90::make_map(&ma, a, in_type, M, K, K, tk, bm) ||
+        !sm90::make_map(&mb, b, in_type, K, N, N, 64, tk))
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<n_prog, sm90::kThreads, smem, s>>>(ma, mb, tile_m, tile_n,
+                                              k_start, k_len, prog, part,
+                                              bk);
+    return (int)cudaGetLastError();
+  });
+}
+
+// part (n_seg, bm, bn) f32, first (M / bm * N / bn + 1) int32 -> c (M, N);
+// four columns a thread where bn and N are multiples of 4
 extern "C" int tl_streamk_fixup(const float* part, const int* first, void* c,
                                 int M, int N, int bm, int bn, int out_type,
                                 void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  streamk_fixup<<<elementwise_blocks((long long)M * N), kThreads, 0, s>>>(
-      part, first, c, M, N, bm, bn, out_type);
+  if (bn % 4 == 0 && N % 4 == 0)
+    streamk_fixup4<<<elementwise_blocks((long long)M * N / 4), kThreads, 0,
+                     s>>>(part, first, c, M, N, bm, bn, out_type);
+  else
+    streamk_fixup<<<elementwise_blocks((long long)M * N), kThreads, 0, s>>>(
+        part, first, c, M, N, bm, bn, out_type);
   return (int)cudaGetLastError();
 }
 

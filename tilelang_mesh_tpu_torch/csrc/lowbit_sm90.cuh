@@ -1,6 +1,6 @@
 // The low-bit GEMMs' body for many rows on Hopper (sm_90a): gemm_sm90.cuh's
 // TMA + wgmma pipeline with a converting stage, shared by bitnet_gemm.cu
-// (#26, int8 x ternary) and dequant_gemm.cu (#22, w4a16).
+// (#26, int8 x ternary) and dequant_gemm.cu (#22, w4a16; #24, w4a8).
 //
 // A block of 384 threads computes one TM x TN tile of C. Warpgroup 0 is
 // the producer: one thread walks the K tiles, waits for a ring stage to
@@ -35,7 +35,7 @@
 //   mma(acc, stage, cvt, cw)        consumer cw's wgmmas of one stage
 //   epilogue(acc, buf, m0, n0, cw)  C from the accumulator
 //
-// The host builds byte tensor maps (make_map_bytes) beside
+// The host builds byte tensor maps (make_map_bytes, make_map_planes) beside
 // gemm_sm90.cuh's 16-bit ones.
 
 #pragma once
@@ -201,25 +201,51 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a,
 // host side
 // ---------------------------------------------------------------------------
 
+// A byte tensor of `rank` dimensions (dims inner first, the outer ones'
+// strides in bytes) as a map of `box` boxes, swizzled by `swizzle` bytes
+// (128 or 64; 0: none); false when refused
+inline bool encode_bytes(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The (rows x cols) row-major byte matrix at `base` (row stride ld
 // bytes) as a map of (box_cols x box_rows) boxes, swizzled by 128 bytes
 // when swz128 (box_cols 128) or not at all; false when refused
 inline bool make_map_bytes(CUtensorMap* map, const void* base,
                            long long rows, long long cols, long long ld,
                            int box_cols, int box_rows, bool swz128) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swz128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bytes(map, base, 2, dims, strides, box, swz128 ? 128 : 0);
+}
+
+// `planes` (rows x cols) byte matrices, plane p at base + p * pld bytes,
+// row stride ld bytes, as a 3-D map of (box_cols x 1 x box_rows) boxes
+// (dims inner first: cols, planes, rows), swizzled by box_cols bytes (64
+// or 128): a box past a plane's columns is zero-filled and never reads
+// the next plane. false when refused.
+inline bool make_map_planes(CUtensorMap* map, const void* base,
+                            long long rows, long long planes, long long cols,
+                            long long ld, long long pld, int box_cols,
+                            int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)planes,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)pld, (cuuint64_t)ld};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows};
+  return encode_bytes(map, base, 3, dims, strides, box, box_cols);
 }
 
 }  // namespace tl_lowbit

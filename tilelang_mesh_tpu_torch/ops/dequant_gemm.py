@@ -24,6 +24,10 @@ float32, the low half's G2 rows first. CUDA kernels of
   (``ops/bitnet.py::quantize_activations``) times the int4 weights with
   exact int32 sums, then ``acc * s_act[m] * s_w[n]`` in float32, with
   per-channel weight scales from ``quantize_w4_per_channel``.
+  ``w4a8_path`` picks the kernel: TMA + 8-bit ``wgmma`` with the unpack
+  in the kernel on aligned operands at any row count (``w4a8_gemm_tma``),
+  the block tile loop for the rest (``w4a8_gemm``); both give the same
+  bits.
 
 The host packers (``quantize_w4_per_channel``, ``pack_planar``,
 ``unpack_planar``, ``pack_reference``, ``repack_from_reference``) are
@@ -60,7 +64,7 @@ __all__ = ["dequant_matmul", "dequant_matmul_plain", "dequant_gemm_kernel",
            "pack_reference", "repack_from_reference", "launches",
            "reset_launches", "dequant_int4_kernel", "w4a8_gemm_kernel",
            "dequant_path", "dequant_splitk_plan", "dequant_wgmma_tile",
-           "SPLITK_MAX_ROWS", "WGMMA_WIDE_ROWS"]
+           "SPLITK_MAX_ROWS", "WGMMA_WIDE_ROWS", "w4a8_path"]
 
 _A_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -69,7 +73,7 @@ _A_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # fused w4a16's block tile loop keeps the kernel's first name
 launches = {"dequant_gemm": 0, "dequant_gemm_splitk": 0,
             "dequant_splitk_combine": 0, "dequant_gemm_wgmma": 0,
-            "dequant_int4": 0, "w4a8_gemm": 0}
+            "dequant_int4": 0, "w4a8_gemm_tma": 0, "w4a8_gemm": 0}
 
 # A rows up to which dequant_path takes the split-K kernel: two n8 tiles
 # of mma.sync (PERF.md, PR 19: timed against the TMA kernel)
@@ -410,6 +414,25 @@ def w4a8_gemm_plain(q, packed, w_scales, a_scales) -> torch.Tensor:
         w_scales.reshape(1, N).float()
 
 
+def w4a8_path(M: int, N: int, K2: int, q_ptr: int = 0, packed_ptr: int = 0,
+              sw_ptr: int = 0) -> str:
+    """Which kernel of ``dequant_gemm.cu`` computes w4a8 on the card (q
+    (M, 2 K2) int8 at ``q_ptr``, packed (K2, N) at ``packed_ptr``, the
+    weight scales at ``sw_ptr``):
+
+    * ``"tma"`` (``tl_w4a8_gemm_wgmma``): K2 and N multiples of 16 and the
+      three bases on 16 bytes (the tensor maps' strides, the 16-byte scale
+      and output stores), at any row count: the sweep over M (1 to 4096
+      at K = N = 4096, ``scripts/streamk_w4a8_ab.py``) found it ahead of
+      the tile loop at every one on an H100 (PERF.md §6 row 24), so no
+      row threshold;
+    * ``"loop"`` (``tl_w4a8_gemm``): everything else."""
+    if min(M, N, K2) < 1 or K2 % 16 or N % 16 \
+            or (q_ptr | packed_ptr | sw_ptr) % 16:
+        return "loop"
+    return "tma"
+
+
 def _w4a8_launch(q, packed, sw, sa):
     from ._build import load, stream_call
     M = q.shape[0]
@@ -420,15 +443,19 @@ def _w4a8_launch(q, packed, sw, sa):
     if K2 == 0:
         return c.zero_()
     check_grid(M, N, "w4a8_matmul")
-    fn = load("dequant_gemm").tl_w4a8_gemm
+    path = w4a8_path(M, N, K2, q.data_ptr(), packed.data_ptr(),
+                     sw.data_ptr())
+    entry, name = (("tl_w4a8_gemm_wgmma", "w4a8_gemm_tma") if path == "tma"
+                   else ("tl_w4a8_gemm", "w4a8_gemm"))
+    fn = getattr(load("dequant_gemm"), entry)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = stream_call(fn, q.device, q.data_ptr(), packed.data_ptr(),
                        sw.data_ptr(), sa.data_ptr(), c.data_ptr(), M, N, K2)
     if code != 0:
-        raise KernelLaunchError("w4a8_gemm", code)
-    launches["w4a8_gemm"] += 1
+        raise KernelLaunchError(name, code)
+    launches[name] += 1
     return c
 
 

@@ -24,8 +24,11 @@ block tile loop of ``csrc/gemm_tile.cuh``) and ``csrc/gemv.cu``.
   JAX planner's copy) that split the (tile, K-block) work evenly over
   ``n_programs``: one float32 partial tile a segment, each tile's
   segments summed in order. M, N and K must be multiples of their blocks
-  (``ValueError``). Two launches: ``streamk_gemm`` (one block a program,
-  running its segments in order) and ``streamk_fixup``.
+  (``ValueError``). Two launches: the partials, one block a program
+  running its segments in order (``streamk_path`` picks the kernel:
+  ``streamk_tma``, TMA + ``wgmma`` for bfloat16 / float16 at the tiles
+  of ``STREAMK_TMA_TILES``, or ``streamk_gemm``, the tile loop), then
+  ``streamk_fixup``.
 * ``gemv(a, b, out_dtype, ...)`` — c = B @ a for a (K,) and B (N, K),
   float32 products and sums. One launch (``gemv``).
 * ``blocksparse_matmul(a, b, block_mask, ...)`` — A @ B on the output
@@ -42,8 +45,9 @@ Inputs are float32, bfloat16 or float16 (any other type raises
 arguments are the TPU's tiling hints, accepted and ignored except where
 the JAX package derives the result's structure from them: split-K's
 split, stream-K's segments and block-sparse's mask cells. On the card a
-stream-K tile is at most 128 x 128 (``ValueError`` past it); the plain
-versions take any.
+stream-K tile is one of ``STREAMK_TMA_TILES`` in bfloat16 / float16, or
+at most 128 x 128 (``ValueError`` for any other); the plain versions
+take any.
 
 Each wrapper launches its kernel on CUDA tensors (a build or launch
 failure raises; there is no fallback) and runs its plain PyTorch version
@@ -69,7 +73,8 @@ __all__ = ["matmul_splitk", "matmul_splitk_plain", "splitk_plan",
            "gemv_kernel", "blocksparse_matmul", "blocksparse_matmul_plain",
            "blocksparse_gemm_kernel", "launches", "reset_launches",
            "IN_TYPES", "splitk_path", "splitk_stream_plan",
-           "stream_slots", "SPLITK_STREAM_MAX_ROWS"]
+           "stream_slots", "SPLITK_STREAM_MAX_ROWS", "streamk_path",
+           "STREAMK_TMA_TILES", "streamk_phase_programs"]
 
 # the input types the variants' kernels take
 IN_TYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -82,12 +87,17 @@ _GRID_Y_MAX = 65535
 SPLITK_STREAM_MAX_ROWS = 64
 _STREAM_COLS = 64
 _STREAM_K_UNIT = 64
+# the stream-K TMA kernel's tiles (block_M, block_N): gemm_sm90.cuh's
+# TL_SM90_BLOCKS; its K step is 64 where block_K is a multiple of 64,
+# else 32
+STREAMK_TMA_TILES = ((128, 128), (128, 256), (256, 128))
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads these around each call to prove the path used the kernels)
 launches = {"splitk_gemm": 0, "splitk_reduce": 0, "splitk_stream": 0,
-            "splitk_stream_combine": 0, "streamk_gemm": 0,
-            "streamk_fixup": 0, "gemv": 0, "blocksparse_gemm": 0}
+            "splitk_stream_combine": 0, "streamk_tma": 0,
+            "streamk_gemm": 0, "streamk_fixup": 0, "gemv": 0,
+            "blocksparse_gemm": 0}
 
 
 def reset_launches() -> None:
@@ -460,26 +470,63 @@ def matmul_streamk_plain(a, b, n_programs: int = 8, block_M=128,
     return to_out(c.reshape(M, N), out)
 
 
+def streamk_path(M: int, N: int, K: int, dtype, block_M: int = 128,
+                 block_N: int = 128, block_K: int = 128, a_ptr: int = 0,
+                 b_ptr: int = 0) -> str:
+    """Which kernel of ``gemm_variants.cu`` computes a stream-K call's
+    partials on the card for a (M, K) at ``a_ptr`` and b (K, N) at
+    ``b_ptr`` (the rule of ``ops/gemm.py::matmul_path``):
+
+    * ``"tma"`` (``tl_streamk_tma``): bfloat16 or float16, ``(block_M,
+      block_N)`` one of ``STREAMK_TMA_TILES``, ``block_K`` a multiple of
+      32, both bases and both row strides on 16 bytes;
+    * ``"loop"`` (``tl_streamk_gemm``, the tile loop): everything else,
+      float32 included (it takes tiles up to 128 x 128).
+
+    The rule decides before the launch; a kernel that fails on either
+    path raises."""
+    dtype = _as_dtype(dtype)
+    if dtype not in (torch.bfloat16, torch.float16) or min(M, N, K) < 1 \
+            or (block_M, block_N) not in STREAMK_TMA_TILES \
+            or block_K < 32 or block_K % 32 or K % 8 or N % 8 \
+            or (a_ptr | b_ptr) % 16:
+        return "loop"
+    return "tma"
+
+
 def _streamk_partials_launch(a, b, tables, prog, block_M, block_N,
                              block_K):
     """Part (n_seg, block_M, block_N): one block a program, running
-    segments prog[p] .. prog[p + 1]."""
+    segments prog[p] .. prog[p + 1], on ``streamk_path``'s kernel."""
     M, N, K = _mk(a, b, "matmul_streamk")
-    if block_M > _KERNEL_TILE or block_N > _KERNEL_TILE:
-        raise ValueError(f"matmul_streamk: the card's tile is "
-                         f"{_KERNEL_TILE} x {_KERNEL_TILE}; block_M="
-                         f"{block_M}, block_N={block_N} is past it")
-    n_seg, n_prog = int(tables.shape[1]), int(prog.numel()) - 1
     a, b, tables = a.contiguous(), b.contiguous(), tables.contiguous()
+    path = streamk_path(M, N, K, a.dtype, block_M, block_N, block_K,
+                        a.data_ptr(), b.data_ptr())
+    if path == "loop" and (block_M > _KERNEL_TILE
+                           or block_N > _KERNEL_TILE):
+        raise ValueError(
+            f"matmul_streamk: the card's tiles are up to {_KERNEL_TILE} x "
+            f"{_KERNEL_TILE} (the tile loop), and "
+            + ", ".join(f"{m} x {n}" for m, n in STREAMK_TMA_TILES)
+            + f" in bfloat16 / float16 (the TMA kernel); block_M="
+            f"{block_M}, block_N={block_N} in {a.dtype} is none of them")
+    n_seg, n_prog = int(tables.shape[1]), int(prog.numel()) - 1
     part = torch.empty((n_seg, block_M, block_N), dtype=torch.float32,
                        device=a.device)
     if n_seg == 0:
         return part
-    rows = [tables[i].data_ptr() for i in range(4)]
-    _call("gemm_variants", "tl_streamk_gemm", "streamk_gemm", a.device,
-          [_P] * 8 + [_I] * 7, a.data_ptr(), b.data_ptr(), *rows,
-          prog.data_ptr(), part.data_ptr(), n_prog, N, K, block_M, block_N,
-          block_K, DTYPE_CODES[a.dtype])
+    ptrs = (a.data_ptr(), b.data_ptr(),
+            *(tables[i].data_ptr() for i in range(4)), prog.data_ptr(),
+            part.data_ptr())
+    code = DTYPE_CODES[a.dtype]
+    if path == "tma":
+        _call("gemm_variants", "tl_streamk_tma", "streamk_tma", a.device,
+              [_P] * 8 + [_I] * 8, *ptrs, n_prog, M, N, K, block_M,
+              block_N, block_K, code)
+    else:
+        _call("gemm_variants", "tl_streamk_gemm", "streamk_gemm", a.device,
+              [_P] * 8 + [_I] * 7, *ptrs, n_prog, N, K, block_M, block_N,
+              block_K, code)
     return part
 
 
@@ -544,11 +591,62 @@ def streamk_kernel(M, N, K, n_seg, block_M, block_N, block_K, in_dtype):
     return kernel
 
 
-def streamk_programs(device=None, dtype=torch.bfloat16) -> int:
-    """The stream-K blocks the card holds at once: its SMs times the
-    kernel's blocks an SM (CUDA's occupancy calculator)."""
+def _in_phase_programs(M: int, N: int, K: int, block_M: int,
+                       block_N: int, block_K: int, slots: int):
+    """The most programs up to ``slots`` whose equal share of the (tile,
+    k-block) iterations divides a tile row's (N / block_N * K / block_K),
+    or None where there are none: one tile row, or a share past a tile
+    row (more tile rows than slots)."""
+    nM = M // block_M
+    row = (N // block_N) * (K // block_K)
+    if nM < 2 or row < 1 or slots < 1:
+        return None
+    total = nM * row
+    per = next((p for p in range(-(-total // slots), row + 1)
+                if row % p == 0), None)
+    return None if per is None else total // per
+
+
+def streamk_phase_programs(M: int, N: int, K: int, block_M: int = 128,
+                           block_N: int = 128, block_K: int = 128,
+                           slots: int = 132) -> int:
+    """A program count for ``matmul_streamk`` up to ``slots`` (the
+    co-resident blocks, ``streamk_programs``) at which the tile rows run
+    in phase: the most programs whose equal share of the (tile, k-block)
+    iterations divides a tile row's (N / block_N * K / block_K). Program
+    p starts at p times its share, so the programs of every tile row then
+    read the same k-block of B at the same time and L2 serves it to all
+    but the first; at 132 programs on LLaMA-2-7B's prefill gate/up the
+    four 128-row tile rows read B 64 of 84 steps apart, four times from
+    HBM (PERF.md §6 row 17). ``slots`` itself where there is no such
+    count (one tile row, or more tile rows than slots) or it would keep
+    half the slots busy or fewer: from 0.52 to 0.97 of 132 slots the
+    count in phase ran from 5 % behind to 1.5x ahead of all slots on an
+    H100 (``scripts/streamk_phase_sweep.py``); below half it was not
+    measured, and a program's share grows as the count shrinks."""
+    n = _in_phase_programs(M, N, K, block_M, block_N, block_K, slots)
+    if n is None:
+        return slots
+    total = (M // block_M) * (N // block_N) * (K // block_K)
+    return n if 2 * n > min(slots, total) else slots
+
+
+def streamk_programs(device=None, dtype=torch.bfloat16, block_M: int = 128,
+                     block_N: int = 128, block_K: int = 128, a_ptr: int = 0,
+                     b_ptr: int = 0) -> int:
+    """The stream-K blocks the card holds at once for a call of ``dtype``
+    at these blocks on operands at ``a_ptr`` and ``b_ptr`` (by default
+    aligned), on the kernel ``streamk_path`` gives it: the TMA kernel
+    holds one block an SM (its launch bounds and its ring's shared
+    memory), so the card's SMs; the tile loop, the SMs times its blocks
+    an SM for ``dtype`` (CUDA's occupancy calculator)."""
     from ._build import load
     dev = torch.device("cuda" if device is None else device)
+    dtype = _as_dtype(dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if streamk_path(block_M, block_N, block_K, dtype, block_M, block_N,
+                    block_K, a_ptr, b_ptr) == "tma":
+        return sms
     fn = load("gemm_variants").tl_streamk_blocks_per_sm
     fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -557,8 +655,7 @@ def streamk_programs(device=None, dtype=torch.bfloat16) -> int:
         code = fn(DTYPE_CODES[dtype], ctypes.byref(blocks))
     if code != 0:
         raise KernelLaunchError("streamk_gemm", code)
-    return torch.cuda.get_device_properties(dev).multi_processor_count \
-        * blocks.value
+    return sms * blocks.value
 
 
 # ---------------------------------------------------------------------------
