@@ -986,11 +986,9 @@ def attention_phase(torch, fa, gb, dtype):
     return res
 
 
-def device_breakdown(torch, fn):
-    """Run ``fn`` once under torch.profiler: the wall time, the device's
-    busy time (union of its activity intervals) and share, and device ms
-    by kind: the port's attention and decode kernels, its grouped GEMM
-    kernels, other GEMMs (cuBLAS), everything else."""
+def _profiled_run(torch, fn):
+    """Run ``fn`` once under torch.profiler: the wall time (us) and the
+    device's activity records, each (start us, end us, name)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -999,28 +997,61 @@ def device_breakdown(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, [(e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def device_breakdown(torch, fn, runs=3):
+    """Run ``fn`` once under torch.profiler: the wall time, the device's
+    busy time (union of its activity intervals) and share, and device ms
+    by kind: the port's attention and decode kernels, its grouped GEMM
+    kernels, other GEMMs (cuBLAS), everything else.
+
+    CUPTI has been seen to hand the profiler no device record for a run
+    of a millisecond or two. Such a run is made again, up to ``runs``
+    runs (``profiler_runs`` says how many were made). If none has a
+    record, one more run is timed with CUDA events around it: its
+    ``device_span_ms`` is the time from the first of its work on the
+    stream to the last, idle gaps included, and the busy time, its share
+    and the kinds are not measured (None)."""
+    for n in range(1, runs + 1):
+        wall_us, spans = _profiled_run(torch, fn)
+        if any(t1 > t0 for t0, t1, _ in spans):
+            break
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        span_ms = start.elapsed_time(stop)
+        check(span_ms > 0, "CUDA events saw no device time")
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": None,
+                "device_busy_share": None, "attention_kernels_ms": None,
+                "grouped_gemm_ms": None, "gemm_ms": None, "other_ms": None,
+                "device_span_ms": span_ms, "profiler_runs": runs,
+                "source": "cuda_events"}
     kinds = {"attention_kernels_ms": 0.0, "grouped_gemm_ms": 0.0,
              "gemm_ms": 0.0, "other_ms": 0.0}
-    spans = []
-    for e in prof.events():
-        if e.device_type.name != "CUDA":
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
-        spans.append((t0, t1))
+    for t0, t1, name in spans:
         kind = ("attention_kernels_ms" if any(
-            k in e.name for k in ("mha_fwd", "gqa_bwd", "decode")) else
+            k in name for k in ("mha_fwd", "gqa_bwd", "decode")) else
                 "grouped_gemm_ms" if any(
-                    k in e.name for k in ("grouped_gemm", "grouped_tma",
-                                          "grouped_tf32x3")) else
-                "gemm_ms" if "gemm" in e.name else "other_ms")
+                    k in name for k in ("grouped_gemm", "grouped_tma",
+                                        "grouped_tf32x3")) else
+                "gemm_ms" if "gemm" in name else "other_ms")
         kinds[kind] += (t1 - t0) / 1e3
     busy, end = 0.0, -math.inf
-    for t0, t1 in sorted(spans):
+    for t0, t1, _ in sorted(spans):
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    check(busy > 0, "the profiler saw no device activity")
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / wall_us, **kinds}
+            "device_busy_share": busy / wall_us, **kinds,
+            "profiler_runs": n, "source": "profiler"}
 
 
 def _launch_counts(fa, gb):
