@@ -4222,10 +4222,15 @@ def nsa_training_phase(torch, nsa, nb):
     inference kernel; dQ, dK, dV, dG against the same step on the plain
     versions on the card, and against autograd through the dense graph
     (nsa_dense) at T NSA_REF_T; a second step's gradients bit-equal;
-    each kernel against its plain version at the path's shapes; kernel,
-    plain and library (SDPA over the dense selected bool mask: the
-    forward for the partial, the backward for dK / dV and dQ, both for
-    the step) times and the bound by the selected pairs."""
+    each kernel against its plain version at the path's shapes (float16
+    too for the backward pair: the tensor-core kernels of both 16-bit
+    types); kernel, plain and library (SDPA over the dense selected bool
+    mask: the forward for the partial, the backward for dK / dV and dQ,
+    both for the step) times and the bound by the selected pairs; the
+    backward pair's parts timed apart (dK / dV's plan, bounded by the
+    selections' slots as the step's, kernel and sum; the exact plan with
+    its host sync too) and its gathered bytes (Q and dO once a selected
+    block for dK / dV, K and V once a visited key for dQ)."""
     import numpy as np
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4263,6 +4268,156 @@ def nsa_training_phase(torch, nsa, nb):
         return {"bound_ms": t, "bound_by": by, "ops": flops,
                 "bytes": nbytes}
 
+    def plain_residuals(q, k, v, go):
+        """The backward's operands from the plain partial forward: the
+        kernel-side views, the gated incoming gradient, lse2 and delta;
+        and the partial's acc, m, l and its normalised output."""
+        q5 = q.reshape(1, T, Hk, G, D)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        gs = gates.reshape(1, T, Hk, G)
+        acc, m, l = nsa.nsa_fwd_partial_plain(q5, kh, vh, bi, cnt, BS, sm)
+        o_slc = torch.where(l[..., None] > 0, acc / l[..., None],
+                            0.0).to(q.dtype)
+        g_ = (go.reshape(o_slc.shape).float() * gs[..., None]).to(q.dtype)
+        delta = (g_.float() * o_slc.float()).sum(-1)
+        return (q5, kh, vh, g_, m + torch.log2(l), delta), (acc, m, l,
+                                                             o_slc)
+
+    def bwd_alone(name, tol, args, dk_p, dv_p, dq_p):
+        """nsa_bwd_dkdv (and its sum; on the plan bounded by the slots,
+        as the step runs it) and nsa_bwd_dq on the path's operands against
+        their plain versions, a second call of each bit-equal (dK / dV's
+        on the exact plan): the (max abs, normwise) errors of dK / dV and
+        of dQ."""
+        d_got = nb.nsa_bwd_dkdv(*args, mask, BS, sm, max_pairs=bi.numel())
+        e_dk = within(f"nsa_bwd_dkdv dk {name}", d_got[0], dk_p, tol)
+        e_dv = within(f"nsa_bwd_dkdv dv {name}", d_got[1], dv_p, tol)
+        again = nb.nsa_bwd_dkdv(*args, mask, BS, sm)
+        check(all(torch.equal(a, b) for a, b in zip(d_got, again)),
+              f"nsa_bwd_dkdv {name}: a second call (the exact plan) "
+              f"differs in bits")
+        del d_got, again
+        q_got = nb.nsa_bwd_dq(*args, bi, cnt, BS, sm)
+        e_dq = within(f"nsa_bwd_dq {name}", q_got, dq_p, tol)
+        check(torch.equal(q_got, nb.nsa_bwd_dq(*args, bi, cnt, BS, sm)),
+              f"nsa_bwd_dq {name}: a second call differs in bits")
+        del q_got
+        return (max(e_dk[0], e_dv[0]), max(e_dk[1], e_dv[1])), e_dq
+
+    def bwd_records(name, dtype, tol, args, errs, lib, bwd_ms):
+        """The backward pair's records: kernel, plain and library times,
+        dK / dV's plan, kernel and sum apart, the ops bound and the bytes
+        the gathers read, with their time at HBM's rate (a floor where
+        they come from HBM, as dK / dV's mostly do; dQ's come mostly from
+        L2)."""
+        esize = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        qb, kb = T * HQ * D * esize, T * Hk * D * esize
+        ids = 4 * (bi.numel() + cnt.numel())
+        stats = 4 * T * HQ                   # one float32 (T, HQ) vector
+        # the kernels csrc/nsa_bwd.cu's run_dkdv / run_dq pick by type
+        kn_dkdv, kn_dq = (("nsa_bwd_dkdv", "nsa_bwd_dq")
+                          if dtype == torch.float32 else
+                          ("nsa_bwd_dkdv_mma", "nsa_bwd_dq_mma"))
+        slots = bi.numel()                  # the plan's bound, as the step's
+        plan = nb.dkdv_plan(mask, G, slots)
+        ws = nb.dkdv_partials(*args, plan, BS, sm)
+        gather_dkdv = selections * G * D * esize * 2
+        gather_dq = sel_keys * D * esize * 2
+        res[f"nsa_bwd_dkdv_{name}"] = {
+            "kernel": kn_dkdv, "shape": [1, T, HQ, Hk, D],
+            "max_abs_err": errs[0][0], "normwise_err": errs[0][1],
+            "tolerance": f"normwise {tol}", "bits_equal_twice": True,
+            "ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv(
+                *args, mask, BS, sm, max_pairs=slots), 3),
+            "plan_ms": device_ms(torch, lambda: nb.dkdv_plan(
+                mask, G, slots), 3),
+            "plan_synced_ms": device_ms(torch, lambda: nb.dkdv_plan(
+                mask, G), 3),
+            "padded_chunks": plan[2].shape[0] - int(plan[3][-1]),
+            "kernel_ms": device_ms(torch, lambda: nb.dkdv_partials(
+                *args, plan, BS, sm), 3),
+            "sum_ms": device_ms(torch, lambda: nb.dkdv_sum(
+                ws, plan[3], 1, Hk, T, D), 3),
+            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv_plain(
+                *args, mask, BS, sm), 1),
+            "library_ms": bwd_ms, **lib,
+            "library_call": "the SDPA backward (dq, dk, dv)",
+            "gathered_bytes": gather_dkdv,
+            "gathered_at_hbm_ms": gather_dkdv / PEAK_BYTES_S * 1e3,
+            **bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * stats
+                    + 4 * mask.numel() + 2 * 4 * T * Hk * D, peak)}
+        del ws, plan
+        res[f"nsa_bwd_dq_{name}"] = {
+            "kernel": kn_dq, "shape": [1, T, HQ, Hk, D],
+            "max_abs_err": errs[1][0], "normwise_err": errs[1][1],
+            "tolerance": f"normwise {tol}", "bits_equal_twice": True,
+            "ms": device_ms(torch, lambda: nb.nsa_bwd_dq(
+                *args, bi, cnt, BS, sm), 3),
+            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dq_plain(
+                *args, bi, cnt, BS, sm), 1),
+            "library_ms": bwd_ms, **lib,
+            "library_call": "the SDPA backward (dq, dk, dv)",
+            "gathered_bytes": gather_dq,
+            "gathered_at_hbm_ms": gather_dq / PEAK_BYTES_S * 1e3,
+            **bound(6 * D * pairs, 2 * qb + 2 * kb + 2 * stats + ids
+                    + 4 * T * HQ * D, peak)}
+        torch.cuda.empty_cache()
+
+    def sdpa_yardstick(name, dtype, q, k, v, g_, want):
+        """SDPA over the dense selected mask, KV expanded by the group:
+        its output times the gate and its dQ / dK checked against `want`
+        (the step's output, dQ and dK), then the forward, the backward
+        and both timed: (record, forward, backward and step ms)."""
+        o_want, dq_want, dk_want = want
+        qh = q.transpose(1, 2).detach().requires_grad_()
+        kx, vx = (t.transpose(1, 2).repeat_interleave(G, 1).detach()
+                  .requires_grad_() for t in (k, v))
+        gh = g_.reshape(1, T, HQ, D).transpose(1, 2)
+        backends = ([SDPBackend.EFFICIENT_ATTENTION] if dtype ==
+                    torch.float32 else [SDPBackend.CUDNN_ATTENTION,
+                                        SDPBackend.EFFICIENT_ATTENTION])
+        for backend in backends:
+            try:
+                with sdpa_kernel([backend]):
+                    so = F.scaled_dot_product_attention(qh, kx, vx,
+                                                        attn_mask=sel_dense)
+                    sdq, sdk, _ = torch.autograd.grad(
+                        so, (qh, kx, vx), gh, retain_graph=True)
+            except RuntimeError:             # this backend refuses the call
+                continue
+            rel = {"o": normwise_err(so.detach().transpose(1, 2).reshape(
+                o_want.shape) * gates[..., None].to(dtype), o_want)[1],
+                   "dq": normwise_err(sdq.transpose(1, 2), dq_want)[1],
+                   "dk": normwise_err(sdk.view(1, Hk, G, T, D).sum(2)
+                                      .transpose(1, 2), dk_want)[1]}
+            del sdq, sdk
+            check(max(rel.values()) < 2e-2, f"nsa training {name}: the "
+                  f"library yardstick ({backend.name}) disagrees with the "
+                  f"step: {rel}")
+            with sdpa_kernel([backend]):
+                fwd_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kx, vx, attn_mask=sel_dense), 1)
+                bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+                    so, (qh, kx, vx), gh, retain_graph=True), 1)
+
+                def sdpa_step():
+                    o_ = F.scaled_dot_product_attention(
+                        qh, kx, vx, attn_mask=sel_dense)
+                    torch.autograd.grad(o_, (qh, kx, vx), gh)
+
+                step_ms = device_ms(torch, sdpa_step, 1)
+            del so, qh, kx, vx, gh
+            torch.cuda.empty_cache()
+            return ({"library_normwise_err": rel,
+                     "library": f"SDPA ({backend.name}) over the dense "
+                                f"selected bool mask (1, HQ, T, T), K and "
+                                f"V expanded by the group"},
+                    fwd_ms, bwd_ms, step_ms)
+        check(False, f"nsa training {name}: no SDPA backend of "
+                     f"{backends} takes the call")
+
     c = NSA
     HQ, Hk, D, BS, S, T = (c["heads"], c["kv_heads"], c["head_dim"],
                            c["block"], c["selected"], c["seq"])
@@ -4286,11 +4441,12 @@ def nsa_training_phase(torch, nsa, nb):
                              t_idx[None, :, None, None], BS)
     pairs = sel_keys * G                      # (query head, key) pairs
     mask = nb.nsa_block_mask(bi, cnt, T, NS, BS)
+    selections = int(torch.count_nonzero(mask))   # (token, head, block)
     _, _, chunks, first = nb.dkdv_plan(mask, G)
     per_block = (first[1:] - first[:-1]).view(Hk, NS)
     res["nsa_training_selection"] = {
         "selected_keys": sel_keys, "pairs": pairs,
-        "dkdv_chunks": chunks.shape[0],
+        "selected_blocks": selections, "dkdv_chunks": chunks.shape[0],
         "dkdv_chunk_tokens": nb.DKDV_CHUNK_ROWS // G,
         "block0_chunks": int(per_block[:, 0].max()),
         "other_blocks_chunks_max": int(per_block[:, 1:].max()),
@@ -4344,22 +4500,14 @@ def nsa_training_phase(torch, nsa, nb):
         del fused
         marks.append(("step", time.perf_counter()))
         # the same step on the plain versions
-        q5 = q.reshape(1, T, Hk, G, D)
-        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        args, (acc, m, l, o_slc) = plain_residuals(q, k, v, go)
+        q5, kh, vh, g_ = args[:4]
         gs = gates.reshape(1, T, Hk, G)
-        acc, m, l = nsa.nsa_fwd_partial_plain(q5, kh, vh, bi, cnt, BS, sm)
-        o_slc = torch.where(l[..., None] > 0, acc / l[..., None],
-                            0.0).to(dtype)
-        lse2 = m + torch.log2(l)
-        g5 = go.reshape(o_slc.shape)
         want_o = (o_slc * gs[..., None]).reshape(out.shape).to(dtype)
-        want_dg = (g5.float() * o_slc.float()).sum(-1).reshape(gates.shape)
-        g_ = (g5.float() * gs[..., None]).to(dtype)
-        delta = (g_.float() * o_slc.float()).sum(-1)
-        dk_p, dv_p = nb.nsa_bwd_dkdv_plain(q5, kh, vh, g_, lse2, delta,
-                                           mask, BS, sm)
-        dq_p = nb.nsa_bwd_dq_plain(q5, kh, vh, g_, lse2, delta, bi, cnt,
-                                   BS, sm)
+        want_dg = (go.reshape(o_slc.shape).float() * o_slc.float()).sum(
+            -1).reshape(gates.shape)
+        dk_p, dv_p = nb.nsa_bwd_dkdv_plain(*args, mask, BS, sm)
+        dq_p = nb.nsa_bwd_dq_plain(*args, bi, cnt, BS, sm)
         want = [dq_p.reshape(q.shape).to(dtype),
                 dk_p.transpose(1, 2).to(dtype),
                 dv_p.transpose(1, 2).to(dtype), want_dg]
@@ -4414,76 +4562,18 @@ def nsa_training_phase(torch, nsa, nb):
         check(bool((got[1][~seen] == -1e30).all()),
               f"nsa_fwd_partial {name}: m of a row that sees nothing")
         del got, acc, m
-        d_got = nb.nsa_bwd_dkdv(q5, kh, vh, g_, lse2, delta, mask, BS, sm)
-        e_dk = within(f"nsa_bwd_dkdv dk {name}", d_got[0], dk_p, tol)
-        e_dv = within(f"nsa_bwd_dkdv dv {name}", d_got[1], dv_p, tol)
-        again = nb.nsa_bwd_dkdv(q5, kh, vh, g_, lse2, delta, mask, BS, sm)
-        check(all(torch.equal(a, b) for a, b in zip(d_got, again)),
-              f"nsa_bwd_dkdv {name}: a second call differs in bits")
-        del d_got, again, dk_p, dv_p
-        q_got = nb.nsa_bwd_dq(q5, kh, vh, g_, lse2, delta, bi, cnt, BS, sm)
-        e_dq = within(f"nsa_bwd_dq {name}", q_got, dq_p, tol)
-        del q_got, dq_p
+        e_bwd = bwd_alone(name, tol, args, dk_p, dv_p, dq_p)
+        del dk_p, dv_p, dq_p
         torch.cuda.empty_cache()
 
         marks.append(("kernels_alone", time.perf_counter()))
-        # SDPA over the dense selected mask, KV expanded by the group: its
-        # output times the gate and its dQ / dK checked against the plain
-        # step, then the forward, the backward and both timed
-        qh = q.transpose(1, 2).detach().requires_grad_()
-        kx, vx = (t.transpose(1, 2).repeat_interleave(G, 1).detach()
-                  .requires_grad_() for t in (k, v))
-        gh = g_.reshape(1, T, HQ, D).transpose(1, 2)
-        backends = ([SDPBackend.EFFICIENT_ATTENTION] if dtype ==
-                    torch.float32 else [SDPBackend.CUDNN_ATTENTION,
-                                        SDPBackend.EFFICIENT_ATTENTION])
-        lib = None
-        for backend in backends:
-            try:
-                with sdpa_kernel([backend]):
-                    so = F.scaled_dot_product_attention(qh, kx, vx,
-                                                        attn_mask=sel_dense)
-                    sdq, sdk, _ = torch.autograd.grad(
-                        so, (qh, kx, vx), gh, retain_graph=True)
-            except RuntimeError:             # this backend refuses the call
-                continue
-            rel = {"o": normwise_err(so.detach().transpose(1, 2).reshape(
-                out.shape) * gates[..., None].to(dtype), out)[1],
-                   "dq": normwise_err(sdq.transpose(1, 2), grads[0])[1],
-                   "dk": normwise_err(sdk.view(1, Hk, G, T, D).sum(2)
-                                      .transpose(1, 2), grads[1])[1]}
-            del sdq, sdk
-            check(max(rel.values()) < 2e-2, f"nsa training {name}: the "
-                  f"library yardstick ({backend.name}) disagrees with the "
-                  f"step: {rel}")
-            with sdpa_kernel([backend]):
-                fwd_ms = device_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qh, kx, vx, attn_mask=sel_dense), 1)
-                bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
-                    so, (qh, kx, vx), gh, retain_graph=True), 1)
-
-                def sdpa_step():
-                    o_ = F.scaled_dot_product_attention(
-                        qh, kx, vx, attn_mask=sel_dense)
-                    torch.autograd.grad(o_, (qh, kx, vx), gh)
-
-                step_ms = device_ms(torch, sdpa_step, 1)
-            lib = {"library_normwise_err": rel,
-                   "library": f"SDPA ({backend.name}) over the dense "
-                              f"selected bool mask (1, HQ, T, T), K and V "
-                              f"expanded by the group"}
-            break
-        check(lib is not None, f"nsa training {name}: no SDPA backend of "
-                               f"{backends} takes the call")
-        del so, qh, kx, vx, gh
-        torch.cuda.empty_cache()
+        lib, fwd_ms, bwd_ms, step_ms = sdpa_yardstick(
+            name, dtype, q, k, v, g_, (out, grads[0], grads[1]))
         marks.append(("library", time.perf_counter()))
 
         qb, kb = T * HQ * D * esize, T * Hk * D * esize
         ids = 4 * (bi.numel() + cnt.numel())
         stats = 4 * T * HQ                   # one float32 (T, HQ) vector
-        args = (q5, kh, vh, g_, lse2, delta)
         res[f"nsa_fwd_partial_{name}"] = {
             "shape": [1, T, HQ, Hk, D], "block": BS, "selected": S,
             "max_abs_err": e_acc[0], "normwise_err": e_acc[1],
@@ -4497,30 +4587,7 @@ def nsa_training_phase(torch, nsa, nb):
             "library_call": "the SDPA forward",
             **bound(4 * D * pairs, qb + 2 * kb + ids + 4 * T * HQ * D
                     + 2 * stats, peak)}
-        res[f"nsa_bwd_dkdv_{name}"] = {
-            "shape": [1, T, HQ, Hk, D], "max_abs_err": max(e_dk[0],
-                                                           e_dv[0]),
-            "normwise_err": max(e_dk[1], e_dv[1]),
-            "tolerance": f"normwise {tol}", "bits_equal_twice": True,
-            "ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv(
-                *args, mask, BS, sm), 3),
-            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dkdv_plain(
-                *args, mask, BS, sm), 1),
-            "library_ms": bwd_ms, **lib,
-            "library_call": "the SDPA backward (dq, dk, dv)",
-            **bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * stats
-                    + 4 * mask.numel() + 2 * 4 * T * Hk * D, peak)}
-        res[f"nsa_bwd_dq_{name}"] = {
-            "shape": [1, T, HQ, Hk, D], "max_abs_err": e_dq[0],
-            "normwise_err": e_dq[1], "tolerance": f"normwise {tol}",
-            "ms": device_ms(torch, lambda: nb.nsa_bwd_dq(
-                *args, bi, cnt, BS, sm), 3),
-            "plain_ms": device_ms(torch, lambda: nb.nsa_bwd_dq_plain(
-                *args, bi, cnt, BS, sm), 1),
-            "library_ms": bwd_ms, **lib,
-            "library_call": "the SDPA backward (dq, dk, dv)",
-            **bound(6 * D * pairs, 2 * qb + 2 * kb + 2 * stats + ids
-                    + 4 * T * HQ * D, peak)}
+        bwd_records(name, dtype, tol, args, e_bwd, lib, bwd_ms)
         res[f"nsa_train_{name}"] = {
             "shape": [1, T, HQ, Hk, D], "normwise_err": errs,
             "tolerance": f"normwise {tol} (the output against the fused "
@@ -4545,9 +4612,32 @@ def nsa_training_phase(torch, nsa, nb):
               f" ms; partial {res[f'nsa_fwd_partial_{name}']['ms']:.3f}, "
               f"dkdv {res[f'nsa_bwd_dkdv_{name}']['ms']:.3f}, dq "
               f"{res[f'nsa_bwd_dq_{name}']['ms']:.3f}", flush=True)
-        del leaves, grads, q, k, v, go, q5, kh, vh, g_, lse2, delta, o_slc
-        del l, seen, out
+        del leaves, grads, q, k, v, go, q5, kh, vh, g_, o_slc
+        del l, seen, out, args
         torch.cuda.empty_cache()
+
+    # float16: the tensor-core backward pair alone at the path's shapes,
+    # against its plain versions; SDPA's float16 backward on the same
+    # dense mask, held against the plain step
+    q, k, v, go = (t.to(torch.float16) for t in base)
+    args, (_, _, _, o_slc) = plain_residuals(q, k, v, go)
+    dk_p, dv_p = nb.nsa_bwd_dkdv_plain(*args, mask, BS, sm)
+    dq_p = nb.nsa_bwd_dq_plain(*args, bi, cnt, BS, sm)
+    e_bwd = bwd_alone("float16", ATTN_TOL["float16"], args, dk_p, dv_p,
+                      dq_p)
+    o_p = (o_slc * gates.reshape(1, T, Hk, G)[..., None]).reshape(
+        q.shape).to(torch.float16)
+    lib, _, bwd_ms, _ = sdpa_yardstick(
+        "float16", torch.float16, q, k, v, args[3],
+        (o_p, dq_p.reshape(q.shape), dk_p.transpose(1, 2)))
+    del dk_p, dv_p, dq_p, o_p, o_slc
+    bwd_records("float16", torch.float16, ATTN_TOL["float16"], args, e_bwd,
+                lib, bwd_ms)
+    print(f"nsa training float16: dkdv "
+          f"{res['nsa_bwd_dkdv_float16']['ms']:.3f}, dq "
+          f"{res['nsa_bwd_dq_float16']['ms']:.3f}", flush=True)
+    del q, k, v, go, args
+    torch.cuda.empty_cache()
 
     del sel_dense
     torch.cuda.empty_cache()
@@ -4558,7 +4648,10 @@ def nsa_training_phase(torch, nsa, nb):
 
 
 # the nsa_training phase's kernels: (name, source, replaced TPU kernel,
-# headline case)
+# headline case); nsa_bwd_dkdv and nsa_bwd_dq count the CUDA-core
+# kernels (float32) and the tensor-core nsa_bwd_dkdv_mma and
+# nsa_bwd_dq_mma (bfloat16, float16) under one counter each, the cases
+# of the other types under "variants"
 NSA_TRAINING_KERNELS = (
     ("nsa_fwd_partial", "nsa.cu", "tilelang_mesh_tpu/ops/nsa.py:127",
      "float32"),
@@ -5493,6 +5586,16 @@ def main() -> int:
         if entry["name"] == "nsa_bwd_dkdv":     # the chunk partials' sum
             entry["fixup"] = {"name": "nsa_bwd_dkdv_sum",
                               "launches": nt["launches"]["nsa_bwd_dkdv_sum"]}
+        if entry["name"].startswith("nsa_bwd_"):
+            # the kernel of each type; dK / dV's plan, kernel and sum
+            # apart (the gathered bytes stay in the phase's records)
+            parts = ("kernel", "ms", "plan_ms", "kernel_ms", "sum_ms")
+            entry["by_type"] = {
+                t: {k: v for k, v in nt[f"{entry['name']}_{t}"].items()
+                    if k in parts}
+                for t in ("float32", "bfloat16", "float16")}
+            top = entry["by_type"][entry["case"]]
+            entry.update({k: top.get(k) for k in parts[2:]})
         if entry["name"] == "nsa_fwd_partial":
             entry["training_step"] = {
                 k: nt[f"nsa_train_{k}"] for k in ("float32", "bfloat16")}

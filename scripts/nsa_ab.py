@@ -26,21 +26,31 @@ default_rng(14) (``nsa_bwd.cu``), the selections from
   written directly) and is called so; the later build's decode is also
   timed at each split count of ``SPLIT_SWEEP`` (``nsa_decode_partials``
   and ``nsa_decode_combine`` called directly).
-* ``nsa_bwd.cu``: ``nsa_bwd_dkdv`` (window 0, its residuals from the
-  later build's partial forward).
+* ``nsa_bwd.cu``: ``nsa_bwd_dkdv`` and ``nsa_bwd_dq`` (window 0, their
+  residuals from the later build's partial forward, the incoming
+  gradient standard normal). dK / dV is also timed by its parts
+  (``dkdv_plan``, the kernel alone through ``dkdv_partials``, the sum
+  through ``dkdv_sum``) in both builds, and the later build's call at
+  each chunk size of ``CHUNK_SWEEP`` (``DKDV_CHUNK_ROWS``, bfloat16: the
+  kernel and the sum, without the plan, whose host syncs vary by more
+  than the sizes do).
 
-float32 ``nsa_fwd``, ``nsa_fwd_partial``, ``nsa_varlen_fwd`` and
-``nsa_bwd_dkdv`` must be bit-equal between the builds; every other
-output is held against its plain version (normwise, chip_smoke.py's
-ATTN_TOL). ``--cases`` runs only the named cases (all by default). Each wrapper is timed with CUDA events behind a spin, the two
-builds in turns (earlier, later, later, earlier).
+float32 ``nsa_fwd``, ``nsa_fwd_partial``, ``nsa_varlen_fwd``,
+``nsa_bwd_dkdv`` and ``nsa_bwd_dq`` must be bit-equal between the
+builds; every other output is held against its plain version (normwise,
+chip_smoke.py's ATTN_TOL), the float32 ones too. ``--cases`` runs only
+the named cases (all by default). Each wrapper is timed with CUDA events
+behind a spin, the two builds in turns (earlier, later, later, earlier).
 
 The other users of the attention headers (``SHARED``: the users of
 ``attention_tile.cuh`` and of ``attention_mma.cuh``) must compile to
 the same code: a source whose bytes (with the headers it includes) are
 equal in both directories is reported "same bytes"; one that differs is
 built from both and its SASS (``cuobjdump -sass``, instructions only)
-compared. Prints one JSON line with the card's name and power limit,
+compared. So are every function of ``nsa.cu`` and the float32
+instances of ``nsa_bwd.cu`` that both builds hold (``nsa_bwd_dkdv<D,
+0>``, ``nsa_bwd_dq<BM, D, 0>`` and the sum): each must be the same SASS.
+Prints one JSON line with the card's name and power limit,
 each build's registers and spill stores (``-Xptxas -v``) and nvcc time;
 exits 1 when a required equality fails. Needs one NVIDIA card; exits
 non-zero without one.
@@ -70,6 +80,11 @@ SHARED = ("attention_sink", "blocksparse_attention",
 TYPES = ("float32", "bfloat16", "float16")
 # decode's split counts timed beside the card's own choice
 SPLIT_SWEEP = (1, 2, 4, 8, 16)
+# dK / dV's chunk sizes ((token, query head) rows) timed beside the
+# port's DKDV_CHUNK_ROWS
+CHUNK_SWEEP = (512, 1024, 2048, 4096, 8192)
+# the float32 functions of nsa_bwd.cu whose SASS must not change
+F32_BWD = r"nsa_bwd_dkdvILi\d+ELi0E|nsa_bwd_dqILi\d+ELi\d+ELi0E|nsa_bwd_dkdv_sum"
 
 
 def closure(src_dir, name):
@@ -219,14 +234,19 @@ def main() -> int:
             shared[n] = ("same SASS" if same_sass(
                 sass(built["earlier", n][0]), sass(built["later", n][0]),
                 diff_dir / f"{n}.diff") else "SASS differs")
-    # the float32 instances of nsa.cu that both builds have (nsa_fwd<BM,
-    # D, 0, PARTIAL>): the same SASS, or the first differences
-    f32_sass = {}
-    if "nsa" in names:
-        a, b = (sass(built[tag, "nsa"][0]) for tag in dirs)
-        for fn in sorted(set(a) & set(b)):
-            if re.search(r"nsa_fwdILi\d+ELi\d+ELi0E", fn):
-                f32_sass[fn] = a[fn] == b[fn]
+    # every function of nsa.cu, and the float32 instances of nsa_bwd.cu
+    # that both builds have: the same SASS (the first differences to
+    # DIR/sass_diffs)
+    kept_sass = {}
+    for n in names:
+        a, b = (sass(built[tag, n][0]) for tag in dirs)
+        keep = [fn for fn in sorted(set(a) & set(b))
+                if n == "nsa" or re.search(F32_BWD, fn)]
+        kept_sass.update({fn: a[fn] == b[fn] for fn in keep})
+        same_sass({fn: a[fn] for fn in keep}, {fn: b[fn] for fn in keep},
+                  diff_dir / f"{n}_kept.diff")
+        if n == "nsa":
+            kept_sass["nsa.cu: the same functions"] = set(a) == set(b)
     libs = {n: {tag: ctypes.CDLL(str(built[tag, n][0])) for tag in dirs}
             for n in names}
     regs = {n: {tag: {"nvcc_s": round(built[tag, n][2], 1),
@@ -245,7 +265,7 @@ def main() -> int:
     G, sm = HQ // Hk, D ** -0.5
     cnt = torch.full((1, T, Hk), S, dtype=torch.int32, device="cuda")
     out = {"card": smi, "shared_sources": shared, "builds": regs,
-           "f32_instances_same_sass": f32_sass}
+           "kept_functions_same_sass": kept_sass}
     # (name, make(dtype) -> (call(tag), plain() or None), bit-equal in f32)
     cases = []
     if "nsa" in libs:
@@ -315,7 +335,7 @@ def main() -> int:
         base_b, _, bi_b, _ = inputs(torch, cs, 14, 4, 1)
         mask = nb.nsa_block_mask(bi_b, cnt, T, T // BS, BS)
 
-        def dkdv(dtype):
+        def residuals(dtype):
             q, k, v, do = (t.cuda().to(dtype) for t in base_b)
             q5, do5 = (q.reshape(1, T, Hk, G, D), do.reshape(1, T, Hk, G, D))
             kh, vh = k.transpose(1, 2), v.transpose(1, 2)
@@ -323,20 +343,36 @@ def main() -> int:
             acc, m, l = nsa.nsa_fwd_partial(q5, kh, vh, bi_b, cnt, BS, sm)
             o = torch.where(l[..., None] > 0, acc / l[..., None],
                             0.0).to(dtype)
-            lse2 = m + torch.log2(l)
             delta = (do5.float() * o.float()).sum(-1)
-            return (lambda tag: nb.nsa_bwd_dkdv(q5, kh, vh, do5, lse2, delta,
-                                                mask, BS, sm), None)
+            return q5, kh, vh, do5, m + torch.log2(l), delta
 
-        cases.append(("nsa_bwd_dkdv", dkdv, True))
+        def dkdv(dtype):
+            a = residuals(dtype)
+            return (lambda tag: nb.nsa_bwd_dkdv(*a, mask, BS, sm),
+                    lambda: nb.nsa_bwd_dkdv_plain(*a, mask, BS, sm))
+
+        def dq(dtype):
+            a = residuals(dtype)
+            return (lambda tag: (nb.nsa_bwd_dq(*a, bi_b, cnt, BS, sm),),
+                    lambda: (nb.nsa_bwd_dq_plain(*a, bi_b, cnt, BS, sm),))
+
+        def dkdv_parts(dtype):
+            """{part: call} of dK / dV: the plan, the kernel, the sum."""
+            a = residuals(dtype)
+            plan = nb.dkdv_plan(mask, G)
+            ws = nb.dkdv_partials(*a, plan, BS, sm)
+            return {"plan": lambda: nb.dkdv_plan(mask, G),
+                    "kernel": lambda: nb.dkdv_partials(*a, plan, BS, sm),
+                    "sum": lambda: nb.dkdv_sum(ws, plan[3], 1, Hk, T, D)}
+
+        cases += [("nsa_bwd_dkdv", dkdv, True), ("nsa_bwd_dq", dq, True)]
     if args.cases:
         cases = [c for c in cases if c[0] in args.cases.split(",")]
-    ok = all(v != "SASS differs" for v in shared.values())
+    ok = all(v != "SASS differs" for v in shared.values()) \
+        and all(kept_sass.values())
     tol = cs.ATTN_TOL
     for kname, make, exact in cases:
         for dtype in (getattr(torch, t) for t in TYPES):
-            if kname == "nsa_bwd_dkdv" and dtype == torch.float16:
-                continue
             call, plain = make(dtype)
             got = {}
             for tag in ("earlier", "later"):
@@ -365,6 +401,29 @@ def main() -> int:
                                                20 if kname == "nsa_decode"
                                                else 3))
             rec["ms"] = times
+            if kname == "nsa_bwd_dkdv":
+                fns = dkdv_parts(dtype)
+                parts = {"earlier": {}, "later": {}}
+                for tag in ("earlier", "later", "later", "earlier"):
+                    which[0] = tag
+                    for part, fn in fns.items():
+                        parts[tag].setdefault(part, []).append(
+                            cs.device_ms(torch, fn, 3))
+                rec["parts_ms"] = parts
+                del fns
+            if kname == "nsa_bwd_dkdv" and dtype == torch.bfloat16:
+                which[0] = "later"
+                rows = nb.DKDV_CHUNK_ROWS
+                rec["kernel_sum_ms_by_chunk_rows"] = {}
+                for n in CHUNK_SWEEP:
+                    nb.DKDV_CHUNK_ROWS = n
+                    fns = dkdv_parts(dtype)
+                    rec["kernel_sum_ms_by_chunk_rows"][n] = {
+                        "chunks": nb.dkdv_plan(mask, G)[2].shape[0],
+                        "ms": cs.device_ms(torch, lambda: (
+                            fns["kernel"](), fns["sum"]()), 3)}
+                    del fns
+                nb.DKDV_CHUNK_ROWS = rows
             if kname == "nsa_decode":
                 which[0] = "later"
                 rec["splits"] = nsa.decode_splits(

@@ -2772,62 +2772,121 @@ def test_nsa_fwd_partial_kernel_matches_plain(cuda, dtype, T, BS, G, H):
         and not acc[~seen].any()
 
 
+def _nsa_bwd_on_card(case, BS, tol, bits=True):
+    """dK / dV and dQ of ``case`` (``_nsa_grad_case``'s order) through the
+    wrappers: one launch of each counter, each result against its plain
+    version at ``tol`` normwise, and (``bits``) the same bits from a
+    second call of each (no atomics) and from dK / dV on the plan bounded
+    by the selections' slots (no host sync, padded chunks); the
+    outputs."""
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = case
+    before = dict(nsa_bwd.launches)
+    dk, dv = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, BS, 0.2)
+    dq = nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, BS, 0.2)
+    torch.cuda.synchronize()
+    assert nsa_bwd.launches == {k: n + 1 for k, n in before.items()}
+    assert _normwise((dk, dv), nsa_bwd.nsa_bwd_dkdv_plain(
+        q, kh, vh, do, lse2, delta, mask, BS, 0.2)) <= tol
+    assert _normwise(dq, nsa_bwd.nsa_bwd_dq_plain(
+        q, kh, vh, do, lse2, delta, bi, cnt, BS, 0.2)) <= tol
+    if bits:
+        assert all(torch.equal(a, b) for a, b in zip(
+            (dk, dv, dq), (*nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta,
+                                                 mask, BS, 0.2),
+                           nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta,
+                                              bi, cnt, BS, 0.2))))
+        assert all(torch.equal(a, b) for a, b in zip(
+            (dk, dv), nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask,
+                                           BS, 0.2, max_pairs=bi.numel())))
+    return dk, dv, dq
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("G,H", [(1, 3), (2, 2), (16, 1), (64, 1)])
+@pytest.mark.parametrize("G,H", [(1, 3), (2, 2), (16, 1), (24, 1), (64, 1)])
 @pytest.mark.parametrize("chunk_rows", [2048, 40])
 def test_nsa_bwd_kernels_match_plain(cuda, monkeypatch, dtype, G, H,
                                      chunk_rows):
     """dK / dV (and its fixed-order sum) and dQ against the plain
-    versions: -1 slots, duplicate ids, counts below S; chunks of 40 rows
-    cut each block's tokens into many partials."""
+    versions: -1 slots, duplicate ids, counts below S (0 included);
+    groups of 1 to 64 (24 and 64: dQ's four-tile kernel in 16 bits);
+    chunks of 40 rows cut each block's tokens into many partials; the
+    same bits twice."""
     monkeypatch.setattr(nsa_bwd, "DKDV_CHUNK_ROWS", chunk_rows)
+    case = _nsa_grad_case(cuda, 2, 96, G, H, 32, 4, 16, dtype, counts=True)
+    assert int(case[-1].max()) >= 2 and bool((case[4] == 0).any())
+    _nsa_bwd_on_card(case, 16, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("T,Tk,BS", [(100, 128, 32), (128, 128, 64),
+                                     (256, 256, 128)])
+def test_nsa_bwd_kernels_block_sizes_and_ragged_tokens(cuda, dtype, T, Tk,
+                                                       BS):
+    """Blocks of 32, 64 and 128 keys (two 64-key tiles a block in 16
+    bits) at NSA's group of 16 and D 128; 100 query tokens over 128 keys
+    (the backward takes Tk a multiple of BS, so the ragged length is
+    T's: the last block's keys past the last token are never visible)."""
     q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
-        cuda, 2, 96, G, H, 32, 4, 16, dtype, counts=True)
-    assert int(mask.max()) >= 2
-    before = dict(nsa_bwd.launches)
-    dk, dv = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, 16, 0.2)
-    dq = nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 16, 0.2)
-    torch.cuda.synchronize()
-    assert nsa_bwd.launches == {k: n + 1 for k, n in before.items()}
-    assert _normwise((dk, dv), nsa_bwd.nsa_bwd_dkdv_plain(
-        q, kh, vh, do, lse2, delta, mask, 16, 0.2)) <= ATTN_TOL[dtype]
-    assert _normwise(dq, nsa_bwd.nsa_bwd_dq_plain(
-        q, kh, vh, do, lse2, delta, bi, cnt, 16, 0.2)) <= ATTN_TOL[dtype]
-    # no atomics: the same bits again
-    assert all(torch.equal(a, b) for a, b in zip(
-        (dk, dv), nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask,
-                                       16, 0.2)))
+        cuda, 1, Tk, 16, 2, 128, 4, BS, dtype, counts=True)
+    case = (q[:, :T], kh, vh, bi[:, :T], cnt[:, :T], do[:, :T],
+            lse2[:, :T], delta[:, :T], mask[:, :T])
+    _nsa_bwd_on_card(case, BS, ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("H", [2, 1])
+def test_nsa_bwd_kernels_take_unaligned_views(cuda, dtype, H):
+    """K and V whose rows are not 16-byte aligned (one KV head: the view
+    contiguous, its base unaligned): the 16-bit wrappers copy them first,
+    with the same bits."""
+    q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
+        cuda, 1, 64, 4, H, 32, 3, 16, dtype)
+    kh2, vh2 = _unaligned(kh), _unaligned(vh)
+    assert kh2.data_ptr() % 16 and torch.equal(kh2, kh)
+    got = _nsa_bwd_on_card((q, kh2, vh2, bi, cnt, do, lse2, delta, mask),
+                           16, ATTN_TOL[dtype], bits=False)
+    want = _nsa_bwd_on_card((q, kh, vh, bi, cnt, do, lse2, delta, mask),
+                            16, ATTN_TOL[dtype], bits=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_nsa_training_kernels_head_dims(cuda, d):
+def test_nsa_training_kernels_head_dims(cuda, d, dtype):
+    """Each head_dim of the partial forward and both backward kernels
+    (16 bits: the tensor-core pair, 64 rows a dK / dV step below D 128),
+    counts below S."""
     q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
-        cuda, 1, 128, 4, 2, d, 3, 32, torch.float32, counts=True)
+        cuda, 1, 128, 4, 2, d, 3, 32, dtype, counts=True)
+    tol = ATTN_TOL[dtype]
     acc, _, l = nsa.nsa_fwd_partial(q, kh, vh, bi, cnt, 32, 0.2)
     wa, _, wl = nsa.nsa_fwd_partial_plain(q, kh, vh, bi, cnt, 32, 0.2)
-    assert _normwise((acc, l), (wa, wl)) <= 1e-5
-    got = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, 32, 0.2)
-    assert _normwise(got, nsa_bwd.nsa_bwd_dkdv_plain(
-        q, kh, vh, do, lse2, delta, mask, 32, 0.2)) <= 1e-5
-    got = nsa_bwd.nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, 32, 0.2)
-    assert _normwise(got, nsa_bwd.nsa_bwd_dq_plain(
-        q, kh, vh, do, lse2, delta, bi, cnt, 32, 0.2)) <= 1e-5
+    assert _normwise((acc, l), (wa, wl)) <= tol
+    _nsa_bwd_on_card((q, kh, vh, bi, cnt, do, lse2, delta, mask), 32, tol)
 
 
-def test_nsa_bwd_dkdv_block0_of_every_token(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nsa_bwd_dkdv_block0_of_every_token(cuda, dtype):
     """The unbalanced case: every token selects block 0 (1024 tokens of
     16 query heads: eight chunks of 2048 rows for block 0, one or two for
     the others), summed in chunk order; the same bits on a second call."""
     T, G, H, D, BS = 1024, 16, 2, 128, 64
     q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
-        cuda, 1, T, G, H, D, 4, BS, torch.float32)
+        cuda, 1, T, G, H, D, 4, BS, dtype)
     assert bool((mask[..., 0] >= 1).all())
     _, _, chunks, first = nsa_bwd.dkdv_plan(mask, G)
     assert int(first[1] - first[0]) == T * G // nsa_bwd.DKDV_CHUNK_ROWS
+    before = dict(nsa_bwd.launches)
     got = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, BS, 0.2)
+    torch.cuda.synchronize()
+    assert nsa_bwd.launches["nsa_bwd_dkdv"] == before["nsa_bwd_dkdv"] + 1
+    assert nsa_bwd.launches["nsa_bwd_dkdv_sum"] == \
+        before["nsa_bwd_dkdv_sum"] + 1
     assert _normwise(got, nsa_bwd.nsa_bwd_dkdv_plain(
-        q, kh, vh, do, lse2, delta, mask, BS, 0.2)) <= 1e-5
+        q, kh, vh, do, lse2, delta, mask, BS, 0.2)) <= ATTN_TOL[dtype]
     again = nsa_bwd.nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, BS, 0.2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -2870,9 +2929,9 @@ def test_nsa_training_autograd_on_card_matches_cpu(cuda, dtype):
         assert _normwise(got, want.to(cuda)) <= tol
 
 
-def _slice12_calls(dev):
+def _slice12_calls(dev, dtype=torch.float32):
     q, kh, vh, bi, cnt, do, lse2, delta, mask = _nsa_grad_case(
-        dev, 1, 32, 2, 1, 16, 2, 8, torch.float32)
+        dev, 1, 32, 2, 1, 16, 2, 8, dtype)
     return [(nsa.launches, "nsa_fwd_partial",
              lambda: nsa.nsa_fwd_partial(q, kh, vh, bi, cnt, 8, 0.25)),
             (nsa_bwd.launches, "nsa_bwd_dkdv",
@@ -2883,12 +2942,15 @@ def _slice12_calls(dev):
                                         8, 0.25))]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slice12_wrappers_raise_on_build_or_launch_failure(cuda,
-                                                           monkeypatch):
+                                                           monkeypatch,
+                                                           dtype):
     """No fallback: a build failure is the build's error, a refused
     launch a KernelLaunchError naming the wrapper, and neither counts a
-    launch; a head_dim the kernels lack is refused before."""
-    calls = _slice12_calls(cuda)
+    launch (bfloat16: the tensor-core kernels, never the CUDA-core ones);
+    a head_dim the kernels lack is refused before."""
+    calls = _slice12_calls(cuda, dtype)
     before = [dict(c) for c, _, _ in calls]
 
     def no_build(name):

@@ -393,6 +393,120 @@ def test_plain_versions_step_in_chunks(monkeypatch):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
 
 
+def _steps_inputs(T, HQ, H, D, S, BS, dtype, seed):
+    """Kernel-side operands at Tk = T in ``dtype`` (both sides on the same
+    rounded values): q5, kh, vh, dO, JAX's partial forward's lse2 and
+    delta, the map with a duplicate id (multiplicity 2) in every token's
+    last slot."""
+    jt, tt = _TYPES[dtype]
+    G, sm = HQ // H, D ** -0.5
+    q, k, v, _, _, bi = _inputs(1, T, HQ, H, D, S, BS, seed)
+    bi[..., -1] = bi[..., 0]
+    cnt = np.full((1, T, H), S, np.int32)
+    q5 = q.reshape(1, T, H, G, D)
+    kh, vh = (a.transpose(0, 2, 1, 3).copy() for a in (k, v))
+    do = np.random.default_rng(seed + 1).standard_normal(q5.shape).astype(
+        np.float32)
+    q5, kh, vh, do = (np.asarray(jnp.asarray(a, jt).astype(jnp.float32))
+                      for a in (q5, kh, vh, do))
+    args = (1, T, H, G, T, D, S, BS, sm, dtype)
+    acc, m, l = ref.nsa_fwd_partial_kernel(*args)(
+        *(jnp.asarray(a, jt) for a in (q5, kh, vh)), jnp.asarray(bi),
+        jnp.asarray(cnt))
+    l = np.asarray(l)
+    o = np.asarray(acc) / l[..., None]
+    lse2 = (np.asarray(m) + np.log2(l)).astype(np.float32)
+    delta = (do * np.asarray(jnp.asarray(o, jt).astype(jnp.float32))).sum(
+        -1).astype(np.float32)
+    mask = np.asarray(ref_bwd.nsa_block_mask(jnp.asarray(bi),
+                                             jnp.asarray(cnt), T, T // BS,
+                                             BS))
+    assert mask.max() >= 2
+    ops = (q5, kh, vh, do, lse2, delta, mask)
+    dargs = (1, T, H, G, T, D, T // BS, BS, sm, dtype)
+    want = ref_bwd.nsa_bwd_dkdv_kernel(*dargs)(
+        *(jnp.asarray(a, jt) for a in ops[:4]),
+        *map(jnp.asarray, ops[4:]))
+    port_ops_ = [torch.from_numpy(np.array(a)) for a in ops]
+    port_ops_[:4] = [t.to(tt) for t in port_ops_[:4]]
+    return port_ops_, BS, sm, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,chunk_rows", [(128, 2048), (128, 40),
+                                          (32, 2048), (32, 40)])
+def test_dkdv_steps_emulation_matches_jax(monkeypatch, dtype, D,
+                                          chunk_rows):
+    """The tensor-core dK / dV kernel's order (rows a step at a time: 32 at
+    D 128, 64 at D 32; the causal mask only on a step holding one of the
+    block's own tokens; chunks of 40 rows cut the own tokens of a block
+    across chunks) against the JAX kernel in interpret mode: float32 at
+    the factories' 1e-5, bfloat16 at the backward's tolerance; and
+    against the plain version (same rounding points) at 1e-5 in float32,
+    1e-2 normwise in bfloat16."""
+    monkeypatch.setattr(port_bwd, "DKDV_CHUNK_ROWS", chunk_rows)
+    ops, BS, sm, want = _steps_inputs(96, 4, 2, D, 3, 32, dtype, 21)
+    got = port_bwd.nsa_bwd_dkdv_steps_plain(*ops, BS, sm)
+    plain = port_bwd.nsa_bwd_dkdv_plain(*ops, BS, sm)
+    tol = (1e-5, 1e-5) if dtype == "float32" else (3e-2, 3e-1)
+    for name, a, w, p in zip(("dK", "dV"), got, want, plain):
+        _close(a, w, *tol, what=name)
+        if dtype == "float32":
+            _close(a, p.numpy(), 1e-5, 1e-5, what=f"{name} vs plain")
+        else:
+            assert float((a - p).abs().max() / p.abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("shape,G,rows", [((1, 96, 2, 3), 2, 10),
+                                          ((2, 300, 3, 7), 16, 2048),
+                                          ((1, 64, 1, 4), 4, 40),
+                                          ((2, 128, 2, 8), 64, 2048)])
+def test_dkdv_plan_matches_a_nonzero_list(monkeypatch, shape, G, rows):
+    """dkdv_plan (pairs and chunks found in running counts) equals the
+    same list built the plain way: ``torch.nonzero`` of the map by
+    segment, each segment cut every DKDV_CHUNK_ROWS // G tokens; a map
+    with nothing selected gives no pair and no chunk. Bounded by
+    ``max_pairs`` (no host sync), the same list leads arrays of the
+    bound's size, the chunks past ``first[-1]`` all zero."""
+    monkeypatch.setattr(port_bwd, "DKDV_CHUNK_ROWS", rows)
+    rng = np.random.default_rng(sum(shape) + G)
+    B, T, H, NS = shape
+    mask = torch.from_numpy((rng.integers(1, 4, shape)
+                             * (rng.random(shape) < 0.3)).astype(np.int32))
+    mask[..., -1] = 0                          # a block nobody selects
+    per = max(1, rows // G)
+    m = mask.permute(0, 2, 3, 1)
+    b, h, n, t = torch.nonzero(m).unbind(1)
+    seg = (b * H + h) * NS + n
+    want_chunks = []
+    for s_ in range(B * H * NS):
+        idx = torch.nonzero(seg == s_).flatten().tolist()
+        want_chunks += [[s_, idx[i], idx[min(i + per, len(idx)) - 1] + 1]
+                        for i in range(0, len(idx), per)]
+    tok, mult, chunks, first = port_bwd.dkdv_plan(mask, G)
+    assert tok.tolist() == t.tolist()
+    assert mult.tolist() == m[b, h, n, t].tolist()
+    assert chunks.tolist() == want_chunks
+    assert all(x.dtype == torch.int32 for x in (tok, mult, chunks, first))
+    assert first.tolist() == [0] + torch.bincount(
+        chunks[:, 0].long(), minlength=B * H * NS).cumsum(0).tolist()
+    n_pairs = t.numel()
+    for bound in (n_pairs, n_pairs + 5, mask.numel() + 5):
+        btok, bmult, bchunks, bfirst = port_bwd.dkdv_plan(mask, G, bound)
+        held = min(bound, mask.numel())
+        assert btok.numel() == bmult.numel() == held
+        assert btok[:n_pairs].tolist() == tok.tolist()
+        assert bmult[:n_pairs].tolist() == mult.tolist()
+        assert bfirst.tolist() == first.tolist()
+        assert bchunks.shape == (B * H * NS + -(-held // per), 3)
+        assert bchunks[:len(want_chunks)].tolist() == want_chunks
+        assert not bchunks[len(want_chunks):].any()
+    empty = port_bwd.dkdv_plan(torch.zeros_like(mask), G)
+    assert [tuple(x.shape) for x in empty] == [(0,), (0,), (0, 3),
+                                               (B * H * NS + 1,)]
+    assert not empty[3].any()
+
+
 def test_exports():
     assert port_ops.nsa_fwd_partial_kernel is port.nsa_fwd_partial_kernel
     assert port_ops.nsa_attention is port.nsa_attention

@@ -1,5 +1,6 @@
-// Fragment helpers of the tensor-core attention kernels (gqa_bwd.cu's
-// backward pair, flash_attention.cu's and nsa.cu's forwards): bfloat16
+// Fragment helpers of the tensor-core attention kernels (gqa_bwd.cu's and
+// nsa_bwd.cu's backward pairs, flash_attention.cu's and nsa.cu's
+// forwards): bfloat16
 // and float16 operands in shared memory, each row padded by kPad
 // elements (an odd count of 16-byte chunks, so the 8 rows of an ldmatrix
 // hit 8 bank groups), products on mma.sync m16n8k16 with float32 sums.
@@ -63,6 +64,59 @@ __device__ __forceinline__ void issue_rows_strided(E* dst, const E* src,
     tl_gemm::cp_async16(dst + r * (D + kPad) + c * 8,
                         ok ? src + (long long)(r0 + r) * stride + c * 8 : src,
                         ok);
+  }
+}
+
+// rows r < R of two matrices that share their rows (Q and dO, each
+// row-major with D elements a row) into dst0, dst1 [R][D + kPad] by
+// cp.async, 16 bytes a copy: row r from row at(r) of src0, src1, zero
+// where at(r) < 0. A gather of whole rows through a row table (`at`, a
+// callable: rows of a group at token offsets); issued by the n threads
+// tid = 0 .. n - 1
+template <int R, int D, typename E, typename At>
+__device__ __forceinline__ void issue_rows_at(E* dst0, const E* src0,
+                                              E* dst1, const E* src1, At at,
+                                              int tid, int n) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < R * CH; idx += n) {
+    const int r = idx / CH, c = idx % CH;
+    const long long a = at(r);
+    const bool ok = a >= 0;
+    const long long off = (ok ? a * D : 0) + c * 8;
+    tl_gemm::cp_async16(dst0 + r * (D + kPad) + c * 8, src0 + off, ok);
+    tl_gemm::cp_async16(dst1 + r * (D + kPad) + c * 8, src1 + off, ok);
+  }
+}
+
+// 4 bytes global -> shared, zero-filled when !ok (src-size 0; `src` is
+// then any valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   tl_gemm::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// c (+)= a . b over D for 16 rows of A (row-major at `a`) and the N rows
+// of B (row-major at `b`, so B^T is the product's k x n operand); N a
+// multiple of 16
+template <int D, int N, typename E>
+__device__ __forceinline__ void rows_dot_rows(float (&c)[N / 8][4],
+                                              const E* a, const E* b) {
+  constexpr int LD = D + kPad;
+  const int lane = threadIdx.x % 32, mat = lane / 8, mr = lane % 8;
+#pragma unroll
+  for (int ks = 0; ks < D; ks += 16) {
+    unsigned af[4];
+    mma16::ldmatrix_x4(af, a + (mr + 8 * (mat % 2)) * LD + ks + 8 * (mat / 2));
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      unsigned r[4];
+      mma16::ldmatrix_x4(r, b + (np * 16 + mr + 8 * (mat / 2)) * LD + ks +
+                                8 * (mat % 2));
+      mma16::mma<E>(c[2 * np], af, r[0], r[1]);
+      mma16::mma<E>(c[2 * np + 1], af, r[2], r[3]);
+    }
   }
 }
 

@@ -351,38 +351,6 @@ constexpr size_t dq_mma_smem_bytes() {
   return 2 * (size_t)(2 * kRows + 4 * kStep<D>) * (D + kPad);
 }
 
-// 4 bytes global -> shared, zero-filled when !ok (src-size 0; `src` is
-// then any valid address)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   tl_gemm::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-// c (+)= a . b over D for 16 rows of A (row-major at `a`) and the N rows
-// of B (row-major at `b`, so B^T is the product's k x n operand); N a
-// multiple of 16
-template <int D, int N, typename E>
-__device__ __forceinline__ void rows_dot_rows(float (&c)[N / 8][4],
-                                              const E* a, const E* b) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x % 32, mat = lane / 8, mr = lane % 8;
-#pragma unroll
-  for (int ks = 0; ks < D; ks += 16) {
-    unsigned af[4];
-    mma16::ldmatrix_x4(af, a + (mr + 8 * (mat % 2)) * LD + ks + 8 * (mat / 2));
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      unsigned r[4];
-      mma16::ldmatrix_x4(r, b + (np * 16 + mr + 8 * (mat / 2)) * LD + ks +
-                                8 * (mat % 2));
-      mma16::mma<E>(c[2 * np], af, r[0], r[1]);
-      mma16::mma<E>(c[2 * np + 1], af, r[2], r[3]);
-    }
-  }
-}
-
 template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
 gqa_bwd_dkdv_mma(const E* __restrict__ q, const E* __restrict__ k,

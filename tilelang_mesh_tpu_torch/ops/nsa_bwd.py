@@ -31,7 +31,17 @@ its rounding) by m, and dQ visits the block m times.
 Each wrapper launches its kernels on CUDA tensors (a build or launch
 failure raises) and runs its plain PyTorch version on CPU tensors: dQ a
 chunk of tokens at a time, dK / dV a chunk of (token, block) pairs at a
-time, so no call holds every token's gathered keys at once.
+time, so no call holds every token's gathered keys at once. On the card
+the element type picks the kernel (``run_dkdv`` / ``run_dq`` in the
+source): float32 runs the CUDA-core kernels, bfloat16 and float16 the
+tensor-core ones (``nsa_bwd_dkdv_mma``, ``nsa_bwd_dq_mma``: ``mma.sync``
+fragments, ``cp.async`` gathers), for every head_dim of
+``KERNEL_HEAD_DIMS`` and group of up to ``KERNEL_MAX_GROUP`` (dQ); the
+counters are the same.
+:func:`nsa_bwd_dkdv_steps_plain` emulates the tensor-core dK / dV
+kernel's order: a chunk's rows a step at a time, the causal mask on a
+group of 16 keys only where the step's first token precedes the group's
+last key.
 """
 
 from __future__ import annotations
@@ -44,12 +54,13 @@ from ..resilience.errors import KernelLaunchError
 from ._factory import bind
 from .flash_attention import _DTYPES, _LOG2E, KERNEL_HEAD_DIMS
 from .gemm import DTYPE_CODES, _as_dtype
-from .nsa import (KERNEL_MAX_GROUP, _block_starts, _int32, _key_index,
-                  _token_chunks)
+from .nsa import (KERNEL_MAX_GROUP, _aligned, _block_starts, _int32,
+                  _key_index, _token_chunks)
 
-__all__ = ["nsa_block_mask", "dkdv_plan", "nsa_bwd_dkdv",
-           "nsa_bwd_dkdv_plain", "nsa_bwd_dq", "nsa_bwd_dq_plain",
-           "nsa_attention_bwd", "nsa_bwd_dkdv_kernel", "nsa_bwd_dq_kernel",
+__all__ = ["nsa_block_mask", "dkdv_plan", "nsa_bwd_dkdv", "dkdv_partials",
+           "dkdv_sum", "nsa_bwd_dkdv_plain", "nsa_bwd_dkdv_steps_plain",
+           "nsa_bwd_dq", "nsa_bwd_dq_plain", "nsa_attention_bwd",
+           "nsa_bwd_dkdv_kernel", "nsa_bwd_dq_kernel",
            "launches", "reset_launches", "DKDV_CHUNK_ROWS"]
 
 # kernel name -> launches through its wrapper
@@ -61,6 +72,12 @@ DKDV_CHUNK_ROWS = 2048
 # dK / dV step gathers
 PLAIN_TOKENS = 256
 PLAIN_PAIRS = 2048
+
+
+def mma_rows_step(D: int) -> int:
+    """(token, query head) rows the tensor-core dK / dV kernel gathers a
+    step: csrc/nsa_bwd.cu's kRowsStep."""
+    return 32 if D > 64 else 64
 
 
 def reset_launches() -> None:
@@ -96,7 +113,7 @@ def _pairs(mask):
     return (b * H + h) * NS + n, t, m[b, h, n, t].long()
 
 
-def dkdv_plan(mask, G: int):
+def dkdv_plan(mask, G: int, max_pairs: int | None = None):
     """The dK / dV kernel's work list: ``(tok, mult, chunks, first)``
     int32. ``tok`` and ``mult`` are the map's nonzero (token,
     multiplicity) pairs by segment (``(b H + h) NS + n``), tokens in
@@ -104,25 +121,47 @@ def dkdv_plan(mask, G: int):
     pair), a segment's list cut every ``max(1, DKDV_CHUNK_ROWS // G)``
     tokens; ``first (B H NS + 1)`` each segment's first chunk, so its
     chunks are ``first[s]:first[s + 1]`` (none for a block no token
-    selects)."""
+    selects).
+
+    Built on the map's device: pair i is found in the running count of
+    the map's nonzeros (``searchsorted``), chunk c in the running count
+    of chunks. Without ``max_pairs`` one host sync reads the pair and
+    chunk counts. With it (a bound on the map's nonzeros, such as the
+    selections' slots B T H S of :func:`nsa_block_mask`'s ids) nothing
+    waits for the card: ``tok`` and ``mult`` hold ``min(max_pairs,
+    B T H NS)`` entries, those past the map's nonzeros unused, and
+    ``chunks`` holds ``B H NS + ceil(max_pairs / per)`` rows, those past
+    ``first[-1]`` (0, 0, 0): a kernel program there writes a zero partial
+    that the sum never reads."""
     B, T, H, NS = mask.shape
     dev = mask.device
-    seg, tok, mult = _pairs(mask)
-    per = max(1, DKDV_CHUNK_ROWS // G)
     n_seg = B * H * NS
-    count = torch.bincount(seg, minlength=n_seg)
+    m = mask.permute(0, 2, 3, 1).reshape(-1)           # (B H NS T) order
+    hit = m > 0
+    per = max(1, DKDV_CHUNK_ROWS // G)
+    run = hit.cumsum(0)                       # nonzeros up to and with p
     start = torch.zeros(n_seg + 1, dtype=torch.long, device=dev)
-    start[1:] = count.cumsum(0)
-    n_ch = (count + per - 1) // per
+    start[1:] = hit.view(n_seg, T).sum(1).cumsum(0)
+    n_ch = (start[1:] - start[:-1] + per - 1) // per
     first = torch.zeros(n_seg + 1, dtype=torch.long, device=dev)
     first[1:] = n_ch.cumsum(0)
-    cseg = torch.repeat_interleave(torch.arange(n_seg, device=dev), n_ch)
-    e0 = start[cseg] + (torch.arange(cseg.numel(), device=dev)
-                        - first[cseg]) * per
-    e1 = torch.minimum(e0 + per, start[cseg + 1])
-    chunks = torch.stack([cseg, e0, e1], 1)
-    return (tok.to(torch.int32), mult.to(torch.int32),
-            chunks.to(torch.int32).contiguous(), first.to(torch.int32))
+    if max_pairs is None:
+        n_pairs, n_chunks = torch.stack([start[-1], first[-1]]).tolist()
+    else:
+        n_pairs = min(int(max_pairs), m.numel())
+        n_chunks = n_seg + -(-n_pairs // per)
+    pos = torch.searchsorted(run, torch.arange(
+        1, n_pairs + 1, device=dev)).clamp_(max=max(m.numel() - 1, 0))
+    c = torch.arange(n_chunks, device=dev)
+    cseg = torch.searchsorted(first, c, right=True) - 1
+    pad = cseg >= n_seg                       # past the last real chunk
+    cseg.masked_fill_(pad, 0)
+    # clamped to the pairs held, whatever map a caller's bound misjudges
+    e0 = (start[cseg] + (c - first[cseg]) * per).clamp_(max=n_pairs)
+    e1 = torch.minimum(e0 + per, start[cseg + 1]).clamp_(max=n_pairs)
+    chunks = torch.stack([cseg, e0, e1], 1).masked_fill_(pad[:, None], 0)
+    return ((pos % T).to(torch.int32), m[pos], chunks.to(torch.int32),
+            first.to(torch.int32))
 
 
 def _check(q, kh, vh, do, lse2, delta, ints, what: str) -> None:
@@ -212,6 +251,62 @@ def nsa_bwd_dkdv_plain(q, kh, vh, do, lse2, delta, mask, block_size: int,
     return dk.view(B, H, Tk, D), dv.view(B, H, Tk, D)
 
 
+def nsa_bwd_dkdv_steps_plain(q, kh, vh, do, lse2, delta, mask,
+                             block_size: int, sm_scale: float):
+    """The tensor-core dK / dV kernel's order, in plain PyTorch: each
+    chunk of :func:`dkdv_plan` walks its (token, query head) rows
+    ``mma_rows_step(D)`` at a time, gathered by the row table (token e0 +
+    r // G, head r % G), pad rows zero; P is scaled by the row's
+    multiplicity before its rounding; the causal mask applies to a group
+    of 16 keys (a warp's) only where the step's first token precedes the
+    group's last key (the rows are in token order and every token of the
+    list is at or past the block's first key); each chunk's partial goes
+    to a workspace and a block's partials are added in chunk order.
+    ``(dK, dV)`` as :func:`nsa_bwd_dkdv_plain`."""
+    B, T, H, G, D = q.shape
+    BS, Tk = int(block_size), kh.shape[2]
+    NS = _block_count(kh, mask, BS)
+    tok, mult, chunks, first = dkdv_plan(mask, G)
+    BM, scale2 = mma_rows_step(D), float(sm_scale) * _LOG2E
+    ws = torch.zeros((chunks.shape[0], 2, BS, D), dtype=torch.float32,
+                     device=q.device)
+    for c, (seg, e0, e1) in enumerate(chunks.tolist()):
+        blk, h, b = seg % NS, (seg // NS) % H, seg // (NS * H)
+        keys = torch.arange(blk * BS, min(blk * BS + BS, Tk),
+                            device=q.device)
+        kk, vv = kh[b, h, keys].float(), vh[b, h, keys].float()
+        t = tok[e0:e1].long()
+        rows = (e1 - e0) * G
+        pad = -rows % BM
+        qq, oo = (torch.cat([x[b, t, h].float().reshape(rows, D),
+                             x.new_zeros((pad, D), dtype=torch.float32)])
+                  for x in (q, do))
+        ll, dd = (torch.cat([x[b, t, h].reshape(rows),
+                             x.new_zeros(pad)]) for x in (lse2, delta))
+        mm = torch.cat([mult[e0:e1].float().repeat_interleave(G),
+                        torch.zeros(pad, device=q.device)])
+        tt = torch.cat([t.repeat_interleave(G),
+                        torch.full((pad,), T, device=q.device)])
+        for r0 in range(0, rows, BM):
+            sl = slice(r0, r0 + BM)
+            p = torch.exp2((kk @ qq[sl].T) * scale2 - ll[sl]) * mm[sl]
+            edge = tt[r0] < (keys | 15)     # the key's group needs the mask
+            p = torch.where(~edge[:, None] | (keys[:, None] <= tt[None, sl]),
+                            p, 0.0)
+            ws[c, 1, :keys.numel()] += p.to(q.dtype).float() @ oo[sl]
+            ds = p * ((vv @ oo[sl].T) - dd[sl]) * float(sm_scale)
+            ws[c, 0, :keys.numel()] += ds.to(q.dtype).float() @ qq[sl]
+    out = torch.zeros((B * H * NS, 2, BS, D), dtype=torch.float32,
+                      device=q.device)
+    n = first[1:] - first[:-1]
+    for i in range(int(n.max()) if n.numel() else 0):
+        has = n > i
+        out[has] += ws[first[:-1][has].long() + i]
+    out = out.view(B, H, NS, 2, BS, D).transpose(2, 3).reshape(B, H, 2, Tk,
+                                                                 D)
+    return out[:, :, 0], out[:, :, 1]
+
+
 def nsa_bwd_dq_plain(q, kh, vh, do, lse2, delta, bi, cnt, block_size: int,
                      sm_scale: float):
     """Plain version of the dQ kernel: dQ float32 (B, T, H, G, D), each
@@ -260,52 +355,79 @@ def _call(entry: str, name: str, dev, argtypes, *args) -> None:
     launches[name] += 1
 
 
-def nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, block_size: int,
-                 sm_scale: float):
-    """``(dK, dV)`` float32 (B, H, Tk, D) for ``q, do (B, T, H, G, D)``,
-    ``kh, vh (B, H, Tk, D)`` (any strides, head_dim contiguous), ``lse2,
-    delta (B, T, H, G)`` float32 and the multiplicity map ``mask (B, T,
-    H, NS)`` int32, NS blocks of ``block_size`` covering Tk. CUDA tensors
-    launch the kernel (a program a chunk of :func:`dkdv_plan` and 32-key
-    tile) and its fixed-order sum; CPU tensors run the plain version."""
-    _check(q, kh, vh, do, lse2, delta, (mask,), "nsa_bwd_dkdv")
-    NS = _block_count(kh, mask, int(block_size))
-    if not q.is_cuda:
-        return nsa_bwd_dkdv_plain(q, kh, vh, do, lse2, delta, mask,
-                                  block_size, sm_scale)
+def dkdv_partials(q, kh, vh, do, lse2, delta, plan, block_size: int,
+                  sm_scale: float) -> torch.Tensor:
+    """The dK / dV kernel alone, on operands :func:`nsa_bwd_dkdv` has
+    checked and aligned and its ``plan`` (:func:`dkdv_plan`): each
+    chunk's float32 partial, ``ws (chunks, 2, BS, D)`` (dK then dV rows
+    of the chunk's KV block). One launch; nothing for an empty plan."""
+    tok, mult, chunks, first = plan
     B, T, H, G, D = q.shape
-    BS, Tk = int(block_size), kh.shape[2]
-    dev = q.device
-    tok, mult, chunks, first = dkdv_plan(mask, G)
-    n_chunks = chunks.shape[0]
+    BS, n_chunks = int(block_size), chunks.shape[0]
     ws = torch.empty((max(n_chunks, 1), 2, BS, D), dtype=torch.float32,
-                     device=dev)
-    q, do = q.contiguous(), do.contiguous()
+                     device=q.device)
     if n_chunks:
-        _call("tl_nsa_bwd_dkdv", "nsa_bwd_dkdv", dev,
+        _call("tl_nsa_bwd_dkdv", "nsa_bwd_dkdv", q.device,
               [_P] * 10 + [_I] * 8 + [_L] * 3 + [_I, ctypes.c_float,
                                                  ctypes.c_float],
               q.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
               lse2.contiguous().data_ptr(), delta.contiguous().data_ptr(),
               tok.data_ptr(), mult.data_ptr(), chunks.data_ptr(),
-              ws.data_ptr(), n_chunks, T, H, G, Tk, D, NS, BS,
-              *kh.stride()[:3], DTYPE_CODES[q.dtype],
-              float(sm_scale) * _LOG2E, float(sm_scale))
-    dk = torch.empty((B, H, Tk, D), dtype=torch.float32, device=dev)
+              ws.data_ptr(), n_chunks, T, H, G, kh.shape[2], D,
+              (first.numel() - 1) // (B * H), BS, *kh.stride()[:3],
+              DTYPE_CODES[q.dtype], float(sm_scale) * _LOG2E,
+              float(sm_scale))
+    return ws
+
+
+def dkdv_sum(ws, first, B: int, H: int, Tk: int, D: int):
+    """``(dK, dV)`` float32 (B, H, Tk, D): each KV block's chunk partials
+    in ``ws`` (:func:`dkdv_partials`) added in chunk order, ``first``
+    (:func:`dkdv_plan`) giving each block's chunks; 0 for a block no
+    token selects. One launch."""
+    dk = torch.empty((B, H, Tk, D), dtype=torch.float32, device=ws.device)
     dv = torch.empty_like(dk)
     if dk.numel():
-        _call("tl_nsa_bwd_dkdv_sum", "nsa_bwd_dkdv_sum", dev,
+        _call("tl_nsa_bwd_dkdv_sum", "nsa_bwd_dkdv_sum", ws.device,
               [_P] * 4 + [_I] * 3, ws.data_ptr(), first.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), B * H * NS, BS, D)
+              dk.data_ptr(), dv.data_ptr(), first.numel() - 1, ws.shape[2],
+              D)
     return dk, dv
+
+
+def nsa_bwd_dkdv(q, kh, vh, do, lse2, delta, mask, block_size: int,
+                 sm_scale: float, max_pairs: int | None = None):
+    """``(dK, dV)`` float32 (B, H, Tk, D) for ``q, do (B, T, H, G, D)``,
+    ``kh, vh (B, H, Tk, D)`` (any strides, head_dim contiguous), ``lse2,
+    delta (B, T, H, G)`` float32 and the multiplicity map ``mask (B, T,
+    H, NS)`` int32, NS blocks of ``block_size`` covering Tk. CUDA tensors
+    launch the kernel of q's type (a program a chunk of
+    :func:`dkdv_plan` and key tile: :func:`dkdv_partials`) and its
+    fixed-order sum (:func:`dkdv_sum`); the 16-bit kernels read K and V
+    16 bytes a copy, so views whose rows or base are not 16-byte aligned
+    are copied first; ``max_pairs`` goes to the plan (a bound on the
+    map's nonzeros: no host sync). CPU tensors run the plain version."""
+    _check(q, kh, vh, do, lse2, delta, (mask,), "nsa_bwd_dkdv")
+    _block_count(kh, mask, int(block_size))
+    if not q.is_cuda:
+        return nsa_bwd_dkdv_plain(q, kh, vh, do, lse2, delta, mask,
+                                  block_size, sm_scale)
+    B, T, H, G, D = q.shape
+    q, kh, vh = _aligned(q, kh, vh)
+    do = _aligned(do, kh, vh)[0]
+    plan = dkdv_plan(mask, G, max_pairs)
+    ws = dkdv_partials(q, kh, vh, do, lse2, delta, plan, block_size,
+                       sm_scale)
+    return dkdv_sum(ws, plan[3], B, H, kh.shape[2], D)
 
 
 def nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, block_size: int,
                sm_scale: float):
     """dQ float32 (B, T, H, G, D) for the operands of
     :func:`nsa_bwd_dkdv` with the selections ``bi (B, T, H, S)`` and
-    ``cnt (B, T, H)`` int32. CUDA tensors launch the kernel; CPU tensors
-    run the plain version."""
+    ``cnt (B, T, H)`` int32. CUDA tensors launch the kernel of q's type
+    (K and V aligned as for
+    :func:`nsa_bwd_dkdv`); CPU tensors run the plain version."""
     _check(q, kh, vh, do, lse2, delta, (bi, cnt), "nsa_bwd_dq")
     if bi.dim() != 4 or cnt.dim() != 3:
         raise ValueError(f"nsa_bwd_dq: ids (B, T, H, S) and counts (B, T, "
@@ -318,7 +440,8 @@ def nsa_bwd_dq(q, kh, vh, do, lse2, delta, bi, cnt, block_size: int,
         raise ValueError(f"nsa_bwd_dq: the kernel takes groups of at most "
                          f"{KERNEL_MAX_GROUP}, got {G}")
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    q, do = q.contiguous(), do.contiguous()
+    q, kh, vh = _aligned(q, kh, vh)
+    do = _aligned(do, kh, vh)[0]
     _call("tl_nsa_bwd_dq", "nsa_bwd_dq", q.device,
           [_P] * 9 + [_I] * 8 + [_L] * 3 + [_I, ctypes.c_float,
                                             ctypes.c_float],
@@ -342,8 +465,11 @@ def nsa_attention_bwd(q, kh, vh, bi, cnt, mask, o, lse2, g, causal: bool,
     BS = kh.shape[2] // mask.shape[-1]
     delta = (g.float() * o.float()).sum(-1)
     g_ = g.to(q.dtype)
-    dk, dv = nsa_bwd_dkdv(q, kh, vh, g_, lse2, delta, mask, BS, sm_scale)
+    # dQ first, so that its kernel runs while the host queues dK / dV's
+    # plan; the selections' slots bound the map's pairs: no host sync
     dq = nsa_bwd_dq(q, kh, vh, g_, lse2, delta, bi, cnt, BS, sm_scale)
+    dk, dv = nsa_bwd_dkdv(q, kh, vh, g_, lse2, delta, mask, BS, sm_scale,
+                          max_pairs=bi.numel())
     return dq.to(q.dtype), dk.to(kh.dtype), dv.to(vh.dtype)
 
 
