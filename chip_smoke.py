@@ -166,9 +166,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               block-sparse attention at LLaMA-2-7B's widths (see
               SPARSE_ATTN: 32 heads of 128, S 4096, blocks 128, a random
               mask of density 0.5) and seer attention (top-8 gates,
-              causal), one blocksparse_mha launch each; a row of dead
-              cells exactly 0, an all-ones causal mask equal to plain
-              causal attention. Each against its plain version; kernel,
+              causal), f32 on CUDA cores, bf16 and f16 on the tensor
+              cores, one blocksparse_mha launch each (16-bit: the tile,
+              its live tiles' pairs at the peak beside the bound); a row
+              of dead cells exactly 0, an all-ones causal mask equal to
+              plain causal attention, in each type. Each against its
+              plain version; kernel,
               plain, library (torch.softmax; SDPA over the dense bool
               mask; for the sink, SDPA with a zero sink key and the sink
               logits in an additive mask, and SDPA without sinks as
@@ -178,8 +181,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               Instruct-262k's attention widths (see MINFERENCE: 32 heads
               of 128, K and V repeated from 8 KV heads, S 16384, blocks
               64, 1000 columns and 6096 slashes picked by a copy of the
-              example's estimator from the last 32 queries), f32, bf16
-              and f16; nsa_attention (prefill, T 8192, selected blocks
+              example's estimator from the last 32 queries), f32 on
+              CUDA cores, bf16 and f16 on the tensor cores (the tile,
+              its live tiles' pairs at the peak beside the bound);
+              nsa_attention (prefill, T 8192, selected blocks
               and the 512-token window), nsa_attention_varlen (the same
               widths over seeded documents summing to 8192 tokens) and
               nsa_decode (B 8, 65536 keys) at the NSA paper's widths (see
@@ -858,6 +863,36 @@ def causal_pairs(Sq, Sk):
     """(i, j) pairs a top-left causal mask keeps: sum_i min(i + 1, Sk)."""
     n = min(Sq, Sk)
     return n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
+
+
+def tile_pairs(torch, mask, bM, bN, Sq, Sk, tile, causal):
+    """(i, j) pairs the masked tensor-core forwards (blocksparse_mha_mma,
+    vs_sparse_mma) compute for the cell mask ``mask (B, H, Sq // bM, Sk
+    // bN)`` at the tile ``(TM, TN)``: every pair of each warp's TM / 4
+    rows in each live key tile (one that overlaps a live cell), but for a
+    warp whose rows start past Sq or, causal, whose rows lie wholly
+    below the tile's first key; rows past Sq and keys past Sk count, as
+    the kernels compute them."""
+    import torch.nn.functional as F
+    TM, TN = tile
+    RW = TM // 4
+    dev = mask.device
+    cs = F.pad((mask != 0).int().cumsum(-1).cumsum(-2), (1, 0, 1, 0))
+    a = torch.arange(-(-Sq // TM), device=dev)
+    b = torch.arange(-(-Sk // TN), device=dev)
+    r0, r1 = a * TM // bM, ((a * TM + TM).clamp(max=Sq) - 1) // bM + 1
+    c0, c1 = b * TN // bN, ((b * TN + TN).clamp(max=Sk) - 1) // bN + 1
+    hits = (cs[..., r1, :][..., c1] - cs[..., r0, :][..., c1]
+            - cs[..., r1, :][..., c0] + cs[..., r0, :][..., c0])
+    live = hits > 0
+    pairs = 0
+    for w in range(4):
+        qw = a[:, None] * TM + RW * w
+        ok = qw < Sq
+        if causal:
+            ok = ok & (b[None, :] * TN <= qw + RW - 1)
+        pairs += int((live & ok).sum()) * RW * TN
+    return pairs
 
 
 def attention_phase(torch, fa, gb, dtype):
@@ -3598,7 +3633,7 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
     res["blocksparse_masks"] = {
         "random_density": float(rand_mask.float().mean()),
         "seer_density": float(seer_mask.float().mean())}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = tname(dtype)
         tol = ATTN_TOL[name]
         esize = torch.empty((), dtype=dtype).element_size()
@@ -3610,6 +3645,11 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
                 ("seer", seer_mask, True,
                  lambda: seer.seer_attention(q, k, v, gates,
                                              topk=c["topk"]))):
+            # float32 on CUDA cores, 16-bit on the tensor cores at the
+            # host's tile; the pairs of its live tiles at the peak beside
+            # the bound
+            tile = (None if dtype == torch.float32 else
+                    bsa.blocksparse_tile(D, blk, blk, causal))
             with torch.no_grad():
                 o = drive(f"{case} attention {name}", call,
                           {"blocksparse_mha": 1})
@@ -3625,8 +3665,10 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
                                   f"disagrees with the plain version: "
                                   f"{lib_err:.3e}")
             del lib, want
-            res[f"blocksparse_mha_{case}_{name}"] = {
+            rec = res[f"blocksparse_mha_{case}_{name}"] = {
                 "shape": [1, H, S, D], "block": blk, "causal": causal,
+                "kernel": ("blocksparse_mha (CUDA cores)" if tile is None
+                           else "blocksparse_mha_mma (mma.sync)"),
                 "live_cells": int(mask.sum()), "visible_pairs": pairs,
                 "max_abs_err": err[0], "normwise_err": err[1],
                 "tolerance": f"normwise {tol}",
@@ -3641,31 +3683,35 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
                 "library_normwise_err": lib_err,
                 **bound(4 * D * pairs, 4 * H * S * D * esize
                         + 4 * mask.numel(), peak)}
+            if tile is not None:
+                tp = tile_pairs(torch, mask, blk, blk, S, S, tile, causal)
+                rec.update({"tile": list(tile), "tile_pairs": tp,
+                            "tile_bound_ms": 4 * D * tp / peak * 1e3})
             del dense
-        if dtype == torch.float32:
-            # a query block whose every cell is dead gives exactly 0; an
-            # all-ones causal mask is plain causal attention
-            r = n // 2
-            dead = rand_mask.clone()
-            dead[0, 0, r] = 0
-            o = drive("blocksparse dead row", lambda: bsa.blocksparse_attention(
-                q, k, v, dead), {"blocksparse_mha": 1}, main=False)
-            check(not o[0, 0, r * blk:(r + 1) * blk].any()
-                  and bool(o[0, 0, (r + 1) * blk:].abs().min(-1)[0].gt(0)
-                           .all()),
-                  "blocksparse: a row of dead cells is not exactly 0, or a "
-                  "live row is")
-            ones = torch.ones_like(rand_mask)
-            o = drive("blocksparse all ones causal",
-                      lambda: bsa.blocksparse_attention(q, k, v, ones,
-                                                        causal=True),
-                      {"blocksparse_mha": 1}, main=False)
-            res["blocksparse_zero_checks"] = {
-                "dead_row_exactly_zero": f"head 0, query block {r}",
-                "all_ones_causal_vs_mha_fwd_plain": within(
-                    "blocksparse all ones causal", o,
-                    fa.mha_fwd_plain(q, k, v, True, sm), tol)[1]}
-            del o, dead, ones
+        # a query block whose every cell is dead gives exactly 0; an
+        # all-ones causal mask is plain causal attention
+        r = n // 2
+        dead = rand_mask.clone()
+        dead[0, 0, r] = 0
+        o = drive(f"blocksparse dead row {name}",
+                  lambda: bsa.blocksparse_attention(q, k, v, dead),
+                  {"blocksparse_mha": 1}, main=False)
+        check(not o[0, 0, r * blk:(r + 1) * blk].any()
+              and bool(o[0, 0, (r + 1) * blk:].abs().min(-1)[0].gt(0)
+                       .all()),
+              f"blocksparse {name}: a row of dead cells is not exactly 0, "
+              f"or a live row is")
+        ones = torch.ones_like(rand_mask)
+        o = drive(f"blocksparse all ones causal {name}",
+                  lambda: bsa.blocksparse_attention(q, k, v, ones,
+                                                    causal=True),
+                  {"blocksparse_mha": 1}, main=False)
+        res.setdefault("blocksparse_zero_checks", {})[name] = {
+            "dead_row_exactly_zero": f"head 0, query block {r}",
+            "all_ones_causal_vs_mha_fwd_plain": within(
+                f"blocksparse all ones causal {name}", o,
+                fa.mha_fwd_plain(q, k, v, True, sm), tol)[1]}
+        del o, dead, ones
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -3902,8 +3948,10 @@ def sparse_inference_phase(torch, mi, nsa):
                       "SDPA over the dense bool mask (1, H, S, S)", seen)
         del want
         torch.cuda.empty_cache()
-        res[f"vs_sparse_{name}"] = {
+        rec = res[f"vs_sparse_{name}"] = {
             "shape": [1, H, S, D], "block": blk, "max_abs_err": err[0],
+            "kernel": ("vs_sparse (CUDA cores)" if dtype == torch.float32
+                       else "vs_sparse_mma (mma.sync)"),
             "normwise_err": err[1], "tolerance": f"normwise {tol}",
             "ms": device_ms(torch, lambda: mi.vs_sparse(
                 q, k, v, vm, dm, bm, blk, blk, sm), 3),
@@ -3915,6 +3963,13 @@ def sparse_inference_phase(torch, mi, nsa):
             **lib, **bound(4 * D * pairs, 4 * H * S * D * esize
                            + 4 * (vm.numel() + dm.numel() + bm.numel()),
                            peak)}
+        if dtype != torch.float32:
+            # the pairs of the kernel's live tiles (at these patterns the
+            # causal triangle) at the peak, beside the bound
+            tile = mi.vs_tile(D, blk, blk)
+            tp = tile_pairs(torch, bm, blk, blk, S, S, tile, True)
+            rec.update({"tile": list(tile), "tile_pairs": tp,
+                        "tile_bound_ms": 4 * D * tp / peak * 1e3})
         if dtype == torch.float32:
             # rows 0-4 see nothing under one slash at 5 and one column at
             # S - 1: exactly 0
@@ -5570,8 +5625,24 @@ def main() -> int:
             entry["training_launches"] = {
                 k: af["launches"][k] for k in ("gqa_fwd_partial",
                                                "gqa_bwd_dkdv", "gqa_bwd_dq")}
+        if entry["name"] == "blocksparse_mha":
+            # one counter for both kernels of the source, by type, and
+            # the 16-bit kernel's tile in each case (the pairs of its live
+            # tiles are in the phase's records)
+            entry["kernels"] = {"float32": "blocksparse_mha (CUDA cores)",
+                                "bfloat16": "blocksparse_mha_mma (mma.sync)",
+                                "float16": "blocksparse_mha_mma (mma.sync)"}
+            entry["tiles"] = {
+                f"{c}_{t}": af[f"blocksparse_mha_{c}_{t}"]["tile"]
+                for c in ("random", "seer") for t in ("bfloat16", "float16")}
         kernels.append(entry)
     for entry in kernel_entries(si, SPARSE_INFERENCE_KERNELS):
+        if entry["name"] == "vs_sparse":
+            entry["kernels"] = {"float32": "vs_sparse (CUDA cores)",
+                                "bfloat16": "vs_sparse_mma (mma.sync)",
+                                "float16": "vs_sparse_mma (mma.sync)"}
+            entry["tiles"] = {t: si[f"vs_sparse_{t}"]["tile"]
+                              for t in ("bfloat16", "float16")}
         if entry["name"] == "nsa_decode":      # the splits' combine
             entry["fixup"] = {
                 "name": "nsa_decode_combine",

@@ -14,12 +14,16 @@ version on the card by tests/test_torch_cuda.py.
 
 import importlib
 import math
+import re
 
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+
+from tilelang_mesh_tpu_torch.carver import FLASH_KERNEL_TILES
+from tilelang_mesh_tpu_torch.ops._build import CSRC
 
 ref = importlib.import_module("tilelang_mesh_tpu.ops.blocksparse_attention")
 port = importlib.import_module(
@@ -29,6 +33,20 @@ port_seer = importlib.import_module(
     "tilelang_mesh_tpu_torch.ops.seer_attention")
 
 TOL = 2e-2
+
+
+def mask_tile_instances(D):
+    """The (block_M, block_N) pairs that csrc/attention_mma.cuh's
+    mask_tiles builds at head_dim D, read from its source."""
+    src = (CSRC / "attention_mma.cuh").read_text()
+    body = src[src.index("int mask_tiles("):]
+    body = body[:body.index("\n}\n")]
+    by_d = {}
+    for d, pairs in re.findall(
+            r"(?:D == (\d+)\)|else)\s*return run_tile<([\d, ]+)>", body):
+        n = [int(x) for x in pairs.split(",")]
+        by_d[int(d) if d else None] = list(zip(n[::2], n[1::2]))
+    return by_d.get(D, by_d[None])
 
 
 def _qkv(B, H, S, D, seed):
@@ -168,3 +186,31 @@ def test_seer_attention_matches_jax(bm, bn):
     _close(got, want)
     _close(port_seer.seer_reference(*t, 2, bm, bn),
            ref_seer.seer_reference(*j, 2, bm, bn))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("cells", [(128, 128), (64, 64), (32, 32), (40, 24),
+                                   (16, 80), (100, 60), (192, 64), (64, 16)])
+def test_blocksparse_tile_rule(D, cells, causal):
+    """The tensor-core kernel's tile: an instance for the head_dim (the
+    pairs the C source's mask_tiles builds: carver.FLASH_KERNEL_TILES
+    with block_N 64), the first in its order of preference (by the
+    causal flag) that divides both cell sides where one does, else one
+    whose block_N divides the cells' where one does; None for a head_dim
+    without an instance."""
+    tile = port.blocksparse_tile(D, *cells, causal)
+    if D not in FLASH_KERNEL_TILES:
+        assert tile is None and D not in port.BLOCKSPARSE_TILES
+        return
+    tiles = port.BLOCKSPARSE_TILES[D][causal]
+    assert sorted(tiles) == sorted(mask_tile_instances(D))
+    assert sorted(tiles) == sorted(t for t in FLASH_KERNEL_TILES[D]
+                                   if t[1] == 64)
+    assert tile in tiles
+    bM, bN = cells
+    both = [t for t in tiles if bM % t[0] == 0 and bN % t[1] == 0]
+    if both:
+        assert tile == both[0]
+    elif any(bN % t[1] == 0 for t in tiles):
+        assert bN % tile[1] == 0

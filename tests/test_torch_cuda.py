@@ -2256,16 +2256,21 @@ BLOCKSPARSE_CASES = [  # Sq, Sk, block_M, block_N: cells under, at and
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("kind", ["random", "dead_rows", "zeros"])
 @pytest.mark.parametrize("case", BLOCKSPARSE_CASES)
-def test_blocksparse_kernel_matches_plain(cuda, dtype, causal, kind, case):
+def test_blocksparse_kernel_matches_plain(cuda, dtype, d, causal, kind,
+                                          case):
     """Liveness by the caller's cells: a tile overlapping a live cell is
     computed, each pair masked by its own cell; a row whose every cell
-    is dead (or, causal, whose live cells lie above it) is exactly 0."""
+    is dead (or, causal, whose live cells lie above it) is exactly 0.
+    float32 on CUDA cores, bfloat16 and float16 on the tensor-core
+    kernel at every head_dim."""
     Sq, Sk, bM, bN = case
-    q, k, v, _ = _sink_inputs(cuda, 2, 2, 2, Sq, Sk, 64, dtype, seed=1)
+    q, k, v, _ = _sink_inputs(cuda, 2, 2, 2, Sq, Sk, d, dtype, seed=1)
     g = torch.Generator(device=cuda).manual_seed(2)
     m = torch.randint(0, 2, (2, 2, Sq // bM, Sk // bN), generator=g,
                       device=cuda, dtype=torch.int32)
@@ -2274,21 +2279,49 @@ def test_blocksparse_kernel_matches_plain(cuda, dtype, causal, kind, case):
     if kind == "dead_rows":
         m[..., ::2, :] = 0
     before = bsa.launches["blocksparse_mha"]
-    o = bsa.blocksparse_mha(q, k, v, m, bM, bN, causal, 0.125)
+    o = bsa.blocksparse_mha(q, k, v, m, bM, bN, causal, d ** -0.5)
     torch.cuda.synchronize()
     assert bsa.launches["blocksparse_mha"] == before + 1
-    want = bsa.blocksparse_mha_plain(q, k, v, m, bM, bN, causal, 0.125)
+    want = bsa.blocksparse_mha_plain(q, k, v, m, bM, bN, causal, d ** -0.5)
     assert _normwise(o, want) <= ATTN_TOL[dtype]
     dead = ~bsa.dense_mask(m, bM, bN, causal).any(-1)
     assert not o[dead].any() and torch.equal(o[dead], want[dead])
 
 
-def test_blocksparse_all_ones_causal_is_causal_attention(cuda):
-    q, k, v, _ = _sink_inputs(cuda, 1, 4, 4, 256, 256, 128, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_blocksparse_kernel_dead_runs(cuda, dtype, causal):
+    """One live cell in five at S 4096, cells of 64 (64 key tiles a row),
+    and a row whose two live cells are 60 tiles apart: the ring's scan
+    crosses its 32-tile words and prefetches the next live tile past a
+    run of dead ones."""
+    S, blk = 4096, 64
+    n = S // blk
+    q, k, v, _ = _sink_inputs(cuda, 1, 2, 2, S, S, 64, dtype, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    m = (torch.rand((1, 2, n, n), generator=g, device=cuda) < 0.2).to(
+        torch.int32)
+    m[..., n - 2, :] = 0
+    m[..., n - 2, 0] = m[..., n - 2, n - 2] = 1
+    before = bsa.launches["blocksparse_mha"]
+    o = bsa.blocksparse_mha(q, k, v, m, blk, blk, causal, 0.125)
+    torch.cuda.synchronize()
+    assert bsa.launches["blocksparse_mha"] == before + 1
+    want = bsa.blocksparse_mha_plain(q, k, v, m, blk, blk, causal, 0.125)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
+    dead = ~bsa.dense_mask(m, blk, blk, causal).any(-1)
+    assert torch.equal(o[dead], want[dead])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocksparse_all_ones_causal_is_causal_attention(cuda, dtype):
+    q, k, v, _ = _sink_inputs(cuda, 1, 4, 4, 256, 256, 128, dtype)
     ones = torch.ones((1, 4, 8, 8), dtype=torch.int32, device=cuda)
     o = bsa.blocksparse_attention(q, k, v, ones, block_M=32, block_N=32,
                                   causal=True)
-    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 128 ** -0.5)) <= 1e-5
+    tol = 1e-5 if dtype == torch.float32 else ATTN_TOL[dtype]
+    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 128 ** -0.5)) <= tol
 
 
 def test_seer_attention_on_card_matches_cpu(cuda):
@@ -2476,48 +2509,119 @@ def test_gemm_kernels_float16(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _vs_case(dev, H, S, D, dtype, bM, bN, nv, ns, seed=0):
+def _vs_case(dev, H, S, D, dtype, bM, bN, nv, ns, seed=0, s_idx=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((1, H, S, D), generator=g, device=dev).to(dtype)
                for _ in range(3))
     v_idx = torch.randint(0, S, (1, H, nv), generator=g, device=dev)
     # slashes past S and below 0 too: they never match
-    s_idx = torch.randint(-8, S + 8, (1, H, ns), generator=g, device=dev)
+    if s_idx is None:
+        s_idx = torch.randint(-8, S + 8, (1, H, ns), generator=g,
+                              device=dev)
     vmask, bmask = mi._build_masks(v_idx, s_idx, S, S, bM, bN)
     return q, k, v, vmask, mi.diagonal_mask(s_idx, S), bmask
+
+
+VS_CASES = [  # S, block_M, block_N, columns, slashes (None: a sparse set)
+    (256, 64, 64, 12, 9), (256, 64, 32, 12, 9), (256, 32, 64, 12, 9),
+    (256, 16, 128, 12, 9),
+    (1024, 64, 64, 4, None),   # a few slashes, some below 0, at S, past it
+    (320, 40, 40, 12, 9),      # cells that do not line up with the tiles
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64), (16, 128)])
-def test_vs_sparse_kernel_matches_plain(cuda, dtype, d, blocks):
-    q, k, v, vm, dm, bm = _vs_case(cuda, 2, 256, d, dtype, *blocks, 12, 9)
+@pytest.mark.parametrize("case", VS_CASES)
+def test_vs_sparse_kernel_matches_plain(cuda, dtype, d, case):
+    """float32 on CUDA cores, bfloat16 and float16 on the tensor-core
+    kernel; a sparse slash set tests each element's diagonal bit."""
+    S, bM, bN, nv, ns = case
+    s_idx = None
+    if ns is None:
+        s_idx = torch.tensor([-3, 0, 5, 77, 500, S - 1, S, S + 40],
+                             device=cuda).expand(1, 2, 8)
+    q, k, v, vm, dm, bm = _vs_case(cuda, 2, S, d, dtype, bM, bN, nv, ns,
+                                   s_idx=s_idx)
     before = mi.launches["vs_sparse"]
-    o = mi.vs_sparse(q, k, v, vm, dm, bm, *blocks, d ** -0.5)
+    o = mi.vs_sparse(q, k, v, vm, dm, bm, bM, bN, d ** -0.5)
     torch.cuda.synchronize()
     assert mi.launches["vs_sparse"] == before + 1
-    assert _normwise(o, mi.vs_sparse_plain(q, k, v, vm, dm, bm, *blocks,
-                                           d ** -0.5)) <= ATTN_TOL[dtype]
+    want = mi.vs_sparse_plain(q, k, v, vm, dm, bm, bM, bN, d ** -0.5)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
+    dead = (want == 0).all(-1)      # rows that see no key
+    assert not o[dead].any()
 
 
-def test_vs_sparse_rows_that_see_nothing_are_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_vs_sparse_rows_that_see_nothing_are_zero(cuda, dtype):
     """Slash 5 only and one column at 200: rows 0-4 see no key (O
     exactly 0), and a slash at S or past matches nothing."""
-    q, k, v, *_ = _vs_case(cuda, 1, 256, 64, torch.float32, 64, 64, 1, 1)
+    q, k, v, *_ = _vs_case(cuda, 1, 256, 64, dtype, 64, 64, 1, 1)
     v_idx = torch.tensor([[[200]]], device=cuda)
     s_idx = torch.tensor([[[5, 256, 300]]], device=cuda)
     o = mi.vertical_slash_sparse_attention(q, k, v, v_idx, s_idx)
     want = mi.vs_sparse_reference(q, k, v, v_idx, s_idx)
     assert not o[0, 0, :5].any()
-    assert _normwise(o, want) <= 1e-5
+    tol = 1e-5 if dtype == torch.float32 else ATTN_TOL[dtype]
+    assert _normwise(o, want) <= tol
 
 
-def test_vs_sparse_all_diagonals_is_causal_attention(cuda):
-    q, k, v, *_ = _vs_case(cuda, 2, 192, 64, torch.float32, 64, 64, 1, 1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vs_sparse_all_diagonals_is_causal_attention(cuda, dtype):
+    q, k, v, *_ = _vs_case(cuda, 2, 192, 64, dtype, 64, 64, 1, 1)
     s_idx = torch.arange(192, device=cuda).expand(1, 2, 192)
     o = mi.vertical_slash_sparse_attention(q, k, v, s_idx[..., :1], s_idx)
-    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 0.125)) <= 1e-5
+    tol = 1e-5 if dtype == torch.float32 else ATTN_TOL[dtype]
+    assert _normwise(o, fa.mha_fwd_plain(q, k, v, True, 0.125)) <= tol
+
+
+def _sparse_mask_calls(q, k, v):
+    """The two masked tensor-core forwards on q, k, v (1, 2, 256, D)."""
+    S, D = q.shape[2], q.shape[3]
+    g = torch.Generator(device=q.device).manual_seed(6)
+    m = torch.randint(0, 2, (1, 2, S // 64, S // 64), generator=g,
+                      device=q.device, dtype=torch.int32)
+    _, _, _, vm, dm, bm = _vs_case(q.device, 2, S, D, q.dtype, 64, 64, 12,
+                                   9, seed=7)
+    return {"blocksparse_mha": lambda q, k, v: bsa.blocksparse_mha(
+                q, k, v, m, 64, 64, True, 0.125),
+            "vs_sparse": lambda q, k, v: mi.vs_sparse(
+                q, k, v, vm, dm, bm, 64, 64, 0.125)}
+
+
+def test_sparse_mask_kernels_give_the_same_bits_twice(cuda):
+    """bfloat16: no atomics and one block a row's output, so two calls
+    give the same bits."""
+    q, k, v, _ = _sink_inputs(cuda, 1, 2, 2, 256, 256, 64, torch.bfloat16)
+    for name, call in _sparse_mask_calls(q, k, v).items():
+        a, b = call(q, k, v), call(q, k, v)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sparse_mask_kernels_take_unaligned_views(cuda, dtype):
+    """q, k, v whose bases sit 2 bytes off 16: the wrappers copy them
+    first (the kernels read rows 16 bytes a copy); the same bits as on
+    aligned copies, one launch each call."""
+    q, k, v, _ = _sink_inputs(cuda, 1, 2, 2, 256, 256, 64, dtype)
+    n = q.numel()
+    buf = torch.empty(3 * n + 1, dtype=dtype, device=cuda)
+    views = []
+    for i, t in enumerate((q, k, v)):
+        view = buf[1 + i * n:1 + (i + 1) * n].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        views.append(view)
+    counters = {"blocksparse_mha": bsa.launches, "vs_sparse": mi.launches}
+    for name, call in _sparse_mask_calls(q, k, v).items():
+        before = counters[name][name]
+        got = call(*views)
+        torch.cuda.synchronize()
+        assert counters[name][name] == before + 1
+        assert torch.equal(got, call(q, k, v)), name
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ import jax.numpy as jnp
 
 from tilelang_mesh_tpu.ops import minference as ref
 from tilelang_mesh_tpu_torch import ops as port_ops
+from tilelang_mesh_tpu_torch.carver import FLASH_KERNEL_TILES
 from tilelang_mesh_tpu_torch.ops import minference as port
+
+from test_torch_blocksparse import mask_tile_instances
 
 TOL = 2e-2
 _TYPES = {"float32": (jnp.float32, torch.float32),
@@ -146,3 +149,29 @@ def test_refusals():
     with pytest.raises(TypeError):
         port.vertical_slash_sparse_attention(t[0].double(), t[1], t[2],
                                              v_idx, s_idx)
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("cells", [(64, 64), (64, 32), (32, 64), (16, 128),
+                                   (40, 40), (128, 128), (100, 60)])
+def test_vs_tile_rule(D, cells):
+    """The tensor-core kernel's tile: an instance for the head_dim (the
+    pairs the C source's mask_tiles builds: carver.FLASH_KERNEL_TILES
+    with block_N 64), the first in order of preference that divides both
+    cell sides where one does, else one whose block_N divides the cells'
+    where one does; None for a head_dim without an instance."""
+    tile = port.vs_tile(D, *cells)
+    if D not in FLASH_KERNEL_TILES:
+        assert tile is None and D not in port.VS_TILES
+        return
+    tiles = port.VS_TILES[D]
+    assert sorted(tiles) == sorted(mask_tile_instances(D))
+    assert sorted(tiles) == sorted(t for t in FLASH_KERNEL_TILES[D]
+                                   if t[1] == 64)
+    assert tile in tiles
+    bM, bN = cells
+    both = [t for t in tiles if bM % t[0] == 0 and bN % t[1] == 0]
+    if both:
+        assert tile == both[0]
+    elif any(bN % t[1] == 0 for t in tiles):
+        assert bN % tile[1] == 0

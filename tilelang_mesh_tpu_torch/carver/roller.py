@@ -167,7 +167,7 @@ class MatmulTemplate:
 
 
 # The tensor-core attention forward's (block_M, block_N) instances by
-# head_dim, the kernel's default tile first (csrc/flash_attention.cu's
+# head_dim, the kernel's default tile first (csrc/attention_mma.cuh's
 # fwd_tiles): a block is four warps of block_M / 4 query rows, block_N
 # keys a K / V stage. float32 runs one CUDA-core tile, (64, 32).
 FLASH_KERNEL_TILES: Dict[int, Tuple[Tuple[int, int], ...]] = {

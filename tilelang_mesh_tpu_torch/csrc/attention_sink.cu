@@ -43,7 +43,7 @@
 // loop: l = quad_sum(l) + exp2(sink * log2(e) - m), O = acc / max(l,
 // 1e-30). When causal, the heaviest query tiles go first. The tile (TM,
 // TN) is the host's choice (ops/attention_sink.py::sink_tile, by head_dim
-// and window) among flash_attention.cu's tensor-core set.
+// and window) among attention_mma.cuh's fwd_tiles.
 //
 // Design, float32 (sink_fwd, CUDA cores): csrc/flash_attention.cu's
 // scalar loop (its tile step is attention_tile.cuh's attend_tile here)
@@ -370,28 +370,13 @@ int run_mma(const SinkArgs& a) {
                 a.H, a.group, a.Sq, a.Sk, a.causal, a.window, a.scale);
 }
 
-// the tile (TM, TN) when (bm, bn) names it, else the next of MORE; (0, 0)
-// names the first, the default
-template <int D, typename E, int TM, int TN, int... MORE>
-int run_tile(int bm, int bn, const SinkArgs& a, bool first = true) {
-  if ((first && bm == 0 && bn == 0) || (bm == TM && bn == TN))
-    return run_mma<D, E, TM, TN>(a);
-  if constexpr (sizeof...(MORE) > 0)
-    return run_tile<D, E, MORE...>(bm, bn, a, false);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the tensor-core instances by head_dim as (block_M, block_N) pairs, the
-// default first: flash_attention.cu's fwd_tiles set
+// run_tile's launcher of the tensor-core instance (TM, TN)
 template <int D, typename E>
-int sink_tiles(int bm, int bn, const SinkArgs& a) {
-  if constexpr (D == 128)
-    return run_tile<D, E, 128, 64, 64, 64, 128, 32, 64, 32>(bm, bn, a);
-  else if constexpr (D == 64)
-    return run_tile<D, E, 128, 64, 64, 64, 64, 128, 128, 32>(bm, bn, a);
-  else
-    return run_tile<D, E, 64, 64>(bm, bn, a);
-}
+struct MmaRun {
+  const SinkArgs& a;
+  template <int TM, int TN>
+  int go() const { return run_mma<D, E, TM, TN>(a); }
+};
 
 template <int D, int DT>
 int run(const void* q, const void* k, const void* v, const float* sinks,
@@ -415,9 +400,9 @@ int dispatch(int dt, int bm, int bn, const SinkArgs& a) {
       return run<D, kF32>(a.q, a.k, a.v, a.sinks, a.o, a.B, a.H, a.group,
                           a.Sq, a.Sk, a.causal, a.window, a.scale, a.st);
     case kBF16:
-      return sink_tiles<D, __nv_bfloat16>(bm, bn, a);
+      return fwd_tiles<D>(bm, bn, MmaRun<D, __nv_bfloat16>{a});
     case kF16:
-      return sink_tiles<D, __half>(bm, bn, a);
+      return fwd_tiles<D>(bm, bn, MmaRun<D, __half>{a});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -58,9 +58,9 @@
 // partial until the epilogue), rescales its O accumulators, rounds P
 // straight into A fragments and accumulates O += P V, V through
 // ldmatrix.trans; a warp whose rows all precede the tile's first key
-// skips it. The tile (TM, TN) is one of `fwd_tiles` by head_dim
-// (carver/roller.py's FLASH_KERNEL_TILES lists the same); `tl_mha_fwd`
-// takes the first.
+// skips it. The tile (TM, TN) is one of attention_mma.cuh's `fwd_tiles`
+// by head_dim (carver/roller.py's FLASH_KERNEL_TILES lists the same);
+// `tl_mha_fwd` takes the first.
 //
 // Both: any Sq, Sk >= 1 works: query rows past Sq are computed on zeros
 // and never stored. Under GQA the blocks of a group's H / Hkv query
@@ -468,28 +468,13 @@ int run_mma(const FwdArgs& a) {
                 a.Sq, a.Sk, a.causal, a.partial, a.scale);
 }
 
-// the tile (TM, TN) when (bm, bn) names it, else the next of MORE; (0, 0)
-// names the first, the default
-template <int D, typename E, int TM, int TN, int... MORE>
-int run_tile(int bm, int bn, const FwdArgs& a, bool first = true) {
-  if ((first && bm == 0 && bn == 0) || (bm == TM && bn == TN))
-    return run_mma<D, E, TM, TN>(a);
-  if constexpr (sizeof...(MORE) > 0)
-    return run_tile<D, E, MORE...>(bm, bn, a, false);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the tensor-core instances by head_dim as (block_M, block_N) pairs, the
-// default first (carver/roller.py's FLASH_KERNEL_TILES)
+// run_tile's launcher of the tensor-core instance (TM, TN)
 template <int D, typename E>
-int fwd_tiles(int bm, int bn, const FwdArgs& a) {
-  if constexpr (D == 128)
-    return run_tile<D, E, 128, 64, 64, 64, 128, 32, 64, 32>(bm, bn, a);
-  else if constexpr (D == 64)
-    return run_tile<D, E, 128, 64, 64, 64, 64, 128, 128, 32>(bm, bn, a);
-  else
-    return run_tile<D, E, 64, 64>(bm, bn, a);
-}
+struct MmaRun {
+  const FwdArgs& a;
+  template <int TM, int TN>
+  int go() const { return run_mma<D, E, TM, TN>(a); }
+};
 
 template <int D>
 int dispatch(int dt, int bm, int bn, const FwdArgs& a) {
@@ -499,9 +484,9 @@ int dispatch(int dt, int bm, int bn, const FwdArgs& a) {
         return static_cast<int>(cudaErrorInvalidValue);
       return a.partial ? run_f32<D, kF32, true>(a) : run_f32<D, kF32, false>(a);
     case kBF16:
-      return fwd_tiles<D, __nv_bfloat16>(bm, bn, a);
+      return fwd_tiles<D>(bm, bn, MmaRun<D, __nv_bfloat16>{a});
     case kF16:
-      return fwd_tiles<D, __half>(bm, bn, a);
+      return fwd_tiles<D>(bm, bn, MmaRun<D, __half>{a});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

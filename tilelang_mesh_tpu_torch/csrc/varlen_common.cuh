@@ -140,4 +140,37 @@ __device__ __forceinline__ bool computes_tile(
   return __syncthreads_or(hit) != 0;
 }
 
+// The live key tiles of TN keys, in order, of a block whose query rows
+// span the table's row cells r: tile kb < n (keys [kb TN, kb TN + TN)
+// below Sk) is live when a cell of r x its column cells is live (one read
+// when it lies in one cell). A warp tests 32 tiles at once (a ballot)
+// and keeps the word; every warp of the block scans alike, so each knows
+// the next live tile with no barrier and no list in shared memory. Call
+// next() from warp-uniform code with `from` never decreasing.
+template <int TN>
+struct LiveTiles {
+  const int* __restrict__ live;
+  int nC, bN, Sk, n;
+  Cells r;
+  int base = -32;     // tiles [base, base + 32) are tested in `word`
+  unsigned word = 0;
+
+  // the first live tile at or after `from`, n when none is left
+  __device__ __forceinline__ int next(int from) {
+    while (from < n) {
+      if (from >= base + 32) {
+        base = from;
+        const int kb = base + threadIdx.x % 32, k0 = kb * TN;
+        word = __ballot_sync(
+            kFull, kb < n && cells_live(live, nC, r,
+                                        cells_of(k0, min(k0 + TN, Sk), bN)));
+      }
+      const unsigned w = word >> (from - base);
+      if (w) return from + __ffs(w) - 1;
+      from = base + 32;
+    }
+    return n;
+  }
+};
+
 }  // namespace tl_varlen

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build", "build_all",
-           "build_log", "stream_call"]
+           "aligned16", "build_log", "stream_call"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -100,6 +100,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def aligned16(*ts):
+    """Each tensor contiguous, and copied where its base is not 16-byte
+    aligned: the kernels read rows 16 bytes a copy (cp.async)."""
+    out = []
+    for t in ts:
+        t = t.contiguous()
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return out
 
 
 def stream_call(fn, dev, *args):

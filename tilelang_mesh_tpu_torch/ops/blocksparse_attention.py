@@ -9,10 +9,14 @@ CUDA kernel (``csrc/blocksparse_attention.cu``) replaces the TPU's:
   attend (nonzero = live); ``causal`` adds the elementwise top-left
   mask. The kernel skips key tiles that overlap no live cell; a row
   whose every cell is dead gives exactly 0 (``l > 0 ? acc / l : 0``).
+  float32 runs ``blocksparse_mha`` on CUDA cores, bfloat16 and float16
+  ``blocksparse_mha_mma`` on the tensor cores at the tile
+  ``blocksparse_tile(D, block_M, block_N, causal)``.
 
 The wrapper launches the kernel on CUDA tensors (a build or launch
-failure raises) and runs its plain version (dense exp2 scores under the
-cell mask, rounded where the kernel rounds) on CPU tensors.
+failure raises; there is no fallback to another kernel) and runs its
+plain version (dense exp2 scores under the cell mask, rounded where the
+kernel rounds) on CPU tensors.
 ``blocksparse_reference`` is the JAX package's dense reference.
 """
 
@@ -30,11 +34,24 @@ from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["blocksparse_attention", "blocksparse_reference",
            "blocksparse_mha", "blocksparse_mha_plain",
-           "blocksparse_mha_kernel", "dense_mask", "launches",
-           "reset_launches"]
+           "blocksparse_mha_kernel", "dense_mask", "mask_tile",
+           "blocksparse_tile",
+           "BLOCKSPARSE_TILES", "launches", "reset_launches"]
 
-# kernel name -> launches through its wrapper
+# kernel name -> launches through its wrapper (both kernels of the source:
+# blocksparse_mha for float32, blocksparse_mha_mma for bfloat16, float16)
 launches = {"blocksparse_mha": 0}
+
+# the tensor-core kernel's (block_M, block_N) instances by head_dim, in
+# order of preference without and with the causal mask:
+# csrc/attention_mma.cuh's mask_tiles (the carver.FLASH_KERNEL_TILES with
+# block_N 64: a row's mask is one 64-bit word), ordered by timing each
+# (scripts/sparse_attn_ab.py; PERF.md, #31: at D 128, 128 x 64 leads
+# without causal, 64 x 64 with)
+BLOCKSPARSE_TILES = {
+    16: (((64, 64),),) * 2, 32: (((64, 64),),) * 2,
+    64: (((128, 64), (64, 64)),) * 2,
+    128: (((128, 64), (64, 64)), ((64, 64), (128, 64)))}
 
 
 def reset_launches() -> None:
@@ -98,22 +115,51 @@ def blocksparse_mha_plain(q, k, v, block_mask, block_M: int, block_N: int,
 # ---------------------------------------------------------------------------
 
 
+def mask_tile(tiles, block_M: int, block_N: int):
+    """The tile ``(TM, TN)`` among ``tiles`` (in order of preference) for
+    the caller's cells: the first whose TM divides ``block_M`` and TN
+    divides ``block_N`` (a tile then lies in one cell, and only the
+    diagonal and the ragged edge are masked), else the first whose TN
+    divides ``block_N``, else the first whose TM divides ``block_M``,
+    else the first."""
+    for fits in (lambda tm, tn: block_M % tm == 0 and block_N % tn == 0,
+                 lambda tm, tn: block_N % tn == 0,
+                 lambda tm, tn: block_M % tm == 0):
+        for tm, tn in tiles:
+            if fits(tm, tn):
+                return tm, tn
+    return tiles[0]
+
+
+def blocksparse_tile(D: int, block_M: int, block_N: int, causal: bool):
+    """The tensor-core kernel's tile ``(TM, TN)`` for head_dim ``D``, the
+    caller's cells and the causal flag: ``mask_tile`` over
+    ``BLOCKSPARSE_TILES``; ``None`` for a head_dim without an instance."""
+    tiles = BLOCKSPARSE_TILES.get(int(D))
+    return None if tiles is None else mask_tile(tiles[bool(causal)],
+                                                block_M, block_N)
+
+
 def _launch(q, k, v, block_mask, block_M, block_N, causal, sm_scale):
-    from ._build import load, stream_call
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    from ._build import aligned16, load, stream_call
+    q, k, v = aligned16(q, k, v)
     mask = block_mask.to(torch.int32).contiguous()
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     o = torch.empty_like(q)
-    fn = load("blocksparse_attention").tl_blocksparse_mha
+    tile = (0, 0)
+    if q.dtype != torch.float32:
+        tile = blocksparse_tile(D, block_M, block_N, causal) or (0, 0)
+    fn = load("blocksparse_attention").tl_blocksparse_mha_tiled
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     code = stream_call(fn, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), mask.data_ptr(), o.data_ptr(), B, H, Sq,
                        Sk, D, block_M, block_N,
                        DTYPE_CODES[q.dtype], int(bool(causal)),
-                       float(sm_scale) * _LOG2E)
+                       float(sm_scale) * _LOG2E, *tile)
     if code != 0:
         raise KernelLaunchError("blocksparse_mha", code)
     launches["blocksparse_mha"] += 1

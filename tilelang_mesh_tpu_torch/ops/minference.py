@@ -9,7 +9,9 @@ diagonal). One CUDA kernel (``csrc/minference.cu``) replaces the TPU's:
 * ``vs_sparse`` — ``vs_sparse_kernel``: a pair (i, j) is visible when
   its (query block, key block) cell of ``block_mask`` is live, ``j <=
   i``, and ``vmask[j]`` or ``dmask[i - j]``; a row that sees nothing
-  gives exactly 0 (``l > 0 ? acc / l : 0``).
+  gives exactly 0 (``l > 0 ? acc / l : 0``). float32 runs ``vs_sparse``
+  on CUDA cores, bfloat16 and float16 ``vs_sparse_mma`` on the tensor
+  cores at the tile ``vs_tile(D, block_M, block_N)``.
 
 The TPU kernel compares every pair of a live tile with all ``Ns``
 slashes. Here the wrapper scatters ``s_idx`` once into the per-head
@@ -22,7 +24,7 @@ JAX ``(B, H, nQ, nK, Ns)`` comparison, which at 32 heads of 16384
 queries and 6096 slashes would hold 1.3e10 elements.
 
 The wrapper launches the kernel on CUDA tensors (a build or launch
-failure raises) and runs its plain version on CPU tensors: dense exp2
+failure raises; there is no fallback to another kernel) and runs its plain version on CPU tensors: dense exp2
 scores a block of query rows at a time, rounded where the kernel
 rounds, so no call holds a ``(B, H, Sq, Sk)`` score tensor.
 ``vs_sparse_reference`` is the JAX package's dense reference.
@@ -38,15 +40,26 @@ import torch
 
 from ..resilience.errors import KernelLaunchError
 from ._factory import bind
+from .blocksparse_attention import mask_tile
 from .flash_attention import _LOG2E, check_attention_args
 from .gemm import DTYPE_CODES, _as_dtype
 
 __all__ = ["vertical_slash_sparse_attention", "vs_sparse_reference",
            "vs_sparse", "vs_sparse_plain", "vs_sparse_kernel",
-           "diagonal_mask", "launches", "reset_launches"]
+           "diagonal_mask", "vs_tile", "VS_TILES", "launches",
+           "reset_launches"]
 
-# kernel name -> launches through its wrapper
+# kernel name -> launches through its wrapper (both kernels of the source:
+# vs_sparse for float32, vs_sparse_mma for bfloat16 and float16)
 launches = {"vs_sparse": 0}
+
+# the tensor-core kernel's (block_M, block_N) instances by head_dim, in
+# order of preference: csrc/attention_mma.cuh's mask_tiles (the
+# carver.FLASH_KERNEL_TILES with block_N 64: a row's mask is one 64-bit
+# word), ordered by timing each (scripts/sparse_attn_ab.py; PERF.md, #32:
+# at D 128, 64 x 64 leads)
+VS_TILES = {16: ((64, 64),), 32: ((64, 64),), 64: ((128, 64), (64, 64)),
+            128: ((64, 64), (128, 64))}
 
 # query rows a plain-version step scores at once
 PLAIN_ROWS = 512
@@ -162,22 +175,35 @@ def vs_sparse_plain(q, k, v, vmask, dmask, block_mask, block_M: int,
 # ---------------------------------------------------------------------------
 
 
+def vs_tile(D: int, block_M: int, block_N: int):
+    """The tensor-core kernel's tile ``(TM, TN)`` for head_dim ``D`` and
+    the caller's cells: ``mask_tile`` over ``VS_TILES``; ``None`` for a
+    head_dim without an instance."""
+    tiles = VS_TILES.get(int(D))
+    return None if tiles is None else mask_tile(tiles, block_M, block_N)
+
+
 def _launch(q, k, v, vmask, dmask, block_mask, block_M, block_N, sm_scale):
-    from ._build import load, stream_call
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    from ._build import aligned16, load, stream_call
+    q, k, v = aligned16(q, k, v)
     masks = [t.to(torch.int32).contiguous() for t in (vmask, dmask,
                                                        block_mask)]
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     o = torch.empty_like(q)
-    fn = load("minference").tl_vs_sparse
+    tile = (0, 0)
+    if q.dtype != torch.float32:
+        tile = vs_tile(D, block_M, block_N) or (0, 0)
+    fn = load("minference").tl_vs_sparse_tiled
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     code = stream_call(fn, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), *(t.data_ptr() for t in masks),
                        o.data_ptr(), B, H, Sq, Sk, D, block_M, block_N,
-                       DTYPE_CODES[q.dtype], float(sm_scale) * _LOG2E)
+                       DTYPE_CODES[q.dtype], float(sm_scale) * _LOG2E,
+                       *tile)
     if code != 0:
         raise KernelLaunchError("vs_sparse", code)
     launches["vs_sparse"] += 1

@@ -65,12 +65,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x contiguous, starting on 16 bytes (the kernels' cp.async)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _blocks_check(M, N, bm, bn, what: str) -> None:
     if M % bm or N % bn:
         raise ValueError(f"{what}: M={M}, N={N} are not multiples of the "
@@ -93,8 +87,8 @@ def hand_matmul_plain(a, b, out_dtype=None) -> torch.Tensor:
 
 
 def _gemm_launch(a, b, M, N, K, blk, out):
-    from ._build import load, stream_call
-    a, b = _aligned(a), _aligned(b)
+    from ._build import aligned16, load, stream_call
+    a, b = aligned16(a, b)
     code_in = DTYPE_CODES[a.dtype]
     if a.dtype == torch.float8_e4m3fn:   # the kernel reads float16
         a, b = fp8_widen(a, b)
@@ -169,13 +163,13 @@ def hand_w4a16_plain(alo, ahi, packed, scales3, gs: int) -> torch.Tensor:
 
 
 def _w4a16_launch(alo, ahi, packed, scales3, M, N, K2, gs, bm, bn):
-    from ._build import load, stream_call
+    from ._build import aligned16, load, stream_call
     lda = alo.stride(0)
     if (alo.stride(1) != 1 or ahi.stride(1) != 1 or ahi.stride(0) != lda
             or lda % 8 or alo.data_ptr() % 16 or ahi.data_ptr() % 16):
-        alo, ahi = _aligned(alo), _aligned(ahi)
+        alo, ahi = aligned16(alo, ahi)
         lda = K2
-    packed, scales3 = _aligned(packed), _aligned(scales3)
+    packed, scales3 = aligned16(packed, scales3)
     c = torch.empty((M, N), dtype=torch.bfloat16, device=alo.device)
     fn = load("yardstick_w4a16").tl_yardstick_w4a16
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [
