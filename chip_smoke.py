@@ -2365,6 +2365,9 @@ def gemm_variants_phase(torch, gv, gm):
     mask = torch.from_numpy((rng.random((M // 128, N // 128)) > 0.5).astype(
         np.int32)).cuda()
     density = float(mask.float().mean())
+    # aligned bf16: the TMA kernel, at the tile of the 128-square cells
+    check(gv.blocksparse_path(M, N, K, a.dtype, a.data_ptr(), b.data_ptr())
+          == "tma", "blocksparse_matmul prefill: not on the TMA kernel")
     got = drive("blocksparse_matmul prefill", lambda: gv.blocksparse_matmul(
         a, b, mask), {"blocksparse_gemm": 1})
     r = hold("blocksparse_matmul prefill", got,
@@ -2382,6 +2385,8 @@ def gemm_variants_phase(torch, gv, gm):
     del dense
     res["blocksparse_gemm_prefill_gate_up_bf16"] = {
         "shape": [M, N, K], "density": density, **r,
+        "kernel": "blocksparse_tma (TMA + wgmma)",
+        "tile": [128, 128, 64],
         "all_ones_vs_matmul_normwise": rel,
         **timed(lambda: gv.blocksparse_matmul(a, b, mask),
                 lambda: gv.blocksparse_matmul_plain(a, b, mask),
@@ -3171,6 +3176,13 @@ def varlen_phase(torch, vl, fa, gq, gb):
                       want_o[None, :, :tq])
         case = {"shape": [tq, tk, Hq, Hkv, D], "visible_pairs": pairs,
                 "tolerance": f"normwise {tol}"}
+        # the forward's kernel by type (one counter for both), and the
+        # 16-bit kernel's tile
+        if dtype == torch.float32:
+            case["kernel"] = "varlen_fwd (CUDA cores)"
+        else:
+            case.update(kernel="varlen_fwd_mma (mma.sync)",
+                        tile=list(vl.varlen_tile(D)))
         res[f"varlen_fwd_{cfg}{name}"] = {
             **case, "max_abs_err": err_o[0], "normwise_err": err_o[1],
             "ms": device_ms(torch, lambda: vl.varlen_fwd(
@@ -5607,9 +5619,26 @@ def main() -> int:
         if fixup:
             entry["fixup"] = {"name": fixup,
                               "launches": var["launches"][fixup]}
+        if entry["name"] == "blocksparse_gemm":
+            # one counter for both kernels of the source; the case's
+            # kernel and tile
+            top = var["blocksparse_gemm_prefill_gate_up_bf16"]
+            entry.update(kernel=top["kernel"], tile=top["tile"])
         kernels.append(entry)
     kernels += kernel_entries(bg, BITNET_GQA_KERNELS)
-    kernels += kernel_entries(vr, VARLEN_KERNELS)
+    for entry in kernel_entries(vr, VARLEN_KERNELS):
+        if entry["name"] in ("varlen_fwd", "varlen_fwd_partial"):
+            # one counter for both kernels of the source, by type, and
+            # the 16-bit kernel's tile in each case
+            entry["kernels"] = {"float32": "varlen_fwd (CUDA cores)",
+                                "bfloat16": "varlen_fwd_mma (mma.sync)"}
+            name = entry["name"]
+            entry["tiles"] = {
+                c[len(name) + 1:]: v["tile"] for c, v in vr.items()
+                if c.startswith(name + "_") and "tile" in v
+                and (name == "varlen_fwd_partial"
+                     or not c.startswith("varlen_fwd_partial_"))}
+        kernels.append(entry)
     for entry in kernel_entries(af, ATTN_FAMILY_KERNELS):
         if entry["name"] == "attention_sink":
             entry["sdpa_without_sinks"] = {

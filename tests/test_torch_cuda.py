@@ -1257,6 +1257,110 @@ def test_blocksparse_matches_plain(cuda, dtype, mask_kind, M, N, K, block):
         assert _normwise(got, gm.matmul(a, b)) <= VARIANT_TOL[dtype]
 
 
+BLOCKSPARSE_TMA_OUTS = [torch.float32, torch.bfloat16, torch.float16,
+                        torch.float8_e4m3fn]
+
+
+def _blocksparse_mask(dev, shape, kind, seed=29):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"random": (torch.rand(shape, generator=g, device=dev)
+                       > 0.5).to(torch.int32),
+            "zeros": torch.zeros(shape, dtype=torch.int32, device=dev),
+            "ones": torch.ones(shape, dtype=torch.int32, device=dev)}[kind]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("out", BLOCKSPARSE_TMA_OUTS)
+@pytest.mark.parametrize("mask_kind", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("M,N,K,cells", [
+    (384, 384, 200, (128, 128)), (192, 320, 96, (64, 64)),
+    (512, 384, 1000, (256, 128)), (320, 576, 136, (64, 192)),
+    (1280, 256, 64, (256, 128)), (320, 384, 136, (64, 128)),
+    (384, 512, 200, (128, 256))])
+def test_blocksparse_tma_matches_plain(cuda, dtype, out, mask_kind, M, N, K,
+                                       cells):
+    """The TMA kernel (aligned 16-bit operands): dead cells exactly 0
+    (cells smaller than the tile leave live and dead cells in one tile;
+    M, N off the tile; K off its step), every output type, an all-ones
+    mask equal to the port's matmul."""
+    bm, bn = cells
+    assert gv.blocksparse_path(M, N, K, dtype) == "tma"
+    a = _randn(cuda, (M, K), dtype, 27)
+    b = _randn(cuda, (K, N), dtype, 28)
+    mask = _blocksparse_mask(cuda, (M // bm, N // bn), mask_kind)
+    before = gv.launches["blocksparse_gemm"]
+    got = gv.blocksparse_matmul(a, b, mask, bm, bn, out_dtype=out)
+    torch.cuda.synchronize()
+    assert gv.launches["blocksparse_gemm"] == before + 1
+    assert got.dtype == out
+    live = (mask != 0).repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    assert not got[~live].float().any()
+    if mask_kind == "zeros":
+        return
+    want = gv.blocksparse_matmul_plain(a, b, mask, bm, bn, out_dtype=out)
+    if out == torch.float8_e4m3fn:
+        # one rounding of nearby float32 sums: within an e4m3 step
+        got, want = got.float(), want.float()
+        assert float((got - want).abs().max()) <= 2 ** -3 * float(
+            want.abs().max())
+        return
+    tol = 1e-5 if out == torch.float32 else VARIANT_TOL[dtype]
+    assert _normwise(got[live], want[live]) <= tol
+    if mask_kind == "ones":
+        assert _normwise(got, gm.matmul(a, b, out_dtype=out)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cells", [(128, 128), (256, 128)])
+def test_blocksparse_tma_all_ones_is_matmul_bit_for_bit(cuda, dtype, cells):
+    """At an all-ones mask the TMA kernel is gm.matmul's TMA kernel at its
+    block (128 x 128 x 64) over the same K steps: the same float32 sums,
+    the same bits (float32 and the input type out), at cells of one tile
+    and of two."""
+    M, N, K = 512, 768, 1000
+    a = _randn(cuda, (M, K), dtype, 30)
+    b = _randn(cuda, (K, N), dtype, 31)
+    ones = torch.ones((M // cells[0], N // cells[1]), dtype=torch.int32,
+                      device=cuda)
+    for out in (torch.float32, dtype):
+        got = gv.blocksparse_matmul(a, b, ones, *cells, out_dtype=out)
+        want = gm.matmul(a, b, out_dtype=out, block_M=128, block_N=128,
+                         block_K=64)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("off", ["a", "b"])
+def test_blocksparse_misaligned_takes_the_loop(cuda, dtype, off):
+    """A or B off 16 bytes: blocksparse_path names the tile loop, which
+    holds the contract (dead cells 0, live ones the product)."""
+    M, N, K, blk = 256, 384, 200, 64
+    a = _randn(cuda, (M * K + 1,), dtype, 32)
+    b = _randn(cuda, (K * N + 1,), dtype, 33)
+    a = a[1:].view(M, K) if off == "a" else a[:-1].view(M, K)
+    b = b[1:].view(K, N) if off == "b" else b[:-1].view(K, N)
+    assert gv.blocksparse_path(M, N, K, dtype, a.data_ptr(),
+                               b.data_ptr()) == "loop"
+    mask = _blocksparse_mask(cuda, (M // blk, N // blk), "random")
+    got = gv.blocksparse_matmul(a, b, mask, blk, blk)
+    live = (mask != 0).repeat_interleave(blk, 0).repeat_interleave(blk, 1)
+    assert not got[~live].float().any()
+    want = gv.blocksparse_matmul_plain(a, b, mask, blk, blk)
+    assert _normwise(got[live], want[live]) <= VARIANT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+def test_blocksparse_gemm_is_deterministic(cuda, dtype):
+    """No atomics on either path (float32 the tile loop, 16-bit the TMA
+    kernel): two calls, the same bits."""
+    M, N, K, blk = 384, 512, 520, 128
+    a = _randn(cuda, (M, K), dtype, 34)
+    b = _randn(cuda, (K, N), dtype, 35)
+    mask = _blocksparse_mask(cuda, (M // blk, N // blk), "random")
+    first = gv.blocksparse_matmul(a, b, mask, blk, blk)
+    assert torch.equal(first, gv.blocksparse_matmul(a, b, mask, blk, blk))
+
+
 def _w4_card(dev, K2, N, gs, seed):
     from tilelang_mesh_tpu_torch.quantize import quantize_int4_planar
     w = np.random.default_rng(seed).standard_normal((2 * K2, N)).astype(
@@ -2078,6 +2182,177 @@ def test_varlen_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
     live = torch.ones((1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         vl.varlen_fwd(x, x, x, ids, ids, ids, ids, live, True, 0.1)
+
+
+def _mask_tile_instances(D):
+    """The (block_M, block_N) pairs that csrc/attention_mma.cuh's
+    mask_tiles builds at head_dim D, read from its source."""
+    src = (_build.CSRC / "attention_mma.cuh").read_text()
+    body = src[src.index("int mask_tiles("):]
+    body = body[:body.index("\n}\n")]
+    by_d = {}
+    for d, pairs in re.findall(
+            r"(?:D == (\d+)\)|else)\s*return run_tile<([\d, ]+)>", body):
+        n = [int(x) for x in pairs.split(",")]
+        by_d[int(d) if d else None] = list(zip(n[::2], n[1::2]))
+    return by_d.get(D, by_d[None])
+
+
+# the tensor-core forward (varlen_fwd_mma): every (head_dim, tile) instance
+VARLEN_MMA_TILES = [(d, t) for d in (16, 32, 64, 128)
+                    for t in _mask_tile_instances(d)]
+VARLEN_MMA_CASES = [  # lens_q, lens_k, block_M, block_N
+    ([100, 37, 260], [100, 37, 260], 128, 128),
+    ([70, 1, 90], [30, 100, 20], 40, 24),      # cells off the tiles
+    ([20, 35, 11, 60], [44, 17, 52, 90], 16, 80),
+    ([130, 5], [200, 77], 32, 32),             # Tq != Tk
+]
+
+
+def _varlen_fwd_both(q, k, v, masks, causal, sm):
+    """varlen_fwd and varlen_fwd_partial, one launch each (counted)."""
+    before = dict(vl.launches)
+    o = vl.varlen_fwd(q, k, v, *masks, causal, sm)
+    part = vl.varlen_fwd_partial(q, k, v, *masks, causal, sm)
+    torch.cuda.synchronize()
+    assert vl.launches == {**before,
+                           "varlen_fwd": before["varlen_fwd"] + 1,
+                           "varlen_fwd_partial":
+                               before["varlen_fwd_partial"] + 1}
+    return o, part
+
+
+def _varlen_fwd_hold(q, k, v, masks, causal, sm, dtype, tq=None):
+    """Both forwards against their plain versions: O and (acc, l)
+    normwise, M where l > 0; rows that see no key 0 in O, acc and l and
+    -1e30 in M; rows past ``tq`` (the pad tail) 0."""
+    o, (acc, m, l) = _varlen_fwd_both(q, k, v, masks, causal, sm)
+    pacc, pm, pl = vl.varlen_fwd_partial_plain(q, k, v, *masks, causal, sm)
+    assert o.dtype == dtype and acc.dtype == torch.float32
+    assert _normwise(o, vl.varlen_fwd_plain(q, k, v, *masks, causal, sm)) \
+        <= ATTN_TOL[dtype]
+    assert _normwise((acc, l), (pacc, pl)) <= ATTN_TOL[dtype]
+    seen = pl > 0
+    assert _normwise(m[seen], pm[seen]) <= ATTN_TOL[dtype]
+    assert bool((m[~seen] == -1e30).all()) and not l[~seen].any()
+    assert not acc[~seen].any() and not o[~seen].any()
+    if tq is not None:
+        assert not o[:, tq:].any() and not l[:, tq:].any()
+    return o, acc, m, l
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,align", VARLEN_MODES)
+@pytest.mark.parametrize("d,tile", VARLEN_MMA_TILES)
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 2)])
+@pytest.mark.parametrize("case", VARLEN_MMA_CASES)
+def test_varlen_mma_tiles_match_plain(cuda, monkeypatch, dtype, causal,
+                                      align, d, tile, Hq, Hkv, case):
+    """The tensor-core forward at each of its tiles, MHA and group 4:
+    documents off the tile, Tq != Tk, bottom-right shifts, liveness cells
+    that do not line up with the tile, the pad tail."""
+    monkeypatch.setitem(vl.VARLEN_TILES, d, tile)
+    lens_q, lens_k, bM, bN = case
+    q, k, v, _, _, _, masks, sm, tq = _varlen_inputs(
+        cuda, lens_q, lens_k, Hq, Hkv, d, dtype, causal, align, bM, bN)
+    _varlen_fwd_hold(q, k, v, masks, causal, sm, dtype, tq)
+
+
+def _unsorted_ids(dev, T, docs, seed):
+    """(seq, pos) int32 ids of T tokens in no order: token t belongs to
+    document rng % docs, so documents interleave and straddle every tile;
+    positions count each document's tokens in packed order."""
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, docs, T)
+    pos = np.zeros(T, np.int64)
+    seen = np.zeros(docs, np.int64)
+    for t, s_ in enumerate(seq):
+        pos[t], seen[s_] = seen[s_], seen[s_] + 1
+    return (torch.from_numpy(seq.astype(np.int32)).to(dev),
+            torch.from_numpy(pos.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,tile", VARLEN_MMA_TILES)
+@pytest.mark.parametrize("order", ["interleaved", "straddling", "reversed"])
+def test_varlen_mma_unsorted_ids_match_plain(cuda, monkeypatch, dtype,
+                                             causal, d, tile, order):
+    """Ids in any order are exact: documents interleaved token by token,
+    one document straddling every tile of another's, and a pack in
+    reverse order (positions falling along the axis); the liveness table
+    from ``_block_live`` (ranges of ids a cell), pad rows past the ids."""
+    monkeypatch.setitem(vl.VARLEN_TILES, d, tile)
+    Tq, Tk, Hq, Hkv = 320, 256, 4, 2
+    if order == "interleaved":
+        sq, pq = _unsorted_ids(cuda, Tq, 3, 5)
+        sk, pk = _unsorted_ids(cuda, Tk, 3, 6)
+    elif order == "straddling":
+        # document 1's tokens every 7th slot inside document 0's run
+        def ids(T):
+            t = torch.arange(T, device=cuda)
+            seq = (t % 7 == 3).to(torch.int32)
+            pos = torch.zeros(T, dtype=torch.int32, device=cuda)
+            for s_ in (0, 1):
+                sel = seq == s_
+                pos[sel] = torch.arange(int(sel.sum()), device=cuda,
+                                        dtype=torch.int32)
+            return seq, pos
+        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
+    else:
+        def ids(T):
+            t = torch.arange(T - 1, -1, -1, device=cuda, dtype=torch.int32)
+            return (t // 100).to(torch.int32), t % 100
+        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
+    sq, pq, sk, pk = sq.clone(), pq.clone(), sk.clone(), pk.clone()
+    sq[-5:], pq[-5:], sk[-3:], pk[-3:] = -1, 0, -2, 0
+    bM, bN = 32, 64
+    live = vl._block_live(sq, sq >= 0, pq, sk, sk >= 0, pk, bM, bN, causal)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((Hq, Tq, d), (Hkv, Tk, d), (Hkv, Tk, d)))
+    masks = (sq, sk, pq, pk, live)
+    _varlen_fwd_hold(q, k, v, masks, causal, 1.0 / math.sqrt(d), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_varlen_forward_kernels_are_deterministic(cuda, dtype):
+    """One block owns its rows (no atomics): two calls, the same bits."""
+    q, k, v, _, _, _, masks, sm, _ = _varlen_inputs(
+        cuda, [300, 77, 500], [300, 77, 500], 8, 2, 128, dtype, True,
+        "top-left", 128, 128)
+    first = _varlen_fwd_both(q, k, v, masks, True, sm)
+    second = _varlen_fwd_both(q, k, v, masks, True, sm)
+    assert torch.equal(first[0], second[0])
+    for a, b in zip(first[1], second[1]):
+        assert torch.equal(a, b)
+
+
+def test_varlen_tile_is_an_instance_on_the_card(cuda):
+    """Every mask_tiles instance at D 64 launches, varlen_tile(64)'s
+    among them, and the C dispatch refuses a tile it does not build."""
+    q, k, v, _, _, _, masks, sm, _ = _varlen_inputs(
+        cuda, [90], [90], 2, 2, 64, torch.bfloat16, True, "top-left", 64,
+        64)
+    from tilelang_mesh_tpu_torch.ops.gemm import DTYPE_CODES
+    fn = _build.load("flash_attention_varlen").tl_varlen_fwd_tiled
+    import ctypes
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    o = torch.empty_like(q)
+    args = [t.data_ptr() for t in (q, k, v, *masks, o)] + [None, None]
+    Hq, Tq, D = q.shape
+    Tk = k.shape[1]
+    common = [Hq, k.shape[0], Tq, Tk, D, Tq // masks[4].shape[0],
+              Tk // masks[4].shape[1], DTYPE_CODES[q.dtype], 1, 0]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert vl.varlen_tile(D) in _mask_tile_instances(D)
+    for tile in _mask_tile_instances(D):
+        assert fn(*args, *common, *tile, float(sm), stream) == 0
+    assert fn(*args, *common, 96, 48, float(sm), stream) != 0
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

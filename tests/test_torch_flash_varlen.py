@@ -17,6 +17,7 @@ tests/test_torch_cuda.py.
 
 import importlib
 import math
+import re
 
 import numpy as np
 import pytest
@@ -197,6 +198,116 @@ def test_partials_match_jax(causal, align):
     np.testing.assert_allclose(o.numpy(), np.asarray(
         ref.varlen_fwd_kernel(*args)(q, k, v, *ops)), rtol=TOL, atol=TOL)
     assert (o.numpy()[~live_rows] == 0).all()
+
+
+def _mask_tile_instances(D):
+    """The (block_M, block_N) pairs that csrc/attention_mma.cuh's
+    mask_tiles builds at head_dim D, read from its source."""
+    from tilelang_mesh_tpu_torch.ops._build import CSRC
+    src = (CSRC / "attention_mma.cuh").read_text()
+    body = src[src.index("int mask_tiles("):]
+    body = body[:body.index("\n}\n")]
+    by_d = {}
+    for d, pairs in re.findall(
+            r"(?:D == (\d+)\)|else)\s*return run_tile<([\d, ]+)>", body):
+        n = [int(x) for x in pairs.split(",")]
+        by_d[int(d) if d else None] = list(zip(n[::2], n[1::2]))
+    return by_d.get(D, by_d[None])
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+def test_varlen_tile_rule(D):
+    """The tensor-core forward's tile, VARLEN_TILES[D], is an instance
+    the C source builds (mask_tiles, at the head_dims of
+    KERNEL_HEAD_DIMS), the one with the most rows; None without an
+    instance."""
+    tile = port.varlen_tile(D)
+    if D not in port_fa.KERNEL_HEAD_DIMS:
+        assert tile is None and D not in port.VARLEN_TILES
+        return
+    assert tile == port.VARLEN_TILES[D]
+    assert tile == max(_mask_tile_instances(D))
+
+
+# the liveness cells, lengths and Tq != Tk the card tests give the
+# tensor-core forward (tests/test_torch_cuda.py, VARLEN_MMA_CASES)
+CARD_CASES = [([70, 1, 90], [30, 100, 20], 40, 24),
+              ([20, 35, 11, 60], [44, 17, 52, 90], 16, 80),
+              ([130, 5], [200, 77], 32, 32)]
+
+
+@pytest.mark.parametrize("causal,align", MODES)
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_card_cases_match_jax(case, causal, align):
+    """The entry point's plain path against the JAX kernel's at the card
+    tests' cells (40 x 24 and 16 x 80: no multiple of the kernel's tiles)
+    and lengths, a pad tail of 3 query and 2 key rows, group 2."""
+    lens_q, lens_k, bM, bN = case
+    arrays = _packed(lens_q, lens_k, 4, 2, 32, seed=bM, extra_q=3,
+                     extra_k=2)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    cu_q, cu_k = _cu(lens_q), _cu(lens_k)
+    want = np.asarray(ref.flash_attention_varlen(
+        jq, jk, jv, cu_q, cu_k, causal=causal, block_M=bM, block_N=bN,
+        causal_align=align))
+    got = port.flash_attention_varlen(tq, tk, tv, cu_q, cu_k, causal=causal,
+                                      block_M=bM, block_N=bN,
+                                      causal_align=align)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert not got[int(cu_q[-1]):].any()
+
+
+def _unsorted(order, T):
+    """(seq, pos) int32 numpy ids of T tokens in no order, the card
+    tests' three kinds: documents interleaved at random, document 1 in
+    every 7th slot of document 0's run, a pack in reverse order."""
+    if order == "interleaved":
+        seq = np.random.default_rng(T).integers(0, 3, T)
+    elif order == "straddling":
+        seq = (np.arange(T) % 7 == 3).astype(np.int64)
+    else:
+        t = np.arange(T - 1, -1, -1)
+        return (t // 40).astype(np.int32), (t % 40).astype(np.int32)
+    pos = np.zeros(T, np.int64)
+    for s_ in np.unique(seq):
+        pos[seq == s_] = np.arange((seq == s_).sum())
+    return seq.astype(np.int32), pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("order", ["interleaved", "straddling", "reversed"])
+def test_unsorted_ids_match_jax(order, causal):
+    """The contract holds for ids in any order: the factories' partials
+    and output on unsorted ids (pad ids on the last rows, the liveness
+    table from the JAX package's ``_block_live``), M where l > 0."""
+    Hq, Hkv, D, Tq, Tk, bM, bN = 4, 2, 32, 96, 64, 32, 32
+    sq, pq = _unsorted(order, Tq)
+    sk, pk = _unsorted(order, Tk)
+    sq[-5:], pq[-5:], sk[-3:], pk[-3:] = -1, 0, -2, 0
+    live = np.array(ref._block_live(
+        jnp.asarray(sq), jnp.asarray(sq >= 0), jnp.asarray(pq),
+        jnp.asarray(sk), jnp.asarray(sk >= 0), jnp.asarray(pk), bM, bN,
+        causal))
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((Hq, Tq, D), (Hkv, Tk, D), (Hkv, Tk, D)))
+    ops = (sq, sk, pq, pk, live)
+    args = (Hq, Hkv, Tq, Tk, D, bM, bN, causal, 1.0 / math.sqrt(D),
+            "float32")
+    want = [np.asarray(w) for w in ref.varlen_fwd_kernel(
+        *args, return_partials=True)(q, k, v, *ops)]
+    t_ops = [torch.from_numpy(np.array(x)) for x in (q, k, v, *ops)]
+    acc, m, l = (g.numpy() for g in port.varlen_fwd_kernel(
+        *args, return_partials=True)(*t_ops))
+    seen = want[2] > 0
+    assert seen.any() and (~seen).any()
+    np.testing.assert_allclose(acc, want[0], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(l, want[2], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(m[seen], want[1][seen], rtol=TOL, atol=TOL)
+    assert (l[~seen] == 0).all() and (acc[~seen] == 0).all()
+    o = port.varlen_fwd_kernel(*args)(*t_ops)
+    np.testing.assert_allclose(o.numpy(), np.asarray(
+        ref.varlen_fwd_kernel(*args)(q, k, v, *ops)), rtol=TOL, atol=TOL)
 
 
 def test_padded_rows_zero():

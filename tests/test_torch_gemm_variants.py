@@ -14,6 +14,8 @@ kernels are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -119,6 +121,73 @@ def test_blocksparse_matches_jax(dtype, block):
     assert live.any() and (~live).any()
     assert not got.float().numpy()[~live].any()        # exactly 0
     assert np.abs(got.float().numpy()[live]).min() > 0
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("M,N,K,cells", [(512, 384, 256, (256, 128)),
+                                         (320, 576, 128, (64, 192)),
+                                         (192, 320, 128, (64, 64))])
+def test_blocksparse_card_shapes_match_jax(dtype, M, N, K, cells):
+    """The shapes and cells the card tests give the TMA kernel (cells of
+    256 x 128 and 64 x 192, M and N off its 128 x 128 tile), its plain
+    version against the JAX kernel; K a multiple of the JAX block_K."""
+    bm, bn = cells
+    ja, ta = _pair((M, K), 11, dtype)
+    jb, tb = _pair((K, N), 12, dtype)
+    mask = np.random.default_rng(13).integers(
+        0, 2, (M // bm, N // bn)).astype(np.int32)
+    want = np.asarray(ref.blocksparse_matmul(
+        ja, jb, jnp.asarray(mask), block_M=bm, block_N=bn), np.float32)
+    got = port.blocksparse_matmul(ta, tb, torch.from_numpy(mask),
+                                  block_M=bm, block_N=bn)
+    _close(got, want, dtype)
+    live = _dense_mask(mask, bm, bn)
+    assert live.any() and (~live).any()
+    assert not got.float().numpy()[~live].any()        # exactly 0
+
+
+def _blocks(source, macro):
+    """The (TM, TN, TK) list of a csrc macro of X(TM, TN, TK) entries,
+    read from its source, in order."""
+    from tilelang_mesh_tpu_torch.ops._build import CSRC
+    src = (CSRC / source).read_text()
+    body = src[src.index(f"#define {macro}"):]
+    body = body[:body.index("\n\n")]
+    return [tuple(int(x) for x in t)
+            for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+
+
+@pytest.mark.parametrize("ctype", ["__nv_bfloat16", "__half"])
+def test_blocksparse_tma_instance(ctype):
+    """The TMA kernel is built once a 16-bit type, at 128 x 128 x 64 (a
+    block of TL_SM90_BLOCKS, the one gm.matmul's all-ones comparison on
+    the card uses), read from the C source."""
+    from tilelang_mesh_tpu_torch.ops._build import CSRC
+    src = (CSRC / "gemm_variants.cu").read_text()
+    found = re.findall(rf"launch_blocksparse_tma<{ctype}, (\d+), (\d+), "
+                       r"(\d+)>", src)
+    assert found == [("128", "128", "64")]
+    assert (128, 128, 64) in _blocks("gemm_sm90.cuh", "TL_SM90_BLOCKS")
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("M,N,K,ptrs", [
+    (4096, 11008, 4096, (0, 0)), (4096, 11008, 4096, (256, 1024)),
+    (4096, 11008, 4096, (8, 0)), (4096, 11008, 4096, (0, 2)),
+    (4096, 11008, 4100, (0, 0)), (4096, 11004, 4096, (0, 0)),
+    (192, 320, 200, (0, 0)), (0, 11008, 4096, (0, 0)),
+    (4096, 0, 4096, (0, 0)), (4096, 11008, 0, (0, 0)),
+    (1, 8, 8, (0, 0)), (4096, 11008, 4104, (0, 0)),
+    (4096, 11008, 4096, (1024, 8))])
+def test_blocksparse_path_by_type_and_alignment(dtype, M, N, K, ptrs):
+    """bfloat16 / float16 with both bases and both row strides on 16
+    bytes take the TMA kernel; float32, misaligned or empty operands the
+    tile loop."""
+    tma = dtype != "float32" and min(M, N, K) > 0 and K % 8 == 0 \
+        and N % 8 == 0 and ptrs[0] % 16 == 0 and ptrs[1] % 16 == 0
+    for dt in (dtype, _DTYPES[dtype][1]):
+        assert port.blocksparse_path(M, N, K, dt, *ptrs) == \
+            ("tma" if tma else "loop")
 
 
 @pytest.mark.parametrize("n_tiles", [1, 7, 12, 344])

@@ -1,6 +1,7 @@
 // Fragment helpers of the tensor-core attention kernels (gqa_bwd.cu's and
 // nsa_bwd.cu's backward pairs, flash_attention.cu's, nsa.cu's,
-// blocksparse_attention.cu's and minference.cu's forwards): bfloat16
+// blocksparse_attention.cu's, minference.cu's and
+// flash_attention_varlen.cu's forwards): bfloat16
 // and float16 operands in shared memory, each row padded by kPad
 // elements (an odd count of 16-byte chunks, so the 8 rows of an ldmatrix
 // hit 8 bank groups), products on mma.sync m16n8k16 with float32 sums.
@@ -32,6 +33,19 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const unsigned*>(&h);
   }
+}
+
+// two E (bf16 or f16) of one register times `scale` in float32, rounded
+// back to E: the prescaled Q of the forwards' contract (flash_attention.cu,
+// flash_attention_varlen.cu)
+template <typename E>
+__device__ __forceinline__ unsigned scale2(unsigned x, float scale) {
+  float2 f;
+  if constexpr (std::is_same_v<E, __half>)
+    f = __half22float2(*reinterpret_cast<const __half2*>(&x));
+  else
+    f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack2<E>(f.x * scale, f.y * scale);
 }
 
 // rows [r0, r0 + R) of a row-major (S, D) matrix into dst[R][D + kPad]
@@ -243,7 +257,8 @@ struct QFrags {
 };
 
 // One key tile of the masked tensor-core forwards
-// (blocksparse_attention.cu's and minference.cu's; attention_sink.cu's
+// (blocksparse_attention.cu's, minference.cu's and
+// flash_attention_varlen.cu's; attention_sink.cu's
 // sink_fwd_mma loop body with the visibility test passed in, as
 // attention_tile.cuh's attend_tile takes it on CUDA cores), for a warp's
 // WM m16 row tiles: S = Q K^T over the TN keys of tK ([TN][D + kPad]),
@@ -418,10 +433,11 @@ int fwd_tiles(int tm, int tn, const Run& run) {
     return run_tile<64, 64>(tm, tn, run);
 }
 
-// blocksparse_attention.cu's and minference.cu's: fwd_tiles' pairs with
-// block_N 64 (a row's mask is one 64-bit word; a tile over several cells
-// ORs them in, cell_bits), the default first. The wrappers'
-// BLOCKSPARSE_TILES and VS_TILES order them by timing.
+// blocksparse_attention.cu's, minference.cu's and
+// flash_attention_varlen.cu's: fwd_tiles' pairs with block_N 64 (a row's
+// mask is one 64-bit word; a tile over several cells ORs them in,
+// cell_bits), the default first. The wrappers' BLOCKSPARSE_TILES,
+// VS_TILES and VARLEN_TILES order them by timing.
 template <int D, typename Run>
 int mask_tiles(int tm, int tn, const Run& run) {
   if constexpr (D == 128)

@@ -215,18 +215,6 @@ mha_fwd(const typename Elem<DT>::T* __restrict__ q,
 // bfloat16 and float16: tensor cores
 // ---------------------------------------------------------------------------
 
-// two E (bf16 or f16) of one register times `scale` in float32, rounded
-// back to E: the prescaled Q of the contract
-template <typename E>
-__device__ __forceinline__ unsigned scale2(unsigned x, float scale) {
-  float2 f;
-  if constexpr (std::is_same_v<E, __half>)
-    f = __half22float2(*reinterpret_cast<const __half2*>(&x));
-  else
-    f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack2<E>(f.x * scale, f.y * scale);
-}
-
 template <int D, int TM, int TN>
 constexpr size_t fwd_mma_smem_bytes() {
   return 2 * (size_t)(TM + 4 * TN) * (D + kPad);  // Q, two stages of K, V

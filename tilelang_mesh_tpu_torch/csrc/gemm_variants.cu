@@ -1,6 +1,7 @@
 // GEMM scheduling variants for Hopper (sm_90a): split-K, stream-K and the
 // block-sparse GEMM, on the block tile loop of gemm_tile.cuh, and
-// stream-K in bfloat16 / float16 on gemm_sm90.cuh's TMA + wgmma body.
+// stream-K and the block-sparse GEMM in bfloat16 / float16 on
+// gemm_sm90.cuh's TMA + wgmma body.
 //
 // Replaces three TPU kernels of tilelang_mesh_tpu/ops/gemm_variants.py:
 //   splitk_kernel (:36) -> tl_splitk_stream (+ tl_splitk_stream_combine)
@@ -24,12 +25,18 @@
 //     tl_streamk_tma (streamk_tma, below) for bfloat16 / float16 at the
 //     tiles of TL_SM90_BLOCKS on 16-byte aligned operands, one block an
 //     SM; tl_streamk_gemm (the tile loop, up to 128 x 128) for the rest.
-//   blocksparse_gemm_kernel (:206) -> tl_blocksparse_gemm
+//   blocksparse_gemm_kernel (:206) -> tl_blocksparse_tma or
+//     tl_blocksparse_gemm
 //     C (M, N) = A @ B where the (M / bm, N / bn) mask cell is nonzero,
-//     exactly 0 elsewhere. One block a 128 x 128 tile of C: a tile none
-//     of whose cells is live writes zeros and skips the K loop; a live
-//     one runs it and zeroes the elements of its dead cells, so any cell
-//     size works.
+//     exactly 0 elsewhere. One block a tile of C: a tile none of whose
+//     cells is live writes zeros and skips the K loop; a live one runs it
+//     and zeroes the elements of its dead cells, so any cell size works.
+//     ops/gemm_variants.py::blocksparse_path picks the kernel:
+//     tl_blocksparse_tma (blocksparse_tma, below: gemm_sm90.cuh's
+//     producer warpgroup, two consumer warpgroups and ring at a 128 x
+//     128 x 64 tile, which lies in one of the main path's 128-square
+//     cells) for bfloat16 / float16 on 16-byte aligned operands;
+//     tl_blocksparse_gemm (the tile loop, 128 x 128) for the rest.
 //
 // The TPU kernels write partials and leave the sums to XLA because the
 // TPU has no global atomics; here a second small kernel sums them, in
@@ -79,7 +86,11 @@
 // 132 programs (one block an SM) and about 476 segments of 64 KB at the
 // 128 x 128 tile: 31 MB of partials written and read back by the fixup,
 // some 20 us of HBM time beside the 47 us of products. Block-sparse
-// at a 4096-token prefill is operations-bound on its live tiles.
+// at a 4096-token prefill is operations-bound on its live tiles (LLaMA-
+// 2-7B's gate/up, 128-square cells at density 0.5: 187 GFLOP, 0.19 ms
+// at the bf16 peak, against 135 MB of operands and C, 0.04 ms); the TMA
+// kernel runs the live tiles at gm.matmul's rate, and a dead tile costs
+// its zeros' stores.
 
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
@@ -612,6 +623,138 @@ blocksparse_gemm(const T* __restrict__ a, const T* __restrict__ b,
                   });
 }
 
+// ---------------------------------------------------------------------------
+// block-sparse on TMA + wgmma: one block a live output tile
+// ---------------------------------------------------------------------------
+
+// A consumer's TM / 2 staged rows from `row0` (rows of LDC floats at cs)
+// into C of element type O, a row at a time, with gemm_tile.cuh's
+// rounding store; 0 on the elements whose mask cell is dead (tested
+// only when the tile spans several cells, `one_cell` false); rows past
+// `rows` and columns past N are not stored
+template <int TM, int TN, int LDC, typename O>
+__device__ __forceinline__ void store_cells(O* c, const float* cs,
+                                            const int* __restrict__ mask,
+                                            int rows, int row0, int m0,
+                                            int n0, int N, int bm, int bn,
+                                            bool one_cell) {
+  const int n_cn = N / bn;
+  for (int i = threadIdx.x % 128; i < (TM / 2) * TN; i += 128) {
+    const int r = row0 + i / TN, n = n0 + i % TN;
+    if (r >= rows || n >= N) continue;
+    const bool live = one_cell || mask[((m0 + r) / bm) * n_cn + n / bn];
+    store(c + (long long)(m0 + r) * N + n, live ? cs[r * LDC + i % TN] : 0.f);
+  }
+}
+
+// gemm_sm90.cuh's gemm_tma for A (M, K) K-major and B (K, N) MN-major
+// (the maps `ma`, `mb`), over the live tiles: a block whose TM x TN tile
+// of C overlaps no live cell of `mask` (M / bm, N / bn) stores its zeros
+// and returns before the barriers exist; a live one runs the K loop and
+// its epilogue stores 0 on the elements of dead cells (any cell size).
+template <typename T, int TM, int TN, int TK>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+blocksparse_tma(const __grid_constant__ CUtensorMap ma,
+                const __grid_constant__ CUtensorMap mb,
+                const int* __restrict__ mask, void* __restrict__ c, int M,
+                int N, int K, int bm, int bn, int out) {
+  using C = sm90::Cfg<T, TM, TN, TK>;
+  extern __shared__ __align__(1024) char smem_raw[];
+  int mt, nt;
+  tile_of(blockIdx.x, (M + TM - 1) / TM, (N + TN - 1) / TN, mt, nt);
+  const int m0 = mt * TM, n0 = nt * TN;
+  const int rows = min(TM, M - m0), cols = min(TN, N - n0);
+  // the mask cells the tile overlaps: rows cr0..cr1, columns cc0..cc1
+  const int n_cn = N / bn;
+  const int cr0 = m0 / bm, cr1 = (m0 + rows - 1) / bm;
+  const int cc0 = n0 / bn, cc1 = (n0 + cols - 1) / bn;
+  const int ncc = cc1 - cc0 + 1;
+  int any = 0;
+  for (int i = threadIdx.x; i < (cr1 - cr0 + 1) * ncc && !any;
+       i += sm90::kThreads)
+    any = mask[(cr0 + i / ncc) * n_cn + cc0 + i % ncc] != 0;
+  if (!__syncthreads_or(any)) {
+    for (int i = threadIdx.x; i < rows * cols; i += sm90::kThreads)
+      store_as(c, (long long)(m0 + i / cols) * N + n0 + i % cols, out, 0.f);
+    return;
+  }
+
+  char* buf = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + C::kBuf);
+  uint64_t* empty = full + C::kStages;
+  const int nk = (K + TK - 1) / TK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);       // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {                           // producer
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % C::kStages;
+        sm90::mbar_wait(&empty[s], ((kt / C::kStages) & 1) ^ 1);
+        char* sa = buf + s * C::kStage;
+        char* sb = sa + C::kStageA;
+        sm90::mbar_expect_tx(&full[s], C::kStage);
+        const int k0 = kt * TK;
+        sm90::tma_load(sa, &ma, &full[s], k0, m0);
+        for (int j = 0; j < TN / 64; ++j)
+          sm90::tma_load(sb + j * TK * 128, &mb, &full[s], n0 + 64 * j, k0);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();             // consumers
+  constexpr int MI = TM / 128;
+  const int cw = wg - 1;
+  const int row0 = cw * (TM / 2);
+  float acc[MI][TN / 2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int e = 0; e < TN / 2; ++e) acc[mi][e] = 0.f;
+  sm90::mainloop16<T, TM, TN, TK, 0, 1>(acc, buf, full, empty, nk, row0);
+
+  // epilogue: both consumers past the ring, then each stages its rows
+  // as float32 and stores them a row at a time
+  sm90::named_sync(1, 256);
+  float* cs = reinterpret_cast<float*>(buf);
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + mi * 64 + 16 * w + lane / 4 + 8 * h;
+        *reinterpret_cast<float2*>(cs + r * C::kLdC + 8 * j +
+                                   2 * (lane % 4)) =
+            make_float2(acc[mi][4 * j + 2 * h], acc[mi][4 * j + 2 * h + 1]);
+      }
+  sm90::named_sync(2 + cw, 128);
+  const bool one = cr0 == cr1 && cc0 == cc1;  // and that cell is live
+  constexpr int L = C::kLdC;
+  if (out == kF32)
+    store_cells<TM, TN, L>(static_cast<float*>(c), cs, mask, rows, row0, m0,
+                           n0, N, bm, bn, one);
+  else if (out == kBF16)
+    store_cells<TM, TN, L>(static_cast<__nv_bfloat16*>(c), cs, mask, rows,
+                           row0, m0, n0, N, bm, bn, one);
+  else if (out == kF16)
+    store_cells<TM, TN, L>(static_cast<__half*>(c), cs, mask, rows, row0,
+                           m0, n0, N, bm, bn, one);
+  else
+    store_cells<TM, TN, L>(static_cast<__nv_fp8_e4m3*>(c), cs, mask, rows,
+                           row0, m0, n0, N, bm, bn, one);
+}
+
 // blocks for an elementwise pass over n elements, kThreads a block
 unsigned elementwise_blocks(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
@@ -625,6 +768,28 @@ int vec_of(const void* a, const void* b, int K, int N, int step, int esize) {
 }
 
 int esize_of(int in_type) { return in_type == kF32 ? 4 : 2; }
+
+// blocksparse_tma<T, TM, TN, TK> on `s` over every TM x TN tile of C;
+// cudaErrorInvalidValue when a map is refused
+template <typename T, int TM, int TN, int TK>
+int launch_blocksparse_tma(const void* a, const void* b, const int* mask,
+                           void* c, int M, int N, int K, int bm, int bn,
+                           int type, int out, cudaStream_t s) {
+  using C = sm90::Cfg<T, TM, TN, TK>;
+  CUtensorMap ma, mb;
+  if (!sm90::make_map(&ma, a, type, M, K, K, TK, TM) ||
+      !sm90::make_map(&mb, b, type, K, N, N, 64, TK))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = blocksparse_tma<T, TM, TN, TK>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned tiles = (unsigned)((M + TM - 1) / TM) *
+                         (unsigned)((N + TN - 1) / TN);
+  kern<<<tiles, sm90::kThreads, C::kSmem, s>>>(ma, mb, mask, c, M, N, K, bm,
+                                               bn, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -795,6 +960,25 @@ extern "C" int tl_streamk_blocks_per_sm(int in_type, int* blocks) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, streamk_gemm<__half>, kThreads, 0);
   return (int)e;
+}
+
+// The TMA path (ops/gemm_variants.py::blocksparse_path): a (M, K), b
+// (K, N) of in_type kBF16 or kF16, both bases and rows on 16 bytes, mask
+// (M / bm, N / bn) int32 -> c (M, N) in out_type, a block a 128 x 128
+// tile of C. cudaErrorInvalidValue for another type, or when a tensor
+// map is refused.
+extern "C" int tl_blocksparse_tma(const void* a, const void* b,
+                                  const int* mask, void* c, int M, int N,
+                                  int K, int bm, int bn, int in_type,
+                                  int out_type, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (in_type == kBF16)
+    return launch_blocksparse_tma<__nv_bfloat16, 128, 128, 64>(
+        a, b, mask, c, M, N, K, bm, bn, in_type, out_type, s);
+  if (in_type == kF16)
+    return launch_blocksparse_tma<__half, 128, 128, 64>(
+        a, b, mask, c, M, N, K, bm, bn, in_type, out_type, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // a (M, K), b (K, N), mask (M / bm, N / bn) int32 -> c (M, N) in out_type

@@ -31,8 +31,14 @@ rows with ``l == 0``) and this module's backward, with the document
 masks as operands that take no gradient. ``backward="reference"`` is
 refused: a dense reference cannot see the masks.
 
+The forward's float32 kernel runs on CUDA cores; bfloat16 and float16
+run ``varlen_fwd_mma`` on the tensor cores at the tile
+``varlen_tile(D)``, one kernel for both wrappers (``partial`` a runtime
+flag), counted as ``varlen_fwd`` or ``varlen_fwd_partial``.
+
 Each kernel's wrapper launches it on CUDA tensors (a build or launch
-failure raises) and runs its plain PyTorch version (``*_plain``: the
+failure raises; there is no fallback to another kernel) and runs its
+plain PyTorch version (``*_plain``: the
 elementwise document mask over dense scores in the exp2 domain, a chunk
 of query rows at a time, rounded where the kernel rounds) on CPU
 tensors. The plain versions ignore the liveness table: it only skips
@@ -60,7 +66,7 @@ __all__ = ["flash_attention_varlen", "pack_varlen", "varlen_fwd", "varlen_fwd_pa
            "varlen_fwd_partial_plain", "varlen_bwd_dkdv_plain",
            "varlen_bwd_dq_plain", "varlen_fwd_kernel",
            "varlen_bwd_dkdv_kernel", "varlen_bwd_dq_kernel", "launches",
-           "reset_launches", "PLAIN_ROWS"]
+           "reset_launches", "PLAIN_ROWS", "VARLEN_TILES", "varlen_tile"]
 
 # kernel name -> launches through its wrapper
 launches = {"varlen_fwd": 0, "varlen_fwd_partial": 0, "varlen_bwd_dkdv": 0,
@@ -69,6 +75,21 @@ launches = {"varlen_fwd": 0, "varlen_fwd_partial": 0, "varlen_bwd_dkdv": 0,
 # query rows a plain version scores at once: a dense (Hq, Tq, Tk) float32
 # score matrix of a 16384-token pack at 20 heads would be 21 GB
 PLAIN_ROWS = 1024
+
+
+# the tensor-core forward's tile (block_M, block_N) by head_dim, one of
+# csrc/attention_mma.cuh's mask_tiles instances: 128 x 64 where it is
+# built (at D 128 it beat 64 x 64 on the prefill, 0.604 against 0.655 ms,
+# and on the pack; scripts/varlen_sparse_gemm_ab.py, PERF.md #10)
+VARLEN_TILES = {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (128, 64)}
+
+
+def varlen_tile(D: int):
+    """The tensor-core forward's tile ``(TM, TN)`` for head_dim ``D``,
+    ``VARLEN_TILES[D]``; ``None`` for a head_dim without an instance.
+    The table's cells do not enter: a tile over several cells reads
+    each, and the document test masks inside a tile."""
+    return VARLEN_TILES.get(int(D))
 
 
 def reset_launches() -> None:
@@ -340,7 +361,8 @@ def _call(lib, symbol, name, ptrs, ints, floats, dev):
 
 
 def _launch_fwd(name, q, k, v, masks, blocks, causal, sm_scale, partial):
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    from ._build import aligned16
+    q, k, v = aligned16(q, k, v)
     masks = [t.contiguous() for t in masks]
     Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[:2]
@@ -350,10 +372,11 @@ def _launch_fwd(name, q, k, v, masks, blocks, causal, sm_scale, partial):
         l = torch.empty_like(m)
     else:
         o, m, l = torch.empty_like(q), None, None
-    _call("flash_attention_varlen", "tl_varlen_fwd", name,
+    tile = (0, 0) if q.dtype == torch.float32 else varlen_tile(D)
+    _call("flash_attention_varlen", "tl_varlen_fwd_tiled", name,
           (q, k, v, *masks, o, m, l),
           (Hq, Hkv, Tq, Tk, D, *blocks, DTYPE_CODES[q.dtype],
-           int(bool(causal)), int(partial)),
+           int(bool(causal)), int(partial), *tile),
           (float(sm_scale) * _LOG2E,), q.device)
     return (o, m, l) if partial else o
 

@@ -33,7 +33,10 @@ block tile loop of ``csrc/gemm_tile.cuh``) and ``csrc/gemv.cu``.
   float32 products and sums. One launch (``gemv``).
 * ``blocksparse_matmul(a, b, block_mask, ...)`` — A @ B on the output
   tiles whose (M / block_M, N / block_N) int32 mask cell is nonzero,
-  exactly 0 elsewhere. One launch (``blocksparse_gemm``).
+  exactly 0 elsewhere. One launch, counted as ``blocksparse_gemm``, of
+  the kernel ``blocksparse_path`` picks: ``blocksparse_tma`` (TMA +
+  ``wgmma``, a block a 128 x 128 tile, a dead tile its zeros) for
+  aligned bfloat16 / float16, or ``blocksparse_gemm`` (the tile loop).
 * The factories ``splitk_kernel`` (its callable gives the partials),
   ``streamk_kernel`` (the segment partials), ``gemv_kernel`` and
   ``blocksparse_gemm_kernel``: the same computations for fixed shapes and
@@ -74,7 +77,8 @@ __all__ = ["matmul_splitk", "matmul_splitk_plain", "splitk_plan",
            "blocksparse_gemm_kernel", "launches", "reset_launches",
            "IN_TYPES", "splitk_path", "splitk_stream_plan",
            "stream_slots", "SPLITK_STREAM_MAX_ROWS", "streamk_path",
-           "STREAMK_TMA_TILES", "streamk_phase_programs"]
+           "STREAMK_TMA_TILES", "streamk_phase_programs",
+           "blocksparse_path"]
 
 # the input types the variants' kernels take
 IN_TYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -754,6 +758,26 @@ def blocksparse_matmul_plain(a, b, block_mask, block_M=128, block_N=128,
                   out)
 
 
+def blocksparse_path(M: int, N: int, K: int, dtype, a_ptr: int = 0,
+                     b_ptr: int = 0) -> str:
+    """Which kernel of ``gemm_variants.cu`` computes a block-sparse call
+    on the card for a (M, K) at ``a_ptr`` and b (K, N) at ``b_ptr``
+    (``streamk_path``'s rule):
+
+    * ``"tma"`` (``tl_blocksparse_tma``): bfloat16 or float16, both bases
+      and both row strides (K, N elements) on 16 bytes;
+    * ``"loop"`` (``tl_blocksparse_gemm``, the tile loop): everything
+      else, float32 included.
+
+    The rule decides before the launch; a kernel that fails on either
+    path raises."""
+    dtype = _as_dtype(dtype)
+    if dtype not in (torch.bfloat16, torch.float16) or min(M, N, K) < 1 \
+            or K % 8 or N % 8 or (a_ptr | b_ptr) % 16:
+        return "loop"
+    return "tma"
+
+
 def blocksparse_matmul(a, b, block_mask, block_M=128, block_N=128,
                        block_K=128, out_dtype=None) -> torch.Tensor:
     """C tiles where ``block_mask`` (M / block_M, N / block_N) is nonzero
@@ -771,10 +795,15 @@ def blocksparse_matmul(a, b, block_mask, block_M=128, block_N=128,
     check_grid(M, N, "blocksparse_matmul")
     a, b = a.contiguous(), b.contiguous()
     mask = block_mask.to(torch.int32).contiguous()
-    _call("gemm_variants", "tl_blocksparse_gemm", "blocksparse_gemm",
-          a.device, [_P] * 4 + [_I] * 7, a.data_ptr(), b.data_ptr(),
-          mask.data_ptr(), c.data_ptr(), M, N, K, block_M, block_N,
-          DTYPE_CODES[a.dtype], DTYPE_CODES[out])
+    args = (a.data_ptr(), b.data_ptr(), mask.data_ptr(), c.data_ptr(), M, N,
+            K, block_M, block_N, DTYPE_CODES[a.dtype], DTYPE_CODES[out])
+    if blocksparse_path(M, N, K, a.dtype, a.data_ptr(),
+                        b.data_ptr()) == "tma":
+        _call("gemm_variants", "tl_blocksparse_tma", "blocksparse_gemm",
+              a.device, [_P] * 4 + [_I] * 7, *args)
+    else:
+        _call("gemm_variants", "tl_blocksparse_gemm", "blocksparse_gemm",
+              a.device, [_P] * 4 + [_I] * 7, *args)
     return c
 
 
