@@ -137,9 +137,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               version's, a library call's and the bound.
 13. varlen  — the tenth main path: packed varlen attention at BitNet
               b1.58-2B-4T's attention widths (see VARLEN): a 16384-token
-              pack of whole documents, causal, f32 and bf16 (one
+              pack of whole documents, causal, f32, bf16 and f16 (one
               varlen_fwd without autograd; one varlen_fwd_partial, one
-              dK/dV and one dQ with it; output and gradients against the
+              dK/dV and one dQ with it, on tensor cores in 16 bits: each
+              record names its kernel; output and gradients against the
               plain versions; one document's gradient exactly 0 outside
               it), and a chunked-prefill step of 8 x 512 queries over
               ragged keys, bottom-right, bf16 (one varlen_fwd). Each
@@ -443,7 +444,8 @@ BITNET = dict(hidden=2560, inter=6912, heads=20, kv_heads=5, head_dim=128,
 # 4096-token contexts make a 16384-token pack of whole documents, lengths
 # default_rng(0).integers(64, 4097) drawn until the next would overflow
 # the pack (the rows past the last document are pad); causal, top-left,
-# f32 and bf16: the forward without autograd, and a backward through it.
+# f32, bf16 and f16: the forward without autograd, and a backward through
+# it.
 # A chunked-prefill step: 8 sequences, each a 512-token query chunk at
 # the end of its keys, key lengths default_rng(1).integers(512, 4097);
 # causal, bottom-right, bf16, forward only. q, k, v and the incoming
@@ -3289,15 +3291,26 @@ def varlen_phase(torch, vl, fa, gq, gb):
         bwd_in = (2 * q_el + 2 * kv_el) * esize + 8 * lq_el + ids
         lib_bwd = {"library_ms": lib["library_bwd_ms"],
                    "library": lib["library"] + ": its backward (dq, dk, dv)"}
+        # the backward's kernels by type, and the 16-bit kernels' tiles:
+        # (keys a block, query rows a step) and (query rows a block, keys
+        # a step), csrc/varlen_bwd.cu's kRows and kStep
+        tile = [64, 32 if D > 64 else 64]
+        bwd_case = {kname: ({"kernel": f"{kname} (CUDA cores)"}
+                            if dtype == torch.float32 else
+                            {"kernel": f"{kname}_mma (mma.sync)",
+                             "tile": tile})
+                    for kname in ("varlen_bwd_dkdv", "varlen_bwd_dq")}
         res[f"varlen_bwd_dkdv_{cfg}{name}"] = {
-            **case, "max_abs_err": max(e[0] for e in err_dkdv),
+            **case, **bwd_case["varlen_bwd_dkdv"],
+            "max_abs_err": max(e[0] for e in err_dkdv),
             "normwise_err": max(e[1] for e in err_dkdv),
             "ms": device_ms(torch, lambda: vl.varlen_bwd_dkdv(*bwd_args), 3),
             "plain_ms": device_ms(torch, lambda: vl.varlen_bwd_dkdv_plain(
                 *bwd_args), 1),
             **lib_bwd, **bound(8 * D * pairs, bwd_in + 8 * kv_el, peak)}
         res[f"varlen_bwd_dq_{cfg}{name}"] = {
-            **case, "max_abs_err": err_dq[0], "normwise_err": err_dq[1],
+            **case, **bwd_case["varlen_bwd_dq"],
+            "max_abs_err": err_dq[0], "normwise_err": err_dq[1],
             "ms": device_ms(torch, lambda: vl.varlen_bwd_dq(*bwd_args), 3),
             "plain_ms": device_ms(torch, lambda: vl.varlen_bwd_dq_plain(
                 *bwd_args), 1),
@@ -3307,7 +3320,7 @@ def varlen_phase(torch, vl, fa, gq, gb):
     lens = varlen_pack_lengths(c)
     res["pack"] = {"documents": len(lens), "lengths": lens,
                    "tokens": sum(lens), "pack": c["pack"]}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         run("", lens, lens, 3, dtype, "top-left", grad=True)
         torch.cuda.empty_cache()
 
@@ -5627,17 +5640,16 @@ def main() -> int:
         kernels.append(entry)
     kernels += kernel_entries(bg, BITNET_GQA_KERNELS)
     for entry in kernel_entries(vr, VARLEN_KERNELS):
-        if entry["name"] in ("varlen_fwd", "varlen_fwd_partial"):
-            # one counter for both kernels of the source, by type, and
-            # the 16-bit kernel's tile in each case
-            entry["kernels"] = {"float32": "varlen_fwd (CUDA cores)",
-                                "bfloat16": "varlen_fwd_mma (mma.sync)"}
-            name = entry["name"]
-            entry["tiles"] = {
-                c[len(name) + 1:]: v["tile"] for c, v in vr.items()
-                if c.startswith(name + "_") and "tile" in v
-                and (name == "varlen_fwd_partial"
-                     or not c.startswith("varlen_fwd_partial_"))}
+        # each wrapper counts both kernels of its source: the kernel of
+        # each type, and the 16-bit kernel's tile in each case
+        name = entry["name"]
+        entry["kernels"] = {t: vr[f"{name}_{t}"]["kernel"]
+                            for t in ("float32", "bfloat16", "float16")}
+        entry["tiles"] = {
+            c[len(name) + 1:]: v["tile"] for c, v in vr.items()
+            if c.startswith(name + "_") and "tile" in v
+            and (name == "varlen_fwd_partial"
+                 or not c.startswith("varlen_fwd_partial_"))}
         kernels.append(entry)
     for entry in kernel_entries(af, ATTN_FAMILY_KERNELS):
         if entry["name"] == "attention_sink":

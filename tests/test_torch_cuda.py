@@ -2082,7 +2082,8 @@ def test_varlen_forward_kernels_match_plain(cuda, dtype, causal, align, d,
     assert not o[:, tq:].any() and not l[:, tq:].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal,align", VARLEN_MODES)
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 2)])
@@ -2091,7 +2092,8 @@ def test_varlen_backward_kernels_match_plain(cuda, dtype, causal, align, d,
                                              Hq, Hkv, case):
     """dK/dV (the table read transposed, the group summed) and dQ: lse2
     is -inf on rows that see no key, and the kernels' select keeps their
-    P at 0 (no NaN)."""
+    P at 0 (no NaN); float32 on the CUDA-core kernels, bfloat16 and
+    float16 on the tensor-core ones."""
     lens_q, lens_k, bM, bN = case
     q, k, v, do, lse2, delta, masks, sm, _ = _varlen_inputs(
         cuda, lens_q, lens_k, Hq, Hkv, d, dtype, causal, align, bM, bN)
@@ -2147,21 +2149,30 @@ def test_varlen_autograd_on_card_matches_cpu(cuda, causal, align):
 
 
 def _varlen_calls(dev):
-    q, k, v, do, lse2, delta, masks, sm, _ = _varlen_inputs(
-        dev, [9, 20], [9, 20], 4, 2, 16, torch.float32, True, "top-left",
-        16, 16)
-    return [lambda: vl.varlen_fwd(q, k, v, *masks, True, sm),
-            lambda: vl.varlen_fwd_partial(q, k, v, *masks, True, sm),
-            lambda: vl.varlen_bwd_dkdv(q, k, v, do, lse2, delta, *masks,
-                                       True, sm),
-            lambda: vl.varlen_bwd_dq(q, k, v, do, lse2, delta, *masks, True,
-                                     sm)]
+    """(wrapper name, call) of each wrapper in float32, and of the
+    backward's in bfloat16, whose kernels are the tensor-core pair."""
+    ins = {dt: _varlen_inputs(dev, [9, 20], [9, 20], 4, 2, 16, dt, True,
+                              "top-left", 16, 16)
+           for dt in (torch.float32, torch.bfloat16)}
+    q, k, v, _, _, _, masks, sm, _ = ins[torch.float32]
+    calls = [("varlen_fwd", lambda: vl.varlen_fwd(q, k, v, *masks, True,
+                                                  sm)),
+             ("varlen_fwd_partial", lambda: vl.varlen_fwd_partial(
+                 q, k, v, *masks, True, sm))]
+    for dt in ins:
+        q, k, v, do, lse2, delta, masks, sm, _ = ins[dt]
+        bwd = (q, k, v, do, lse2, delta, *masks, True, sm)
+        calls += [("varlen_bwd_dkdv",
+                   lambda bwd=bwd: vl.varlen_bwd_dkdv(*bwd)),
+                  ("varlen_bwd_dq", lambda bwd=bwd: vl.varlen_bwd_dq(*bwd))]
+    return calls
 
 
 def test_varlen_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
     """No fallback: a build failure is the build's error, a refused
     launch a KernelLaunchError naming the wrapper, and neither counts a
-    launch; a head_dim without an instance is refused before."""
+    launch, the 16-bit backward's included; a head_dim without an
+    instance is refused before."""
     calls = _varlen_calls(cuda)
     before = dict(vl.launches)
 
@@ -2169,11 +2180,11 @@ def test_varlen_wrappers_raise_on_build_or_launch_failure(cuda, monkeypatch):
         raise RuntimeError(f"nvcc failed building {name}")
 
     monkeypatch.setattr(_build, "load", no_build)
-    for call in calls:
+    for _, call in calls:
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call()
     monkeypatch.setattr(_build, "load", lambda name: _RefusingLib())
-    for call, name in zip(calls, vl.launches):
+    for name, call in calls:
         with pytest.raises(KernelLaunchError, match=name):
             call()
     assert vl.launches == before
@@ -2272,6 +2283,39 @@ def _unsorted_ids(dev, T, docs, seed):
             torch.from_numpy(pos.astype(np.int32)).to(dev))
 
 
+def _unsorted_masks(dev, order, Tq, Tk, causal):
+    """The packed masks ``(SeqQ, SeqK, PosQ, PosK, BlockLive)`` of Tq
+    queries and Tk keys with ids in no order: documents interleaved token
+    by token, one document straddling every tile of another's, or a pack
+    in reverse order (positions falling along the axis); pad ids on the
+    last 5 query and 3 key rows; the liveness table from ``_block_live``
+    (ranges of ids a cell) at cells of 32 x 64."""
+    if order == "interleaved":
+        sq, pq = _unsorted_ids(dev, Tq, 3, 5)
+        sk, pk = _unsorted_ids(dev, Tk, 3, 6)
+    elif order == "straddling":
+        # document 1's tokens every 7th slot inside document 0's run
+        def ids(T):
+            t = torch.arange(T, device=dev)
+            seq = (t % 7 == 3).to(torch.int32)
+            pos = torch.zeros(T, dtype=torch.int32, device=dev)
+            for s_ in (0, 1):
+                sel = seq == s_
+                pos[sel] = torch.arange(int(sel.sum()), device=dev,
+                                        dtype=torch.int32)
+            return seq, pos
+        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
+    else:
+        def ids(T):
+            t = torch.arange(T - 1, -1, -1, device=dev, dtype=torch.int32)
+            return (t // 100).to(torch.int32), t % 100
+        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
+    sq, pq, sk, pk = sq.clone(), pq.clone(), sk.clone(), pk.clone()
+    sq[-5:], pq[-5:], sk[-3:], pk[-3:] = -1, 0, -2, 0
+    live = vl._block_live(sq, sq >= 0, pq, sk, sk >= 0, pk, 32, 64, causal)
+    return sq, sk, pq, pk, live
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d,tile", VARLEN_MMA_TILES)
@@ -2284,35 +2328,71 @@ def test_varlen_mma_unsorted_ids_match_plain(cuda, monkeypatch, dtype,
     from ``_block_live`` (ranges of ids a cell), pad rows past the ids."""
     monkeypatch.setitem(vl.VARLEN_TILES, d, tile)
     Tq, Tk, Hq, Hkv = 320, 256, 4, 2
-    if order == "interleaved":
-        sq, pq = _unsorted_ids(cuda, Tq, 3, 5)
-        sk, pk = _unsorted_ids(cuda, Tk, 3, 6)
-    elif order == "straddling":
-        # document 1's tokens every 7th slot inside document 0's run
-        def ids(T):
-            t = torch.arange(T, device=cuda)
-            seq = (t % 7 == 3).to(torch.int32)
-            pos = torch.zeros(T, dtype=torch.int32, device=cuda)
-            for s_ in (0, 1):
-                sel = seq == s_
-                pos[sel] = torch.arange(int(sel.sum()), device=cuda,
-                                        dtype=torch.int32)
-            return seq, pos
-        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
-    else:
-        def ids(T):
-            t = torch.arange(T - 1, -1, -1, device=cuda, dtype=torch.int32)
-            return (t // 100).to(torch.int32), t % 100
-        (sq, pq), (sk, pk) = ids(Tq), ids(Tk)
-    sq, pq, sk, pk = sq.clone(), pq.clone(), sk.clone(), pk.clone()
-    sq[-5:], pq[-5:], sk[-3:], pk[-3:] = -1, 0, -2, 0
-    bM, bN = 32, 64
-    live = vl._block_live(sq, sq >= 0, pq, sk, sk >= 0, pk, bM, bN, causal)
+    masks = _unsorted_masks(cuda, order, Tq, Tk, causal)
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((Hq, Tq, d), (Hkv, Tk, d), (Hkv, Tk, d)))
-    masks = (sq, sk, pq, pk, live)
     _varlen_fwd_hold(q, k, v, masks, causal, 1.0 / math.sqrt(d), dtype)
+
+
+def _varlen_bwd_both(q, k, v, do, lse2, delta, masks, causal, sm):
+    """varlen_bwd_dkdv and varlen_bwd_dq, one launch each (counted)."""
+    before = dict(vl.launches)
+    dkdv = vl.varlen_bwd_dkdv(q, k, v, do, lse2, delta, *masks, causal, sm)
+    dq = vl.varlen_bwd_dq(q, k, v, do, lse2, delta, *masks, causal, sm)
+    torch.cuda.synchronize()
+    assert vl.launches == {**before,
+                           "varlen_bwd_dkdv": before["varlen_bwd_dkdv"] + 1,
+                           "varlen_bwd_dq": before["varlen_bwd_dq"] + 1}
+    return (*dkdv, dq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("order", ["interleaved", "straddling", "reversed"])
+def test_varlen_mma_bwd_unsorted_ids_match_plain(cuda, dtype, causal, d,
+                                                 order):
+    """The tensor-core backward pair on ids in any order (the forward's
+    three orders and pad ids, group 2), at each head_dim instance:
+    lse2 and delta from the plain partial forward, -inf lse2 on the rows
+    that see no key; dK, dV and dQ against their plain versions."""
+    Tq, Tk, Hq, Hkv = 320, 256, 4, 2
+    masks = _unsorted_masks(cuda, order, Tq, Tk, causal)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((Hq, Tq, d), (Hkv, Tk, d), (Hkv, Tk, d),
+                             (Hq, Tq, d)))
+    sm = 1.0 / math.sqrt(d)
+    acc, m, l = vl.varlen_fwd_partial_plain(q, k, v, *masks, causal, sm)
+    lv = l[..., None]
+    o = torch.where(lv > 0, acc / lv, 0.0).to(dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    lse2 = m + torch.log2(l)
+    assert bool(torch.isinf(lse2).any()) and bool((l > 0).any())
+    bwd = (q, k, v, do, lse2, delta, masks, causal, sm)
+    dk, dv, dq = _varlen_bwd_both(*bwd)
+    want = (*vl.varlen_bwd_dkdv_plain(q, k, v, do, lse2, delta, *masks,
+                                      causal, sm),
+            vl.varlen_bwd_dq_plain(q, k, v, do, lse2, delta, *masks, causal,
+                                   sm))
+    for got, w in zip((dk, dv, dq), want):
+        assert got.dtype == torch.float32
+        assert _normwise(got, w) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_varlen_backward_kernels_are_deterministic(cuda, dtype):
+    """One block owns its output rows (no atomics): two calls of the
+    backward pair, the same bits."""
+    q, k, v, do, lse2, delta, masks, sm, _ = _varlen_inputs(
+        cuda, [300, 77, 500], [300, 77, 500], 8, 2, 128, dtype, True,
+        "top-left", 128, 128)
+    first = _varlen_bwd_both(q, k, v, do, lse2, delta, masks, True, sm)
+    second = _varlen_bwd_both(q, k, v, do, lse2, delta, masks, True, sm)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -310,6 +310,51 @@ def test_unsorted_ids_match_jax(order, causal):
         ref.varlen_fwd_kernel(*args)(q, k, v, *ops)), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("order", ["interleaved", "straddling", "reversed"])
+def test_unsorted_ids_backward_match_jax(order, causal):
+    """The backward's contract holds for ids in any order: the dK/dV and
+    dQ factories on unsorted ids (pad ids on the last rows, the liveness
+    table from the JAX package's ``_block_live``), lse2 and delta from
+    the JAX partials: -inf lse2 on the rows that see no key, whose P the
+    select keeps at 0."""
+    Hq, Hkv, D, Tq, Tk, bM, bN = 4, 2, 32, 96, 64, 32, 32
+    sq, pq = _unsorted(order, Tq)
+    sk, pk = _unsorted(order, Tk)
+    sq[-5:], pq[-5:], sk[-3:], pk[-3:] = -1, 0, -2, 0
+    live = np.array(ref._block_live(
+        jnp.asarray(sq), jnp.asarray(sq >= 0), jnp.asarray(pq),
+        jnp.asarray(sk), jnp.asarray(sk >= 0), jnp.asarray(pk), bM, bN,
+        causal))
+    rng = np.random.default_rng(21)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((Hq, Tq, D), (Hkv, Tk, D), (Hkv, Tk, D),
+                             (Hq, Tq, D)))
+    ops = (sq, sk, pq, pk, live)
+    args = (Hq, Hkv, Tq, Tk, D, bM, bN, causal, 1.0 / math.sqrt(D),
+            "float32")
+    acc, m, l = (np.array(w) for w in ref.varlen_fwd_kernel(
+        *args, return_partials=True)(q, k, v, *ops))
+    seen = l > 0
+    assert seen.any() and (~seen).any()
+    with np.errstate(divide="ignore"):
+        lse2 = (m + np.log2(l)).astype(np.float32)
+    assert np.isneginf(lse2[~seen]).all()
+    o = np.where(seen[..., None], acc / np.where(seen, l, 1)[..., None], 0)
+    delta = (do * o).sum(-1).astype(np.float32)
+    bwd = (q, k, v, do, lse2, delta, *ops)
+    want = [np.asarray(w) for w in (
+        *ref.varlen_bwd_dkdv_kernel(*args)(*bwd),
+        ref.varlen_bwd_dq_kernel(*args)(*bwd))]
+    t_bwd = [torch.from_numpy(np.array(x)) for x in bwd]
+    got = [g.numpy() for g in (*port.varlen_bwd_dkdv_kernel(*args)(*t_bwd),
+                               port.varlen_bwd_dq_kernel(*args)(*t_bwd))]
+    for name, g, w in zip(("dK", "dV", "dQ"), got, want):
+        assert np.isfinite(g).all() and g.any(), name
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL,
+                                   err_msg=f"{name} ({order}, {causal})")
+
+
 def test_padded_rows_zero():
     """Rows between cu_seqlens[-1] and the packed tensor's end come back
     zero (tests/test_flash_varlen.py::test_varlen_padded_rows_zero)."""

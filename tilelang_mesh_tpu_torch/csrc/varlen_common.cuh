@@ -147,7 +147,10 @@ __device__ __forceinline__ bool computes_tile(
 // and keeps the word; every warp of the block scans alike, so each knows
 // the next live tile with no barrier and no list in shared memory. Call
 // next() from warp-uniform code with `from` never decreasing.
-template <int TN>
+// ROWS: the same scan along the other axis, the table read transposed
+// (dK/dV): the tiles are of TN query rows below Sk = Tq, in the table's
+// row cells of bN = bM rows, and r is the block's key (column) cells.
+template <int TN, bool ROWS = false>
 struct LiveTiles {
   const int* __restrict__ live;
   int nC, bN, Sk, n;
@@ -162,8 +165,12 @@ struct LiveTiles {
         base = from;
         const int kb = base + threadIdx.x % 32, k0 = kb * TN;
         word = __ballot_sync(
-            kFull, kb < n && cells_live(live, nC, r,
-                                        cells_of(k0, min(k0 + TN, Sk), bN)));
+            kFull,
+            kb < n &&
+                (ROWS ? cells_live(live, nC,
+                                   cells_of(k0, min(k0 + TN, Sk), bN), r)
+                      : cells_live(live, nC, r,
+                                   cells_of(k0, min(k0 + TN, Sk), bN))));
       }
       const unsigned w = word >> (from - base);
       if (w) return from + __ffs(w) - 1;

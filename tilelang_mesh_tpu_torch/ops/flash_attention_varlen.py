@@ -34,7 +34,10 @@ refused: a dense reference cannot see the masks.
 The forward's float32 kernel runs on CUDA cores; bfloat16 and float16
 run ``varlen_fwd_mma`` on the tensor cores at the tile
 ``varlen_tile(D)``, one kernel for both wrappers (``partial`` a runtime
-flag), counted as ``varlen_fwd`` or ``varlen_fwd_partial``.
+flag), counted as ``varlen_fwd`` or ``varlen_fwd_partial``. The
+backward's float32 kernels run on CUDA cores too; bfloat16 and float16
+run ``varlen_bwd_dkdv_mma`` and ``varlen_bwd_dq_mma`` on the tensor
+cores, counted as ``varlen_bwd_dkdv`` and ``varlen_bwd_dq``.
 
 Each kernel's wrapper launches it on CUDA tensors (a build or launch
 failure raises; there is no fallback to another kernel) and runs its
@@ -409,7 +412,9 @@ def varlen_fwd_partial(q, k, v, seq_q, seq_k, pos_q, pos_k, block_live,
 
 def _launch_bwd(name, q, k, v, do, lse2, delta, masks, blocks, outs, causal,
                 sm_scale):
-    ins = [t.contiguous() for t in (q, k, v, do, lse2, delta, *masks)]
+    from ._build import aligned16
+    ins = [*aligned16(q, k, v, do),
+           *(t.contiguous() for t in (lse2, delta, *masks))]
     Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[:2]
     _call("varlen_bwd", f"tl_{name}", name, (*ins, *outs),
