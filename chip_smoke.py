@@ -768,7 +768,11 @@ def decode_phase(torch, fd, dtype):
     launches = fd.launches["decode"]     # read right after
     check(launches == 42, f"gather strategy launched decode {launches} "
                           f"times, want 42")
-    res = {"dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+    check(fd.kernel_launches[fd.decode_path(dtype)] == 42,
+          f"gather strategy ({dtype}) ran {fd.kernel_launches}, want 42 "
+          f"{fd.decode_path(dtype)}")
+    res = {"dtype": str(dtype).replace("torch.", ""),
+           "kernel": fd.decode_path(dtype), "max_abs_err": err,
            "tolerance": f"rtol={RTOL} atol={ATOL}", "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(t_bytes, t_ops),
@@ -3615,8 +3619,16 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
             ("vocab_bf16", c["vocab_rows_bf16"], c["vocab"], torch.bfloat16),
             ("router", c["router_rows"], c["router_width"], torch.float32)):
         x = (4 * torch.randn((M, N), generator=gen, device="cuda")).to(din)
+        path = smx.softmax_path(N, din, x.data_ptr() % 16 == 0)
         y = drive(f"softmax {case}", lambda: smx.softmax(
             x, out_dtype=torch.float32), {"softmax": 1})
+        ran = [k for k, n in smx.kernel_launches.items() if n]
+        check(ran == [path.kernel], f"softmax {case}: launched {ran}, the "
+                                    f"path rule names {path.kernel}")
+        kernel = (f"{path.kernel} (C {path.param})"
+                  if path.kernel == "softmax_cluster" else
+                  f"{path.kernel} (G {path.param})"
+                  if path.kernel == "softmax_rows" else path.kernel)
         err = within(f"softmax {case}", y, smx.softmax_plain(
             x, torch.float32), 1e-5)
         rows = y.sum(1, dtype=torch.float64)
@@ -3627,7 +3639,7 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
         nbytes = M * N * (x.element_size() + 4)
         res[f"softmax_{case}"] = {
             "shape": [M, N], "in": tname(din), "out": "float32",
-            "max_abs_err": err[0], "normwise_err": err[1],
+            "kernel": kernel, "max_abs_err": err[0], "normwise_err": err[1],
             "tolerance": "normwise 1e-5",
             "ms": device_ms(torch, lambda: smx.softmax(
                 x, out_dtype=torch.float32), 5 if N > 8 else 50),
@@ -3637,6 +3649,10 @@ def attention_family_phase(torch, sk, smx, bsa, seer, fa, gq, gb):
                 x, 1, dtype=torch.float32), 5 if N > 8 else 50),
             "library": "torch.softmax(x, 1, dtype=float32)",
             **bound(4 * M * N, nbytes, PEAK_F32_FLOPS)}
+        if path.kernel == "softmax_cluster":
+            res[f"softmax_{case}"]["cluster_fit"] = dict(zip(
+                ("ctas_an_sm", "clusters"),
+                smx.cluster_fit(N, din, torch.float32, path.param)))
         del x
         torch.cuda.empty_cache()
 
@@ -5452,6 +5468,7 @@ def main() -> int:
     bf16 = kernel_phase(torch, fd, torch.bfloat16)
     dec32 = decode_phase(torch, fd, torch.float32)
     dec16 = decode_phase(torch, fd, torch.bfloat16)
+    dec16h = decode_phase(torch, fd, torch.float16)
     mla32 = mla_kernel_phase(torch, mla, torch.float32)
     mla16 = mla_kernel_phase(torch, mla, torch.bfloat16)
     attn32 = attention_phase(torch, fa, gb, torch.float32)
@@ -5526,7 +5543,12 @@ def main() -> int:
         "bound_ms": dec32["bound_ms"], "bound_by": dec32["bound_by"],
         "library_ms": dec32["library_ms"],
         "bf16": {k: dec16[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "library_ms")}})
+                                       "bound_ms", "library_ms")},
+        "f16": {k: dec16h[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "library_ms")},
+        # one counter for both kernels of the source, by type
+        "kernels": {r["dtype"]: r["kernel"] for r in (dec32, dec16,
+                                                       dec16h)}})
     # MLA at bench.py:1495's shape and 8 splits, mla_decode's default
     m32, m16 = ({c["n_split"]: c for c in r["cases"] if c["S"] == MLA_S}[8]
                 for r in (mla32, mla16))
@@ -5666,6 +5688,10 @@ def main() -> int:
             entry["training_launches"] = {
                 k: af["launches"][k] for k in ("gqa_fwd_partial",
                                                "gqa_bwd_dkdv", "gqa_bwd_dq")}
+        if entry["name"] == "softmax":
+            # one counter for the three kernels of the source, by case
+            entry["kernels"] = {c: af[f"softmax_{c}"]["kernel"]
+                                for c in ("vocab", "vocab_bf16", "router")}
         if entry["name"] == "blocksparse_mha":
             # one counter for both kernels of the source, by type, and
             # the 16-bit kernel's tile in each case (the pairs of its live

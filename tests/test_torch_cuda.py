@@ -2461,11 +2461,17 @@ def _softmax_close(got, want):
                                       (torch.float32, torch.bfloat16),
                                       (torch.float16, torch.float16)])
 @pytest.mark.parametrize("M,N", [(4096, 8), (37, 1), (9, 1024), (5, 1025),
-                                 (3, 49152), (3, 60001), (4, 201088)])
+                                 (3, 49152), (3, 60001), (4, 201088),
+                                 (300, 2), (70, 16), (50, 32), (41, 33),
+                                 (19, 255), (3, 53248), (3, 100000),
+                                 (3, 150000)])
 def test_softmax_kernel_matches_plain(cuda, din, dout, M, N):
-    """Narrow rows (a warp a row: Mixtral's router width 8), rows a
-    block holds in shared memory, and rows wider than it (gpt-oss's
-    vocabulary, 201088: an online pass and a normalising pass)."""
+    """Narrow rows in registers (a lane group a row: Mixtral's router
+    width 8, and 1, 2, 16, 32, 33, 255, 1024), rows a block holds in
+    shared memory, rows off 16 bytes past it (60001 float32: the block
+    kernel re-reads the tail), and rows a cluster reads once (53248,
+    100000, 150000, gpt-oss's vocabulary 201088: C 2, 4, 8, 8 in float32;
+    C 2, 2, 4, 4 in 16 bits)."""
     g = torch.Generator(device=cuda).manual_seed(M + N)
     x = (4 * torch.randn((M, N), generator=g, device=cuda)).to(din)
     before = smx.launches["softmax"]
@@ -2475,10 +2481,51 @@ def test_softmax_kernel_matches_plain(cuda, din, dout, M, N):
     _softmax_close(y, smx.softmax_plain(x, dout))
 
 
-@pytest.mark.parametrize("N", [40, 3000, 60001])
+@pytest.mark.parametrize("din", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N", [(4096, 8), (9, 1024), (5, 1025),
+                                 (3, 60001), (3, 53248), (3, 150000),
+                                 (4, 201088)])
+def test_softmax_launches_the_path_kernel(cuda, din, M, N):
+    """Each call launches once, the kernel softmax_path names, and two
+    calls give the same bits on every path (no atomics; the cluster
+    merges its CTAs' pairs in rank order)."""
+    x = torch.randn((M, N), device=cuda).to(din)
+    path = smx.softmax_path(N, din, x.data_ptr() % 16 == 0)
+    smx.reset_launches()
+    y = smx.softmax(x, out_dtype=torch.float32)
+    y2 = smx.softmax(x, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert smx.launches == {"softmax": 2}
+    assert smx.kernel_launches == {k: 2 * (k == path.kernel)
+                                   for k in smx.KERNELS}
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("N", [8, 20])
+def test_softmax_rows_any_group(cuda, G, N):
+    """softmax_rows at every lane-group size (the A/B script times them;
+    16-byte pieces at N 8, single elements at N 20)."""
+    x = 4 * torch.randn((1000, N), device=cuda)
+    y = smx._launch(x, torch.float32, smx.SoftmaxPath("softmax_rows", G))
+    _softmax_close(y, smx.softmax_plain(x, torch.float32))
+
+
+@pytest.mark.parametrize("din,N", [(torch.float32, 201088),
+                                   (torch.bfloat16, 201088),
+                                   (torch.float32, 53248)])
+def test_softmax_cluster_two_ctas_an_sm(cuda, din, N):
+    """The cluster kernel's slices leave room for two CTAs an SM (so one
+    CTA's writes overlap another's loads), and the card runs clusters."""
+    path = smx.softmax_path(N, din)
+    blocks, clusters = smx.cluster_fit(N, din, torch.float32, path.param)
+    assert blocks >= 2 and clusters >= 1, (blocks, clusters)
+
+
+@pytest.mark.parametrize("N", [40, 3000, 60001, 201088])
 def test_softmax_kernel_nan_rows(cuda, N):
     """All -inf and +inf rows are NaN, a row with some -inf is finite, in
-    both the warp and the block kernels."""
+    the register, the block and the cluster kernels."""
     x = torch.randn((6, N), device=cuda)
     x[0] = -math.inf
     x[1, N // 2] = math.inf
@@ -2806,6 +2853,30 @@ def test_attention_autograd_float16_on_card_matches_cpu(cuda):
         assert _normwise(b, a.to(cuda)) <= 2e-2
 
 
+def _decode_tma_cases(cuda, dtype, d):
+    """decode_tma against the plain version: contiguous K/V and the
+    gather strategy's transposed view (rows H * D apart), chunks of 1000,
+    125 and 77 keys (no multiple of any tile) and 64 (one tile at D 128,
+    two at D 256, half of one at D 64), n_split 3, 8, 1 and 8, each call
+    one launch of decode_tma."""
+    assert fd.decode_path(dtype) == "decode_tma"
+    for s, n_split in ((3000, 3), (1000, 8), (77, 1), (512, 8)):
+        g = torch.Generator(device=cuda).manual_seed(s + d)
+        q = torch.randn((3, 4, 1, d), generator=g, device=cuda)
+        k, v = (torch.randn((3, 4, s, d), generator=g, device=cuda)
+                .to(dtype) for _ in range(2))
+        kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+        vt = v.transpose(1, 2).contiguous().transpose(1, 2)
+        for kk, vv in ((k, v), (kt, vt)):
+            before = fd.kernel_launches["decode_tma"]
+            got = fd.decode_partials(q, kk, vv, n_split, d ** -0.5)
+            want = fd.decode_partials_plain(q, kk, vv, n_split, d ** -0.5)
+            torch.cuda.synchronize()
+            assert fd.kernel_launches["decode_tma"] == before + 1
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_decode_kernels_float16(cuda, d):
     q, kp, vp, table = _case(cuda, 3, 4, d, 16, 8, 40, torch.float16)
@@ -2821,6 +2892,20 @@ def test_decode_kernels_float16(cuda, d):
     want = fd.decode_partials_plain(qq, k, v, 2, 0.1)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+    _decode_tma_cases(cuda, torch.float16, d)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_kernels_bfloat16(cuda, d):
+    _decode_tma_cases(cuda, torch.bfloat16, d)
+
+
+def test_decode_tma_refuses_loudly(cuda):
+    """A grid the card refuses (65536 batches > gridDim.z) raises
+    KernelLaunchError on the 16-bit kernel too: its grid is the loop's."""
+    z = torch.zeros((65536, 1, 1, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(KernelLaunchError):
+        fd.decode_partials(z, z, z, 1, 0.125)
 
 
 def test_mla_decode_float16(cuda):

@@ -165,6 +165,39 @@ def test_contiguous_partials_match_reference(n_split):
         np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("n_split", [1, 4])
+def test_contiguous_partials_match_reference_16bit(dtype, n_split):
+    """decode_kernel's partials on 16-bit Q, K and V (the same rounded
+    values on both sides). o differs by more than m and l: the JAX kernel
+    rounds P to the input type before P @ V (T.copy(S_f, P_f)), while the
+    port keeps p in float32 (csrc/decode.cu's contract), so o is held
+    normwise to 1e-2 (1.6e-3 measured in bfloat16, 2.1e-4 in float16)
+    and m, l to 1e-5 (3.5e-7 measured)."""
+    q, k, v = _contiguous(11, 2, 4, 512, 64)
+    sm_scale = 1.0 / np.sqrt(64)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    kern = ref.decode_kernel(2, 4, 512, 64, n_split, 128, float(sm_scale),
+                             dtype)
+    want = [np.asarray(a, np.float32) for a in kern(jq, jk, jv)]
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(
+        getattr(torch, dtype)) for a in (jq, jk, jv))
+    got = port.decode_partials(tq, tk, tv, n_split, sm_scale)
+    for g, w, tol in zip(got, want, (1e-2, 1e-5, 1e-5)):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, "split_kv_decode"), (torch.bfloat16, "decode_tma"),
+    (torch.float16, "decode_tma")])
+def test_decode_path(dtype, kernel):
+    """float32 K/V keep the split-KV loop; 16-bit K/V take the TMA ring."""
+    assert port.decode_path(dtype) == kernel
+    assert kernel in port.kernel_launches
+
+
 def test_flash_decode_split_clamp_matches_reference(monkeypatch):
     """The (n_split, block_N) of flash_decoding.py:100-104, for requested
     and default splits over S that 8 does or does not divide evenly."""

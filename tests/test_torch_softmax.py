@@ -123,3 +123,31 @@ def test_rejects_what_the_kernel_does_not_take():
         port.softmax(torch.zeros((2, 3), dtype=torch.float64))
     with pytest.raises(TypeError):
         port.softmax(torch.zeros((2, 3)), out_dtype="int8")
+
+
+@pytest.mark.parametrize("N,dtype,kernel,param", [
+    (1, "float32", "softmax_rows", 1),
+    (8, "float32", "softmax_rows", 2),        # Mixtral's router width
+    (1024, "float32", "softmax_rows", 32),
+    (1025, "float32", "softmax_block_rows", 0),
+    (49152, "float32", "softmax_block_rows", 0),   # the stash holds it
+    (60001, "float32", "softmax_block_rows", 0),   # rows off 16 bytes
+    (201088, "float32", "softmax_cluster", 8),     # gpt-oss's vocabulary
+    (201088, "bfloat16", "softmax_cluster", 4)])
+def test_path_rule(N, dtype, kernel, param):
+    """softmax_path: the register kernel up to 1024, the block kernel to
+    the stash's 48K, then the least cluster whose slices fit 112 KB (two
+    CTAs an SM) where rows sit on 16 bytes; the path code and C are what
+    tl_softmax takes."""
+    path = port.softmax_path(N, dtype)
+    assert (path.kernel, path.param) == (kernel, param)
+    assert port.KERNELS[path.code] == kernel
+    if kernel == "softmax_cluster":
+        esize = 4 if dtype == "float32" else 2
+        slice_ = port.cluster_slice(N, param, esize)
+        assert 0 < slice_ * esize <= port.SLICE_MAX
+        assert (slice_ * esize) % 16 == 0 and (param - 1) * slice_ < N
+        assert not port.cluster_slice(N, param // 2, esize)
+        # a base off 16 bytes keeps the block kernel
+        assert port.softmax_path(N, dtype, aligned=False).kernel == \
+            "softmax_block_rows"

@@ -156,6 +156,19 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at (c0 inner, c1, c2, c3 outer) of a 4-D `map` into dst,
+// completing on bar
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -564,6 +577,33 @@ inline bool make_map3(CUtensorMap* map, const void* base, int type,
                                  (cuuint64_t)(pld * map_esize(type))};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   return encode_map(map, base, type, 3, dims, strides, box);
+}
+
+// A 4-D map over elements of the DType `type` (kBF16, kF16 or kF32):
+// dims[0] contiguous elements, dims[1..3] at the byte strides
+// strides[0..2] (any order, multiples of 16), boxes of box0 x box1 x 1 x
+// 1 with no swizzle (a box lands as box1 dense rows of box0 elements);
+// false when the map is refused
+inline bool make_map4(CUtensorMap* map, const void* base, int type,
+                      const long long dims[4], const long long strides[3],
+                      int box0, int box1) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const CUtensorMapDataType dt = type == tl_gemm::kBF16
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : type == tl_gemm::kF32
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const cuuint64_t d[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                           (cuuint64_t)dims[2], (cuuint64_t)dims[3]};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                            (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, dt, 4, const_cast<void*>(base), d, st, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Launches gemm_tma<T, TM, TN, TK> on `s`: A (M, K) with row stride lda,

@@ -11,7 +11,10 @@ the merge to XLA:
 * ``decode_partials`` (``csrc/decode.cu``, the TPU's ``decode_kernel``):
   contiguous ``K/V (B, H, S, D)``, behind ``flash_decode`` and the
   GATHER strategy for paged KV, ``flash_decode_paged`` (pages gathered
-  to contiguous form with torch indexing first);
+  to contiguous form with torch indexing first). ``decode_path`` picks
+  its kernel by the K/V type: float32 runs the split-KV loop,
+  bfloat16 and float16 ``decode_tma`` (TMA loads of K/V tiles through
+  a ring of shared-memory stages);
 * ``paged_decode_partials`` (``csrc/paged_decode.cu``, the TPU's
   ``paged_decode_kernel``): the in-kernel page walk over an H-major
   pool, behind ``flash_decode_paged_pool``, with no gather pass.
@@ -41,8 +44,9 @@ __all__ = ["decode_partials", "decode_partials_plain", "flash_decode",
            "flash_decode_paged", "pages_to_hmajor", "clamp_splits",
            "merge_splits",
            "paged_decode_partials", "paged_decode_partials_plain",
-           "flash_decode_paged_pool", "launches", "reset_launches",
-           "KERNEL_HEAD_DIMS", "decode_kernel", "paged_decode_kernel"]
+           "flash_decode_paged_pool", "launches", "kernel_launches",
+           "reset_launches", "decode_path", "KERNEL_HEAD_DIMS",
+           "decode_kernel", "paged_decode_kernel"]
 
 _LOG2E = 1.44269504
 
@@ -52,11 +56,24 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads these around a run to prove the path used the kernel)
 launches = {"decode": 0, "paged_decode": 0}
+# the "decode" launches by the kernel decode_path picked
+kernel_launches = {"split_kv_decode": 0, "decode_tma": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, kernel_launches):
+        for k in d:
+            d[k] = 0
+
+
+def decode_path(dtype) -> str:
+    """The kernel of ``decode_partials`` on K/V of ``dtype``:
+    ``split_kv_decode`` (the loop, float32) or ``decode_tma`` (bfloat16,
+    float16)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decode takes float32, bfloat16 or float16 K/V, "
+                        f"got {dtype}")
+    return "split_kv_decode" if dtype == torch.float32 else "decode_tma"
 
 
 def _split_rows(page_table: torch.Tensor, page_size: int, n_split: int):
@@ -266,7 +283,10 @@ def _launch_contiguous(q, k, v, n_split, sm_scale):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"decode kernel has no head_dim={D} instance "
                          f"(built: {KERNEL_HEAD_DIMS})")
-    if k.stride() != v.stride() or k.stride(3) != 1:
+    path = decode_path(k.dtype)
+    # a tensor map takes no zero stride: a broadcast view is copied
+    if k.stride() != v.stride() or k.stride(3) != 1 or (
+            path == "decode_tma" and 0 in k.stride()[:3]):
         k, v = k.contiguous(), v.contiguous()
     vec = 16 // k.element_size()
     if any(st % vec for st in k.stride()[:3]) or k.data_ptr() % 16 \
@@ -278,7 +298,9 @@ def _launch_contiguous(q, k, v, n_split, sm_scale):
     op = torch.empty((B, n_split, H, D), dtype=torch.float32, device=dev)
     mp = torch.empty((B, n_split, H, 1), dtype=torch.float32, device=dev)
     lp = torch.empty((B, n_split, H, 1), dtype=torch.float32, device=dev)
-    fn = load("decode").tl_decode
+    lib = load("decode")
+    tma = path == "decode_tma"
+    fn = lib.tl_decode_tma if tma else lib.tl_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -293,6 +315,7 @@ def _launch_contiguous(q, k, v, n_split, sm_scale):
     if code != 0:
         raise KernelLaunchError("decode", code)
     launches["decode"] += 1
+    kernel_launches[path] += 1
     return op, mp, lp
 
 
