@@ -25,22 +25,28 @@ Cases, at chip_smoke.py's main-path shapes and seeds:
   kernel is also timed at each lane group G of 1, 2, 4 and 8 at the
   router; its cluster kernel's fit (CTAs an SM, clusters at once) is read
   at both vocabulary cases, and the kernel timed there at each larger C
-  and in the builds of ``SOFTMAX_VARIANTS`` (the later softmax.cu with
-  another -DTL_SOFTMAX_* CTA size or count of bulk copies), in turns with
-  the default; each build's cluster kernels' SASS is counted by opcode
-  (``SASS_OPS``).
+  and in the builds of ``SOFTMAX_VARIANTS`` (a copy of the later
+  softmax.cu with another CTA size or count of bulk copies), in turns
+  with the kept values; each build's cluster kernels' SASS is counted by
+  opcode (``SASS_OPS``). The block kernel's rows (``BLOCK_CASES``) must
+  give the same bits in both builds.
 * decode (chip_smoke.py's decode_phase: B 8, H 32, S 8192, D 128, 8
   splits, K/V pages drawn by a device generator of seed 2 and gathered
   to contiguous rows) in float32, bfloat16 and float16, each build held
   against ``decode_partials_plain`` (rtol = atol = 1e-4), float32
   bit-equal across builds; timed earlier, later, SDPA, later, earlier;
   the 16-bit kernel also on the gather strategy's transposed view, and
-  in the builds of ``VARIANTS`` (the later decode.cu with other
-  -DTL_DECODE_* ring, tile and grid order), in turns with the default.
+  in the builds of ``VARIANTS`` (a copy of the later decode.cu with
+  another ring or tile), in turns with the kept values. On the host's
+  clock: each build's C call alone (``host_us``: the mean time a call
+  takes to return, 200 calls queued back to back) and the gather
+  strategy end to end (``gather_host_ms``: ``flash_decode_paged`` with
+  its page gather and combine, its ``decode`` from each build, synced
+  once after 20 calls), in the order earlier, later, later, earlier.
 
 The SASS of ``split_kv_decode<D, 0, ...>`` (decode.cu's float32
-instances), of every function of ``paged_decode.cu`` and of
-``softmax_block_rows`` must be the same in both builds; with ``--others``
+instances) and of every function of ``paged_decode.cu`` must be the same
+in both builds; with ``--others``
 every other source whose header closure differs is built from both
 directories and compared too (``scripts/nsa_ab.py``'s helpers; the first
 differences go to DIR/sass_diffs). Bounds are bytes over 3.35 TB/s
@@ -63,33 +69,52 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = ("softmax", "decode", "paged_decode")
-# float32 functions whose SASS must not change, by source (all of
-# paged_decode.cu)
-KEPT = {"softmax": r"softmax_block_rows",
-        "decode": r"split_kv_decodeILi\d+ELi0E",
+# functions whose SASS must not change, by source (all of
+# paged_decode.cu; softmax_block_rows changed with merge's NaN rule, so
+# its bits are compared instead, at BLOCK_CASES)
+KEPT = {"decode": r"split_kv_decodeILi\d+ELi0E",
         "paged_decode": r"."}
-# decode_tma builds timed beside the default: (label, -D flags)
-VARIANTS = (("ring48K_tile8K", ["-DTL_DECODE_RING=49152"]),
-            ("ring96K_tile16K", ["-DTL_DECODE_RING=98304",
-                                 "-DTL_DECODE_TILE=16384"]),
-            ("split_fastest", ["-DTL_DECODE_SPLIT_FASTEST=1"]))
-# softmax_cluster builds timed beside the default: (label, -D flags)
-SOFTMAX_VARIANTS = (("threads128", ["-DTL_SOFTMAX_CTA_THREADS=128"]),
-                    ("threads512", ["-DTL_SOFTMAX_CTA_THREADS=512"]),
-                    ("chunks1", ["-DTL_SOFTMAX_CHUNKS=1"]),
-                    ("chunks4", ["-DTL_SOFTMAX_CHUNKS=4"]))
+# (M, N, input type) of the block kernel, bit-equal across the builds
+BLOCK_CASES = ((64, 60001, "float32"), (64, 49152, "bfloat16"),
+               (64, 3000, "float32"))
+# decode_tma builds timed beside the kept values: (label, the constants
+# of decode.cu rewritten)
+VARIANTS = (("ring48K_tile8K", {"kRingBytes": "48 * 1024"}),
+            ("ring96K_tile16K", {"kRingBytes": "96 * 1024",
+                                 "kTileBytes": "16 * 1024"}))
+# softmax_cluster builds timed beside the kept values: (label, the
+# constants of softmax.cu rewritten)
+SOFTMAX_VARIANTS = (("threads128", {"kClusterThreads": "128"}),
+                    ("threads512", {"kClusterThreads": "512"}),
+                    ("chunks1", {"kChunks": "1"}),
+                    ("chunks4", {"kChunks": "4"}))
 # opcodes counted in each build's cluster kernels
 SASS_OPS = ("MUFU.EX2", "LDS", "STG", "SYNCS", "BRA")
 ROUTER_GROUPS = (1, 2, 4, 8)
 
 
+def variant_dir(src_dir, name, label, consts, root):
+    """A copy of ``src_dir`` under ``root/label`` whose ``name``.cu has
+    each ``constexpr int`` of ``consts`` set to its value."""
+    dst = root / label
+    shutil.copytree(src_dir, dst)
+    src = (dst / f"{name}.cu").read_text()
+    for const, value in consts.items():
+        src, n = re.subn(rf"(constexpr int {const} = )[^;]+;",
+                         rf"\g<1>{value};", src)
+        if n != 1:
+            raise RuntimeError(f"{name}.cu: {n} definitions of {const}")
+    (dst / f"{name}.cu").write_text(src)
+    return dst
+
+
 def nvcc_build(job):
-    """(library, ptxas log, seconds) of one (src_dir, name, out, defines)."""
+    """(library, ptxas log, seconds) of one (src_dir, name, out)."""
     from tilelang_mesh_tpu_torch.ops import _build
-    src_dir, name, out, defines = job
+    src_dir, name, out = job
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines,
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                           "-o", str(out), str(src_dir / f"{name}.cu")],
                          capture_output=True, text=True)
     if res.returncode:
@@ -131,6 +156,7 @@ def main() -> int:
     import chip_smoke as cs
     import nsa_ab
     smx = importlib.import_module("tilelang_mesh_tpu_torch.ops.softmax")
+    from tilelang_mesh_tpu_torch.ops import _build
     from tilelang_mesh_tpu_torch.ops import flash_decoding as fd
     from tilelang_mesh_tpu_torch.ops.gemm import DTYPE_CODES
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,14 +175,15 @@ def main() -> int:
                         and nsa_ab.closure(args.earlier, p.stem)
                         != nsa_ab.closure(args.later, p.stem))
     jobs = {(tag, n): (args.build / tag, n,
-                       args.build / tag / f"lib{n}.so", [])
+                       args.build / tag / f"lib{n}.so")
             for tag in dirs for n in SOURCES + tuple(others)}
     for src, variants in (("decode", VARIANTS),
                           ("softmax", SOFTMAX_VARIANTS)):
-        for label, flags in variants:
-            jobs["later", f"{src}_{label}"] = (
-                args.build / "later", src,
-                args.build / "variants" / f"lib{src}_{label}.so", flags)
+        for label, consts in variants:
+            d = variant_dir(args.build / "later", src, f"{src}_{label}",
+                            consts, args.build / "variants")
+            jobs["later", f"{src}_{label}"] = (d, src,
+                                               d / f"lib{src}.so")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         built = dict(zip(jobs, ex.map(nvcc_build, jobs.values())))
@@ -172,7 +199,7 @@ def main() -> int:
     # -- SASS ---------------------------------------------------------------
     diff_dir = args.out / "sass_diffs"
     kept = {}
-    for n in SOURCES + tuple(others):
+    for n in tuple(KEPT) + tuple(others):
         a, b = (nsa_ab.sass(built[tag, n][0]) for tag in dirs)
         pat = KEPT.get(n, r".")
         keep = [fn for fn in sorted(set(a) | set(b)) if re.search(pat, fn)]
@@ -289,6 +316,18 @@ def main() -> int:
         del x, want
         torch.cuda.empty_cache()
 
+    out["block_bits_equal"] = {}
+    for M, N, din in BLOCK_CASES:
+        x = (4 * torch.randn((M, N), generator=gen, device="cuda")).to(
+            getattr(torch, din))
+        kernel = smx.softmax_path(N, x.dtype).kernel
+        same = kernel == "softmax_block_rows" and torch.equal(
+            *(softmax_call(tag, x, torch.float32) for tag in dirs))
+        out["block_bits_equal"][f"{M}x{N} {din}"] = same
+        if not same:
+            failed.append(f"softmax block {M}x{N} {din} ({kernel}): the "
+                          f"builds' outputs differ")
+
     # -- decode -------------------------------------------------------------
     def decode_call(key, q, k, v):
         B, H, _, D = q.shape
@@ -311,6 +350,40 @@ def main() -> int:
         if code:
             raise RuntimeError(f"decode {key}: CUDA error {code}")
         return op, mp, lp
+
+    def host_us(call, n=200):
+        """Mean host time of one call returning, n queued back to back."""
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    def host_ms(call, n=20):
+        """Mean host time of a call, synced once after n."""
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def gather_with(tag, q, kpages, vpages, table):
+        """flash_decode_paged, its decode from ``tag``'s build (the
+        earlier build's tl_decode takes every type)."""
+        load, path = _build.load, fd.decode_path
+        _build.load = lambda n: libs[tag, n] if n == "decode" else load(n)
+        if tag == "earlier":
+            fd.decode_path = lambda dtype: "split_kv_decode"
+        try:
+            return fd.flash_decode_paged(q, kpages, vpages, table,
+                                         n_split=cs.N_SPLIT)
+        finally:
+            _build.load, fd.decode_path = load, path
 
     B, H, D, PS, PP = cs.B, cs.H, cs.D, cs.PS, cs.PP
     S = PP * PS
@@ -365,6 +438,19 @@ def main() -> int:
                                                vt),
                 "later": lambda: decode_call(("later", "decode"), q, kt,
                                              vt)}, 20)
+        res["host_us"] = {}
+        res["gather_host_ms"] = {}
+        for tag in ("earlier", "later", "later", "earlier"):
+            res["host_us"].setdefault(tag, []).append(host_us(
+                lambda: decode_call((tag, "decode"), q, k, v)))
+            res["gather_host_ms"].setdefault(tag, []).append(host_ms(
+                lambda: gather_with(tag, q, kpages, vpages, table)))
+        ex = max(cs.max_rel_excess(a, b) for a, b in zip(
+            gather_with("later", q, kpages, vpages, table),
+            gather_with("earlier", q, kpages, vpages, table)))
+        if not ex <= 1.0:
+            failed.append(f"decode {name} gather strategy: the builds "
+                          f"differ by {ex}x the tolerance")
         if dtype != torch.float32:
             var = {}
             for label, _ in VARIANTS:

@@ -2524,17 +2524,26 @@ def test_softmax_cluster_two_ctas_an_sm(cuda, din, N):
 
 @pytest.mark.parametrize("N", [40, 3000, 60001, 201088])
 def test_softmax_kernel_nan_rows(cuda, N):
-    """All -inf and +inf rows are NaN, a row with some -inf is finite, in
-    the register, the block and the cluster kernels."""
-    x = torch.randn((6, N), device=cuda)
+    """All -inf and +inf rows are NaN, a row with some -inf is finite, and
+    a row with a NaN is NaN, in the register, the block and the cluster
+    kernels: a NaN among finite values (row 6), at the start of a -inf
+    half (row 7: the cluster's first CTAs see only -inf and the NaN), and
+    among every 1024th element set to -inf (row 8: the block kernel's
+    thread 0 sees only those)."""
+    x = torch.randn((9, N), device=cuda)
     x[0] = -math.inf
     x[1, N // 2] = math.inf
     x[2, : N // 2] = -math.inf
     x[3, -1] = math.inf
     x[3, 0] = -math.inf
+    x[6, N // 3] = math.nan
+    x[7, : N // 2] = -math.inf
+    x[7, 0] = math.nan
+    x[8, ::1024] = -math.inf
+    x[8, 0] = math.nan
     y = smx.softmax(x)
     _softmax_close(y, smx.softmax_plain(x, torch.float32))
-    assert torch.isnan(y[[0, 1, 3]]).all()
+    assert torch.isnan(y[[0, 1, 3, 6, 7, 8]]).all()
     assert not torch.isnan(y[[2, 4, 5]]).any() and not y[2, : N // 2].any()
 
 

@@ -12,6 +12,9 @@ tests/test_torch_cuda.py.
 """
 
 import importlib
+import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -104,6 +107,22 @@ def test_nan_rows_match_jax():
     np.testing.assert_allclose(got[ok], want[ok], rtol=TOL, atol=TOL)
 
 
+def test_nan_inputs_match_jax():
+    """A NaN makes its row NaN on both sides: among finite values, inside
+    a run of -inf, and in a row that is otherwise all -inf."""
+    x = _x(4, 40, seed=8)
+    x[0, 7] = np.nan
+    x[1, :20] = -np.inf
+    x[1, 0] = np.nan
+    x[2] = -np.inf
+    x[2, 39] = np.nan
+    jx, tx = _both(x, "float32")
+    want = np.asarray(ref.softmax(jx))
+    got = port.softmax(tx).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[:3]).all() and not np.isnan(got[3]).any()
+
+
 def test_factory_matches_jax():
     M, N = 48, 64
     x = _x(M, N, seed=8)
@@ -151,3 +170,26 @@ def test_path_rule(N, dtype, kernel, param):
         # a base off 16 bytes keeps the block kernel
         assert port.softmax_path(N, dtype, aligned=False).kernel == \
             "softmax_block_rows"
+
+
+def _source_const(name):
+    """The value of ``constexpr int name`` in csrc/softmax.cu."""
+    src = (Path(port.__file__).parents[1] / "csrc" / "softmax.cu").read_text()
+    m = re.search(rf"constexpr int {name} = ([0-9 *]+);", src)
+    assert m, name
+    return math.prod(int(f) for f in m.group(1).split("*"))
+
+
+def test_path_rule_matches_the_source():
+    """softmax_path's bounds are the C entry's: the widest register row,
+    the stash, a cluster CTA's slice and the cluster sizes it takes (else
+    the rule picks what tl_softmax refuses)."""
+    assert port.ROWS_MAX == _source_const("kRowsMax")
+    assert port.STASH_MAX == _source_const("kStashMax")
+    assert port.SLICE_MAX == _source_const("kSliceMax")
+    src = (Path(port.__file__).parents[1] / "csrc" / "softmax.cu").read_text()
+    sizes = re.search(r"if \(\(C != (\d+) && C != (\d+) && C != (\d+)\)",
+                      src)
+    assert sizes and tuple(map(int, sizes.groups())) == port.CLUSTER_SIZES
+    assert "(long long)slice * sizeof(TI) > kSliceMax || (C - 1) * slice " \
+           ">= N" in src

@@ -30,26 +30,16 @@
 //     with the loop's lane layout (LPR lanes a row, 16 bytes a lane),
 //     keeping the online softmax in float32 and merging as the loop
 //     does. Rows past the split in a tile (TMA fills zeros only past
-//     the tensor) are masked. The ring's bytes (TL_DECODE_RING) and a
-//     tile's (TL_DECODE_TILE) set the bytes in flight and the blocks an
-//     SM; scripts/softmax_decode_ab.py times them and the grid's order
-//     (head-fastest (H, ns, B), the loop's; split-fastest (ns, H, B)
-//     with TL_DECODE_SPLIT_FASTEST), and keeps the defaults here.
+//     the tensor) are masked. The ring's bytes (kRingBytes) and a
+//     tile's (kTileBytes) set the bytes in flight and the blocks an SM;
+//     scripts/softmax_decode_ab.py times other values (a copy of this
+//     file with them changed) against these. The grid is the loop's,
+//     head-fastest (H, ns, B).
 // No tensor cores: a single query row gives a 1 x D product per key,
 // which the CUDA cores keep up with at this bound.
 
 #include "gemm_sm90.cuh"
 #include "split_kv_decode.cuh"
-
-#ifndef TL_DECODE_RING
-#define TL_DECODE_RING (64 * 1024)  // bytes of a block's K / V ring
-#endif
-#ifndef TL_DECODE_TILE
-#define TL_DECODE_TILE (8 * 1024)   // bytes of a K (or V) tile
-#endif
-#ifndef TL_DECODE_SPLIT_FASTEST
-#define TL_DECODE_SPLIT_FASTEST 0   // the grid (ns, H, B), not (H, ns, B)
-#endif
 
 namespace {
 
@@ -76,14 +66,16 @@ struct StridedRows {
   }
 };
 
+constexpr int kRingBytes = 64 * 1024;             // a block's K / V ring
+constexpr int kTileBytes = 8 * 1024;              // a K (or V) tile
 constexpr int kConsumers = 4;                     // consumer warps
 constexpr int kTmaThreads = 32 * (kConsumers + 1);  // and the producer
 
 template <int D>
 struct TmaCfg {
-  static constexpr int kRows = TL_DECODE_TILE / (2 * D);   // a tile's rows
+  static constexpr int kRows = kTileBytes / (2 * D);   // a tile's rows
   static constexpr int kTile = kRows * D * 2;              // its bytes
-  static constexpr int kStages = TL_DECODE_RING / (2 * kTile);
+  static constexpr int kStages = kRingBytes / (2 * kTile);
   // the ring (K then V a stage), its full and empty barriers, and room
   // to align the ring to 128 bytes
   static constexpr int kSmem = kStages * 2 * kTile + 2 * kStages * 8 + 128;
@@ -115,9 +107,7 @@ decode_tma(const __grid_constant__ CUtensorMap mk,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kStages * 2 *
                                                C::kTile);
   uint64_t* empty = full + C::kStages;
-  const int h = TL_DECODE_SPLIT_FASTEST ? blockIdx.y : blockIdx.x;
-  const int s = TL_DECODE_SPLIT_FASTEST ? blockIdx.x : blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tiles = (chunk + C::kRows - 1) / C::kRows;
 
@@ -288,9 +278,7 @@ int launch_tma(const void* q, const void* k, const void* v, void* op,
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid = TL_DECODE_SPLIT_FASTEST ? dim3(n_split, H, B)
-                                            : dim3(H, n_split, B);
-  kern<<<grid, kTmaThreads, C::kSmem, stream>>>(
+  kern<<<dim3(H, n_split, B), kTmaThreads, C::kSmem, stream>>>(
       mk, mv, static_cast<const float*>(q), static_cast<float*>(op),
       static_cast<float*>(mp), static_cast<float*>(lp), H, n_split,
       S / n_split, scale);

@@ -44,8 +44,9 @@
 // No tensor cores and no TMA tensor maps: plain coalesced loads, and
 // bulk copies of contiguous bytes. scripts/softmax_decode_ab.py times
 // the three against the earlier kernels and torch.softmax, and the
-// cluster kernel's CTA size and bulk copies (the TL_SOFTMAX_* macros
-// below) against the defaults kept here.
+// cluster kernel at other CTA sizes and counts of bulk copies (a copy of
+// this file with kClusterThreads or kChunks changed) against the values
+// kept here.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -69,16 +70,9 @@ constexpr int kThreads = 1024;       // threads a block in the wide kernel
 constexpr int kStashMax = 48 * 1024; // float32 elements kept in shared
 constexpr int kRed = 72;             // reduction slots before the stash
 constexpr int kUnroll = 8;           // loads in flight a thread, each pass
-#ifndef TL_SOFTMAX_CTA_THREADS
-#define TL_SOFTMAX_CTA_THREADS 256
-#endif
-#ifndef TL_SOFTMAX_CHUNKS
-#define TL_SOFTMAX_CHUNKS 2
-#endif
-// threads a CTA in the cluster kernel
-constexpr int kClusterThreads = TL_SOFTMAX_CTA_THREADS;
+constexpr int kClusterThreads = 256; // threads a CTA in the cluster kernel
 constexpr int kSliceMax = 112 * 1024;  // bytes of a cluster CTA's slice
-constexpr int kChunks = TL_SOFTMAX_CHUNKS;  // bulk copies (and mbarriers)
+constexpr int kChunks = 2;           // its bulk copies (and mbarriers)
 constexpr int kSliceAt = 512;        // the slice's offset in shared memory
 
 enum Path { kRowsPath = 0, kBlockPath = 1, kClusterPath = 2 };
@@ -116,12 +110,14 @@ __device__ __forceinline__ void add(float& m, float& l, float x) {
   }
 }
 
-// (m, l) <- the merge of two running pairs
+// (m, l) <- the merge of two running pairs. A pair with m = -inf adds
+// l * 0: nothing, or NaN where it saw a NaN (its l is 0 or NaN).
 __device__ __forceinline__ void merge(float& m, float& l, float m2,
                                       float l2) {
   const float mn = fmaxf(m, m2);
-  const float a = m == -INFINITY ? 0.f : l * exp2f((m - mn) * kLog2e);
-  const float b = m2 == -INFINITY ? 0.f : l2 * exp2f((m2 - mn) * kLog2e);
+  const float a = m == -INFINITY ? l * 0.f : l * exp2f((m - mn) * kLog2e);
+  const float b =
+      m2 == -INFINITY ? l2 * 0.f : l2 * exp2f((m2 - mn) * kLog2e);
   m = mn;
   l = a + b;
 }
@@ -133,6 +129,13 @@ __device__ __forceinline__ void warp_merge(float& m, float& l) {
     const float l2 = __shfl_xor_sync(kFull, l, off);
     merge(m, l, m2, l2);
   }
+}
+
+// the larger of a and b, NaN where either is (fmaxf drops a NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 __device__ __forceinline__ float prob(float x, float m, float l) {
@@ -399,7 +402,8 @@ softmax_cluster(const TI* __restrict__ x, TO* __restrict__ y, int N,
   }
 
   // this thread's (m, l): a chunk's max, then its sum under that max,
-  // merged in; a chunk it saw only -inf in adds nothing
+  // merged in; a chunk it saw only -inf in adds nothing, one with a NaN
+  // makes l NaN
   float m = -INFINITY, l = 0.f;
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
@@ -411,7 +415,7 @@ softmax_cluster(const TI* __restrict__ x, TO* __restrict__ y, int N,
       float f[V];
       ld_vec<TI, V>(buf + i, f);
 #pragma unroll
-      for (int e = 0; e < V; ++e) mx = fmaxf(mx, f[e]);
+      for (int e = 0; e < V; ++e) mx = max_nan(mx, f[e]);
     }
     if (mx == -INFINITY) continue;
     float s = 0.f;
