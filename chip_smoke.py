@@ -2195,12 +2195,14 @@ def gemm_variants_phase(torch, gv, gm):
     the plain version, a library call and the port's matmul on the same
     operands, and the bound."""
     import numpy as np
-    counted = dict.fromkeys(gv.launches, 0)
+    # the counters by kernel: the GEMV's by name (kernel_launches["gemv"],
+    # the old kernel, in place of launches["gemv"], every GEMV call)
+    counted = dict.fromkeys({**gv.launches, **gv.kernel_launches}, 0)
     res = {}
     reset_peak(torch)
     hid, inter = LLAMA2["hidden"], LLAMA2["inter"]
 
-    def drive(label, call, want_launches, main=True):
+    def drive(label, call, want_launches, main=True, kernel=None):
         torch.cuda.synchronize()
         gv.reset_launches()
         gm.reset_launches()
@@ -2209,6 +2211,10 @@ def gemm_variants_phase(torch, gv, gm):
         got = {**gv.launches, "matmul": gm.launches["matmul"]}
         want = {k: want_launches.get(k, 0) for k in got}
         check(got == want, f"{label}: launches {got}, want {want}")
+        ran = [k for k, n in gv.kernel_launches.items() if n]
+        check(kernel is None or ran == [kernel],
+              f"{label}: launched {ran}, the path rule names {kernel}")
+        got.update(gv.kernel_launches)
         for k in counted:
             counted[k] += got[k] if main else 0
         return out
@@ -2344,17 +2350,32 @@ def gemm_variants_phase(torch, gv, gm):
                     * a.element_size())}
         del a, b
 
-    # -- #18 GEMV: one token's gate/up and LM head ------------------------
-    for label, N, dt, seed in (
-            ("decode_gate_up_bf16", inter, torch.bfloat16, 33),
-            ("decode_gate_up_f32", inter, torch.float32, 33),
-            ("lm_head_bf16", LLAMA2["vocab"], torch.bfloat16, 34)):
+    # -- #18 GEMV: one token's gate/up and LM head (gemv_bulk), and the
+    # gate/up with the activation's base 2 bytes off 16 (the old kernel) --
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, N, dt, seed, off in (
+            ("decode_gate_up_bf16", inter, torch.bfloat16, 33, 0),
+            ("decode_gate_up_f32", inter, torch.float32, 33, 0),
+            ("lm_head_bf16", LLAMA2["vocab"], torch.bfloat16, 34, 0),
+            ("decode_gate_up_bf16_misaligned", inter, torch.bfloat16, 33,
+             1)):
         x, w = operands(seed, (hid,), (N, hid), dtype=dt)
-        got = drive(f"gemv {label}", lambda: gv.gemv(x, w), {"gemv": 1})
+        if off:      # the same values, ``off`` elements into their storage
+            buf = torch.empty(hid + off, dtype=dt, device=x.device)
+            x = buf[off:].copy_(x)
+            del buf
+        kname = gv.gemv_path(N, hid, dt, x.data_ptr(), w.data_ptr(), sms)
+        check(kname == ("gemv" if off else "gemv_bulk"),
+              f"gemv {label}: path {kname}")
+        plan = gv.gemv_bulk_plan(N, hid, dt, sms)
+        got = drive(f"gemv {label}", lambda: gv.gemv(x, w), {"gemv": 1},
+                    kernel=kname)
         r = hold(f"gemv {label}", got, gv.gemv_plain(x, w))
         del got
-        res[f"gemv_{label}"] = {
-            "shape": [N, hid], "dtype": str(dt), **r,
+        res[f"{kname}_{label}"] = {
+            "shape": [N, hid], "dtype": str(dt), "kernel": kname,
+            "x_offset_bytes": off * x.element_size(),
+            "plan": plan._asdict() if kname == "gemv_bulk" else None, **r,
             **timed(lambda: gv.gemv(x, w), lambda: gv.gemv_plain(x, w),
                     lambda: torch.mv(w, x)),
             "library": "torch.mv in " + str(dt).replace("torch.", ""),
@@ -2421,8 +2442,10 @@ VARIANT_KERNELS = (
      "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_bf16"),
     ("streamk_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:104", "prefill_gate_up_f32"),
-    ("gemv", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
+    ("gemv_bulk", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
      "decode_gate_up_bf16"),
+    ("gemv", "gemv.cu", "tilelang_mesh_tpu/ops/gemm_variants.py:169",
+     "decode_gate_up_bf16_misaligned"),
     ("blocksparse_gemm", "gemm_variants.cu",
      "tilelang_mesh_tpu/ops/gemm_variants.py:206", "prefill_gate_up_bf16"))
 VARIANT_FIXUPS = {"splitk_stream": "splitk_stream_combine",
@@ -4773,11 +4796,14 @@ def dsa_phase(torch, dsa):
     time."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    counted = {k: 0 for k in dsa.launches}
+    # the counters by kernel: the sparse MLA forward's by name
+    # (kernel_launches["sparse_mla_fwd"], the float32 kernel, in place of
+    # launches["sparse_mla_fwd"], every call)
+    counted = dict.fromkeys({**dsa.launches, **dsa.kernel_launches}, 0)
     res = {}
     reset_peak(torch)
 
-    def drive(label, call, want_launches, main=True):
+    def drive(label, call, want_launches, main=True, kernel=None):
         torch.cuda.synchronize()
         dsa.reset_launches()
         out = call()
@@ -4785,6 +4811,10 @@ def dsa_phase(torch, dsa):
         got = dict(dsa.launches)
         want = {k: want_launches.get(k, 0) for k in got}
         check(got == want, f"{label}: launches {got}, want {want}")
+        ran = [k for k, n in dsa.kernel_launches.items() if n]
+        check(kernel is None or ran == [kernel],
+              f"{label}: launched {ran}, the path rule names {kernel}")
+        got.update(dsa.kernel_launches)
         for k in counted:
             counted[k] += got[k] if main else 0
         return out
@@ -4838,10 +4868,14 @@ def dsa_phase(torch, dsa):
             ind = dsa.topk_selector(L, topk)
             return (L, ind) + tuple(dsa.sparse_mla_fwd(q, kv, ind))
 
+        kname = dsa.sparse_mla_path(D, DT, dtype)
+        check(kname == ("sparse_mla_fwd" if dtype == torch.float32
+                        else "sparse_mla_fwd_wgmma"),
+              f"dsa {name}: sparse MLA path {kname}")
         L, ind, o, lse = drive(
             f"dsa pipeline {name}", pipeline,
             {"lightning_indexer": 1, "topk_selector": 1,
-             "sparse_mla_fwd": 1})
+             "sparse_mla_fwd": 1}, kernel=kname)
         check(o.dtype == dtype and tuple(o.shape) == (1, S, H, D)
               and tuple(lse.shape) == (1, S, H)
               and bool(torch.isfinite(o.float()).all())
@@ -4967,8 +5001,8 @@ def dsa_phase(torch, dsa):
             "library": "torch.topk(L, topk, sorted=True) (its tie order "
                        "is unspecified: values compared, not ids)",
             **bound(0, 4 * S * Skv + 4 * S * topk, peak)}
-        res[f"sparse_mla_fwd_{name}"] = {
-            "shape": [1, S, Skv, H, D, DT], "topk": topk,
+        res[f"{kname}_{name}"] = {
+            "shape": [1, S, Skv, H, D, DT], "topk": topk, "kernel": kname,
             "live_slots": slots, "max_abs_err": e_o[0],
             "normwise_err": e_o[1], "lse_normwise_err": e_lse[1],
             "tolerance": f"normwise {DSA_TOL['mla'][name]} (LSE "
@@ -4989,7 +5023,7 @@ def dsa_phase(torch, dsa):
         print(f"dsa {name}: indexer "
               f"{res[f'lightning_indexer_{name}']['ms']:.3f} ms, selector "
               f"{res[f'topk_selector_{name}']['ms']:.3f} ms, sparse MLA "
-              f"{res[f'sparse_mla_fwd_{name}']['ms']:.3f} ms; chain: "
+              f"{res[f'{kname}_{name}']['ms']:.3f} ms ({kname}); chain: "
               f"{flipped} slots in {reordered} rows differ, "
               f"{int((~same).sum())} rows select another set, O "
               f"{chain_all:.3e} normwise", flush=True)
@@ -5022,7 +5056,7 @@ def dsa_phase(torch, dsa):
         o2, lse2 = drive(f"sparse_mla_fwd ragged {name}",
                          lambda: dsa.sparse_mla_fwd(q2, kv2, ind2,
                                                     block_I=t2),
-                         {"sparse_mla_fwd": 1}, main=False)
+                         {"sparse_mla_fwd": 1}, main=False, kernel=kname)
         o2p, lse2p = dsa.sparse_mla_fwd_plain(q2, kv2, ind2, D, sm,
                                               skv2 - s2)
         within(f"sparse_mla_fwd ragged O {name}", o2, o2p,
@@ -5040,6 +5074,26 @@ def dsa_phase(torch, dsa):
         res[f"dsa_ragged_{name}"] = {
             "shape": [1, s2, skv2, 20, D, DT], "topk": t2,
             "dead_row": {"o_max_abs": 0.0, "lse": float(dead)}}
+        if dtype != torch.float32:
+            # the 16-bit mma.sync kernel, which D 192 keeps: the ragged
+            # ids on q and kv cut to 192 + 64 features
+            q3, kv3 = (t[..., -(192 + DT):].contiguous() for t in (q2, kv2))
+            o3, lse3 = drive(f"sparse_mla_fwd D 192 {name}",
+                             lambda: dsa.sparse_mla_fwd(
+                                 q3, kv3, ind2, block_I=t2, tail_dim=DT),
+                             {"sparse_mla_fwd": 1}, main=False,
+                             kernel="sparse_mla_fwd_mma")
+            o3p, lse3p = dsa.sparse_mla_fwd_plain(
+                q3, kv3, ind2, 192, 1.0 / math.sqrt(192 + DT), skv2 - s2)
+            e3 = within(f"sparse_mla_fwd D 192 O {name}", o3, o3p,
+                        DSA_TOL["mla"][name])
+            within(f"sparse_mla_fwd D 192 LSE {name}", lse3[live],
+                   lse3p[live], DSA_TOL["lse"])
+            res[f"sparse_mla_mma_d192_{name}"] = {
+                "shape": [1, s2, skv2, 20, 192, DT], "topk": t2,
+                "kernel": "sparse_mla_fwd_mma", "max_abs_err": e3[0],
+                "normwise_err": e3[1]}
+            del q3, kv3, o3, lse3, o3p, lse3p
         del qi2, ki2, q2, kv2, w2, L2, ind2, o2, lse2, o2p, lse2p
 
         # the sparse fine-tuning step (make_sparse_mla) at ft_seq over
@@ -5121,7 +5175,9 @@ DSA_KERNELS = (
     ("topk_selector", "dsa.cu", "tilelang_mesh_tpu/ops/dsa.py:101",
      "float32"),
     ("sparse_mla_fwd", "sparse_mla.cu", "tilelang_mesh_tpu/ops/dsa.py:147",
-     "float32"))
+     "float32"),
+    ("sparse_mla_fwd_wgmma", "sparse_mla.cu",
+     "tilelang_mesh_tpu/ops/dsa.py:147", "bfloat16"))
 
 
 # the headline phase's loop target (bench.py's is 0.6 s): twelve configs,
@@ -5746,6 +5802,9 @@ def main() -> int:
         if entry["name"] == "sparse_mla_fwd":
             entry["finetune_step"] = {
                 k: ds[f"dsa_finetune_{k}"] for k in ("float32", "bfloat16")}
+            # the 16-bit mma.sync kernel of the source, off the DSA
+            # widths: held at D 192 on the ragged ids
+            entry["mma_d192"] = ds["sparse_mla_mma_d192_bfloat16"]
         kernels.append(entry)
     kernels += kernel_entries(hl, HEADLINE_KERNELS)
     check(all(k["launches"] > 0 for k in kernels),

@@ -1226,6 +1226,76 @@ def test_gemv_matches_plain(cuda, dtype, N, K):
     assert _normwise(f32, gv.gemv_plain(a, b, torch.float32)) <= 1e-5
 
 
+GEMV_OUTS = [torch.float32, torch.bfloat16, torch.float16,
+             torch.float8_e4m3fn]
+
+
+def _gemv_counted(a, b, out, path):
+    """gv.gemv(a, b, out) with its one launch checked: counted as "gemv"
+    and by name under ``path``."""
+    before, by_name = dict(gv.launches), dict(gv.kernel_launches)
+    got = gv.gemv(a, b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert gv.launches == {**before, "gemv": before["gemv"] + 1}
+    assert gv.kernel_launches == {**by_name, path: by_name[path] + 1}
+    assert got.dtype == out
+    return got
+
+
+def _gemv_out_close(got, want, out):
+    if out == torch.float8_e4m3fn:
+        # one rounding of nearby float32 sums: within an e4m3 step
+        got, want = got.float(), want.float()
+        assert float((got - want).abs().max()) <= 2 ** -3 * float(
+            want.abs().max())
+        return
+    # one rounding of nearby float32 sums to the output type
+    assert _normwise(got, want) <= VARIANT_TOL[out]
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("out", GEMV_OUTS)
+@pytest.mark.parametrize("sms_times,plus,K", [
+    (0, 1000, 4096),                  # N no multiple of the grid
+    (1, -1, 4096), (1, 0, 4096), (1, 1, 4096),   # N around the SMs
+    (0, 11008, 4096), (3, 7, 11008), (0, 4096, 11008)])
+def test_gemv_bulk_matches_plain(cuda, dtype, out, sms_times, plus, K):
+    """N = sms_times x the card's SMs + plus: one row a block and more
+    take gemv_bulk, fewer rows than SMs the old kernel (gemv_path says
+    which); K 4096 and 11008 (a float32 row of 44 KB, one a stage);
+    every output type against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    N = sms_times * sms + plus
+    a = _randn(cuda, (K,), dtype, 25)
+    b = _randn(cuda, (N, K), dtype, 26)
+    path = gv.gemv_path(N, K, dtype, a.data_ptr(), b.data_ptr(), sms)
+    assert path == ("gemv_bulk" if N >= sms else "gemv")
+    got = _gemv_counted(a, b, out, path)
+    _gemv_out_close(got, gv.gemv_plain(a, b, out), out)
+
+
+@pytest.mark.parametrize("dtype", VARIANT_DTYPES)
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_gemv_offset_view_takes_the_old_kernel(cuda, dtype, which):
+    """The same values one element into their storage (a base off 16
+    bytes) send the call back to gemv, which agrees with gemv_bulk's
+    result on the aligned operands and with the plain version."""
+    N, K = 11008, 4096
+    a = _randn(cuda, (K,), dtype, 25)
+    b = _randn(cuda, (N, K), dtype, 26)
+    aligned = _gemv_counted(a, b, torch.float32, "gemv_bulk")
+    if which == "a":
+        a = _offset_operand(cuda, (K,), dtype, 25, 1)
+    else:
+        b = _offset_operand(cuda, (N, K), dtype, 26, 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert gv.gemv_path(N, K, dtype, a.data_ptr(), b.data_ptr(),
+                        sms) == "gemv"
+    got = _gemv_counted(a, b, torch.float32, "gemv")
+    assert _normwise(got, gv.gemv_plain(a, b, torch.float32)) <= 1e-5
+    assert _normwise(got, aligned) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", VARIANT_DTYPES)
 @pytest.mark.parametrize("mask_kind", ["random", "zeros", "ones"])
 @pytest.mark.parametrize("M,N,K,block", [(256, 384, 200, 128),
@@ -3646,6 +3716,63 @@ def test_sparse_mla_kernel_matches_plain(cuda, dtype, D, DT, B, S, Skv, H,
     assert bool((want_lse[dead] == lse[dead]).all())
     err = (lse[~dead] - want_lse[~dead]).abs().max()
     assert float(err) <= 1e-5 * float(want_lse[~dead].abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,DT", dsa.WGMMA_WIDTHS)
+@pytest.mark.parametrize("B,S,Skv,H,topk", [(1, 8, 300, 128, 2048),
+                                            (2, 37, 101, 20, 100),
+                                            (1, 64, 128, 64, 64)])
+def test_sparse_mla_wgmma_matches_plain(cuda, dtype, D, DT, B, S, Skv, H,
+                                        topk):
+    """The 16-bit wgmma kernel (sparse_mla_path's choice at these
+    widths): two head groups (H 128) and a partial one (H 20), topk 2048
+    and one no multiple of the 64-slot tile, ids -1, past the causal
+    bound, at and past Skv, duplicates and a row with no valid id; O at
+    the attention bounds, LSE 1e-5 of its largest live value, the dead
+    row O exactly 0 and LSE the JAX kernel's."""
+    assert dsa.sparse_mla_path(D, DT, dtype) == "sparse_mla_fwd_wgmma"
+    q, kv, ind = _sparse_mla_case(cuda, B, S, Skv, H, D, DT, topk, dtype)
+    ind[..., 5::17] = Skv
+    sm = 1 / math.sqrt(D + DT)
+    before, by_name = dict(dsa.launches), dict(dsa.kernel_launches)
+    o, lse = dsa.sparse_mla_fwd(q, kv, ind, tail_dim=DT, block_I=topk)
+    torch.cuda.synchronize()
+    assert dsa.launches == {**before,
+                            "sparse_mla_fwd": before["sparse_mla_fwd"] + 1}
+    assert dsa.kernel_launches == {
+        **by_name,
+        "sparse_mla_fwd_wgmma": by_name["sparse_mla_fwd_wgmma"] + 1}
+    want_o, want_lse = dsa.sparse_mla_fwd_plain(q, kv, ind, D, sm, Skv - S)
+    assert _normwise(o, want_o) <= ATTN_TOL[dtype]
+    assert bool((o[0, S // 2] == 0).all())
+    dead = torch.zeros_like(lse, dtype=torch.bool)
+    dead[0, S // 2] = True
+    assert bool((lse[dead] == torch.tensor(dsa.DEAD_ROW_LSE)).all())
+    assert bool((want_lse[dead] == lse[dead]).all())
+    err = (lse[~dead] - want_lse[~dead]).abs().max()
+    assert float(err) <= 1e-5 * float(want_lse[~dead].abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D,DT", dsa.KERNEL_WIDTHS)
+def test_sparse_mla_launches_the_kernel_of_its_path(cuda, dtype, D, DT):
+    """Each call launches the one kernel sparse_mla_path names: float32
+    the CUDA-core kernel, 16-bit the wgmma kernel at WGMMA_WIDTHS and the
+    mma.sync one at D 192."""
+    q, kv, ind = _sparse_mla_case(cuda, 1, 9, 40, 20, D, DT, 16, dtype)
+    path = dsa.sparse_mla_path(D, DT, dtype)
+    assert path == ("sparse_mla_fwd" if dtype == torch.float32 else
+                    "sparse_mla_fwd_wgmma" if D != 192 else
+                    "sparse_mla_fwd_mma")
+    by_name = dict(dsa.kernel_launches)
+    o, _ = dsa.sparse_mla_fwd(q, kv, ind, tail_dim=DT, block_I=16)
+    torch.cuda.synchronize()
+    assert dsa.kernel_launches == {**by_name, path: by_name[path] + 1}
+    want, _ = dsa.sparse_mla_fwd_plain(q, kv, ind, D, 1 / math.sqrt(D + DT),
+                                       40 - 9)
+    assert _normwise(o, want) <= ATTN_TOL[dtype]
 
 
 def test_dsa_chain_and_finetune_on_card_match_cpu(cuda):

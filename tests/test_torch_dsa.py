@@ -295,6 +295,43 @@ def test_make_sparse_mla_loss_falls():
                              "sparse_mla_fwd": 0}
 
 
+@pytest.mark.parametrize("D,DT", port.KERNEL_WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_sparse_mla_path_by_type_and_width(D, DT, dtype):
+    """float32 runs the CUDA-core kernel; bfloat16 / float16 the wgmma
+    kernel where D + DT and each consumer's D / 2 columns are whole
+    64-column blocks of the 128-byte swizzle, the mma.sync kernel at D
+    192."""
+    want = ("sparse_mla_fwd" if dtype == "float32" else
+            "sparse_mla_fwd_wgmma" if D % 128 == 0 else
+            "sparse_mla_fwd_mma")
+    for dt in (dtype, getattr(torch, dtype)):
+        assert port.sparse_mla_path(D, DT, dt) == want
+
+
+def test_wgmma_widths_are_the_whole_block_widths():
+    assert port.WGMMA_WIDTHS == ((512, 64), (256, 64), (128, 64))
+    assert all((d + dt) % 64 == 0 and (d // 2) % 64 == 0
+               for d, dt in port.WGMMA_WIDTHS)
+    assert (192, 64) in port.KERNEL_WIDTHS
+
+
+def test_sparse_mla_kernel_counters_reset_together():
+    """kernel_launches names the three kernels of sparse_mla.cu and
+    reset_launches zeroes it; a CPU call counts nothing."""
+    assert set(port.kernel_launches) == {
+        "sparse_mla_fwd", "sparse_mla_fwd_mma", "sparse_mla_fwd_wgmma"}
+    port.kernel_launches["sparse_mla_fwd_wgmma"] += 2
+    port.reset_launches()
+    assert set(port.kernel_launches.values()) == {0}
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, 4, 2, 192), dtype=np.float32)
+    kv = rng.standard_normal((1, 8, 192), dtype=np.float32)
+    ind = rng.integers(-1, 8, (1, 4, 16)).astype(np.int32)
+    port.sparse_mla_fwd(q, kv, ind, block_I=16, device="cpu")
+    assert set(port.kernel_launches.values()) == {0}
+
+
 # ----------------------------------------------------------- the pipeline --
 
 def test_chain_matches_jax():

@@ -15,6 +15,7 @@ tests/test_torch_cuda.py.
 """
 
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -609,3 +610,112 @@ def test_streamk_phase_programs_run_the_tile_rows_in_phase(M, N, K, bm, bn,
 def test_streamk_phase_programs_keep_the_slots_otherwise(M, N, K, slots):
     assert port.streamk_phase_programs(M, N, K, 128, 128, 128, slots) == \
         slots
+
+
+# ------------------------------------------------------------- GEMV paths --
+
+@pytest.mark.parametrize("N,K,dtype,ptrs,sms,want", [
+    (11008, 4096, "bfloat16", (0, 0), 132, "gemv_bulk"),
+    (11008, 4096, "float32", (0, 0), 132, "gemv_bulk"),
+    (32000, 4096, "float16", (256, 4096), 132, "gemv_bulk"),
+    (4096, 11008, "bfloat16", (0, 0), 132, "gemv_bulk"),
+    (132, 4096, "bfloat16", (0, 0), 132, "gemv_bulk"),   # a row a block
+    (131, 4096, "bfloat16", (0, 0), 132, "gemv"),        # fewer rows
+    (11008, 4096, "bfloat16", (2, 0), 132, "gemv"),      # a's base off
+    (11008, 4096, "bfloat16", (0, 8), 132, "gemv"),      # b's base off
+    (11008, 4097, "bfloat16", (0, 0), 132, "gemv"),      # rows off 16 B
+    (11008, 4100, "float16", (0, 0), 132, "gemv"),
+    (11008, 4100, "float32", (0, 0), 132, "gemv_bulk"),  # 16400 bytes
+    (300, 40000, "float32", (0, 0), 132, "gemv"),        # a row too wide
+    (100, 4096, "float32", (0, 0), 78, "gemv_bulk")])
+def test_gemv_path_by_alignment_rows_and_card(N, K, dtype, ptrs, sms, want):
+    """gemv_bulk needs both bases on 16 bytes, rows of a multiple of 16
+    bytes, a row a block and a plan that fits; everything else takes the
+    old kernel."""
+    for dt in (dtype, _DTYPES[dtype][1]):
+        assert port.gemv_path(N, K, dt, *ptrs, sms=sms) == want
+
+
+@pytest.mark.parametrize("N,K,dtype,want", [
+    (11008, 4096, "bfloat16", (528, 2, 2, 41000)),   # gate/up, 4 an SM
+    (11008, 4096, "float32", (528, 1, 2, 49192)),
+    (32000, 4096, "bfloat16", (528, 2, 2, 41000)),   # the LM head
+    (4096, 11008, "bfloat16", (396, 1, 2, 66088)),   # down: 3 an SM fit
+    (4096, 11008, "float32", (132, 1, 2, 132136)),   # one an SM fits
+    (527, 4096, "float16", (396, 2, 2, 41000)),      # 4 an SM: a row short
+    (132, 4096, "float16", (132, 1, 2, 24616))])     # a row a block
+def test_gemv_bulk_plan_at_the_model_widths(N, K, dtype, want):
+    """blocks, rows a stage, stages and shared memory on 132 SMs: the most
+    blocks an SM up to GEMV_BULK_BLOCKS_PER_SM that give each a row and
+    fit two stages; a stage the whole rows of GEMV_BULK_STAGE_BYTES."""
+    assert tuple(port.gemv_bulk_plan(N, K, dtype, 132)) == want
+
+
+@pytest.mark.parametrize("N,K,dtype,sms", [
+    (11008, 4096, torch.bfloat16, 132),     # gate/up: 4 blocks an SM
+    (11008, 4096, torch.float32, 132),
+    (32000, 4096, torch.float32, 132),      # the LM head
+    (4096, 11008, torch.float32, 132),      # a 44 KB row: one block an SM
+    (4096, 11008, torch.bfloat16, 132),     # three an SM
+    (1000, 512, torch.float16, 132),        # 32 rows a stage, spans of 1-2
+    (133, 256, torch.float32, 132),         # a row a block, one more
+    (527, 4096, torch.float16, 132),        # 4 an SM a row short
+    (11008, 4100, torch.float32, 132),      # a row past the stage bytes
+    (20001, 1000, torch.bfloat16, 114),
+    (100, 4096, torch.float32, 78)])
+def test_gemv_bulk_spans_cover_every_row_once(N, K, dtype, sms):
+    """The kernel's walk, block by block and stage by stage, as
+    csrc/gemv.cu computes it from the plan: each block owns one
+    contiguous span of N // blocks or one more rows, the spans tile
+    0 .. N in order, each stage holds ``rows`` rows (the last of a span
+    fewer), and the shared memory fits a block and the blocks an SM."""
+    plan = port.gemv_bulk_plan(N, K, dtype, sms)
+    row = K * torch.empty((), dtype=dtype).element_size()
+    assert plan.blocks % sms == 0 and plan.blocks <= N
+    per_sm = plan.blocks // sms
+    assert plan.smem <= min(232448, 228 * 1024 // per_sm - 1024)
+    assert plan.smem == row + plan.stages * plan.rows * row \
+        + 8 * (2 * plan.stages + 1)
+    base, extra = divmod(N, plan.blocks)
+    seen = []
+    for blk in range(plan.blocks):
+        n0 = blk * base + min(blk, extra)
+        span = base + (blk < extra)
+        assert n0 == len(seen)
+        for st in range(-(-span // plan.rows)):
+            nr = min(plan.rows, span - st * plan.rows)
+            assert 1 <= nr <= plan.rows
+            seen += range(n0 + st * plan.rows, n0 + st * plan.rows + nr)
+    assert seen == list(range(N))
+
+
+def test_gemv_bulk_smem_matches_the_source():
+    """gemv_bulk_plan's shared memory is the C entry's: csrc/gemv.cu's
+    bulk_smem formula and gemm_sm90.cuh's kSmemOptin, which tl_gemv
+    holds a plan to (else the rule picks a plan tl_gemv refuses)."""
+    csrc = Path(port.__file__).parents[1] / "csrc"
+    optin = re.search(r"constexpr int kSmemOptin = (\d+);",
+                      (csrc / "gemm_sm90.cuh").read_text())
+    assert optin and int(optin.group(1)) == port._SMEM_BLOCK_MAX
+    src = (csrc / "gemv.cu").read_text()
+    body = re.search(r"size_t bulk_smem\(int K, int esize, int rows,\s*"
+                     r"int stages\) \{\s*return (.*?);", src, re.S)
+    assert body and "smem > tl_sm90::kSmemOptin" in src
+    formula = " ".join(body.group(1).replace("(size_t)", "").split())
+    for K, esize, rows, stages in [(4096, 2, 2, 2), (11008, 4, 1, 2),
+                                   (512, 2, 32, 3), (4100, 4, 1, 8)]:
+        assert eval(formula, {}, dict(K=K, esize=esize, rows=rows,
+                                      stages=stages)) == \
+            port.gemv_bulk_smem(K, esize, rows, stages)
+
+
+def test_gemv_kernel_counters_reset_together():
+    """kernel_launches names both GEMV kernels and reset_launches zeroes
+    it with the launch counters; a CPU call counts nothing."""
+    assert set(port.kernel_launches) == {"gemv", "gemv_bulk"}
+    port.kernel_launches["gemv_bulk"] += 3
+    port.reset_launches()
+    assert set(port.kernel_launches.values()) == {0}
+    a = torch.ones(64)
+    port.gemv(a, torch.ones((8, 64)))
+    assert set(port.kernel_launches.values()) == {0}

@@ -169,6 +169,18 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory at src into
+// shared dst, both on 16 bytes, completing on bar: the 1-D bulk copy,
+// one thread's instruction for a whole span
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -213,6 +225,14 @@ __device__ __forceinline__ uint64_t make_desc(unsigned addr, unsigned lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
+#define TL_D16                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+#define TL_D32                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "         \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
 #define TL_D64                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "                \
   "%8, %9, %10, %11, %12, %13, %14, %15, "           \
@@ -242,6 +262,8 @@ __device__ __forceinline__ uint64_t make_desc(unsigned addr, unsigned lbo,
 #define TL_F8(i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TL_F16 TL_F8(0), TL_F8(8)
+#define TL_F32 TL_F16, TL_F8(16), TL_F8(24)
 #define TL_F64                                                         \
   TL_F8(0), TL_F8(8), TL_F8(16), TL_F8(24), TL_F8(32), TL_F8(40),      \
       TL_F8(48), TL_F8(56)
@@ -262,7 +284,17 @@ __device__ __forceinline__ uint64_t make_desc(unsigned addr, unsigned lbo,
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma16(float (&d)[N / 2], uint64_t a,
                                         uint64_t b) {
-  if constexpr (N == 128 && std::is_same_v<T, __half>)
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma16: N is 32, 64, 128 or 256");
+  if constexpr (N == 32 && std::is_same_v<T, __half>)
+    TL_WGMMA16(32, "f16", TL_D16, TL_F16, "16", "17", "18", "19", "20");
+  else if constexpr (N == 32)
+    TL_WGMMA16(32, "bf16", TL_D16, TL_F16, "16", "17", "18", "19", "20");
+  else if constexpr (N == 64 && std::is_same_v<T, __half>)
+    TL_WGMMA16(64, "f16", TL_D32, TL_F32, "32", "33", "34", "35", "36");
+  else if constexpr (N == 64)
+    TL_WGMMA16(64, "bf16", TL_D32, TL_F32, "32", "33", "34", "35", "36");
+  else if constexpr (N == 128 && std::is_same_v<T, __half>)
     TL_WGMMA16(128, "f16", TL_D64, TL_F64, "64", "65", "66", "67", "68");
   else if constexpr (N == 128)
     TL_WGMMA16(128, "bf16", TL_D64, TL_F64, "64", "65", "66", "67", "68");
@@ -294,9 +326,13 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
 
 #undef TL_F128
 #undef TL_F64
+#undef TL_F32
+#undef TL_F16
 #undef TL_F8
 #undef TL_D128
 #undef TL_D64
+#undef TL_D32
+#undef TL_D16
 
 // ---------------------------------------------------------------------------
 // the consumers' main loops

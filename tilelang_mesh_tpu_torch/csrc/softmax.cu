@@ -340,18 +340,6 @@ softmax_block_rows(const TI* __restrict__ x, TO* __restrict__ y, int N,
 // 2: a row a cluster
 // ---------------------------------------------------------------------------
 
-// `bytes` (a multiple of 16) from global src to shared dst (both 16-byte
-// aligned), completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(tl_gemm::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-      "r"(tl_gemm::smem_addr(bar))
-      : "memory");
-}
-
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
@@ -397,7 +385,7 @@ softmax_cluster(const TI* __restrict__ x, TO* __restrict__ y, int N,
       const int b = a + per < n ? a + per : n;
       const unsigned bytes = (unsigned)(b - a) * sizeof(TI);
       tl_sm90::mbar_expect_tx(&bar[k], bytes);
-      if (bytes) bulk_load(buf + a, src + a, bytes, &bar[k]);
+      if (bytes) tl_sm90::bulk_load(buf + a, src + a, bytes, &bar[k]);
     }
   }
 

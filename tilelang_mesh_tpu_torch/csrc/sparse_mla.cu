@@ -43,7 +43,43 @@
 // The block normalises at the end (acc / max(l, 1e-30)) and writes the
 // natural-log Lse.
 //
-// bfloat16 and float16 (`sparse_mla_fwd_mma`, tensor cores): a block
+// bfloat16 and float16 at D a multiple of 128 (`sparse_mla_fwd_wgmma`,
+// wgmma): a block of two consumer warpgroups and a producer warp owns 64
+// heads of one token. The
+// host's rule (ops/dsa.py::sparse_mla_path) picks it and passes its code.
+//   * Q: the block's 64 x (D + DT) tile, loaded once by TMA through a 2-D
+//     map over (B S H, D + DT) into the 128-byte swizzled K-major layout
+//     (64-column blocks of 8 KB); rows past H are the next token's or
+//     TMA's zeros, computed and never stored.
+//   * A producer warpgroup gathers each tile of 64 slots: it reads the
+//     slots' ids, marks the invalid ones in a 64-bit mask, copies each
+//     valid row with 16-byte cp.async straight into the same swizzled
+//     layout, a warp a row at a time, 512 contiguous bytes a warp
+//     instruction (an invalid row zero-filled), waits for its copies,
+//     fences them to the async proxy and arrives on the stage's full
+//     mbarrier; two stages of 72 KB at D 512. (One producer warp gathered
+//     at a quarter of the rate the consumers take: PERF.md, #41.)
+//   * Consumer warpgroup g scores all 64 heads over slots 32 g .. 32 g +
+//     31 only (wgmma m64n32k16 over D + DT, both operands in shared
+//     memory): every score is computed once. The two exchange their row
+//     maxima through shared memory under a named barrier and form the
+//     same new max; each writes its p, rounded to the input type, into a
+//     shared 64 x 64 P tile and keeps l over its own slots from the
+//     unrounded p. After a second barrier each takes O[:, g D / 2 ..] +=
+//     P . V with wgmma m64n(D/2)k16, V the first D columns of the same
+//     staged rows read as an MN-major operand: one copy of the gathered
+//     rows feeds both products. O is 128 floats a thread at D 512. The
+//     consumers are warpgroups 0 and 1, the producer 2; ptxas holds every
+//     thread of 384 to 168 registers (setmaxnreg 40 / 232 changed
+//     nothing in its allocation, so the kernel does without it).
+//   * At the end the two halves of l are summed through shared memory; O
+//     = acc / max(l, 1e-30) and the natural-log Lse are stored.
+// Bound: operations (2.36 ms at DeepSeek-V3.2's widths in bf16); each
+// block gathers topk rows of (D + DT) elements from L2, 19 GB a call
+// there for the two head groups of 4096 tokens.
+//
+// bfloat16 and float16 at the other widths (`sparse_mla_fwd_mma`,
+// mma.sync; D 192, whose column halves are not whole 64-column blocks): a block
 // owns 64 heads of one token, 8 warps, warp w heads 16 (w % 4) .. + 16
 // and latent columns (w / 4) D / 2 .. + D / 2. The block's Q rows and
 // two buffers of 32 gathered KV rows sit in shared memory as the input
@@ -64,6 +100,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "split_kv_decode.cuh"
 
@@ -531,10 +568,307 @@ sparse_mla_fwd_mma(const E* __restrict__ q, const E* __restrict__ kv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 and float16 on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;    // two consumer warpgroups, a producer
+constexpr int kWgSlots = 64;       // index slots a tile
+constexpr int kWgStages = 2;
+
+// shared memory: Q | the KV stages | P | ids | masks | maxima | l | barriers
+template <int D, int DR>
+struct WgLayout {
+  static constexpr int DK = D + DR;
+  static constexpr int kTile = kWgSlots * DK * 2;     // 64 rows of DK
+  static constexpr int kKV = kTile;
+  static constexpr int kP = kTile * (1 + kWgStages);
+  static constexpr int kIds = kP + 64 * 64 * 2;
+  static constexpr int kMask = kIds + kWgStages * kWgSlots * 4;
+  static constexpr int kMax = kMask + kWgStages * 8;
+  static constexpr int kL = kMax + 2 * 64 * 4;
+  static constexpr int kBar = kL + 2 * 64 * 4;
+  // and room to align the start to 1024 bytes (the swizzle's period)
+  static constexpr int kSmem = kBar + (2 * kWgStages + 1) * 8 + 1024;
+  static_assert(DK % 64 == 0 && D % 128 == 0, "unsupported latent widths");
+  static_assert(kSmem <= tl_sm90::kSmemOptin, "tiles past shared memory");
+};
+
+// the descriptor of a 128-byte swizzled K-major tile at addr (rows of 128
+// bytes, 8-row groups 1024 apart)
+__device__ __forceinline__ uint64_t kdesc(unsigned addr) {
+  return tl_sm90::make_desc(addr, 16, 1024, 128);
+}
+
+template <int D, int DR, typename E>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sparse_mla_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const E* __restrict__ kv, const int* __restrict__ ind,
+                     E* __restrict__ o, float* __restrict__ lse, int S,
+                     int Skv, int H, int topk, int q_offset, float scale) {
+  using L = WgLayout<D, DR>;
+  constexpr int DK = D + DR;
+  constexpr int NB = DK / 64;        // 64-column blocks of a row, 8 KB each
+  constexpr int CH = DK / 8;         // 16-byte chunks of a row
+  constexpr int NV = D / 2;          // a consumer's columns of O
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* buf =
+      smem_raw + ((1024 - (tl_gemm::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = buf;
+  unsigned char* sKV = buf + L::kKV;
+  unsigned char* sP = buf + L::kP;
+  int* sIds = reinterpret_cast<int*>(buf + L::kIds);
+  unsigned* sMask = reinterpret_cast<unsigned*>(buf + L::kMask);
+  float* sMax = reinterpret_cast<float*>(buf + L::kMax);
+  float* sL = reinterpret_cast<float*>(buf + L::kL);
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + L::kBar);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* q_bar = empty + kWgStages;
+
+  const int hg = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
+  const long long tok = (long long)b * S + t;
+  const int bound = q_offset + t;       // the token's last visible row
+  const int* ids = ind + tok * topk;
+  const E* kvb = kv + (long long)b * Skv * DK;
+  const int n_tiles = (topk + kWgSlots - 1) / kWgSlots;
+  const int cg = threadIdx.x / 128;            // 2: the producer
+  const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      tl_sm90::mbar_init(&full[s], 128);      // a producer thread each
+      tl_sm90::mbar_init(&empty[s], 8);       // a consumer warp each
+    }
+    tl_sm90::mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (cg == 2) {                               // the producer
+    if (threadIdx.x == 256) {
+      tl_sm90::mbar_expect_tx(q_bar, L::kTile);
+      for (int j = 0; j < NB; ++j)
+        tl_sm90::tma_load(sQ + j * 8192, &qmap, q_bar, 64 * j,
+                          (int)(tok * H) + hg * 64);
+    }
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int s = tile % kWgStages;
+      tl_sm90::mbar_wait(&empty[s], ((tile / kWgStages) & 1) ^ 1);
+      int* sid = sIds + s * kWgSlots;
+      if (warp < 2) {                            // slots 32 warp + lane
+        const int slot = tile * kWgSlots + 32 * warp + lane;
+        const int id = slot < topk ? __ldg(ids + slot) : -1;
+        const bool ok = id >= 0 && id <= bound && id < Skv;
+        sid[32 * warp + lane] = ok ? id : -1;
+        const unsigned live = __ballot_sync(kFull, ok);
+        if (lane == 0) sMask[2 * s + warp] = live;
+      }
+      tl_sm90::named_sync(1, 128);               // the ids are in
+      // warp w copies rows w, w + 4, ...: row r's chunks lane + 32 k, all
+      // at chunk lane % 8 of their 128-byte row, swizzled to (lane % 8)
+      // ^ (r % 8)
+      unsigned char* dst = sKV + s * L::kTile + (lane / 8) * 8192;
+      for (int r = warp; r < kWgSlots; r += 4) {
+        const int id = sid[r];
+        const E* src = (id >= 0 ? kvb + (long long)id * DK : kvb) + lane * 8;
+        unsigned char* d = dst + r * 128 + (((lane % 8) ^ (r % 8)) << 4);
+#pragma unroll
+        for (int k = 0; k < (CH + 31) / 32; ++k)
+          if (32 * k + lane < CH)
+            tl_gemm::cp_async16(d + k * 4 * 8192, src + k * 256, id >= 0);
+      }
+      tl_gemm::cp_async_commit();
+      tl_gemm::cp_async_wait<0>();
+      // the rows, written through the generic proxy, for wgmma's reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      tl_sm90::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup cg
+  const int r0 = 16 * warp + lane / 4;         // rows r0 and r0 + 8
+  const int q2 = (lane % 4) * 2;               // columns q2, q2 + 1 of 8
+  float acc[NV / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const unsigned q_base = tl_gemm::smem_addr(sQ);
+  const unsigned p_base = tl_gemm::smem_addr(sP);
+  tl_sm90::mbar_wait(q_bar, 0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s = tile % kWgStages;
+    tl_sm90::mbar_wait(&full[s], (tile / kWgStages) & 1);
+    const unsigned mk0 = sMask[2 * s], mk1 = sMask[2 * s + 1];
+    if ((mk0 | mk1) == 0) {                    // no valid slot: both skip
+      if (lane == 0) tl_sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned mine = cg ? mk1 : mk0;
+    const unsigned kv_base = tl_gemm::smem_addr(sKV + s * L::kTile);
+
+    // 1. the scores of the 64 heads over this consumer's 32 slots
+    // the descriptors of Q's and this consumer's first rows; a k16 step
+    // is 32 bytes on along a 128-byte row, a 64-column block 8 KB on
+    const uint64_t qd = kdesc(q_base);
+    const uint64_t kd = kdesc(kv_base + cg * 32 * 128);
+    float sc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+    tl_sm90::fence_regs(sc);
+    tl_sm90::wg_fence();
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tl_sm90::wgmma16<E, 32, 0, 0>(
+            sc, qd + (uint64_t)((j * 8192 + kk * 32) >> 4),
+            kd + (uint64_t)((j * 8192 + kk * 32) >> 4));
+    tl_sm90::wg_commit();
+    tl_sm90::wg_wait<0>();
+    tl_sm90::fence_regs(sc);
+
+    // 2. online softmax in the exp2 domain over both consumers' slots, the
+    // max floored at -1e30; a row's 32 slots here lie on a lane quad
+    float mx[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * h + e];
+          x = (mine >> (8 * j + q2 + e)) & 1u ? x * scale : -INFINITY;
+          v = fmaxf(v, x);
+        }
+      v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+      mx[h] = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+    }
+    if (lane % 4 == 0) {
+      sMax[64 * cg + r0] = mx[0];
+      sMax[64 * cg + r0 + 8] = mx[1];
+    }
+    tl_sm90::named_sync(2, 256);               // both consumers' maxima
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float other = sMax[64 * (1 - cg) + r0 + 8 * h];
+      const float m_new = fmaxf(m[h], fmaxf(fmaxf(mx[h], other), -1e30f));
+      const float alpha = exp2f(m[h] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * h + e];
+          x = exp2f(x - m_new);
+          ps += x;
+        }
+      ps += __shfl_xor_sync(kFull, ps, 1);
+      ps += __shfl_xor_sync(kFull, ps, 2);
+      l[h] = l[h] * alpha + ps;
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < NV / 8; ++j) {
+        acc[4 * j + 2 * h] *= alpha;
+        acc[4 * j + 2 * h + 1] *= alpha;
+      }
+      // p rounded to E into P's columns 32 cg + 8 j + q2 (K-major, the
+      // 128-byte swizzle: chunk 4 cg + j of row r sits at chunk ^ r % 8)
+      const int r = r0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<unsigned*>(
+            sP + r * 128 + (((4 * cg + j) ^ (r % 8)) << 4) + 2 * q2) =
+            pack2<E>(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tl_sm90::named_sync(2, 256);               // P is whole
+
+    // 3. O[:, cg NV ..] += P . V, V MN-major: the staged rows' first D
+    // columns, 64-column blocks 8 KB apart
+    tl_sm90::fence_regs(acc);
+    tl_sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tl_sm90::wgmma16<E, NV, 0, 1>(
+          acc, kdesc(p_base + kk * 32),
+          tl_sm90::make_desc(kv_base + cg * (NV / 64) * 8192 + kk * 16 * 128,
+                             8192, 1024, 128));
+    tl_sm90::wg_commit();
+    tl_sm90::wg_wait<0>();
+    tl_sm90::fence_regs(acc);
+    if (lane == 0) tl_sm90::mbar_arrive(&empty[s]);
+  }
+
+  // l over both consumers' slots; O = acc / max(l, 1e-30) in E; Lse
+  if (lane % 4 == 0) {
+    sL[64 * cg + r0] = l[0];
+    sL[64 * cg + r0 + 8] = l[1];
+  }
+  tl_sm90::named_sync(2, 256);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h, head = hg * 64 + r;
+    if (head >= H) continue;
+    const float lt = l[h] + sL[64 * (1 - cg) + r];
+    const float den = fmaxf(lt, 1e-30f);
+    E* orow = o + (tok * H + head) * D + cg * NV + q2;
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j)
+      *reinterpret_cast<unsigned*>(orow + 8 * j) =
+          pack2<E>(acc[4 * j + 2 * h] / den, acc[4 * j + 2 * h + 1] / den);
+    if (cg == 0 && lane % 4 == 0) lse[tok * H + head] = natural_lse(m[h], lt);
+  }
+}
+
+// Launches sparse_mla_fwd_wgmma on `st`: Q's map over (B S H, D + DT)
+// in boxes of 64 x 64; cudaErrorInvalidValue when the map is refused
+template <int D, int DR, typename E>
+int launch_wgmma(const void* q, const void* kv, const int* ind, void* o,
+                 float* lse, int B, int S, int Skv, int H, int topk,
+                 int q_offset, float scale, cudaStream_t st) {
+  CUtensorMap qmap;
+  const int type =
+      std::is_same_v<E, __half> ? tl_gemm::kF16 : tl_gemm::kBF16;
+  if (!tl_sm90::make_map(&qmap, q, type, (long long)B * S * H, D + DR,
+                         D + DR, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = sparse_mla_fwd_wgmma<D, DR, E>;
+  constexpr int smem = WgLayout<D, DR>::kSmem;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<dim3((H + 63) / 64, S, B), kWgThreads, smem, st>>>(
+      qmap, static_cast<const E*>(kv), ind, static_cast<E*>(o), lse, S, Skv,
+      H, topk, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+// the kernels' codes (ops/dsa.py::sparse_mla_path)
+constexpr int kPathF32 = 0, kPathMma = 1, kPathWgmma = 2;
+
 template <int D, int DR>
 int launch_widths(const void* q, const void* kv, const int* ind, void* o,
                   float* lse, int B, int S, int Skv, int H, int topk,
-                  int q_offset, int dt, float scale, cudaStream_t st) {
+                  int q_offset, int dt, int path, float scale,
+                  cudaStream_t st) {
+  if ((dt == kF32) != (path == kPathF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == kPathWgmma) {
+    if constexpr (D % 128 == 0) {
+      if (dt == kBF16)
+        return launch_wgmma<D, DR, __nv_bfloat16>(
+            q, kv, ind, o, lse, B, S, Skv, H, topk, q_offset, scale, st);
+      if (dt == kF16)
+        return launch_wgmma<D, DR, __half>(q, kv, ind, o, lse, B, S, Skv, H,
+                                           topk, q_offset, scale, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (path != kPathF32 && path != kPathMma)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dt) {
     case kF32:
       return launch(sparse_mla_fwd<D, DR>, dim3((H + kG - 1) / kG, S, B),
@@ -566,23 +900,25 @@ int launch_widths(const void* q, const void* kv, const int* ind, void* o,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched);
-// cudaErrorInvalidValue for a (D, DT) pair or a type code `dt` (0
-// float32, 1 bfloat16, 3 float16) without an instance. All operands
+// Launches the kernel of code `path` (0 sparse_mla_fwd, float32; 1
+// sparse_mla_fwd_mma, 2 sparse_mla_fwd_wgmma, bfloat16 / float16) on
+// `stream` and returns cudaGetLastError() (0 = launched);
+// cudaErrorInvalidValue for a (D, DT) pair, a type code `dt` (0 float32,
+// 1 bfloat16, 3 float16) or a path without an instance. All operands
 // contiguous, Q and KV on 16 bytes; the Python wrapper checks shapes and
 // types first.
 extern "C" int tl_sparse_mla_fwd(const void* q, const void* kv,
                                  const void* ind, void* o, void* lse, int B,
                                  int S, int Skv, int H, int D, int DT,
-                                 int topk, int q_offset, int dt, float scale,
-                                 void* stream) {
+                                 int topk, int q_offset, int dt, int path,
+                                 float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ind);
   float* l = static_cast<float*>(lse);
 #define TL_CASE(C, R)                                                    \
   if (D == C && DT == R)                                                 \
     return launch_widths<C, R>(q, kv, id, o, l, B, S, Skv, H, topk,      \
-                               q_offset, dt, scale, st);
+                               q_offset, dt, path, scale, st);
   TL_CASE(512, 64)
   TL_CASE(256, 64)
   TL_CASE(192, 64)

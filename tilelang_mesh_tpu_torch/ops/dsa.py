@@ -17,7 +17,12 @@ inference pipeline (the first two in ``csrc/dsa.cu``, the third in
    t``, and below Skv), scores over all D + DT features, values the first
    D; returns O (B, S, H, D) in q's type and the natural-log LSE (B, S,
    H) float32. A row with no valid index gives O = 0 and LSE =
-   (-1e30 + log2(1e-30)) / log2(e), as the JAX kernel does.
+   (-1e30 + log2(1e-30)) / log2(e), as the JAX kernel does. One launch,
+   counted as ``sparse_mla_fwd``, of the kernel ``sparse_mla_path``
+   picks (counted by name in ``kernel_launches``): ``sparse_mla_fwd``
+   (float32, CUDA cores), ``sparse_mla_fwd_wgmma`` (bfloat16 / float16 at
+   the widths of ``WGMMA_WIDTHS``) or ``sparse_mla_fwd_mma`` (bfloat16 /
+   float16 at the others).
 
 ``make_sparse_mla`` is the sparse fine-tuning op: its forward is the
 kernel under a ``torch.autograd.Function``, its backward autograd through
@@ -53,7 +58,8 @@ __all__ = ["lightning_indexer", "lightning_indexer_plain",
            "sparse_mla_fwd_plain", "sparse_mla_fwd_kernel",
            "sparse_mla_reference", "make_sparse_mla", "launches",
            "reset_launches", "KERNEL_WIDTHS", "DEAD_ROW_LSE",
-           "SELECTOR_SMEM_BYTES"]
+           "SELECTOR_SMEM_BYTES", "WGMMA_WIDTHS", "sparse_mla_path",
+           "kernel_launches"]
 
 _LOG2E = 1.44269504
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -66,6 +72,14 @@ DEAD_ROW_LSE = float((np.float32(-1e30) + np.float32(math.log2(1e-30)))
 # (D, DT) pairs csrc/sparse_mla.cu's kernel instantiates:
 # DeepSeek-V3.2's (kv_lora_rank 512, qk_rope_head_dim 64) and the tests'
 KERNEL_WIDTHS = ((512, 64), (256, 64), (192, 64), (128, 64))
+# the (D, DT) pairs of the 16-bit wgmma kernel: D + DT whole 64-column
+# blocks of the 128-byte swizzle, and each consumer's D / 2 columns of O
+# too (D 192's halves are not: it stays on the mma.sync kernel)
+WGMMA_WIDTHS = tuple((d, dt) for d, dt in KERNEL_WIDTHS
+                     if d % 128 == 0 and (d + dt) % 64 == 0)
+# tl_sparse_mla_fwd's kernel codes
+_MLA_PATHS = {"sparse_mla_fwd": 0, "sparse_mla_fwd_mma": 1,
+              "sparse_mla_fwd_wgmma": 2}
 
 # tokens a plain-version step works on (bounds its gathered rows and
 # score tensors)
@@ -80,9 +94,15 @@ launches = {"lightning_indexer": 0, "topk_selector": 0,
             "sparse_mla_fwd": 0}
 
 
+# the sparse MLA forward's launches by kernel (each also counts once as
+# "sparse_mla_fwd" above)
+kernel_launches = dict.fromkeys(_MLA_PATHS, 0)
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, kernel_launches):
+        for k in d:
+            d[k] = 0
 
 
 def _tensors(*xs, device=None):
@@ -338,6 +358,18 @@ def sparse_mla_fwd_plain(q, kv, ind, D: int, sm_scale: float,
     return o, lse
 
 
+def sparse_mla_path(D: int, DT: int, dtype) -> str:
+    """Which kernel of ``sparse_mla.cu`` runs a forward of latent D, tail
+    DT and ``dtype`` on the card, decided before any launch: float32
+    ``sparse_mla_fwd`` (CUDA cores); bfloat16 / float16
+    ``sparse_mla_fwd_wgmma`` at ``WGMMA_WIDTHS``, ``sparse_mla_fwd_mma``
+    at the other widths."""
+    if _as_dtype(dtype) == torch.float32:
+        return "sparse_mla_fwd"
+    return "sparse_mla_fwd_wgmma" if (D, DT) in WGMMA_WIDTHS \
+        else "sparse_mla_fwd_mma"
+
+
 def _sparse_mla(q, kv, ind, D: int, sm_scale: float, q_offset: int):
     if not q.is_cuda:
         return sparse_mla_fwd_plain(q, kv, ind, D, sm_scale, q_offset)
@@ -348,10 +380,13 @@ def _sparse_mla(q, kv, ind, D: int, sm_scale: float, q_offset: int):
     ind = ind.contiguous()
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    path = sparse_mla_path(D, Dfull - D, q.dtype)
     _launch("sparse_mla", "sparse_mla_fwd", "tl_sparse_mla_fwd",
             (q, kv, ind, o, lse),
             (B, S, kv.shape[1], H, D, Dfull - D, ind.shape[-1], q_offset,
-             DTYPE_CODES[q.dtype]), (float(sm_scale) * _LOG2E,))
+             DTYPE_CODES[q.dtype], _MLA_PATHS[path]),
+            (float(sm_scale) * _LOG2E,))
+    kernel_launches[path] += 1
     return o, lse
 
 

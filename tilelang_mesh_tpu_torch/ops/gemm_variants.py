@@ -30,7 +30,11 @@ block tile loop of ``csrc/gemm_tile.cuh``) and ``csrc/gemv.cu``.
   of ``STREAMK_TMA_TILES``, or ``streamk_gemm``, the tile loop), then
   ``streamk_fixup``.
 * ``gemv(a, b, out_dtype, ...)`` — c = B @ a for a (K,) and B (N, K),
-  float32 products and sums. One launch (``gemv``).
+  float32 products and sums. One launch, counted as ``gemv``, of the
+  kernel ``gemv_path`` picks (counted by name in ``kernel_launches``):
+  ``gemv_bulk`` (a few blocks an SM, each streaming an equal span of B's
+  rows by bulk copies, at ``gemv_bulk_plan``'s plan) or ``gemv`` (a warp
+  a pair of rows, for misaligned operands and the rest).
 * ``blocksparse_matmul(a, b, block_mask, ...)`` — A @ B on the output
   tiles whose (M / block_M, N / block_N) int32 mask cell is nonzero,
   exactly 0 elsewhere. One launch, counted as ``blocksparse_gemm``, of
@@ -61,7 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,7 +82,8 @@ __all__ = ["matmul_splitk", "matmul_splitk_plain", "splitk_plan",
            "IN_TYPES", "splitk_path", "splitk_stream_plan",
            "stream_slots", "SPLITK_STREAM_MAX_ROWS", "streamk_path",
            "STREAMK_TMA_TILES", "streamk_phase_programs",
-           "blocksparse_path"]
+           "blocksparse_path", "gemv_path", "gemv_bulk_plan",
+           "gemv_bulk_smem", "GemvBulkPlan", "kernel_launches"]
 
 # the input types the variants' kernels take
 IN_TYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -104,9 +109,14 @@ launches = {"splitk_gemm": 0, "splitk_reduce": 0, "splitk_stream": 0,
             "blocksparse_gemm": 0}
 
 
+# the GEMV's launches by kernel (each also counts once as "gemv" above)
+kernel_launches = {"gemv": 0, "gemv_bulk": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, kernel_launches):
+        for k in d:
+            d[k] = 0
 
 
 def _types(a, b, out_dtype, what: str) -> torch.dtype:
@@ -674,6 +684,82 @@ def _gemv_checks(a, b, out_dtype) -> torch.dtype:
     return out
 
 
+# gemv_bulk (csrc/gemv.cu): the most blocks an SM it tries, the bytes of
+# B a stage holds (whole rows, at least one) and its stages (PERF.md,
+# #18, has the sweep); an SM's shared memory for blocks, a block's opt-in
+# maximum (gemm_sm90.cuh's kSmemOptin) and the runtime's reservation a
+# block (an H100's)
+GEMV_BULK_BLOCKS_PER_SM = 4
+GEMV_BULK_STAGE_BYTES = 16 * 1024
+GEMV_BULK_STAGES = 2
+_SMEM_PER_SM = 228 * 1024
+_SMEM_BLOCK_MAX = 232448
+_SMEM_RESERVED = 1024
+# tl_gemv's path codes
+_GEMV_PATHS = {"gemv": 0, "gemv_bulk": 1}
+
+
+class GemvBulkPlan(NamedTuple):
+    """gemv_bulk's launch: ``blocks`` blocks, block i owning rows
+    ``[i * base + min(i, extra), ...)``, ``base + (i < extra)`` of them
+    (``base, extra = divmod(N, blocks)``); ``rows`` rows of B a stage,
+    ``stages`` stages; ``smem`` bytes of shared memory (``a``, the ring,
+    its barriers)."""
+    blocks: int
+    rows: int
+    stages: int
+    smem: int
+
+
+def gemv_bulk_smem(K: int, esize: int, rows: int, stages: int) -> int:
+    """gemv_bulk's dynamic shared memory, as csrc/gemv.cu's ``bulk_smem``
+    computes it: ``a``, ``stages`` stages of ``rows`` rows, the full and
+    empty barriers of each stage and ``a``'s."""
+    return K * esize + stages * rows * K * esize + 8 * (2 * stages + 1)
+
+
+def gemv_bulk_plan(N: int, K: int, dtype,
+                   sms: int) -> Optional[GemvBulkPlan]:
+    """The plan of ``gemv_bulk`` for B (N, K) of ``dtype`` on a card of
+    ``sms`` SMs, or None where it does not apply: rows of K * size bytes
+    (a multiple of 16); the most blocks an SM, from
+    ``GEMV_BULK_BLOCKS_PER_SM`` down to one, that give every block a row
+    and hold ``GEMV_BULK_STAGES`` stages in their share of the SM's shared
+    memory; a stage the whole rows that fit ``GEMV_BULK_STAGE_BYTES`` (at
+    least one, at most a block's span)."""
+    esize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
+    row = K * esize
+    if row <= 0 or row % 16:
+        return None
+    for bps in range(GEMV_BULK_BLOCKS_PER_SM, 0, -1):
+        blocks = bps * sms
+        if N < blocks:
+            continue
+        rows = min(max(1, GEMV_BULK_STAGE_BYTES // row), _cdiv(N, blocks))
+        smem = gemv_bulk_smem(K, esize, rows, GEMV_BULK_STAGES)
+        room = min(_SMEM_BLOCK_MAX, _SMEM_PER_SM // bps - _SMEM_RESERVED)
+        if smem <= room:
+            return GemvBulkPlan(blocks, rows, GEMV_BULK_STAGES, smem)
+    return None
+
+
+def gemv_path(N: int, K: int, dtype, a_ptr: int = 0, b_ptr: int = 0,
+              sms: int = 132) -> str:
+    """Which kernel of ``gemv.cu`` computes B (N, K) @ a (K,) of
+    ``dtype`` at ``a_ptr`` and ``b_ptr`` on a card of ``sms`` SMs, decided
+    before any launch: ``"gemv_bulk"`` where both bases sit on 16 bytes
+    and ``gemv_bulk_plan`` has a plan; ``"gemv"`` otherwise."""
+    if _as_dtype(dtype) not in IN_TYPES or (a_ptr | b_ptr) % 16 \
+            or gemv_bulk_plan(N, K, dtype, sms) is None:
+        return "gemv"
+    return "gemv_bulk"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def gemv_plain(a, b, out_dtype=None, block_N=128,
                block_K=512) -> torch.Tensor:
     """Plain version: the float32 dot of each row of B with a."""
@@ -695,9 +781,15 @@ def gemv(a, b, out_dtype=None, block_N=128, block_K=512) -> torch.Tensor:
     if K == 0:
         return c.zero_()
     a, b = a.contiguous(), b.contiguous()
-    _call("gemv", "tl_gemv", "gemv", a.device, [_P] * 3 + [_I] * 4,
+    sms = _sm_count(a.device)
+    path = gemv_path(N, K, a.dtype, a.data_ptr(), b.data_ptr(), sms)
+    plan = gemv_bulk_plan(N, K, a.dtype, sms) if path == "gemv_bulk" \
+        else GemvBulkPlan(0, 0, 0, 0)
+    _call("gemv", "tl_gemv", "gemv", a.device, [_P] * 3 + [_I] * 8,
           a.data_ptr(), b.data_ptr(), c.data_ptr(), N, K,
-          DTYPE_CODES[a.dtype], DTYPE_CODES[out])
+          DTYPE_CODES[a.dtype], DTYPE_CODES[out], _GEMV_PATHS[path],
+          *plan[:3])
+    kernel_launches[path] += 1
     return c
 
 
