@@ -88,9 +88,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. seqmix  — the seventh main path: the sequence-mixing entry points at
               bench.py's widths (see MAMBA2, GDN, LINATTN):
               mamba2_chunk_scan (Mamba2-2.7B's SSD widths, chunks 128 and
-              256 in bf16, 128 in f32) and gdn_chunk_fwd_tl (chunk 64 in
-              bf16 and f32; chunk 128 refused, it does not fit a block's
-              shared memory), each also against the sequential recurrence
+              256 in bf16, 128 in f32) and gdn_chunk_fwd_tl (chunks 64 and
+              128 in bf16 and f32: its two kernels, gdn_chunk_wy and
+              gdn_chunk_state, each also held and timed alone against its
+              plain stage), each also against the sequential recurrence
               by bench's own check; linear_attention and retention in f32
               and bf16; linear attention's kernel backward (one forward
               and three backward launches, its gradients against autograd
@@ -241,16 +242,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               the gather each timed, the faster against the torch
               gather + softmax, KV GB/s), mamba2_chunk (B 8, S 4096, H
               80, P 64, N 128: mamba2_chunk_scan at chunks 128 and 256
-              against the eager chunk-parallel port), w4a8_gemm (4096^3)
-              and w4a16_gemm (4096^3, group 512) through run_config at a
-              0.1 s loop target (bench's own is 0.6 s), each record
-              printed, then the headline geomean line, the geomeans of
-              the eight configs without the decode ones, moe_grouped and
-              mamba2_chunk, of the ten without the last two, of the
-              eleven without mamba2_chunk and of the five GEMM configs;
-              the two yardsticks', mha_fwd's, mla_decode's, both decode
-              strategies', the TMA grouped GEMM's, mamba2_chunk_scan's
-              and the TMA w4a8 kernel's launches counted over the twelve
+              against the eager chunk-parallel port), gdn_fwd (B 8, H 16,
+              T 4096, K = V = 128: gdn_chunk_fwd_tl at chunks 64 and 128
+              against the eager chunk-parallel WY form), w4a8_gemm
+              (4096^3) and w4a16_gemm (4096^3, group 512) through
+              run_config at a 0.1 s loop target (bench's own is 0.6 s),
+              each record printed, then the headline geomean line, the
+              geomeans of the twelve configs without gdn_fwd, of the
+              eight without the decode ones, moe_grouped, mamba2_chunk
+              and gdn_fwd, of the ten without the last three, of the
+              eleven without mamba2_chunk and gdn_fwd and of the five
+              GEMM configs; the two yardsticks', mha_fwd's,
+              mla_decode's, both decode strategies', the TMA grouped
+              GEMM's, mamba2_chunk_scan's, the two GDN kernels' and the
+              TMA w4a8 kernel's launches counted over the thirteen
               configs (a CUDA graph's
               where it is captured), every GEMM of them on #15's TMA
               path (moe_grouped's on the TMA grouped kernel). Then the
@@ -402,9 +407,9 @@ LLAMA2 = dict(hidden=4096, inter=11008, vocab=32000, decode=16,
 # (huggingface.co/state-spaces/mamba2-2.7b/blob/main/config.json: d_model
 # 2560, expand 2, head dim 64 -> 80 heads, d_state 128, one group), B 8,
 # S 4096, chunks 128 and 256 in bf16 and 128 in f32; gdn_fwd (cfg_gdn_fwd,
-# :1667) at B 8, H 16, T 4096, K = V = 128, chunk 64 in bf16 and f32
-# (chunk 128 does not fit a block's shared memory: refused); bench's
-# seeded numpy draws, nothing cut. Linear attention and retention have no
+# :1667) at B 8, H 16, T 4096, K = V = 128, chunks 64 and 128 (bench's
+# candidates) in bf16 and f32; bench's seeded numpy draws, nothing cut.
+# Linear attention and retention have no
 # bench config: the GDN cell's widths, the JAX defaults' chunks (128, 64),
 # draws standard_normal * 0.2 from default_rng(10), retention's decay
 # 1 - 2^(-5 - 4 h / H) a head.
@@ -2469,14 +2474,34 @@ def mamba2_flops(B, S, H, P, N, c):
                           + H * ((c + 1) / 2 * P + 2 * N * P))
 
 
+def gdn_wy_flops(B, H, T, K, V, c):
+    """The operations of gdn_flops that gdn_chunk_wy does: k k^T's
+    strict lower triangle, the triangular solve for w and u, the lower
+    triangle of q k^T."""
+    return 2.0 * B * H * T * ((c - 1) / 2 * (2 * K + V) + (c + 1) / 2 * K)
+
+
+def gdn_state_flops(B, H, T, K, V, c):
+    """The rest, gdn_chunk_state's: attn's lower triangle times the new
+    values and the three (K, V) state products."""
+    return 2.0 * B * H * T * ((c + 1) / 2 * V + 3 * K * V)
+
+
 def gdn_flops(B, H, T, K, V, c):
     """Operations the gated delta rule needs at chunk c, a token and a
     head: k k^T's strict lower triangle, the unit-lower triangular solve
-    for w and u by substitution (the kernel's doubling inverse is more),
+    for w and u by substitution (the kernel's blocked inverse is more),
     the lower triangles of q k^T and of its product with the new values,
     and the three (K, V) state products."""
-    return 2.0 * B * H * T * ((c - 1) / 2 * (2 * K + V)
-                              + (c + 1) / 2 * (K + V) + 3 * K * V)
+    return gdn_wy_flops(B, H, T, K, V, c) + gdn_state_flops(B, H, T, K, V, c)
+
+
+def gdn_scratch_bytes(B, H, T, K, V, c, esize):
+    """What gdn_chunk_wy writes and gdn_chunk_state reads: w, e^gc q and
+    kd (each q's size), attn_c in the input type, u and the gates in
+    float32."""
+    return B * H * T * (3 * K * esize + c * esize + 4 * V) \
+        + B * H * (T // c) * 4
 
 
 def chunk_scan_flops(B, H, S, DK, DV, c):
@@ -2499,6 +2524,7 @@ def seqmix_phase(torch, m2, gd, la):
     bench's baseline, and the bound."""
     import numpy as np
     counted = {"mamba2_chunk_scan": 0, "gdn_chunk_fwd": 0,
+               "gdn_chunk_wy": 0, "gdn_chunk_state": 0,
                "linear_attention": 0, "retention": 0}
     res = {}
     reset_peak(torch)
@@ -2590,7 +2616,8 @@ def seqmix_phase(torch, m2, gd, la):
                     lambda: m2.mamba2_chunk_scan_torch(xs, dt, A, bs, cs,
                                                        chunk=chunk)),
             "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": nbytes, "reference_s": ref_s}
+            "bytes": nbytes, "plan": m2.mamba2_plan(
+                B, H, P, N, chunk, esize)._asdict(), "reference_s": ref_s}
         del xs, bs, cs
         torch.cuda.empty_cache()
     del x, dt, A, Bm, Cm, ref
@@ -2612,22 +2639,14 @@ def seqmix_phase(torch, m2, gd, la):
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     scale = 1.0 / math.sqrt(K)
-    # chunk 128 does not fit a block's shared memory at these widths: the
-    # wrapper must refuse it, naming the chunks it takes, with no launch
-    try:
-        drive("gdn_chunk_fwd_tl chunk 128", lambda: gd.gdn_chunk_fwd_tl(
-            q, k, v, g, beta, chunk_size=128), {})
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    check(refused is not None and "takes chunks" in refused,
-          "gdn_chunk_fwd_tl did not refuse chunk 128 on the card")
-    res["gdn_chunk128"] = {"refused": refused}
+    gdn_calls = {"gdn_chunk_fwd": 1, "gdn_chunk_wy": 1, "gdn_chunk_state": 1}
     for label, chunk, dtype in (("bf16_chunk64", 64, torch.bfloat16),
-                                ("f32_chunk64", 64, torch.float32)):
+                                ("bf16_chunk128", 128, torch.bfloat16),
+                                ("f32_chunk64", 64, torch.float32),
+                                ("f32_chunk128", 128, torch.float32)):
         qs, ks, vs = (t.to(dtype) for t in (q, k, v))
         got = drive(f"gdn_chunk_fwd_tl {label}", lambda: gd.gdn_chunk_fwd_tl(
-            qs, ks, vs, g, beta, chunk_size=chunk), {"gdn_chunk_fwd": 1})
+            qs, ks, vs, g, beta, chunk_size=chunk), gdn_calls)
         r = hold(f"gdn_chunk_fwd_tl {label}", got, gd.gdn_chunk_fwd_tl_plain(
             qs, ks, vs, g, beta, chunk, scale), dtype)
         r.update(against_reference(f"gdn_chunk_fwd_tl {label}", got, ref,
@@ -2638,6 +2657,8 @@ def seqmix_phase(torch, m2, gd, la):
         flops = gdn_flops(B, H, T, K, V, chunk)
         bound, by = mm_bound(flops, nbytes, PEAK_BF16_FLOPS
                              if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        plan, code = gd._plan_or_raise(qs, vs, chunk)
+        scratch_bytes = gdn_scratch_bytes(B, H, T, K, V, chunk, esize)
         res[f"gdn_chunk_fwd_{label}"] = {
             "shape": [B, H, T, K, V], "chunk": chunk, **r,
             **timed(lambda: gd.gdn_chunk_fwd_tl(qs, ks, vs, g, beta,
@@ -2647,8 +2668,54 @@ def seqmix_phase(torch, m2, gd, la):
                     lambda: gd.gdn_chunk_fwd(qs, ks, vs, g, beta,
                                              chunk_size=chunk)),
             "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": nbytes, "reference_s": ref_s}
-        del qs, ks, vs
+            "bytes": nbytes, "scratch_bytes": scratch_bytes,
+            "plan": plan._asdict(), "reference_s": ref_s}
+        # each kernel alone against its plain stage on the same inputs
+        # (off the main path): the WY kernel's scratch (attn on and below
+        # each chunk's diagonal, where the serial pass reads it), the
+        # serial pass on the plain stage's scratch
+        want = gd.gdn_chunk_wy_plain(qs, ks, vs, g, beta, chunk)
+        got = drive(f"gdn_chunk_wy {label}", lambda: gd._launch_wy(
+            qs, ks, vs, g, beta, chunk, code), {"gdn_chunk_wy": 1},
+            main=False)
+        low = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                    device=q.device))
+        parts = []
+        for i, (a, w) in enumerate(zip(got, want)):
+            if i == 4:
+                a, w = (t.reshape(B, H, -1, chunk, chunk)[..., low]
+                        for t in (a, w))
+            parts.append(hold(f"gdn_chunk_wy {label} output {i}", a, w,
+                              dtype))
+        del got
+        worst = max(parts, key=lambda x: x["normwise_err"])
+        wy_bytes = nbytes - q.numel() * esize + scratch_bytes
+        wy_flops = gdn_wy_flops(B, H, T, K, V, chunk)
+        bound, by = mm_bound(wy_flops, wy_bytes, PEAK_BF16_FLOPS
+                             if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        res[f"gdn_chunk_wy_{label}"] = {
+            "chunk": chunk, **worst,
+            **timed(lambda: gd._launch_wy(qs, ks, vs, g, beta, chunk, code),
+                    lambda: gd.gdn_chunk_wy_plain(qs, ks, vs, g, beta,
+                                                  chunk)),
+            "bound_ms": bound, "bound_by": by, "flops": wy_flops,
+            "bytes": wy_bytes}
+        got = drive(f"gdn_chunk_state {label}", lambda: gd._launch_state(
+            want, plan, scale, code), {"gdn_chunk_state": 1}, main=False)
+        r = hold(f"gdn_chunk_state {label}", got,
+                 gd.gdn_chunk_state_plain(*want, scale), dtype)
+        del got
+        st_bytes = scratch_bytes + q.numel() * esize
+        st_flops = gdn_state_flops(B, H, T, K, V, chunk)
+        bound, by = mm_bound(st_flops, st_bytes, PEAK_BF16_FLOPS
+                             if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        res[f"gdn_chunk_state_{label}"] = {
+            "chunk": chunk, **r,
+            **timed(lambda: gd._launch_state(want, plan, scale, code),
+                    lambda: gd.gdn_chunk_state_plain(*want, scale)),
+            "bound_ms": bound, "bound_by": by, "flops": st_flops,
+            "bytes": st_bytes}
+        del qs, ks, vs, want
         torch.cuda.empty_cache()
     del q, k, v, g, beta, ref
     torch.cuda.empty_cache()
@@ -2751,6 +2818,10 @@ SEQMIX_KERNELS = (
     ("mamba2_chunk_scan", "mamba2.cu",
      "tilelang_mesh_tpu/ops/mamba2.py:25", "bf16_chunk128"),
     ("gdn_chunk_fwd", "gdn.cu", "tilelang_mesh_tpu/ops/gdn.py:31",
+     "bf16_chunk64"),
+    ("gdn_chunk_wy", "gdn.cu", "tilelang_mesh_tpu/ops/gdn.py:31",
+     "bf16_chunk64"),
+    ("gdn_chunk_state", "gdn.cu", "tilelang_mesh_tpu/ops/gdn.py:31",
      "bf16_chunk64"),
     ("linear_attention", "linear_attention.cu",
      "tilelang_mesh_tpu/ops/linear_attention.py:20", "float32_chunk128"),
@@ -5180,22 +5251,23 @@ DSA_KERNELS = (
      "tilelang_mesh_tpu/ops/dsa.py:147", "bfloat16"))
 
 
-# the headline phase's loop target (bench.py's is 0.6 s): twelve configs,
+# the headline phase's loop target (bench.py's is 0.6 s): thirteen configs,
 # each side calibrated and sampled three times
 HEADLINE_TARGET_S = 0.1
 # the yardsticks against their plain versions, normwise by output type
 YARDSTICK_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
-    """The headline comparison (tilelang_mesh_tpu_torch.bench): the twelve
+def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2, gd):
+    """The headline comparison (tilelang_mesh_tpu_torch.bench): the thirteen
     configs at full size through ``run_config`` (counters zeroed before,
     read right after; a CUDA graph's launches are counted where they are
     captured, its replays not; the flash configs launch ``mha_fwd``,
     ``mla_decode`` the MLA kernel, ``paged_decode`` both the page walk
     and the gather's contiguous kernel, each strategy with its time,
     ``moe_grouped`` the TMA grouped kernel, ``mamba2_chunk`` the SSD
-    kernel, ``w4a8_gemm`` the TMA w4a8 kernel),
+    kernel, ``gdn_fwd`` the two GDN kernels, ``w4a8_gemm`` the TMA w4a8
+    kernel),
     each record printed, then the headline geomean line, the geomean of
     the eight configs without the two decode ones (for comparison) and
     of the five GEMM configs alone; every GEMM of them on #15's TMA path
@@ -5215,9 +5287,9 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
     reset_peak(torch)
     res = {}
 
-    # -- the main path: bench's twelve configs --------------------------
+    # -- the main path: bench's thirteen configs ------------------------
     torch.cuda.synchronize()
-    for mod in (ys, gm, dqg, fa, mla, fd, gg, m2):
+    for mod in (ys, gm, dqg, fa, mla, fd, gg, m2, gd):
         mod.reset_launches()
     t0 = time.perf_counter()
     records = []
@@ -5236,7 +5308,8 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
     res["library_launches"] = {**gm.launches, **dqg.launches,
                                "mha_fwd": fa.launches["mha_fwd"],
                                **mla.launches, **fd.launches,
-                               **gg.launches, **m2.launches}
+                               **gg.launches, **m2.launches,
+                               **gd.launches}
     res["records"] = records
     res["seconds"] = time.perf_counter() - t0
     check(all(n > 0 for n in res["launches"].values()),
@@ -5252,6 +5325,9 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
     check(m2.launches["mamba2_chunk_scan"] > 0,
           "headline: the mamba2_chunk config did not launch "
           "mamba2_chunk_scan")
+    check(gd.launches["gdn_chunk_wy"] > 0
+          and gd.launches["gdn_chunk_state"] > 0,
+          f"headline: the gdn_fwd config's launches {dict(gd.launches)}")
     check(mla.launches["mla_decode"] > 0,
           "headline: the mla_decode config did not launch mla_decode")
     check(gg.launches["grouped_gemm_tma"] > 0
@@ -5264,23 +5340,22 @@ def headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2):
     head = tb.headline(records)
     print(json.dumps(head), flush=True)
     res["geomean_vs_baseline"] = head["geomean_vs_baseline"]
-    # the earlier PRs' sets, for comparison: the eleven configs before
-    # mamba2_chunk, the ten before moe_grouped, the eight without the
-    # decode ones
-    res["geomean_vs_baseline_eleven"] = tb.headline(
-        [r for r in records if r["config"] != "mamba2_chunk"])[
+    # the earlier PRs' sets, for comparison: the twelve configs before
+    # gdn_fwd, the eleven before mamba2_chunk, the ten before
+    # moe_grouped, the eight without the decode ones
+    def without(*names):
+        return tb.headline([r for r in records if r["config"] not in names])[
             "geomean_vs_baseline"]
-    res["geomean_vs_baseline_eight"] = tb.headline(
-        [r for r in records if r["config"] not in (
-            "mla_decode", "paged_decode", "moe_grouped", "mamba2_chunk")])[
-            "geomean_vs_baseline"]
-    res["geomean_vs_baseline_ten"] = tb.headline(
-        [r for r in records if r["config"] not in ("moe_grouped",
-                                                   "mamba2_chunk")])[
-            "geomean_vs_baseline"]
+    res["geomean_vs_baseline_twelve"] = without("gdn_fwd")
+    res["geomean_vs_baseline_eleven"] = without("mamba2_chunk", "gdn_fwd")
+    res["geomean_vs_baseline_eight"] = without(
+        "mla_decode", "paged_decode", "moe_grouped", "mamba2_chunk",
+        "gdn_fwd")
+    res["geomean_vs_baseline_ten"] = without("moe_grouped", "mamba2_chunk",
+                                             "gdn_fwd")
     res["geomean_vs_baseline_gemm"] = tb.headline(
         [r for r in records if not r["config"].startswith(
-            ("flash", "mla", "paged", "moe", "mamba2"))])[
+            ("flash", "mla", "paged", "moe", "mamba2", "gdn"))])[
             "geomean_vs_baseline"]
 
     def hold(label, got, want):
@@ -5577,7 +5652,7 @@ def main() -> int:
     ds = dsa_phase(torch, dsa)
 
     phase("headline")
-    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2)
+    hl = headline_phase(torch, ys, gm, dqg, fa, mla, fd, gg, m2, gd)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -5702,6 +5777,8 @@ def main() -> int:
           "gemm: the fp8 pre-pass fp8_widen was not launched")
     for entry in kernel_entries(seq, SEQMIX_KERNELS):
         entry["library"] = SEQMIX_LIBRARY
+        if entry["name"] == "gdn_chunk_fwd":     # the call: two kernels
+            entry["kernels"] = ["gdn_chunk_wy", "gdn_chunk_state"]
         if entry["name"] == "linear_attention":
             entry["backward"] = seq["linear_attention_backward"]
         kernels.append(entry)

@@ -58,6 +58,9 @@ _CONFIGS = {
     "mamba2_chunk": lambda: port.cfg_mamba2_chunk(
         B=1, S=256, H=2, P=16, N=16, device="cpu", arch=H100_SXM,
         target_s=_TARGET_S),
+    "gdn_fwd": lambda: port.cfg_gdn_fwd(
+        B=1, H=2, Tt=256, K=32, V=32, device="cpu", arch=H100_SXM,
+        target_s=_TARGET_S),
 }
 
 
@@ -129,17 +132,18 @@ def test_config_names_and_headline_are_bench_py_s():
     names = [n for n, _ in port._config_builders(True)]
     assert names == ["gemm_quickstart", "gemm_large", "flash_d64",
                      "flash_d128", "flash_d128_full", "fp8_gemm",
-                     "mla_decode", "mamba2_chunk", "paged_decode",
-                     "moe_grouped", "w4a8_gemm", "w4a16_gemm"]
+                     "mla_decode", "mamba2_chunk", "gdn_fwd",
+                     "paged_decode", "moe_grouped", "w4a8_gemm",
+                     "w4a16_gemm"]
     ref_names = [n for n, _ in ref._config_builders(True)]
     assert names == [n for n in ref_names if n in names]
     recs = [{"config": n, "vs_baseline": v}
             for n, v in zip(names, (0.5, 2.0, 0.4, 0.6, 0.7, 1.25, 3.0,
-                                    1.6, 2.5, 0.9, 1.1, 0.8))]
-    assert len(recs) == 12
+                                    1.6, 1.3, 2.5, 0.9, 1.1, 0.8))]
+    assert len(recs) == 13
     head = port.headline(recs)
     assert head["config"] == "gemm_large"
-    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 12)
+    geo = math.exp(sum(math.log(r["vs_baseline"]) for r in recs) / 13)
     assert head["geomean_vs_baseline"] == round(geo, 4)
 
 

@@ -1714,6 +1714,27 @@ def test_mamba2_kernel_matches_plain(cuda, dtype, chunk):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_kernel_reads_strided_views(cuda, dtype):
+    """x as a (B, S, H, P) view of a head-major (B, H, S, P) tensor (the
+    JAX factory's layout), and a P slice of a wider tensor: read through
+    their strides, y written with x's strides where x is dense."""
+    x, dt, A, bm, cm = _mamba2_inputs(cuda, 2, 256, 3, 64, 128, dtype, 4)
+    head_major = x.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.cat([x, x], dim=-1)[..., 64:]
+    for view in (head_major, wide):
+        assert not view.is_contiguous()
+        before = mamba2.launches["mamba2_chunk_scan"]
+        got = mamba2.mamba2_chunk_scan(view, dt, A, bm, cm, chunk=128)
+        torch.cuda.synchronize()
+        assert mamba2.launches["mamba2_chunk_scan"] == before + 1
+        _seq_close(got, mamba2.mamba2_chunk_scan_plain(
+            x, dt, A, bm, cm, 128), dtype)
+    assert got.stride() == x.stride()    # the slice is not dense
+    assert mamba2.mamba2_chunk_scan(head_major, dt, A, bm, cm,
+                                    chunk=128).stride() == head_major.stride()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba2_kernel_long_chunk_no_overflow(cuda, dtype):
     """tests/test_mamba2.py's strong-decay case (|A| sum dt ~ 128 over a
     chunk of 256): finite, and the plain version's values."""
@@ -1740,18 +1761,65 @@ def _gdn_inputs(dev, B, H, T, K, V, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,K,V", [(16, 128, 128), (32, 128, 128),
-                                   (64, 128, 128), (64, 64, 32),
-                                   (32, 32, 96)])
-def test_gdn_kernel_matches_plain(cuda, dtype, C, K, V):
-    """bench's widths (K = V = 128) at every chunk the card takes, and
-    rectangular key / value widths."""
-    args = _gdn_inputs(cuda, 2, 2, 256, K, V, dtype, C + K)
-    before = gdn.launches["gdn_chunk_fwd"]
+@pytest.mark.parametrize("C,K,V,B,H", [
+    (16, 128, 128, 2, 2), (32, 128, 128, 2, 2), (64, 128, 128, 2, 2),
+    (128, 128, 128, 2, 2), (64, 64, 32, 2, 2), (32, 32, 96, 2, 2),
+    (64, 128, 128, 7, 19), (128, 64, 128, 2, 2), (128, 128, 64, 2, 2)])
+def test_gdn_kernel_matches_plain(cuda, dtype, C, K, V, B, H):
+    """bench's widths (K = V = 128) at every chunk the card takes,
+    rectangular key / value widths (at chunk 128 too) and a B H (133)
+    that is no multiple of the SM count; one launch of each kernel."""
+    args = _gdn_inputs(cuda, B, H, 256, K, V, dtype, C + K)
+    before = dict(gdn.launches)
     got = gdn.gdn_chunk_fwd_tl(*args, chunk_size=C)
     torch.cuda.synchronize()
-    assert gdn.launches["gdn_chunk_fwd"] == before + 1
+    assert gdn.launches == {k: n + 1 for k, n in before.items()}
     _seq_close(got, gdn.gdn_chunk_fwd_tl_plain(*args, C, K ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_kernels_match_their_plain_stages(cuda, dtype):
+    """Each kernel against its plain stage on the same inputs: the WY
+    kernel's scratch (attn where the serial pass reads it: on and below
+    the diagonal), the serial pass on the plain stage's scratch."""
+    C = 64
+    q, k, v, g, beta = _gdn_inputs(cuda, 2, 3, 256, 128, 128, dtype, 5)
+    plan, code = gdn._plan_or_raise(q, v, C)
+    got = gdn._launch_wy(q, k, v, g, beta, C, code)
+    want = gdn.gdn_chunk_wy_plain(q, k, v, g, beta, C)
+    low = torch.tril(torch.ones((C, C), dtype=torch.bool, device=cuda))
+    for i, (a, w) in enumerate(zip(got, want)):
+        if i == 4:              # attn (B, H, T, C): each chunk's rows
+            a, w = (t.reshape(2, 3, -1, C, C)[..., low] for t in (a, w))
+        _seq_close(a, w, dtype)
+    o = gdn._launch_state(want, plan, 128 ** -0.5, code)
+    _seq_close(o, gdn.gdn_chunk_state_plain(*want, 128 ** -0.5), dtype)
+
+
+def test_seqmix_plans_reckon_the_sources_bytes(cuda):
+    """The shared memory ops/gdn.py and ops/mamba2.py reckon for their
+    plans is what gdn.cu's and mamba2.cu's carves take."""
+    from tilelang_mesh_tpu_torch.ops import _seqmix as sm
+    import ctypes
+    wy = sm.lib_fn("gdn", "tl_gdn_wy_smem", [ctypes.c_int] * 4,
+                   ctypes.c_longlong)
+    st = sm.lib_fn("gdn", "tl_gdn_state_smem", [ctypes.c_int] * 5,
+                   ctypes.c_longlong)
+    m2 = sm.lib_fn("mamba2", "tl_mamba2_smem", [ctypes.c_int] * 5,
+                   ctypes.c_longlong)
+    for code, esize in ((0, 4), (1, 2)):
+        for C in (16, 32, 64, 128, 256):
+            for K, V in ((128, 128), (64, 32), (32, 96)):
+                assert wy(code, C, K, V) == gdn.gdn_wy_smem(esize, C, K, V)
+                for vb in (16, 32, 64):
+                    for ov in (0, 1):
+                        assert st(code, C, K, vb, ov) == gdn.gdn_state_smem(
+                            esize, C, K, vb, bool(ov))
+            for pb in (16, 32, 64):
+                for r in (16, 32, 64):
+                    for N in (32, 128):
+                        assert m2(code, C, N, pb, r) == mamba2.mamba2_smem(
+                            esize, C, N, pb, r)
 
 
 def _la_inputs(dev, B, H, S, DK, DV, dtype, seed):
@@ -1844,8 +1912,8 @@ def test_retention_host_gamma_does_not_wait_on_the_card(cuda):
                                 "retention"])
 def test_seqmix_kernels_name_the_chunks_they_take(cuda, op):
     """A chunk whose block does not fit in shared memory (float32 at 512;
-    GDN at 128, its four float32 C x C matrices alone) raises ValueError
-    naming the chunks the card takes, and launches nothing."""
+    GDN at 256, its WY kernel's float32 C x C matrix alone) raises
+    ValueError naming the chunks the card takes, and launches nothing."""
     f32 = torch.float32
     if op == "mamba2":
         args = _mamba2_inputs(cuda, 1, 512, 1, 64, 128, f32, 1)
@@ -1853,8 +1921,8 @@ def test_seqmix_kernels_name_the_chunks_they_take(cuda, op):
         takes, counter = "[16, 32, 64, 128, 256]", mamba2.launches
     elif op == "gdn":
         args = _gdn_inputs(cuda, 1, 1, 256, 128, 128, torch.bfloat16, 3)
-        call = lambda: gdn.gdn_chunk_fwd_tl(*args, chunk_size=128)
-        takes, counter = "[16, 32, 64]", gdn.launches
+        call = lambda: gdn.gdn_chunk_fwd_tl(*args, chunk_size=256)
+        takes, counter = "[16, 32, 64, 128]", gdn.launches
     else:
         q, k, v = _la_inputs(cuda, 1, 1, 512, 128, 128, f32, 2)
         call = (lambda: la.linear_attention(q, k, v, chunk=512)) \

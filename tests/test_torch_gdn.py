@@ -44,9 +44,11 @@ def _both(arrays, dtype=jnp.float32):
     return j, tuple(t)
 
 
-# tests/test_gdn.py:60-89: (B, H, T, K, V), seed, chunk
+# tests/test_gdn.py:60-89: (B, H, T, K, V), seed, chunk; and bench's
+# widths at chunk 128, which the card takes
 TL_CASES = [((1, 2, 128, 32, 32), 5, 32), ((1, 1, 128, 32, 16), 6, 16),
-            ((1, 1, 128, 32, 16), 6, 64), ((2, 2, 256, 64, 64), 7, 64)]
+            ((1, 1, 128, 32, 16), 6, 64), ((2, 2, 256, 64, 64), 7, 64),
+            ((1, 1, 256, 128, 128), 13, 128)]
 
 
 @pytest.mark.parametrize("shape,seed,chunk", TL_CASES)
@@ -139,3 +141,38 @@ def test_chunk_must_divide_t():
         port.gdn_chunk_fwd_tl(*t, chunk_size=32)
     with pytest.raises(ValueError):
         port.gdn_chunk_fwd(*t, chunk_size=32)
+
+
+# bench's shape (B 8, H 16, T 4096, K = V = 128): chunk, bytes an element
+# -> the serial pass's column block, overlay, grid, shared memory and
+# blocks an SM
+PLANS = {
+    (64, 2): (64, False, (2, 16, 8), 106496, 2),
+    (128, 2): (64, False, (2, 16, 8), 210944, 1),
+    (64, 4): (64, False, (2, 16, 8), 188416, 1),
+    (128, 4): (32, True, (4, 16, 8), 190464, 1),
+}
+
+
+@pytest.mark.parametrize("C,esize", sorted(PLANS))
+def test_kernel_plan_at_bench_shape(C, esize):
+    """The card's two launches are a pure function of the shapes and the
+    type: the widest column block of at most 16 output and state tiles,
+    its load groups apart where they fit, each block within 232448
+    bytes."""
+    plan = port.gdn_plan(8, 16, 4096, 128, 128, C, esize)
+    assert (plan.vb, plan.overlay, plan.state_grid, plan.state_smem,
+            plan.resident) == PLANS[(C, esize)]
+    assert plan.wy_grid == (4096 // C, 16, 8)
+    assert plan.wy_smem == port.gdn_wy_smem(esize, C, 128, 128) <= 232448
+    assert plan.state_smem <= 232448
+
+
+def test_kernel_plan_small_widths_and_refusal():
+    """Rectangular widths take the widest column block that fits; chunk
+    256 at K = V = 128 does not fit (the WY kernel's float32 C x C
+    matrix alone)."""
+    plan = port.gdn_plan(2, 2, 256, 64, 32, 64, 2)
+    assert (plan.vb, plan.overlay, plan.state_grid) == (32, False, (1, 2, 2))
+    for esize in (2, 4):
+        assert port.gdn_plan(8, 16, 4096, 128, 128, 256, esize) is None

@@ -114,3 +114,32 @@ def test_bad_shapes_raise():
         port.mamba2_chunk_scan(x, dt[:, :, :1], a, bm, cm)
     with pytest.raises(TypeError):
         port.mamba2_chunk_scan(x, dt, a, bm.bfloat16(), cm)
+
+
+# bench's widths (B 8, H 80, P 64, N 128): chunk, bytes an element ->
+# (PB, R, the strips' tile width, grid, shared memory, blocks an SM)
+PLANS = {
+    (128, 2): (64, 32, 16, (80, 8, 1), 108608, 2),
+    (256, 2): (64, 64, 32, (80, 8, 1), 215104, 1),
+    (512, 2): (32, 16, 16, (80, 8, 2), 228416, 1),
+    (128, 4): (64, 32, 32, (80, 8, 1), 206912, 1),
+    (256, 4): (16, 16, 32, (80, 8, 4), 212032, 1),
+}
+
+
+@pytest.mark.parametrize("chunk,esize", sorted(PLANS))
+def test_kernel_plan_at_bench_widths(chunk, esize):
+    """The card's launch is a pure function of the shapes and the type:
+    two blocks an SM at bf16 chunk 128, each block within a block's
+    shared memory (232448 bytes); tiles 16 wide only in bf16, where a
+    strip has fewer output tiles of 32 than the block has warps."""
+    plan = port.mamba2_plan(8, 80, 64, 128, chunk, esize)
+    assert tuple(plan) == PLANS[(chunk, esize)]
+    assert plan.smem == port.mamba2_smem(esize, chunk, 128, plan.pb, plan.r)
+    assert plan.smem <= 232448
+
+
+def test_kernel_plan_refuses_what_does_not_fit():
+    """float32 at chunk 512: B alone passes a block's shared memory."""
+    assert port.mamba2_plan(8, 80, 64, 128, 512, 4) is None
+    assert port.mamba2_plan(8, 80, 64, 128, 256, 4) is not None

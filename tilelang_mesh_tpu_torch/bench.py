@@ -5,7 +5,7 @@ PyTorch's fused attention, timed in interleaved A/B rounds.
     python -m tilelang_mesh_tpu_torch.bench [--quick] [--config NAME ...]
 
 Counterpart of the GEMM, flash, decode, SSD and MoE parts of
-``bench.py``. Twelve configs, in ``bench.py``'s order:
+``bench.py``. Thirteen configs, in ``bench.py``'s order:
 
 * ``gemm_quickstart`` (1024^3) and ``gemm_large`` (8192 x 8192 x 4096;
   2048^3 with ``--quick``), bf16: the best of ``ops/gemm.py``'s
@@ -34,6 +34,13 @@ Counterpart of the GEMM, flash, decode, SSD and MoE parts of
   chunk-parallel SSD, bench.py's XLA baseline) at the same chunks, the
   record naming the kernel's (``chunk``); FLOPs by the reference
   README's formula;
+* ``gdn_fwd`` (B 8, H 16, T 4096, K = V = 128, q / k / v in bf16; (1, 4,
+  512, 64, 64) quick; ``default_rng(8)``'s draws): ``ops/gdn.py``'s
+  ``gdn_chunk_fwd_tl`` at the better of chunks 64 and 128, each checked
+  at 6e-2 against the eager chunk-parallel WY form (``gdn_chunk_fwd``,
+  the port of bench.py's XLA baseline) at chunk 64, which is the
+  baseline; the record names the kernel's chunk; FLOPs at the nominal
+  chunk 64, bench.py's count;
 * ``paged_decode`` (B 4, H 32, S 8192, D 128, pages of 128, bf16; S 2048
   quick): the faster of the page walk (``flash_decode_paged_pool`` on the
   H-major pool, built outside the timed loop, 2 splits) and the gather
@@ -111,6 +118,7 @@ from .profiler import Timer, _stats_ms
 
 __all__ = ["BenchError", "run_config", "cfg_gemm", "cfg_flash",
            "cfg_fp8_gemm", "cfg_mla_decode", "cfg_mamba2_chunk",
+           "cfg_gdn_fwd",
            "cfg_paged_decode", "cfg_moe_grouped", "cfg_w4a8", "cfg_w4a16",
            "main"]
 
@@ -576,6 +584,44 @@ def cfg_mamba2_chunk(B=8, S=4096, H=80, P=64, N=128, device="cuda",
                 record={"chunk": int(name.split("=")[1])})
 
 
+def cfg_gdn_fwd(B=8, H=16, Tt=4096, K=128, V=128, device="cuda", arch=None,
+                target_s=_TARGET_LOOP_S):
+    """Gated DeltaNet chunked forward (``bench.py`` ``cfg_gdn_fwd``):
+    ``ops/gdn.py``'s ``gdn_chunk_fwd_tl`` at the better of chunks 64 and
+    128, each checked at 6e-2 against the eager chunk-parallel WY form
+    (``gdn_chunk_fwd``, the port of bench.py's XLA baseline) at chunk
+    64, which is the baseline. FLOPs at the nominal chunk 64, as
+    bench.py counts them (the C (K + V) term grows with the chunk)."""
+    from .ops.gdn import gdn_chunk_fwd, gdn_chunk_fwd_tl
+    rng = np.random.default_rng(8)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device).to(
+            dtype)
+
+    q = put(rng.standard_normal((B, H, Tt, K)) * 0.3, torch.bfloat16)
+    k = rng.standard_normal((B, H, Tt, K)).astype(np.float32)
+    k = put(k / np.linalg.norm(k, axis=-1, keepdims=True), torch.bfloat16)
+    v = put(rng.standard_normal((B, H, Tt, V)) * 0.3, torch.bfloat16)
+    g = put(rng.uniform(-0.2, 0.0, (B, H, Tt)), torch.float32)
+    beta = put(rng.uniform(0.1, 0.9, (B, H, Tt)), torch.float32)
+    args = (q, k, v, g, beta)
+    ref = functools.partial(gdn_chunk_fwd, chunk_size=64)
+    name, ours, _ = _pick_best(
+        [(f"chunk={c}", lambda c=c: (
+            lambda *a: gdn_chunk_fwd_tl(*a, chunk_size=c)), args)
+         for c in (64, 128)],
+        functools.partial(_check_close, ref=ref(*args), rel_tol=6e-2),
+        "gdn tile kernel", target_s=target_s)
+    c_nom = 64
+    flops = B * H * Tt * (c_nom * (K + V) + 6.0 * K * V)
+    return dict(metric=f"GDN chunked fwd B={B} H={H} T={Tt} K={K} V={V} "
+                       f"[{name}] (gdn_chunk_fwd_tl vs torch chunked WY)",
+                flops=flops, peak_class="bf16", ours=ours, ref=ref,
+                args=args, rel_tol=6e-2, checked=True,
+                record={"chunk": int(name.split("=")[1])})
+
+
 def _int8_mm(a, b):
     """int32 a @ b of int8 operands: ``torch._int_mm`` on the card (B
     column-major, as cuBLASLt's int8 path takes it), an int32 product on
@@ -768,6 +814,9 @@ def _config_builders(q: bool, device="cuda", arch=None,
                                               target_s=target_s, **kw)),
         ("mamba2_chunk", lambda: cfg_mamba2_chunk(
             *(2, 1024, 8, 64, 64) if q else (8, 4096, 80, 64, 128),
+            target_s=target_s, **kw)),
+        ("gdn_fwd", lambda: cfg_gdn_fwd(
+            *(1, 4, 512, 64, 64) if q else (8, 16, 4096, 128, 128),
             target_s=target_s, **kw)),
         ("paged_decode", lambda: cfg_paged_decode(S=2048 if q else 8192,
                                                   target_s=target_s, **kw)),

@@ -25,20 +25,31 @@
 //   tiles     spreads the 16 x 32 tiles of an M x N product over the
 //             block's warps;
 //   load_tile global -> shared copies of a row window, 16 bytes a step;
-//   warp_cumsum  an inclusive scan of a chunk's decays by one warp.
+//   warp_cumsum  an inclusive scan of a chunk's decays by one warp;
+//   load_tile_async  the same copy by cp.async (the caller commits and
+//             waits), so that a chunk's tiles are in flight together;
+//   Acc<T>    Frag<T> whose products take Mat<T, KC> operands: bf16
+//             fragments by ldmatrix (.trans where the operand is not
+//             k-contiguous), one instruction for four 8 x 8 pieces;
+//             float32 by Frag<float>'s FFMA; `each2` visits two tiles'
+//             sums side by side, `put` stores the sums in T (bf16 a
+//             column pair a store). gdn.cu and mamba2.cu run on these;
+//             linear_attention.cu keeps Frag's word-wise reads.
 //
 // Shared rows are padded by 16 bytes (`ld_of`): with rows of 16 to 256
 // elements the row stride is 4 (mod 32) words or spreads eight rows over
 // distinct banks otherwise, so the fragment loads of both Frag kinds hit
 // distinct banks whether the operand is k-contiguous or not.
 //
-// wgmma, TMA, ldmatrix and a pipelined chunk prefetch are later work.
+// wgmma and TMA are later work.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_tile.cuh"   // cp_async16, ldmatrix_x4(_trans)
 
 namespace tl_seq {
 
@@ -325,6 +336,191 @@ int launch(K kernel, dim3 grid, long long smem, cudaStream_t s,
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, (size_t)smem, s>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// load_tile by cp.async: 16 bytes a copy, the same layout; the caller
+// commits the group and waits for it
+template <typename S>
+__device__ __forceinline__ void load_tile_async(S* dst, const S* src,
+                                                int rows, int W,
+                                                long long gld) {
+  constexpr int V = 16 / sizeof(S);
+  const int per = W / V, ld = ld_of<S>(W);
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int r = i / per, c = (i % per) * V;
+    tl_gemm::cp_async16(dst + r * ld + c, src + r * gld + c, true);
+  }
+}
+
+// A warp's 16 x 32 float32 tile whose products read shared matrices in
+// T through Mat views (K and N multiples of 16; the rows 16-byte aligned,
+// as ld_of pads them)
+template <typename T>
+struct Acc;
+
+template <>
+struct Acc<float> : Frag<float> {
+  template <bool KA, bool KB>
+  __device__ __forceinline__ void mma_ld(Mat<float, KA> a, Mat<float, KB> b,
+                                         int m0, int n0, int K, int N) {
+    mma(a, b, m0, n0, K, N);
+  }
+
+  // fn(m, n, x, y) for each sum x of this tile and y of o's (columns
+  // below N)
+  template <class Fn>
+  __device__ __forceinline__ void each2(Acc& o, int m0, int n0, int N,
+                                        Fn fn) {
+    const int lane = threadIdx.x & 31, r = lane >> 3, s = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + s + 8 * j < N)
+          fn(m0 + r + 4 * i, n0 + s + 8 * j, c[i][j], o.c[i][j]);
+  }
+
+  // each sum (columns below N) stored at at(m, n)
+  template <class At>
+  __device__ __forceinline__ void put(int m0, int n0, int N, At at) const {
+    const int lane = threadIdx.x & 31, r = lane >> 3, s = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + s + 8 * j < N) *at(m0 + r + 4 * i, n0 + s + 8 * j) = c[i][j];
+  }
+};
+
+// lane l addresses row l % 8 of the x4 load's matrix l / 8
+template <>
+struct Acc<bf16> : Frag<bf16> {
+  template <bool KA, bool KB>
+  __device__ __forceinline__ void mma_ld(Mat<bf16, KA> a, Mat<bf16, KB> b,
+                                         int m0, int n0, int K, int N) {
+    const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
+    for (int k = 0; k < K; k += 16) {
+      uint32_t ar[4];
+      if (KA)   // (i, k) at p[i * ld + k]: matrices (rows, k) 0/8 x 0/8
+        tl_gemm::bf16::ldmatrix_x4(
+            ar, a.p + (m0 + (lane & 15)) * a.ld + k + (lane >> 4) * 8);
+      else      // at p[k * ld + i]: the transposed pieces
+        tl_gemm::bf16::ldmatrix_x4_trans(
+            ar, a.p + (k + r + (j >> 1) * 8) * a.ld + m0 + (j & 1) * 8);
+#pragma unroll
+      for (int tp = 0; tp < 2; ++tp) {
+        const int n = n0 + 16 * tp;
+        if (n >= N) continue;
+        uint32_t br[4];   // b0, b1 of columns n .. n + 7, then n + 8 ..
+        if (KB)
+          tl_gemm::bf16::ldmatrix_x4(
+              br, b.p + (n + r + (j >> 1) * 8) * b.ld + k + (j & 1) * 8);
+        else
+          tl_gemm::bf16::ldmatrix_x4_trans(
+              br, b.p + (k + r + (j & 1) * 8) * b.ld + n + (j >> 1) * 8);
+        mma_bf16(c[2 * tp], ar, br[0], br[1]);
+        mma_bf16(c[2 * tp + 1], ar, br[2], br[3]);
+      }
+    }
+  }
+
+  template <class Fn>
+  __device__ __forceinline__ void each2(Acc& o, int m0, int n0, int N,
+                                        Fn fn) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (n0 + 8 * t >= N) continue;
+      const int n = n0 + 8 * t + q;
+      fn(m0 + g, n, c[t][0], o.c[t][0]);
+      fn(m0 + g, n + 1, c[t][1], o.c[t][1]);
+      fn(m0 + g + 8, n, c[t][2], o.c[t][2]);
+      fn(m0 + g + 8, n + 1, c[t][3], o.c[t][3]);
+    }
+  }
+
+  // the sums (columns below N) rounded to bf16 and stored a column pair
+  // at a time at at(m, n), n even
+  template <class At>
+  __device__ __forceinline__ void put(int m0, int n0, int N, At at) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (n0 + 8 * t >= N) continue;
+      const int n = n0 + 8 * t + q;
+      *reinterpret_cast<__nv_bfloat162*>(at(m0 + g, n)) =
+          __floats2bfloat162_rn(c[t][0], c[t][1]);
+      *reinterpret_cast<__nv_bfloat162*>(at(m0 + g + 8, n)) =
+          __floats2bfloat162_rn(c[t][2], c[t][3]);
+    }
+  }
+};
+
+// tiles() for a warp's share of n tiles starting `off` warps on, so that
+// two lists of tiles issued back to back spread over all the warps
+template <class Fn>
+__device__ __forceinline__ void tiles_from(int n, int off, Fn fn) {
+  const int w = threadIdx.x / 32;
+  for (int t = (w + kWarps - off % kWarps) % kWarps; t < n; t += kWarps)
+    fn(t);
+}
+
+// fn(r, c) for each 16-byte piece of a rows x W tile of S (elements c ..
+// c + 16 / sizeof(S) of row r), the block's threads taking them in turn
+template <typename S, class Fn>
+__device__ __forceinline__ void pieces(int rows, int W, Fn fn) {
+  constexpr int V = 16 / sizeof(S);
+  const int per = W / V;
+  for (int i = threadIdx.x; i < rows * per; i += kThreads)
+    fn(i / per, (i % per) * V);
+}
+
+// 16 bytes of S in shared memory as floats, and back rounded to S
+template <typename S>
+struct Piece {
+  static constexpr int V = 16 / sizeof(S);
+  float v[V];
+  __device__ __forceinline__ void load(const S* p) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const S* e = reinterpret_cast<const S*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f(e[i]);
+  }
+  template <typename O>
+  __device__ __forceinline__ void store(O* p) const {
+    static_assert(sizeof(O) == sizeof(S), "same width");
+    uint4 u;
+    O* e = reinterpret_cast<O*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = cvt<O>(v[i]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// A warp's 16 x 32 tile of sums, rounded to O, written to dst (row
+// stride ld elements; rows m0 .., columns n0 .. below N, N a multiple of
+// 8) through the warp's staging tile `stage` (16 rows of kStageW O):
+// whole 16-byte pieces a lane in place of a lane's scattered elements
+template <typename O>
+constexpr int kStageW = 32 + 16 / (int)sizeof(O);
+
+template <typename O, class F>
+__device__ __forceinline__ void store_tile(F& f, O* stage, O* dst,
+                                           long long ld, int m0, int n0,
+                                           int N) {
+  constexpr int V = 16 / sizeof(O), LS = kStageW<O>;
+  const int lane = threadIdx.x & 31, cols = min(32, N - n0);
+  f.each(0, 0, cols, [&](int m, int n, float& x) {
+    stage[m * LS + n] = cvt<O>(x);
+  });
+  __syncwarp();
+  for (int i = lane; i < 16 * (32 / V); i += 32) {
+    const int r = i / (32 / V), c = (i % (32 / V)) * V;
+    if (c < cols)
+      *reinterpret_cast<uint4*>(dst + (m0 + r) * ld + n0 + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LS + c);
+  }
+  __syncwarp();
 }
 
 }  // namespace tl_seq

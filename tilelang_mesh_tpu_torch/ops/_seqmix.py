@@ -15,6 +15,9 @@ from ..resilience.errors import KernelLaunchError
 # the kernels' input types, with their codes in the C launchers
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_MAX = 232448            # shared memory a block may use on sm_90
+SMEM_SM = 233472             # an SM's shared memory; each resident block
+SMEM_RESERVED = 1024         # also takes this much of it
+SMEM_TWO = SMEM_SM // 2 - SMEM_RESERVED    # a block's bytes, two an SM
 STEP = 16                    # every chunk and width is a multiple of it
 STRIPS = (64, 32, 16)        # row strips, largest first
 
@@ -63,13 +66,12 @@ def blocks(width: int) -> List[int]:
     return out
 
 
-def plan(smem: Callable[..., int], chunk: int, width: int,
-         strips: bool = True) -> Optional[Tuple[int, int]]:
+def plan(smem: Callable[..., int], chunk: int,
+         width: int) -> Optional[Tuple[int, int]]:
     """The first (column block, row strip) whose block fits in shared
     memory, widest block first: ``smem(chunk, block, strip)`` gives the
-    bytes (``strip`` is 0 when the kernel has none)."""
-    rows = [r for r in STRIPS if r <= chunk and chunk % r == 0] \
-        if strips else [0]
+    bytes."""
+    rows = [r for r in STRIPS if r <= chunk and chunk % r == 0]
     for b in blocks(width):
         for r in rows:
             if smem(chunk, b, r) <= SMEM_MAX:
@@ -77,18 +79,37 @@ def plan(smem: Callable[..., int], chunk: int, width: int,
     return None
 
 
+def refuse(what: str, chunk: int, length: int,
+           fits: Callable[[int], bool]) -> ValueError:
+    """The ``ValueError`` for a chunk whose block does not fit, naming
+    the chunks (dividing ``length``) for which ``fits`` holds."""
+    took = [c for c in (16, 32, 64, 128, 256, 512)
+            if c <= length and length % c == 0 and fits(c)]
+    return ValueError(f"{what}: chunk {chunk} does not fit in a block's "
+                      f"shared memory on the card at these widths; it "
+                      f"takes chunks {took}")
+
+
 def plan_or_raise(what: str, smem: Callable[..., int], chunk: int,
-                  width: int, length: int,
-                  strips: bool = True) -> Tuple[int, int]:
+                  width: int, length: int) -> Tuple[int, int]:
     """:func:`plan`, or ``ValueError`` naming the chunks that fit."""
-    got = plan(smem, chunk, width, strips)
+    got = plan(smem, chunk, width)
     if got is None:
-        fits = [c for c in (16, 32, 64, 128, 256, 512) if c <= length and length % c == 0
-                and plan(smem, c, width, strips) is not None]
-        raise ValueError(f"{what}: chunk {chunk} does not fit in a block's "
-                         f"shared memory on the card at these widths; it "
-                         f"takes chunks {fits}")
+        raise refuse(what, chunk, length,
+                     lambda c: plan(smem, c, width) is not None)
     return got
+
+
+def tile_bytes(esize: int, rows: int, width: int) -> int:
+    """``seqmix.cuh``'s ``bytes_of``: a rows x width matrix of elements
+    of ``esize`` bytes, each row padded by 16 bytes, the whole rounded
+    up to 16."""
+    return (rows * (width + 16 // esize) * esize + 15) // 16 * 16
+
+
+def col_tiles(width: int) -> int:
+    """16 x 32 tiles across ``width`` columns."""
+    return (width + 31) // 32
 
 
 def ready(t: torch.Tensor) -> torch.Tensor:

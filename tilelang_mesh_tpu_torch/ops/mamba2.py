@@ -18,12 +18,16 @@ Counterpart of ``tilelang_mesh_tpu/ops/mamba2.py``. One CUDA kernel
 
 On the card the kernel takes chunks and widths that are multiples of 16
 and chunks whose block fits in shared memory (``ValueError`` names the
-chunks it takes otherwise); it reads x in its (B, S, H, P) layout.
+chunks it takes otherwise: float32 up to 256, bfloat16 up to 512 at
+bench's widths); :func:`mamba2_plan` picks its column block and row
+strip. It reads x and writes y through their strides (a transposed view
+is not copied) where every row starts on 16 bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,7 +39,7 @@ from .gemm import _as_dtype
 __all__ = ["mamba2_chunk_scan", "mamba2_chunk_scan_plain",
            "mamba2_chunk_scan_torch", "mamba2_reference", "launches",
            "reset_launches", "mamba2_chunk_scan_kernel",
-           "mamba2_chunk_scan_xla"]
+           "mamba2_chunk_scan_xla", "mamba2_plan", "Mamba2Plan"]
 
 # kernel name -> launches through its wrapper (chip_smoke.py zeroes and
 # reads it around the main path's calls)
@@ -98,30 +102,96 @@ def mamba2_chunk_scan_plain(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
     return y
 
 
-def _smem(code: int, N: int):
-    fn = sm.lib_fn("mamba2", "tl_mamba2_smem", [ctypes.c_int] * 5,
-                   ctypes.c_longlong)
-    return lambda chunk, pb, r: fn(code, chunk, N, pb, r)
+TILES_MAX = 16       # state tiles of 16 x 32 a block (mamba2.cu:
+                     # kMaxTiles a warp, 8 warps)
+WARPS = 8            # a block's warps (seqmix.cuh: kWarps)
+
+
+class Mamba2Plan(NamedTuple):
+    """A launch: the column block of P, the row strip, the strips' tile
+    width, the grid, the shared memory and the blocks an SM holds."""
+    pb: int
+    r: int
+    w: int
+    grid: Tuple[int, int, int]
+    smem: int
+    resident: int
+
+
+def mamba2_smem(esize: int, chunk: int, N: int, PB: int, R: int) -> int:
+    """``mamba2.cu``'s ``smem_bytes``: X, B, four float32 vectors of the
+    chunk, two strips of C and the strip's cdec, att's strip, state_c."""
+    tb = sm.tile_bytes
+    return (tb(esize, chunk, PB) + tb(esize, chunk, N)
+            + 4 * tb(4, 1, chunk) + 3 * tb(esize, R, N)
+            + tb(esize, R, chunk) + tb(esize, N, PB))
+
+
+def mamba2_plan(B: int, H: int, P: int, N: int, chunk: int,
+                esize: int) -> Optional[Mamba2Plan]:
+    """The launch for these shapes and element size, or None when no
+    block fits: the widest column block PB (the halvings of P, at most
+    ``TILES_MAX`` state tiles) that fits with some row strip R (64, 32,
+    16, dividing the chunk); at that PB the largest R with which two
+    blocks share an SM, else the largest that fits. The strips' tiles
+    are 16 x 32, or 16 x 16 in bf16 where a strip's output has fewer
+    tiles of 32 than the block has warps (on the card the narrower tiles
+    win at bf16 chunk 128 and lose at 256, where the strip has eight
+    tiles of 32; float32's FFMA tile keeps 32 columns: ``scripts/
+    seqmix_ab.py``'s tile sweep)."""
+    for pb in sm.blocks(P):
+        if (N // 16) * sm.col_tiles(pb) > TILES_MAX:
+            continue
+        fit = [r for r in sm.STRIPS if r <= chunk and chunk % r == 0
+               and mamba2_smem(esize, chunk, N, pb, r) <= sm.SMEM_MAX]
+        if not fit:
+            continue
+        r = next((r for r in fit if mamba2_smem(esize, chunk, N, pb, r)
+                  <= sm.SMEM_TWO), fit[0])
+        smem = mamba2_smem(esize, chunk, N, pb, r)
+        w = 16 if esize == 2 and (r // 16) * sm.col_tiles(pb) < WARPS \
+            else 32
+        return Mamba2Plan(pb, r, w, (H, B, P // pb), smem,
+                          sm.SMEM_SM // (smem + sm.SMEM_RESERVED))
+    return None
+
+
+def _rows_on_16(t: torch.Tensor) -> bool:
+    """P contiguous and every (b, s, h) row on 16 bytes, as the kernel
+    reads x and writes y."""
+    e = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) * e % 16 == 0 for i in range(3)))
 
 
 def _launch(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
     B, S, H, P, N = _shapes(x, dt, A, Bm, Cm)
     code = sm.check_card("mamba2_chunk_scan", x.dtype,
                          {"chunk": chunk, "P": P, "N": N})
-    pb, r = sm.plan_or_raise("mamba2_chunk_scan", _smem(code, N), chunk, P,
-                             S)
-    x, Bm, Cm = sm.ready(x), sm.ready(Bm), sm.ready(Cm)
+    esize = x.element_size()
+    plan = mamba2_plan(B, H, P, N, chunk, esize)
+    if plan is None:
+        raise sm.refuse("mamba2_chunk_scan", chunk, S, lambda c: mamba2_plan(
+            B, H, P, N, c, esize) is not None)
+    if not _rows_on_16(x):
+        x = sm.ready(x)
+    Bm, Cm = sm.ready(Bm), sm.ready(Cm)
     dt = sm.ready(dt.to(torch.float32))
     A = sm.ready(A.to(torch.float32))
-    y = torch.empty_like(x)
+    y = torch.empty_like(x)          # x's strides where x is dense
+    if not _rows_on_16(y):
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     fn = sm.lib_fn("mamba2", "tl_mamba2_chunk_scan",
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    xs = (ctypes.c_longlong * 3)(*x.stride()[:3])
+    ys = (ctypes.c_longlong * 3)(*y.stride()[:3])
     sm.call("mamba2_chunk_scan", fn, x.device, x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), B, S,
-            H, P, N, chunk, pb, r, code)
+            H, P, N, chunk, plan.pb, plan.r, plan.w, ctypes.addressof(xs),
+            ctypes.addressof(ys), code)
     launches["mamba2_chunk_scan"] += 1
     return y
 
